@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's policy-serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -22,7 +22,32 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    same seed; the kernel's launches must equal the engine calls, with no
    build and no device allocation on the hot path;
 5. times — per bucket, the kernel's and the plain version's device time
-   (median of per-launch CUDA-event times) beside the card's bound.
+   (median of per-launch CUDA-event times) beside the card's bound;
+6. flat kernels vs plain — the hand-written ``decay_accum``, ``row_mean``,
+   ``momentum_update`` and ``adam_update`` kernels against their plain
+   PyTorch versions on the card: shapes (n,), every (m, 9347) matrix of the
+   training path (m in {7, 64, 1024, 10000}; m = 10000 in fp32 only) and odd
+   sizes, scalar / device-scalar / per-row coefficients, fp32 / bf16 / fp16
+   buffers, Nesterov on and off, Adam with weight decay 0 and 0.01, outputs
+   written in place;
+7. training — federated PPO (``repro_torch.rl.run_fedrl(device="cuda")``)
+   with the periodic (tau 10) and decay (tau 15, tau_i ~ U{1..15}, lambda
+   0.95) strategies, each with SGD, momentum and Adam: the Table II geometry
+   (shared FIGURE_EIGHT env, m = 7, T = 150, P = 25, eta = 5e-3), fleets of
+   m in {64, 1024, 10000} agents with B = 1 (m = 64 also with B = 4 and 2 PPO
+   epochs of 2 minibatches) and one run with bf16 buffers, each seeded and
+   drawing on the card (these give updates/sec per m). The m = 7 and m = 64
+   configurations run again on draws made on the host, on the card and on
+   the CPU, which must agree; every kernel's launches must equal the count
+   the loop implies, with no build on the hot path; the final server
+   parameters go through ``save_for_serving`` ->
+   ``ServeEngine.from_checkpoint(device="cuda")`` -> one ``decide``;
+8. flat times — per kernel at (1024, 9347) and (7, 9347) fp32: the kernel's,
+   the plain version's and the library call's device time by CUDA events
+   and by CUPTI (``torch.profiler``) beside the bound, the L2 evicted by a
+   read-only pass before each call, and one profiled
+   window of training updates at m = 1024 (device idle share, time by
+   phase).
 
 Its last lines are the kernel summary JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -66,6 +91,41 @@ FP32_FLOP_PER_S = 67e12
 ATOL_F32 = 2e-6
 BF16_REL = 2.0 ** -7
 SERVE_ATOL = 2e-6                            # card engine vs CPU engine
+
+# Flat kernels vs plain: the kernels spell each operation with the IEEE
+# round-to-nearest intrinsics in the plain versions' order, so they are held
+# to 2 ulp of the output's dtype (they come out bitwise equal); row_mean sums
+# in another order than torch: 1e-6 of the column's mean |g| (+ one rounding
+# to the dtype). The shapes hold every (m, n) matrix the training path hands
+# the kernels, (m, 9347) for m in {7, 64, 1024, 10000}, in the dtypes it
+# hands them (bf16 buffers only at m = 64, where the bf16 run is), and odd
+# sizes.
+FLAT_KERNELS = ("decay_accum", "row_mean", "momentum_update", "adam_update")
+ALL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+FLAT_SHAPES = (((9347,), ALL_DTYPES), ((4097,), ALL_DTYPES),
+               ((1,), ALL_DTYPES), ((7, 9347), ALL_DTYPES),
+               ((64, 9347), ALL_DTYPES), ((1024, 9347), ALL_DTYPES),
+               ((10000, 9347), (torch.float32,)), ((64, 4097), ALL_DTYPES),
+               ((7, 1), ALL_DTYPES))
+FLAT_ULPS = 2
+ROW_MEAN_REL = 1e-6
+TIMED_SHAPES = ((1024, 9347), (7, 9347))
+CUPTI_CALLS = 50
+
+# Training: the Table II geometry of benchmarks/fmarl_bench.py:23-26 (T, P,
+# eta), 3 epochs = 18 local updates so that the decay strategy's tau = 15
+# period closes once.
+TRAIN_T, TRAIN_P, TRAIN_ETA, TRAIN_EPOCHS = 150, 25, 5e-3, 3
+TRAIN_FLEETS = (64, 1024, 10000)
+# Card vs CPU on the same draws: per-epoch metrics within rtol 1e-4 (the
+# figure tests/test_flat_loop.py allows between the JAX package's own
+# backends), server parameters within atol 1e-4 (Adam divides by sqrt(nu):
+# a few-ulp change in a near-zero gradient entry moves its step by up to
+# eta). With bf16 buffers the row is bf16: + one bf16 ulp (rtol 2^-7) on the
+# parameters and rtol 1e-3 on the metrics.
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-4
+TRAIN_BF16_RTOL = 1e-3
+PROFILE_M = 1024
 
 
 def log(*parts) -> None:
@@ -322,21 +382,27 @@ def sleep_cycles_per_ms() -> float:
     return 10_000_000 / a.elapsed_time(b)
 
 
-def device_ms(fn, cycles_per_ms: float) -> tuple:
+def device_ms(fn, cycles_per_ms: float, flush=None) -> tuple:
     """Median device time of one call, from per-call CUDA events.
 
     The calls are enqueued in chunks of CHUNK behind a spin kernel that holds
     the stream until the host has enqueued the whole chunk (a chunk stays
     well inside the card's queue of pending work), so host launch gaps do not
     enter the times. Also returns the idle gap between two calls of a
-    chunk (median over the chunks' calls).
+    chunk (median over the chunks' calls). ``flush``, when given, runs before
+    each call, outside its events (to evict the L2 cache).
     """
-    for _ in range(10):
+    def call():
+        if flush is not None:
+            flush()
         fn()
+
+    for _ in range(10):
+        call()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(CHUNK):
-        fn()
+        call()
     torch.cuda.synchronize()
     hold_ms = 2.0 * (time.perf_counter() - t0) * 1e3 + 1.0
     times, gaps = [], []
@@ -345,6 +411,8 @@ def device_ms(fn, cycles_per_ms: float) -> tuple:
                torch.cuda.Event(enable_timing=True)) for _ in range(CHUNK)]
         torch.cuda._sleep(int(cycles_per_ms * hold_ms))
         for s, e in ev:
+            if flush is not None:
+                flush()
             s.record()
             fn()
             e.record()
@@ -451,14 +519,468 @@ def times(pinf, serving, card) -> dict:
     return rows
 
 
+# --- phase 6: flat kernels vs plain ---------------------------------------------
+
+def flat_kernels_vs_plain(dacc, fu, dispatch) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rnd = lambda shape, dt, scale=1.0: (
+        torch.randn(shape, generator=gen, device="cuda") * scale).to(dt)
+    worst = {k: {} for k in FLAT_KERNELS}        # by output dtype
+    counts = {k: 0 for k in FLAT_KERNELS}
+    bitwise = {k: 0 for k in FLAT_KERNELS}
+
+    def check(name, got, want, dtype, case, scale=None):
+        got32, want32 = got.float(), want.float()
+        err = (got32 - want32).abs()
+        tol = FLAT_ULPS * torch.finfo(dtype).eps * want32.abs()
+        if scale is not None:
+            tol = ROW_MEAN_REL * scale + torch.finfo(dtype).eps * want32.abs()
+        if got.dtype != want.dtype or got.shape != want.shape or \
+                not bool(torch.isfinite(got32).all()) or bool((err > tol).any()):
+            raise AssertionError(
+                f"{name} kernel vs plain: {case}: {got.dtype}{tuple(got.shape)}"
+                f" vs {want.dtype}{tuple(want.shape)}, max err "
+                f"{err.max().item():.3e}")
+        key = str(got.dtype).replace("torch.", "")
+        worst[name][key] = max(worst[name].get(key, 0.0), err.max().item())
+        counts[name] += 1
+        bitwise[name] += int(torch.equal(got, want))
+
+    def same_buffer(got, buf, case):
+        if got.data_ptr() != buf.data_ptr():
+            raise AssertionError(f"{case}: output not written in place")
+
+    bc1, bc2 = dispatch.adam_bias_corrections(3, 0.9, 0.95)
+    for shape, dtypes in FLAT_SHAPES:
+        m = shape[0] if len(shape) == 2 else 1
+        for dt in dtypes:
+            p, g = rnd(shape, dt), rnd(shape, dt)
+            mu = rnd(shape, torch.float32, 0.1)
+            nu = rnd(shape, torch.float32, 0.1).abs()
+            coefs = [0.37, torch.tensor(-0.61, device="cuda")]
+            if len(shape) == 2:
+                coefs.append(torch.rand(m, generator=gen, device="cuda"))
+            for ci, c in enumerate(coefs):
+                case = f"shape={shape} dtype={dt} coef#{ci}"
+                buf = p.clone()
+                got = dacc.decay_accum_cuda(buf, g, c, out=buf)
+                same_buffer(got, buf, case)
+                check("decay_accum", got, dacc.decay_accum_plain(p, g, c), dt,
+                      case)
+                for nesterov in (False, True):
+                    pb, mb = p.clone(), mu.clone()
+                    got = fu.momentum_update_cuda(pb, g, mb, c, 5e-3, 0.9,
+                                                  nesterov=nesterov, p_out=pb,
+                                                  mu_out=mb)
+                    same_buffer(got[0], pb, case)
+                    same_buffer(got[1], mb, case)
+                    want = fu.momentum_update_plain(p, g, mu, c, 5e-3, 0.9,
+                                                    nesterov=nesterov)
+                    for a, b in zip(got, want):
+                        check("momentum_update", a, b, a.dtype,
+                              f"{case} nesterov={nesterov}")
+                for wd in (0.0, 0.01):
+                    pb, mb, vb = p.clone(), mu.clone(), nu.clone()
+                    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=wd)
+                    got = fu.adam_update_cuda(pb, g, mb, vb, c, 5e-3, bc1, bc2,
+                                              p_out=pb, mu_out=mb, nu_out=vb,
+                                              **kw)
+                    for a, b in zip(got, (pb, mb, vb)):
+                        same_buffer(a, b, case)
+                    want = fu.adam_update_plain(p, g, mu, nu, c, 5e-3, bc1,
+                                                bc2, **kw)
+                    for a, b in zip(got, want):
+                        check("adam_update", a, b, a.dtype, f"{case} wd={wd}")
+            if len(shape) == 2:
+                check("row_mean", fu.row_mean_cuda(g), fu.row_mean_plain(g), dt,
+                      f"shape={shape} dtype={dt}",
+                      scale=g.float().abs().mean(0))
+    torch.cuda.synchronize()
+    log(f"phase flat_kernel_vs_plain: {sum(counts.values())} checks ok "
+        f"({counts}); bitwise equal to the plain version in {bitwise}; max "
+        f"|kernel - plain| {worst}; tolerance {FLAT_ULPS} ulp of the output "
+        f"dtype (row_mean: {ROW_MEAN_REL} x mean|g| + 1 ulp)")
+    return {"checks": counts, "bitwise": bitwise, "max_abs_err": worst}
+
+
+# --- phase 7: training ------------------------------------------------------------
+
+def _train_cfg(rl, core, optim, kind, opt, m, B=0, **kw):
+    if kind == "periodic":
+        strat = core.make_strategy("periodic", tau=10, m=m)
+    else:
+        strat = core.make_strategy("decay", tau=15,
+                                   taus=core.uniform_taus(1, 15, m),
+                                   decay=core.exponential_decay(0.95))
+    optimizer = {"sgd": None, "momentum": optim.flat_momentum(0.9),
+                 "adam": optim.flat_adam()}[opt]
+    return rl.FedRLConfig(env=rl.FIGURE_EIGHT, strategy=strat, eta=TRAIN_ETA,
+                          n_epochs=kw.pop("n_epochs", TRAIN_EPOCHS),
+                          epoch_len=kw.pop("epoch_len", TRAIN_T),
+                          minibatch=TRAIN_P, optimizer=optimizer, num_envs=B,
+                          **kw)
+
+
+def _expected_launches(cfg) -> dict:
+    """Launches the loop implies: one local-step launch per update; one
+    row_mean per sync for the parameters and one per moment matrix; one
+    row_mean per epoch's server view and one for the final server row."""
+    n_updates = cfg.n_epochs * cfg.updates_per_epoch
+    syncs = n_updates // cfg.strategy.tau
+    opt = cfg.optimizer
+    local = "decay_accum" if opt is None else f"{opt.kind}_update"
+    moments = 0 if opt is None else opt.n_moments
+    out = {k: 0 for k in FLAT_KERNELS}
+    out[local] = n_updates
+    out["row_mean"] = syncs * (1 + moments) + cfg.n_epochs + 1
+    return out
+
+
+def _kernel_counts(dacc, fu) -> dict:
+    return dict(fu.launches, decay_accum=dacc.launches)
+
+
+def _reset_counts(dacc, fu) -> None:
+    dacc.launches = 0
+    for k in fu.launches:
+        fu.launches[k] = 0
+
+
+def _max_rel(a, b) -> float:
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def _compare_runs(label, cfg, card_run, cpu_run) -> dict:
+    (gp, gm), (cp, cm) = card_run, cpu_run
+    bf16 = cfg.buffer_dtype is not None
+    rtol = TRAIN_BF16_RTOL if bf16 else TRAIN_RTOL
+    worst_rel = 0.0
+    for k in cm:
+        if not (np.all(np.isfinite(gm[k])) and gm[k].shape == (cfg.n_epochs,)):
+            raise AssertionError(f"{label}: bad metric {k} {gm[k]}")
+        worst_rel = max(worst_rel, _max_rel(gm[k], cm[k]))
+        if not np.allclose(gm[k], cm[k], rtol=rtol, atol=0):
+            raise AssertionError(f"{label}: card {k} {gm[k]} vs CPU {cm[k]} "
+                                 f"(rtol {rtol})")
+    worst_abs = 0.0
+    for h in ("pi", "vf"):
+        for k in cp[h]:
+            a = gp[h][k].detach().cpu().numpy()
+            b = cp[h][k].detach().numpy()
+            tol = TRAIN_ATOL + (2.0 ** -7 * np.abs(b) if bf16 else 0.0)
+            worst_abs = max(worst_abs, float(np.max(np.abs(a - b))))
+            if np.any(np.abs(a - b) > tol):
+                raise AssertionError(f"{label}: server {h}/{k} card vs CPU "
+                                     f"max err {np.max(np.abs(a - b)):.3e}")
+    return {"metrics_max_rel": worst_rel, "params_max_abs": worst_abs}
+
+
+def training_path(dacc, fu, _build, rl, core, optim, serve, card) -> dict:
+    # warm the card's libraries (cuBLAS, the generator) outside the counts
+    rl.run_fedrl(_train_cfg(rl, core, optim, "periodic", "sgd", 7, n_epochs=1,
+                            epoch_len=50), SEED, device="cuda")
+    torch.cuda.synchronize()
+    builds_before = _build.n_builds
+    runs, plan = [], []
+    for kind in ("periodic", "decay"):
+        for opt in ("sgd", "momentum", "adam"):
+            plan.append((f"m=7 shared env {kind} {opt}", True,
+                         (kind, opt, dict(m=7))))
+            plan.append((f"m=64 B=1 {kind} {opt}", True,
+                         (kind, opt, dict(m=64, B=1))))
+            plan.append((f"m=64 B=4 ppo2x2 {kind} {opt}", True,
+                         (kind, opt, dict(m=64, B=4, ppo_epochs=2,
+                                          n_minibatches=2))))
+            for m in TRAIN_FLEETS[1:]:
+                plan.append((f"m={m} B=1 {kind} {opt}", False,
+                             (kind, opt, dict(m=m, B=1))))
+    plan.append(("m=64 B=1 decay adam bf16", True,
+                 ("decay", "adam", dict(m=64, B=1, buffer_dtype="bfloat16"))))
+
+    def card_run(label, cfg, draws):
+        """One ``run_fedrl`` on the card: its result, wall seconds and kernel
+        launches, the launches held to the count the loop implies."""
+        before = _kernel_counts(dacc, fu)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, metrics, ledger = rl.run_fedrl(cfg, draws, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = _kernel_counts(dacc, fu)
+        got = {k: after[k] - before[k] for k in FLAT_KERNELS}
+        want = _expected_launches(cfg)
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, the loop implies "
+                                 f"{want}")
+        for k in metrics:
+            if not np.all(np.isfinite(metrics[k])):
+                raise AssertionError(f"{label}: non-finite {k}: {metrics[k]}")
+        for k in FLAT_KERNELS:
+            total[k] += got[k]
+            by_m.setdefault(str(cfg.strategy.m),
+                            {kk: 0 for kk in FLAT_KERNELS})[k] += got[k]
+        return params, metrics, ledger, wall, got
+
+    _reset_counts(dacc, fu)                 # the training path starts here
+    total = {k: 0 for k in FLAT_KERNELS}
+    by_m = {}
+    last_params = None
+    for label, compare, (kind, opt, kw) in plan:
+        kw = dict(kw)
+        m = kw.pop("m")
+        cfg = _train_cfg(rl, core, optim, kind, opt, m, **kw)
+        # timed: the seeded run, drawing on the card as a user's run does
+        params, metrics, ledger, wall, got = card_run(label, cfg, SEED)
+        n_updates = cfg.n_epochs * cfg.updates_per_epoch
+        rec = {"label": label, "m": m, "B": cfg.B, "strategy": kind,
+               "optimizer": opt, "buffer_dtype": cfg.buffer_dtype,
+               "updates": n_updates, "seconds": wall,
+               "updates_per_sec": n_updates / wall, "launches": got,
+               "metrics": {k: v.tolist() for k, v in metrics.items()},
+               "ledger": ledger.table_row()}
+        if compare:
+            # untimed: draws made on the host, replayed on the card and on
+            # the CPU
+            draws = rl.replay_of(cfg, rl.TorchDraws(SEED, "cpu"))
+            rp, rmet, _, _, rgot = card_run(f"{label} replayed", cfg, draws)
+            cpu = rl.run_fedrl(cfg, draws, device="cpu")
+            rec["vs_cpu"] = _compare_runs(label, cfg, (rp, rmet), cpu[:2])
+            rec["replayed_launches"] = rgot
+        runs.append(rec)
+        last_params = params
+        log(f"training {label}: {n_updates} updates in {wall!r} s = "
+            f"{n_updates / wall!r} updates/s (seeded draws on the card, incl. "
+            f"per-epoch eval); nas {metrics['nas'].tolist()} grad_sq "
+            f"{metrics['server_grad_sq_norm'].tolist()}; launches {got}"
+            + (f"; replayed draws card vs CPU {rec['vs_cpu']}" if compare
+               else "")
+            + f" card=\"{card}\"")
+    launches = _kernel_counts(dacc, fu)        # read right after the path
+    if launches != total:
+        raise AssertionError(f"training launches {launches} != {total}")
+    if _build.n_builds != builds_before:
+        raise AssertionError("a build on the training hot path")
+
+    # the trained server parameters serve through slice 1's engine
+    ckpt = os.path.join(ROOT, "build", "chip_smoke", "trained_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    serve.save_for_serving(ckpt, TRAIN_EPOCHS, last_params)
+    eng = serve.ServeEngine.from_checkpoint(ckpt, mode="mean", seed=SEED,
+                                            device="cuda")
+    ref = serve.ServeEngine.from_checkpoint(ckpt, mode="mean", seed=SEED,
+                                            device="cpu")
+    obs = np.random.default_rng(SEED).standard_normal((64, OBS_DIM)).astype(
+        np.float32)
+    act = eng.decide(obs)
+    err = float(np.max(np.abs(act - ref.decide(obs))))
+    if act.shape != (64, ACT_DIM) or not np.all(np.isfinite(act)) or \
+            err > SERVE_ATOL:
+        raise AssertionError(f"trained policy serving: {act.shape}, err {err}")
+    per_m = {}
+    for r in runs:
+        per_m.setdefault(str(r["m"]) + (f" B={r['B']}" if r["m"] == 64 else "")
+                         + (" bf16" if r["buffer_dtype"] else ""),
+                         []).append(r["updates_per_sec"])
+    n_cmp = sum("vs_cpu" in r for r in runs)
+    log(f"training: {len(runs) + n_cmp} card runs ({len(runs)} seeded and "
+        f"timed, {n_cmp} on replayed draws held against the CPU), launches "
+        f"{launches} as the loop implies, no "
+        f"build; trained policy served on the card (max err vs CPU {err!r}); "
+        f"updates/s by m (median over strategies x optimizers): "
+        f"{ {k: statistics.median(v) for k, v in per_m.items()} } "
+        f"card=\"{card}\"")
+    return {"runs": runs, "launches": launches, "launches_by_m": by_m,
+            "serve_max_abs_err": err,
+            "updates_per_sec_median": {k: statistics.median(v)
+                                       for k, v in per_m.items()}}
+
+
+# --- phase 8: flat kernel times and a profiled training window --------------------
+
+FLUSH_OP = "aten::amax"
+
+
+def l2_flusher():
+    """A call that evicts the card's 50 MB L2 cache: ``amax`` over a 128 MB
+    buffer (``FLUSH_OP``, an op none of the timed functions calls). It only
+    reads, so no dirty line of its own is left to be written back during the
+    timed call that follows."""
+    buf = torch.zeros(32 * 2 ** 20, device="cuda")
+    return lambda: torch.amax(buf)
+
+
+def cupti_ms(fn, flush, n: int = CUPTI_CALLS) -> float:
+    """Device time per call by CUPTI: the device-side records of ``n`` calls
+    in one ``torch.profiler`` window, less the device time of the ``n``
+    flushes (the kernels launched under ``FLUSH_OP``), over ``n``. ``flush``
+    (or None) runs before each call to evict the L2."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in ev
+               if e.device_type == DeviceType.CUDA)
+    ops = [e for e in ev
+           if e.key == FLUSH_OP and e.device_type == DeviceType.CPU]
+    flush_us = sum(e.device_time_total for e in ops)
+    if flush is not None and (sum(e.count for e in ops) != n
+                              or not 0 < flush_us < busy):
+        raise AssertionError(f"cannot tell the L2 flush apart: {len(ops)} "
+                             f"{FLUSH_OP} records, {flush_us} of {busy} us")
+    return (busy - flush_us) / n / 1e3
+
+
+def flat_bound(name, m, n) -> tuple:
+    elems = m * n
+    nbytes, flops = {
+        "decay_accum": (12 * elems + 4 * m, 2 * elems),
+        "row_mean": (4 * elems + 4 * n, elems + n),
+        "momentum_update": (20 * elems + 4 * m, 5 * elems),
+        "adam_update": (28 * elems + 4 * m, 17 * elems),
+    }[name]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def flat_times(dacc, fu, dispatch, training, card) -> dict:
+    """Kernel, plain and library device times with the L2 flushed before
+    every call (the training loop reads each (m, n) buffer once per step,
+    after other work has passed through the cache)."""
+    cyc = sleep_cycles_per_ms()
+    flush = l2_flusher()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rows = {}
+    bc1, bc2 = dispatch.adam_bias_corrections(3, 0.9, 0.95)
+    for m, n in TIMED_SHAPES:
+        rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        p, g, mu = rnd(m, n), rnd(m, n), 0.1 * rnd(m, n)
+        nu = (0.1 * rnd(m, n)).abs()
+        w = torch.rand(m, generator=gen, device="cuda")
+        d = -TRAIN_ETA * w
+        po, mo, vo = torch.empty_like(p), torch.empty_like(mu), torch.empty_like(nu)
+        row = torch.empty(n, device="cuda")
+        akw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0)
+        fns = {
+            "decay_accum": (
+                lambda: dacc.decay_accum_cuda(p, g, d, out=po),
+                lambda: dacc.decay_accum_plain(p, g, d, out=po),
+                lambda: torch.addcmul(p, d[:, None], g, out=po)),
+            "row_mean": (
+                lambda: fu.row_mean_cuda(g, out=row),
+                lambda: fu.row_mean_plain(g, out=row),
+                lambda: torch.mean(g, dim=0, out=row)),
+            "momentum_update": (
+                lambda: fu.momentum_update_cuda(p, g, mu, w, TRAIN_ETA, 0.9,
+                                                p_out=po, mu_out=mo),
+                lambda: fu.momentum_update_plain(p, g, mu, w, TRAIN_ETA, 0.9,
+                                                 p_out=po, mu_out=mo),
+                None),
+            "adam_update": (
+                lambda: fu.adam_update_cuda(p, g, mu, nu, w, TRAIN_ETA, bc1,
+                                            bc2, p_out=po, mu_out=mo,
+                                            nu_out=vo, **akw),
+                lambda: fu.adam_update_plain(p, g, mu, nu, w, TRAIN_ETA, bc1,
+                                             bc2, p_out=po, mu_out=mo,
+                                             nu_out=vo, **akw),
+                None),
+        }
+        on_path = training["launches_by_m"].get(str(m), {})
+        for name, (kern, plain, lib) in fns.items():
+            timed = lambda f: device_ms(f, cyc, flush)[0]
+            p1, k1, k2, p2 = timed(plain), timed(kern), timed(kern), timed(plain)
+            lib_ms = None
+            if lib is not None:
+                lib_ms = (timed(lib) + timed(lib)) / 2
+            b_ms, b_by, nbytes, flops = flat_bound(name, m, n)
+            rec = {"shape": [m, n], "dtype": "float32",
+                   "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                   "library_ms": lib_ms, "cupti_ms": cupti_ms(kern, flush),
+                   "plain_cupti_ms": cupti_ms(plain, flush),
+                   "library_cupti_ms": cupti_ms(lib, flush) if lib else None,
+                   "warm_l2_cupti_ms": cupti_ms(kern, None),
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                   "flops": flops,
+                   "launches_on_path": on_path.get(name, 0)}
+            rows[f"{name}/{m}x{n}"] = rec
+            log(f"time {name} shape=({m}, {n}) fp32 L2 flushed: kernel_ms="
+                f"{rec['ms']!r} (cupti {rec['cupti_ms']!r}; L2-warm cupti "
+                f"{rec['warm_l2_cupti_ms']!r}) plain_ms={rec['plain_ms']!r} "
+                f"(cupti {rec['plain_cupti_ms']!r}) library_ms={lib_ms!r} "
+                f"(cupti {rec['library_cupti_ms']!r}) bound_ms={b_ms!r} "
+                f"({b_by}) launches_on_path(m={m})={rec['launches_on_path']} "
+                f"card=\"{card}\"")
+    return rows
+
+
+def profile_training(rl, core, optim, card) -> dict:
+    """One ``torch.profiler`` window over a short training run at m = 1024
+    (4 local updates, 2 syncs, one eval; Adam): wall time, device busy time
+    and idle share, and the host and device time of each phase range of the
+    driver (``fedrl.*``; the eval's own rollout and gradient nest in it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    strat = core.make_strategy("periodic", tau=2, m=PROFILE_M)
+    cfg = rl.FedRLConfig(env=rl.FIGURE_EIGHT, strategy=strat, eta=TRAIN_ETA,
+                         n_epochs=1, epoch_len=4 * TRAIN_P, minibatch=TRAIN_P,
+                         optimizer=optim.flat_adam(), num_envs=1)
+    rl.run_fedrl(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rl.run_fedrl(cfg, SEED, device="cuda")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ev = prof.key_averages()
+    dev = {e.key: (e.count, e.self_device_time_total) for e in ev
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+           and not e.key.startswith("fedrl.")}
+    busy_us = sum(t for _, t in dev.values())
+    phases = {e.key: {"count": e.count, "host_ms": e.cpu_time_total / 1e3,
+                      "device_ms": e.device_time_total / 1e3}
+              for e in ev if e.key.startswith("fedrl.")
+              and e.device_type == DeviceType.CPU}
+    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:12]
+    out = {"m": PROFILE_M, "updates": 4, "wall_ms": wall_us / 1e3,
+           "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": 1.0 - busy_us / wall_us,
+           "phases": phases,
+           "top_device_ops": {k: {"count": c, "device_ms": t / 1e3}
+                              for k, (c, t) in top}}
+    log(f"profile training m={PROFILE_M} B=1 adam, 4 updates + 2 syncs + 1 "
+        f"eval: wall_ms={out['wall_ms']!r} device_busy_ms="
+        f"{out['device_busy_ms']!r} device_idle_share="
+        f"{out['device_idle_share']!r}; phases (host ms / device ms): "
+        + ", ".join(f"{k} x{v['count']} {v['host_ms']:.3f}/{v['device_ms']:.3f}"
+                    for k, v in sorted(phases.items()))
+        + f" card=\"{card}\"")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs only on a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch import serve
-    from repro_torch.kernels import _build
+    import repro_torch.rl as rl
+    from repro_torch import core, optim, serve
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels import decay_accum as dacc
+    from repro_torch.kernels import flat_update as fu
     from repro_torch.kernels import policy_infer as pinf
     from repro_torch.rl import policy
 
@@ -498,6 +1020,16 @@ def main() -> int:
     rows = times(pinf, serving, card)
     prof = profile_serving(serve, card)
 
+    # 6. flat kernels vs plain
+    flat = flat_kernels_vs_plain(dacc, fu, dispatch)
+
+    # 7. the training path
+    training = training_path(dacc, fu, _build, rl, core, optim, serve, card)
+
+    # 8. flat kernel times, a profiled training window
+    flat_rows = flat_times(dacc, fu, dispatch, training, card)
+    train_prof = profile_training(rl, core, optim, card)
+
     top = rows["mean/1024"]
     kernels = [{
         "name": "policy_infer",
@@ -514,13 +1046,36 @@ def main() -> int:
         "shape": {"batch": 1024, "obs_dim": OBS_DIM, "hidden": HIDDEN,
                   "act_dim": ACT_DIM, "mode": "mean"},
     }]
+    sources = {"decay_accum": ("decay_accum.cu", "decay_accum.py:27"),
+               "row_mean": ("flat_update.cu", "flat_update.py:41"),
+               "momentum_update": ("flat_update.cu", "flat_update.py:79"),
+               "adam_update": ("flat_update.cu", "flat_update.py:158")}
+    m0, n0 = TIMED_SHAPES[0]
+    for name, (src, tpu) in sources.items():
+        r = flat_rows[f"{name}/{m0}x{n0}"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{tpu}",
+            "launches": training["launches"][name],
+            "max_abs_err": flat["max_abs_err"][name]["float32"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": {"m": m0, "n": n0, "dtype": "float32"},
+        })
     with open(os.path.join(ROOT, "build", "chip_smoke", "result.json"),
               "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
                    "cuda": torch.version.cuda, "nvcc": nvcc_ver,
                    "build_seconds": build_s, "build": _build.build_info,
                    "parity": parity, "serving": serving, "times": rows,
-                   "profile": prof,
+                   "profile": prof, "flat_parity": flat,
+                   "training": training, "flat_times": flat_rows,
+                   "training_profile": train_prof,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

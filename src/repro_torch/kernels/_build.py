@@ -52,6 +52,35 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         _P,                              # stream
     ]
     lib.repro_policy_infer.restype = _I
+    _L, _F = ctypes.c_int64, ctypes.c_float
+    lib.repro_decay_accum.argtypes = [
+        _P, _P, _P,                      # acc, g, out
+        _P, _L, _F,                      # d, d_stride, d_value
+        _L, _L, _I,                      # m, n, dtype
+        _P,                              # stream
+    ]
+    lib.repro_decay_accum.restype = _I
+    lib.repro_row_mean.argtypes = [_P, _P, _L, _L, _I, _P]
+    lib.repro_row_mean.restype = _I
+    lib.repro_momentum_update.argtypes = [
+        _P, _P, _P,                      # p, g, mu
+        _P, _P,                          # p_out, mu_out
+        _P, _L, _F,                      # w, w_stride, w_value
+        _F, _F, _I,                      # lr, beta, nesterov
+        _L, _L, _I,                      # m, n, dtype
+        _P,                              # stream
+    ]
+    lib.repro_momentum_update.restype = _I
+    lib.repro_adam_update.argtypes = [
+        _P, _P, _P, _P,                  # p, g, mu, nu
+        _P, _P, _P,                      # p_out, mu_out, nu_out
+        _P, _L, _F,                      # w, w_stride, w_value
+        _F, _F, _F, _F, _F,              # lr, b1, 1 - b1, b2, 1 - b2
+        _F, _F, _F, _F,                  # eps, wd, bc1, bc2
+        _L, _L, _I,                      # m, n, dtype
+        _P,                              # stream
+    ]
+    lib.repro_adam_update.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

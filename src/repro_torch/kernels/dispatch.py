@@ -11,18 +11,38 @@ platform), the port picks by the device the tensors lie on:
 Entry points take ``device=`` and run on the card unless the caller asks for
 the CPU; :func:`resolve_device` raises when the card is asked for and there
 is none. There is no ``auto`` that drops to the CPU.
+
+The flat ``(m, n)`` primitives of the federated hot path (m agents by n
+parameters; ``decay_accum``, ``scale_rows``, ``row_mean``,
+``flat_opt_update``) raise the validation errors of the JAX dispatch. Every
+one computes in fp32 and casts back to the buffer's dtype, as
+``repro.kernels.dispatch`` does (its lines 32-35). The ``(S, m, n)`` sweep
+shapes of the JAX dispatch are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
+from repro_torch.kernels.decay_accum import decay_accum_cuda, decay_accum_plain
+from repro_torch.kernels.flat_update import (
+    adam_update_cuda,
+    adam_update_plain,
+    momentum_update_cuda,
+    momentum_update_plain,
+    row_mean_cuda,
+    row_mean_plain,
+)
 from repro_torch.kernels.policy_infer import (
     PI_KEYS,
     policy_infer_cuda,
     policy_infer_plain,
 )
+
+OPT_KINDS = ("sgd", "momentum", "adam")
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
@@ -94,3 +114,277 @@ def policy_infer(obs: torch.Tensor, pi: Mapping[str, torch.Tensor],
     if obs.device.type == "cuda":
         return policy_infer_cuda(obs, pi, nm, ns, noise, sample=sample, out=out)
     raise ValueError(f"policy_infer: unsupported device {obs.device}")
+
+
+# --- flat <-> parameter-tree plumbing -------------------------------------------
+
+def _leaves(tree, prefix=()) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
+    """``(path, leaf)`` pairs in ``jax.flatten_util.ravel_pytree``'s order:
+    mapping keys sorted at every level."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    keys = sorted(tree.keys()) if hasattr(tree, "keys") else sorted(tree)
+    out = []
+    for k in keys:
+        out += _leaves(tree[k], prefix + (k,))
+    return out
+
+
+class FlatSpec:
+    """Where each leaf of one replica's parameter tree lies in a flat row.
+
+    The row order is ``ravel_pytree``'s (sorted keys), so flat rows and the
+    JAX package's flat rows hold the same numbers at the same places.
+    :meth:`unravel` maps an ``(m, n)`` matrix to the stacked tree and
+    :meth:`unravel_one` an ``(n,)`` row to one replica's tree; both return
+    views of the buffer, not copies. :meth:`ravel_one` is the inverse of
+    :meth:`unravel_one`.
+    """
+
+    def __init__(self, paths, shapes):
+        self.paths = tuple(paths)
+        self.shapes = tuple(tuple(s) for s in shapes)
+        self.sizes = tuple(int(np.prod(s, dtype=np.int64)) for s in self.shapes)
+        self.offsets = tuple(int(o) for o in np.cumsum((0,) + self.sizes)[:-1])
+        self.n = int(sum(self.sizes))
+
+    def _nest(self, views) -> Dict:
+        tree: Dict = {}
+        for path, v in zip(self.paths, views):
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = v
+        return tree
+
+    def unravel(self, flat: torch.Tensor) -> Dict:
+        m = flat.shape[0]
+        return self._nest(flat[:, o:o + s].view(m, *shape) for o, s, shape
+                          in zip(self.offsets, self.sizes, self.shapes))
+
+    def unravel_one(self, row: torch.Tensor) -> Dict:
+        return self._nest(row[o:o + s].view(shape) for o, s, shape
+                          in zip(self.offsets, self.sizes, self.shapes))
+
+    def ravel_one(self, tree) -> torch.Tensor:
+        return torch.cat([leaf.reshape(-1) for _, leaf in _leaves(tree)])
+
+
+def stacked_ravel_spec(tree_m) -> Tuple[torch.Tensor, FlatSpec]:
+    """Flatten an ``(m, ...)``-leaved replica tree to ``(flat, FlatSpec)``:
+    ``flat`` is a new contiguous ``(m, n)`` matrix."""
+    leaves = _leaves(tree_m)
+    if not leaves:
+        raise ValueError("stacked_ravel: empty pytree")
+    m = leaves[0][1].shape[0]
+    for _, leaf in leaves:
+        if leaf.ndim < 1 or leaf.shape[0] != m:
+            raise ValueError(
+                f"stacked_ravel: every leaf needs leading agent axis {m}, "
+                f"got shape {tuple(leaf.shape)}"
+            )
+    spec = FlatSpec([p for p, _ in leaves],
+                    [tuple(leaf.shape[1:]) for _, leaf in leaves])
+    flat = torch.cat([leaf.reshape(m, -1) for _, leaf in leaves], dim=1)
+    return flat.contiguous(), spec
+
+
+def compute_view(buf: torch.Tensor, storage_dtype) -> torch.Tensor:
+    """fp32 compute view of a flat carry buffer: ``buf.float()`` when a
+    reduced storage dtype is set (the bf16 buffer mode), else ``buf``."""
+    return buf.float() if storage_dtype is not None else buf
+
+
+# --- flat (m, n) primitives -------------------------------------------------------
+
+def _no_sweep(fn: str, t: torch.Tensor) -> None:
+    if t.ndim == 3:
+        raise NotImplementedError(
+            f"{fn}: the (S, m, n) sweep shapes are not ported yet (they come "
+            f"with the sweep slice)"
+        )
+
+
+def _f32(c, device):
+    """A coefficient as the dispatch takes it: numbers stay numbers; arrays
+    and tensors become fp32 tensors on ``device``."""
+    if isinstance(c, (int, float)):
+        return float(c)
+    return torch.as_tensor(c, dtype=torch.float32, device=device)
+
+
+def _is_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
+def _ndim(c) -> int:
+    return c.ndim if isinstance(c, torch.Tensor) else 0
+
+
+def decay_accum(acc: torch.Tensor, g: torch.Tensor, d, *,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``acc + d * g`` — the fused FMA at the heart of the decay/SGD step.
+
+    ``acc``/``g``: matching ``(n,)`` or ``(m, n)`` buffers of one dtype;
+    ``d``: a scalar, or ``(m,)`` per-agent coefficients with ``(m, n)``
+    buffers. Accumulates in fp32; the result has ``acc.dtype``. ``out`` (may
+    be ``acc``) receives the result.
+    """
+    _no_sweep("decay_accum", acc)
+    if acc.ndim not in (1, 2) or acc.shape != g.shape:
+        raise ValueError(
+            f"decay_accum: acc/g must be matching (n,) or (m, n) buffers, "
+            f"got {tuple(acc.shape)} vs {tuple(g.shape)}"
+        )
+    if acc.dtype != g.dtype:
+        raise ValueError(
+            f"decay_accum: acc/g dtypes must match, got {acc.dtype} vs "
+            f"{g.dtype}"
+        )
+    d = _f32(d, acc.device)
+    if _ndim(d) not in (0, 1) or (_ndim(d) == 1 and (
+            acc.ndim != 2 or d.shape[0] != acc.shape[0])):
+        raise ValueError(
+            f"decay_accum: d must be scalar or (m,) with (m, n) inputs, "
+            f"got d shape {tuple(np.shape(d))} for input shape "
+            f"{tuple(acc.shape)}"
+        )
+    if _is_cuda(acc):
+        return decay_accum_cuda(acc, g, d, out=out)
+    return decay_accum_plain(acc, g, d, out=out)
+
+
+def scale_rows(g: torch.Tensor, w, *,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row-scale ``(m, n)`` grads by per-agent weights: ``out[i] = w[i]*g[i]``.
+
+    On the card this is ``decay_accum(g, g, w - 1)`` = ``g + (w - 1) * g``,
+    as on the JAX kernel path; the CPU path computes ``w * g`` as the jnp
+    path does.
+    """
+    _no_sweep("scale_rows", g)
+    if g.ndim != 2:
+        raise ValueError(f"scale_rows: g must be (m, n), got {tuple(g.shape)}")
+    w = torch.as_tensor(w, dtype=torch.float32, device=g.device)
+    if tuple(w.shape) != (g.shape[0],):
+        raise ValueError(
+            f"scale_rows: w must be ({g.shape[0]},) for g {tuple(g.shape)}, "
+            f"got {tuple(w.shape)}"
+        )
+    if _is_cuda(g):
+        return decay_accum_cuda(g, g, w - 1.0, out=out)
+    res = (g.float() * w[:, None]).to(g.dtype)
+    return res if out is None else out.copy_(res)
+
+
+def row_mean(g: torch.Tensor, *,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Server averaging (eq. 11) on the flat carry: the ``(n,)`` mean over the
+    agent axis of ``(m, n)`` buffers, accumulated in fp32, in ``g.dtype``."""
+    _no_sweep("row_mean", g)
+    if g.ndim != 2:
+        raise ValueError(f"row_mean: g must be (m, n), got {tuple(g.shape)}")
+    if _is_cuda(g):
+        return row_mean_cuda(g, out=out)
+    return row_mean_plain(g, out=out)
+
+
+def _check_opt_state(state, required, params, kind):
+    for name in required:
+        buf = state.get(name)
+        if buf is None:
+            raise ValueError(f"flat_opt_update[{kind}]: state needs {name!r}")
+        if name == "t":
+            continue
+        if buf.shape != params.shape:
+            raise ValueError(
+                f"flat_opt_update[{kind}]: state[{name!r}] shape "
+                f"{tuple(buf.shape)} must match params {tuple(params.shape)}"
+            )
+        if buf.dtype != torch.float32:
+            raise ValueError(
+                f"flat_opt_update[{kind}]: state[{name!r}] must be an fp32 "
+                f"accumulator, got {buf.dtype}"
+            )
+
+
+def adam_bias_corrections(t: int, b1: float, b2: float) -> Tuple[float, float]:
+    """``(1 - b1**t, 1 - b2**t)`` computed in fp32, as the jnp path does
+    (``dispatch.py:677-680``); ``t`` is the step count after this step."""
+    tf = np.float32(t)
+    one = np.float32(1.0)
+    return (float(one - np.float32(b1) ** tf), float(one - np.float32(b2) ** tf))
+
+
+def flat_opt_update(params: torch.Tensor, g: torch.Tensor, w, state: dict, *,
+                    kind: str, lr: float, beta: float = 0.9,
+                    nesterov: bool = False, b1: float = 0.9, b2: float = 0.95,
+                    eps: float = 1e-8, weight_decay: float = 0.0,
+                    inplace: bool = False):
+    """Fused within-period-weighted optimizer update on flat buffers.
+
+    ``params``/``g``: matching ``(n,)`` or ``(m, n)`` buffers. ``w`` is the
+    strategy's per-step weight (variation mask x decay; scalar or ``(m,)``),
+    folded into the gradient before any moment accumulation. ``state`` holds
+    the fp32 accumulators (see ``repro_torch.optim.flat``):
+
+      * ``sgd``      — ``{}``; the fused :func:`decay_accum` pass with
+                       ``d = -lr * w``;
+      * ``momentum`` — ``{"mu"}``; mu <- beta*mu + w*g, params -= lr*mu
+                       (nesterov: params -= lr*(beta*mu_new + w*g));
+      * ``adam``     — ``{"mu", "nu", "t"}``; bias-corrected Adam(W), ``t`` a
+                       host integer.
+
+    Returns ``(new_params, new_state)``. With ``inplace=True`` the parameter
+    buffer and the moment buffers are overwritten and returned (the training
+    loop's carry); otherwise new tensors are returned.
+    """
+    if kind not in OPT_KINDS:
+        raise ValueError(f"unknown optimizer kind {kind!r}; expected {OPT_KINDS}")
+    _no_sweep("flat_opt_update", params)
+    if params.ndim not in (1, 2) or params.shape != g.shape:
+        raise ValueError(
+            f"flat_opt_update: params/g must be matching (n,) or (m, n) "
+            f"buffers, got {tuple(params.shape)} vs {tuple(g.shape)}"
+        )
+    w = _f32(w, params.device)
+    if _ndim(w) not in (0, 1) or (_ndim(w) == 1 and (
+            params.ndim != 2 or w.shape[0] != params.shape[0])):
+        raise ValueError(
+            f"flat_opt_update: w must be scalar or (m,) with (m, n) inputs, "
+            f"got w shape {tuple(np.shape(w))} for input shape "
+            f"{tuple(params.shape)}"
+        )
+    cuda = _is_cuda(params)
+    p_out = params if inplace else None
+
+    if kind == "sgd":
+        if isinstance(w, float):
+            d = float(np.float32(-lr) * np.float32(w))
+        else:
+            d = -lr * w
+        return decay_accum(params, g, d, out=p_out), state
+
+    if kind == "momentum":
+        _check_opt_state(state, ("mu",), params, kind)
+        mu = state["mu"]
+        step = momentum_update_cuda if cuda else momentum_update_plain
+        new_p, new_mu = step(params, g, mu, w, lr, beta, nesterov=nesterov,
+                             p_out=p_out, mu_out=mu if inplace else None)
+        return new_p, dict(state, mu=new_mu)
+
+    _check_opt_state(state, ("mu", "nu", "t"), params, kind)
+    mu, nu = state["mu"], state["nu"]
+    t = int(state["t"]) + 1
+    bc1, bc2 = adam_bias_corrections(t, b1, b2)
+    step = adam_update_cuda if cuda else adam_update_plain
+    new_p, new_mu, new_nu = step(
+        params, g, mu, nu, w, lr, bc1, bc2, b1=b1, b2=b2, eps=eps,
+        weight_decay=weight_decay, p_out=p_out,
+        mu_out=mu if inplace else None, nu_out=nu if inplace else None,
+    )
+    return new_p, dict(state, mu=new_mu, nu=new_nu, t=t)

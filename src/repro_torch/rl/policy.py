@@ -6,12 +6,16 @@ weight is ``(in, out)`` and a layer is ``x @ w + b``. They are not transposed
 into ``nn.Linear``'s ``(out, in)``, so checkpoints and flat parameter rows
 map one to one between the two packages.
 
-Slice 1 (serving) ports the policy head's forward pass; sampling, the log
-density, the entropies and the value head's forward belong to the training
-slice.
+Every function also takes *stacked* parameters: leaves with a leading agent
+axis m (weights ``(m, in, out)``, biases ``(m, out)``, as the training loop's
+per-agent views of its flat ``(m, n)`` carry give them) together with
+observations ``(m, K, in)``. Each agent's rows then go through its own
+weights in one batched product, as the JAX package's ``vmap`` over agents
+does. Sampling takes its standard-normal noise as an operand.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Iterator, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -84,15 +88,67 @@ def init_policy(obs_dim: int, hidden: int = 64, act_dim: int = 1, *,
     return GaussianMLPPolicy(pi, vf)
 
 
+def _rows(b: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A bias (or log_std) broadcast against the rows of one agent: stacked
+    ``(m, out)`` becomes ``(m, 1, out)``."""
+    return b.unsqueeze(-2) if w.ndim == 3 else b
+
+
 def _mlp(p, x: torch.Tensor) -> torch.Tensor:
-    h = torch.tanh(x @ p["w1"] + p["b1"])
-    h = torch.tanh(h @ p["w2"] + p["b2"])
-    return h @ p["w3"] + p["b3"]
+    h = torch.tanh(x @ p["w1"] + _rows(p["b1"], p["w1"]))
+    h = torch.tanh(h @ p["w2"] + _rows(p["b2"], p["w2"]))
+    return h @ p["w3"] + _rows(p["b3"], p["w3"])
 
 
 def policy_apply(params, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(mean, log_std)`` of the Gaussian policy."""
-    return torch.tanh(_mlp(params["pi"], obs)), params["pi"]["log_std"]
+    """Returns ``(mean, log_std)`` of the Gaussian policy (``log_std`` as
+    ``(m, 1, act)`` for stacked parameters, so it broadcasts against the
+    mean)."""
+    pi = params["pi"]
+    return torch.tanh(_mlp(pi, obs)), _rows(pi["log_std"], pi["w3"])
+
+
+def policy_value(params, obs: torch.Tensor) -> torch.Tensor:
+    """The value head's estimate, with the trailing unit axis dropped."""
+    return _mlp(params["vf"], obs)[..., 0]
+
+
+# log(2 pi) and log(2 pi e) in fp32, as the JAX package evaluates them (the
+# constant rounded to fp32 first, then its fp32 log)
+_LOG_2PI = torch.log(torch.tensor(2.0 * math.pi, dtype=torch.float32)).item()
+_LOG_2PIE = torch.log(torch.tensor(2.0 * math.pi * math.e,
+                                   dtype=torch.float32)).item()
+
+
+def gaussian_logp(act, mean, log_std) -> torch.Tensor:
+    var = torch.exp(2.0 * log_std)
+    return torch.sum(
+        -0.5 * ((act - mean) ** 2 / var + 2.0 * log_std + _LOG_2PI), dim=-1)
+
+
+def sample_action(params, obs: torch.Tensor, noise: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``mean + exp(log_std) * noise`` and its log density; ``noise`` is the
+    standard-normal draw, shaped like the mean."""
+    mean, log_std = policy_apply(params, obs)
+    act = mean + torch.exp(log_std) * noise
+    return act, gaussian_logp(act, mean, log_std)
+
+
+def gaussian_entropy(log_std) -> torch.Tensor:
+    """Entropy of the diagonal Gaussian: the sum over the last axis (one value
+    per agent for stacked ``(m, 1, act)``)."""
+    return torch.sum(log_std + 0.5 * _LOG_2PIE, dim=-1)
+
+
+def tsallis2_entropy(log_std) -> torch.Tensor:
+    """Tsallis entropy with index q=2 of a diagonal Gaussian:
+    S_2 = 1 - prod_i 1/(2 sqrt(pi) sigma_i), over the last axis."""
+    sigma = torch.exp(log_std)
+    return 1.0 - torch.prod(1.0 / (2.0 * _SQRT_PI * sigma), dim=-1)
+
+
+_SQRT_PI = torch.sqrt(torch.tensor(math.pi, dtype=torch.float32)).item()
 
 
 def params_from_jax(tree, device: Union[str, torch.device] = "cuda"

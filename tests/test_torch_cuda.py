@@ -5,14 +5,21 @@ and ``nvcc`` but no JAX:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Each kernel is held against its plain PyTorch version on the card, and the
-serving engine on the card against the engine on the CPU.
+Each kernel is held against its plain PyTorch version on the card, the
+serving engine on the card against the engine on the CPU, and a short
+training run on the card against the same run (same draws) on the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import exponential_decay, make_strategy, uniform_taus
+from repro_torch.kernels import decay_accum as dacc
+from repro_torch.kernels import dispatch
+from repro_torch.kernels import flat_update as fu
 from repro_torch.kernels import policy_infer as pinf
+from repro_torch.optim import flat_adam, flat_momentum
+from repro_torch.rl import FIGURE_EIGHT, FedRLConfig, TorchDraws, replay_of, run_fedrl
 from repro_torch.rl.policy import init_policy
 from repro_torch.serve import MicroBatchQueue, ObsNorm, ServeEngine, simulate_clients
 
@@ -90,3 +97,139 @@ def test_engine_on_the_card_matches_the_cpu_engine(card, mode):
         n += 1
     assert pinf.launches - before == n == sum(gpu.bucket_calls.values())
     assert gpu.n_builds == 1
+
+
+# --- the flat-carry kernels -------------------------------------------------------
+#
+# The kernels spell every operation with the IEEE round-to-nearest intrinsics,
+# in the plain versions' order, so on fp32 / bf16 / fp16 buffers they agree
+# with the plain versions on the card to the last bit except where torch's
+# own CUDA ops round differently; the tolerance allows 2 ulp of the result's
+# dtype. row_mean sums in another order than torch: within 1e-6 of the mean
+# absolute value of its column.
+
+_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _buf(shape, dtype, seed, card):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(card, dtype)
+
+
+def _ulps(dtype):
+    return 2 * torch.finfo(dtype).eps
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(9347,), (7, 9347), (64, 4097), (3, 1)])
+def test_decay_accum_kernel_matches_plain(card, shape, dtype):
+    acc, g = _buf(shape, dtype, 0, card), _buf(shape, dtype, 1, card)
+    coefs = [-0.37]
+    if len(shape) == 2:
+        coefs.append(torch.linspace(-1.0, 1.0, shape[0], device=card))
+    for d in coefs:
+        want = dacc.decay_accum_plain(acc, g, d)
+        before = dacc.launches
+        buf = acc.clone()
+        got = dacc.decay_accum_cuda(buf, g, d, out=buf)
+        torch.cuda.synchronize()
+        assert dacc.launches == before + 1 and got.data_ptr() == buf.data_ptr()
+        torch.testing.assert_close(got.float(), want.float(), rtol=_ulps(dtype),
+                                   atol=0)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(7, 9347), (1024, 9347), (1, 4097)])
+def test_row_mean_kernel_matches_plain(card, shape, dtype):
+    g = _buf(shape, dtype, 2, card)
+    want = fu.row_mean_plain(g).float()
+    before = fu.launches["row_mean"]
+    got = fu.row_mean_cuda(g).float()
+    torch.cuda.synchronize()
+    assert fu.launches["row_mean"] == before + 1
+    scale = g.float().abs().mean(0)
+    err = (got - want).abs()
+    # + one rounding of the result to its dtype
+    assert bool((err <= 1e-6 * scale + _ulps(dtype) * want.abs()).all()), \
+        err.max().item()
+
+
+@pytest.mark.parametrize("nesterov", [False, True])
+@pytest.mark.parametrize("dtype", _DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(9347,), (7, 9347), (64, 4097)])
+def test_momentum_kernel_matches_plain(card, shape, dtype, nesterov):
+    p, g = _buf(shape, dtype, 3, card), _buf(shape, dtype, 4, card)
+    mu = _buf(shape, torch.float32, 5, card)
+    w = (torch.rand(shape[0], device=card) if len(shape) == 2 else 0.8)
+    want_p, want_mu = fu.momentum_update_plain(p, g, mu, w, 5e-3, 0.9,
+                                               nesterov=nesterov)
+    pb, mb = p.clone(), mu.clone()
+    got_p, got_mu = fu.momentum_update_cuda(pb, g, mb, w, 5e-3, 0.9,
+                                            nesterov=nesterov, p_out=pb,
+                                            mu_out=mb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_mu, want_mu, rtol=_ulps(torch.float32),
+                               atol=0)
+    torch.testing.assert_close(got_p.float(), want_p.float(),
+                               rtol=_ulps(dtype), atol=0)
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+@pytest.mark.parametrize("dtype", _DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(9347,), (7, 9347), (64, 4097)])
+def test_adam_kernel_matches_plain(card, shape, dtype, wd):
+    p, g = _buf(shape, dtype, 6, card), _buf(shape, dtype, 7, card)
+    mu = 0.1 * _buf(shape, torch.float32, 8, card)
+    nu = _buf(shape, torch.float32, 9, card).abs() * 0.01
+    w = (torch.rand(shape[0], device=card) if len(shape) == 2 else 0.8)
+    bc1, bc2 = dispatch.adam_bias_corrections(3, 0.9, 0.95)
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=wd)
+    want = fu.adam_update_plain(p, g, mu, nu, w, 5e-3, bc1, bc2, **kw)
+    got = fu.adam_update_cuda(p, g, mu, nu, w, 5e-3, bc1, bc2, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=_ulps(a.dtype),
+                                   atol=0)
+
+
+def test_flat_kernels_refuse_what_they_do_not_take(card):
+    p = _buf((4, 8), torch.float32, 0, card)
+    with pytest.raises(TypeError):
+        dacc.decay_accum_cuda(p.double(), p.double(), 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        dacc.decay_accum_cuda(p.t(), p.t(), 1.0)
+    with pytest.raises(TypeError):
+        fu.momentum_update_cuda(p, p, p.half(), 1.0, 0.1, 0.9)
+    with pytest.raises(ValueError):
+        fu.row_mean_cuda(p[0])
+
+
+# --- the training path --------------------------------------------------------------
+
+@pytest.mark.parametrize("opt", [None, "momentum", "adam"])
+def test_run_fedrl_on_the_card_matches_the_cpu_run(card, opt):
+    """The same draws (made on the host) through a card run and a CPU run:
+    per-epoch metrics within rtol 1e-4, the server rows within atol 1e-5."""
+    optimizer = {None: None, "momentum": flat_momentum(0.9),
+                 "adam": flat_adam()}[opt]
+    strat = make_strategy("decay", tau=3, taus=uniform_taus(1, 3, 7),
+                          decay=exponential_decay(0.95))
+    cfg = FedRLConfig(env=FIGURE_EIGHT, strategy=strat, eta=5e-3, n_epochs=2,
+                      epoch_len=40, minibatch=10, optimizer=optimizer)
+    draws = replay_of(cfg, TorchDraws(0, "cpu"))
+    before = dict(fu.launches, decay_accum=dacc.launches)
+    gpu_p, gpu_m, _ = run_fedrl(cfg, draws, device="cuda")
+    cpu_p, cpu_m, _ = run_fedrl(cfg, draws, device="cpu")
+    for k in cpu_m:
+        np.testing.assert_allclose(gpu_m[k], cpu_m[k], rtol=1e-4)
+    for h in ("pi", "vf"):
+        for k in cpu_p[h]:
+            np.testing.assert_allclose(gpu_p[h][k].detach().cpu().numpy(),
+                                       cpu_p[h][k].detach().numpy(), atol=1e-5)
+    local = {None: "decay_accum", "momentum": "momentum_update",
+             "adam": "adam_update"}[opt]
+    after = dict(fu.launches, decay_accum=dacc.launches)
+    assert after[local] - before[local] == 8        # one per local update
+    syncs, moments = 8 // 3, {None: 0, "momentum": 1, "adam": 2}[opt]
+    assert after["row_mean"] - before["row_mean"] == \
+        syncs * (1 + moments) + cfg.n_epochs + 1

@@ -33,7 +33,12 @@ def _module_names():
 
 def test_importing_every_port_module_loads_no_jax_and_no_repro():
     names = list(_module_names())
-    assert "repro_torch.kernels.policy_infer" in names
+    for mod in ("kernels.policy_infer", "kernels.decay_accum",
+                "kernels.flat_update", "kernels.dispatch", "optim.flat",
+                "core.variation", "core.decay", "core.accounting",
+                "core.strategies", "rl.env", "rl.policy", "rl.ppo",
+                "rl.rollout", "rl.draws", "rl.fedrl"):
+        assert f"repro_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
