@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training and consensus paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -42,12 +43,26 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    the loop implies, with no build on the hot path; the final server
    parameters go through ``save_for_serving`` ->
    ``ServeEngine.from_checkpoint(device="cuda")`` -> one ``decide``;
-8. flat times — per kernel at (1024, 9347) and (7, 9347) fp32: the kernel's,
-   the plain version's and the library call's device time by CUDA events
-   and by CUPTI (``torch.profiler``) beside the bound, the L2 evicted by a
-   read-only pass before each call, and one profiled
-   window of training updates at m = 1024 (device idle share, time by
-   phase).
+6b. gossip and compression kernels vs plain — the hand-written
+   ``consensus_step`` (against ``torch.matmul`` within its rounding bound,
+   and bitwise against ``consensus_gather`` over the full list),
+   ``consensus_gather`` (bitwise, on the k-NN rings of the sparse path, at
+   m = 10000 and on a padded list) and ``topk_scatter`` (residual bitwise,
+   sum within its rounding bound; k = 584, ties, a zero row), fp32 / bf16 /
+   fp16;
+7b. consensus and compression — ``run_fedrl`` with the consensus strategy
+   at m = 7 on the Fig. 6 topologies (E in {1, 2}, SGD / momentum / Adam),
+   sparse (auto-selected) and dense (forced) on k-NN rings at m = 64 and
+   1024, a top-k uplink, an int8 uplink and top-k gossip; seeded runs on the
+   card, the m = 7 and m = 64 ones again on host-made draws on the card and
+   on the CPU, launches held to the loop's count (consensus_step once per
+   dense update, consensus_gather E times per sparse update, topk_scatter
+   once per top-k sync);
+8. times — per kernel at (1024, 9347) and a second shape of its path, fp32:
+   the kernel's, the plain version's and the library call's device time by
+   CUDA events and by CUPTI (``torch.profiler``) beside the bound, the L2
+   evicted by a read-only pass before each call; one profiled window of
+   training updates at m = 1024 (device idle share, time by phase).
 
 Its last lines are the kernel summary JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -62,6 +77,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -101,6 +117,8 @@ SERVE_ATOL = 2e-6                            # card engine vs CPU engine
 # hands them (bf16 buffers only at m = 64, where the bf16 run is), and odd
 # sizes.
 FLAT_KERNELS = ("decay_accum", "row_mean", "momentum_update", "adam_update")
+GOSSIP_KERNELS = ("consensus_step", "consensus_gather", "topk_scatter")
+TRAIN_KERNELS = FLAT_KERNELS + GOSSIP_KERNELS
 ALL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 FLAT_SHAPES = (((9347,), ALL_DTYPES), ((4097,), ALL_DTYPES),
                ((1,), ALL_DTYPES), ((7, 9347), ALL_DTYPES),
@@ -111,6 +129,7 @@ FLAT_ULPS = 2
 ROW_MEAN_REL = 1e-6
 TIMED_SHAPES = ((1024, 9347), (7, 9347))
 CUPTI_CALLS = 50
+CUPTI_WINDOWS = 3     # profiler windows tried before a lost trace fails
 
 # Training: the Table II geometry of benchmarks/fmarl_bench.py:23-26 (T, P,
 # eta), 3 epochs = 18 local updates so that the decay strategy's tau = 15
@@ -603,15 +622,168 @@ def flat_kernels_vs_plain(dacc, fu, dispatch) -> dict:
     return {"checks": counts, "bitwise": bitwise, "max_abs_err": worst}
 
 
-# --- phase 7: training ------------------------------------------------------------
+# --- phase 6b: gossip and compression kernels vs plain ------------------------------
 
-def _train_cfg(rl, core, optim, kind, opt, m, B=0, **kw):
+def gossip_kernels_vs_plain(km, core, comm) -> dict:
+    """consensus_step, consensus_gather and topk_scatter against their plain
+    versions on the card, at the shapes the consensus path hands them and
+    at odd sizes (tolerances: GOSSIP_* above)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rnd = lambda shape, dt: torch.randn(shape, generator=gen,
+                                        device="cuda").to(dt)
+    worst = {k: {} for k in GOSSIP_KERNELS}
+    counts = {k: 0 for k in GOSSIP_KERNELS}
+    bitwise = {k: 0 for k in GOSSIP_KERNELS}
+
+    def note(name, got, want, err):
+        key = str(got.dtype).replace("torch.", "")
+        worst[name][key] = max(worst[name].get(key, 0.0), err)
+        counts[name] += 1
+        bitwise[name] += int(torch.equal(got, want))
+
+    def all_l(m):
+        """The list idx[i] = 0..m-1: a gather over it with w = P is the
+        dense product, term for term in ascending l."""
+        return torch.arange(m, dtype=torch.int32, device="cuda").repeat(m, 1)
+
+    # consensus_step: the mixing matrices of the consensus path (P^E with
+    # the variation mask folded in) and odd sizes
+    step_cases = [((7, 9347), ALL_DTYPES[:1], ("random_regularish", 7, 3, 4, 0)),
+                  ((64, 9347), ALL_DTYPES, ("knn_ring", 64, 4)),
+                  ((1024, 9347), ALL_DTYPES[:1], ("knn_ring", 1024, 8)),
+                  ((5, 4097), ALL_DTYPES, ("ring", 5)),
+                  ((1, 1), ALL_DTYPES, None)]
+    for (m, n), dtypes, spec in step_cases:
+        if spec is None:
+            p = torch.rand(1, 1, generator=gen, device="cuda")
+        else:
+            topo = _topology(core, spec)
+            strat = core.make_strategy("consensus", tau=10, topo=topo,
+                                       eps=0.5 / topo.max_degree, rounds=2,
+                                       taus=core.uniform_taus(1, 10, m),
+                                       sparse=False)
+            p = torch.tensor(strat.p_e_masked[3], device="cuda")
+        for dt in dtypes:
+            g = rnd((m, n), dt)
+            got = km.cs.consensus_step_cuda(g, p)
+            want = km.cs.consensus_step_plain(g, p)
+            err = (got.float() - want.float()).abs()
+            tol = m * 2.0 ** -23 * (p.abs() @ g.float().abs()) + \
+                torch.finfo(dt).eps * want.float().abs()
+            case = f"consensus_step ({m}, {n}) {dt}"
+            if got.dtype != dt or bool((err > tol).any()) or \
+                    not bool(torch.isfinite(got.float()).all()):
+                raise AssertionError(f"{case}: max err {err.max().item():.3e}")
+            full = km.cg.consensus_gather_cuda(g, all_l(m), p.contiguous())
+            if not torch.equal(full, got):
+                raise AssertionError(f"{case}: not bitwise equal to the "
+                                     f"full-list gather")
+            note("consensus_step", got, want, err.max().item())
+    # ... and the full neighbour list of a sparse topology with P's entries
+    topo = core.knn_ring(64, 4)
+    p64 = core.mixing_matrix(topo, 0.1)
+    full = core.neighbor_list(topo, k_max=64)
+    g = rnd((64, 9347), torch.float32)
+    got = km.cs.consensus_step_cuda(g, torch.tensor(p64, dtype=torch.float32,
+                                                    device="cuda"))
+    gat = km.cg.consensus_gather_cuda(
+        g, torch.tensor(full.idx, device="cuda"),
+        torch.tensor(core.neighbor_weights_from_matrix(full, p64),
+                     device="cuda"))
+    if not torch.equal(got, gat):
+        raise AssertionError("consensus_step vs neighbor_list(k_max=m) "
+                             "gather: not bitwise equal")
+
+    # consensus_gather: the neighbour lists of the sparse path, a padded one
+    pad = core.neighbor_list(core.random_regularish(64, 3, 5, 0))
+    pad = core.neighbor_list(core.random_regularish(64, 3, 5, 0),
+                             k_max=pad.k_max + 3)
+    gather_cases = [("knn_ring(64,4)", core.neighbor_list(core.knn_ring(64, 4)),
+                     ALL_DTYPES),
+                    ("knn_ring(1024,8)",
+                     core.neighbor_list(core.knn_ring(1024, 8)), ALL_DTYPES),
+                    ("knn_ring_neighbors(10000,8)",
+                     core.knn_ring_neighbors(10000, 8), ALL_DTYPES[:1]),
+                    ("padded rand3-5(64)", pad, ALL_DTYPES)]
+    for label, nl, dtypes in gather_cases:
+        idx = torch.tensor(nl.idx, device="cuda")
+        w = torch.tensor(core.neighbor_weights(nl, 0.5 / nl.max_degree),
+                         device="cuda")
+        for dt in dtypes:
+            g = rnd((nl.m, 9347), dt)
+            got = km.cg.consensus_gather_cuda(g, idx, w)
+            want = km.cg.consensus_gather_plain(g, idx, w)
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.equal(got, want):
+                raise AssertionError(f"consensus_gather {label} {dt}: not "
+                                     f"bitwise equal, max err {err:.3e}")
+            note("consensus_gather", got, want, err)
+        del g
+
+    # topk_scatter: k = 584 (n // 16), with ties and an all-zero row
+    for m in (7, 1024):
+        for dt in (torch.float32, torch.bfloat16):
+            for case in ("plain", "ties", "zero row"):
+                x = rnd((m, 9347), torch.float32)
+                if case == "ties":
+                    x = torch.round(x * 4) / 4
+                if case == "zero row":
+                    x[m // 2] = 0.0
+                x = x.to(dt)
+                t = comm.topk_threshold(x.float(), 584)
+                got_s, got_r = km.tks.topk_scatter_cuda(x, t)
+                want_s, want_r = km.tks.topk_scatter_plain(x, t)
+                x32 = x.float()
+                sent = torch.where(x32.abs() >= t[:, None], x32, 0.0)
+                tol = m * 2.0 ** -24 * sent.abs().sum(0) + \
+                    torch.finfo(dt).eps * want_s.float().abs()
+                err = (got_s.float() - want_s.float()).abs()
+                lab = f"topk_scatter ({m}, 9347) {dt} {case}"
+                if not torch.equal(got_r, want_r):
+                    raise AssertionError(f"{lab}: residual not bitwise equal")
+                if bool((err > tol).any()):
+                    raise AssertionError(f"{lab}: sum max err "
+                                         f"{err.max().item():.3e}")
+                note("topk_scatter", got_s, want_s, err.max().item())
+    torch.cuda.synchronize()
+    log(f"phase gossip_kernel_vs_plain: {sum(counts.values())} checks ok "
+        f"({counts}); bitwise equal to the plain version in {bitwise} "
+        f"(consensus_gather and topk_scatter's residual must be, and are); "
+        f"consensus_step bitwise equal to the full-list gather in every "
+        f"check; max |kernel - plain| {worst}; tolerance consensus_step "
+        f"m*2^-23*(|P|@|G|) + 1 ulp, topk_scatter sum m*2^-24*sum|sent| + "
+        f"1 ulp")
+    return {"checks": counts, "bitwise": bitwise, "max_abs_err": worst}
+
+
+# --- phases 7 and 7b: training -----------------------------------------------------
+
+def _topology(core, spec):
+    """A topology from its plan spec ``(family, *args)``."""
+    return getattr(core, spec[0])(*spec[1:])
+
+
+def _train_cfg(rl, core, optim, comm, kind, opt, m, B=0, tau=None, topo=None,
+               eps=None, rounds=1, sparse=None, fused=True, payload=None,
+               lam=0.95, **kw):
+    """One training configuration. ``payload`` names a payload transform
+    ``(factory, *args)``; a consensus run takes ``topo`` (a plan spec) and
+    ``eps`` (a number, or ``"0.9/D"`` for 0.9 / Delta)."""
+    tr = None if payload is None else getattr(comm, payload[0])(*payload[1:])
     if kind == "periodic":
-        strat = core.make_strategy("periodic", tau=10, m=m)
+        strat = core.make_strategy("periodic", tau=tau or 10, m=m, comm=tr)
+    elif kind == "decay":
+        t = tau or 15
+        strat = core.make_strategy("decay", tau=t,
+                                   taus=core.uniform_taus(1, t, m),
+                                   decay=core.exponential_decay(lam), comm=tr)
     else:
-        strat = core.make_strategy("decay", tau=15,
-                                   taus=core.uniform_taus(1, 15, m),
-                                   decay=core.exponential_decay(0.95))
+        graph = _topology(core, topo)
+        if eps == "0.9/D":
+            eps = 0.9 / graph.max_degree
+        strat = core.make_strategy("consensus", tau=tau or 10, topo=graph,
+                                   eps=eps, rounds=rounds, sparse=sparse,
+                                   fused=fused, comm=tr)
     optimizer = {"sgd": None, "momentum": optim.flat_momentum(0.9),
                  "adam": optim.flat_adam()}[opt]
     return rl.FedRLConfig(env=rl.FIGURE_EIGHT, strategy=strat, eta=TRAIN_ETA,
@@ -622,28 +794,47 @@ def _train_cfg(rl, core, optim, kind, opt, m, B=0, **kw):
 
 
 def _expected_launches(cfg) -> dict:
-    """Launches the loop implies: one local-step launch per update; one
-    row_mean per sync for the parameters and one per moment matrix; one
-    row_mean per epoch's server view and one for the final server row."""
+    """Launches the loop implies. Per local update: one local-step launch
+    (decay_accum for SGD, else the optimizer's); a dense fused gossip adds
+    one consensus_step (E without fusion), a sparse gossip a scale_rows
+    (decay_accum) and E consensus_gather, a compressed gossip a scale_rows
+    and one consensus_step (dense, P^E) or E consensus_gather (sparse). Per
+    sync: one row_mean for the parameters (one topk_scatter for a top-k
+    uplink) and one per moment matrix. One row_mean per epoch's server view
+    and one for the final server row."""
+    strat, opt = cfg.strategy, cfg.optimizer
     n_updates = cfg.n_epochs * cfg.updates_per_epoch
-    syncs = n_updates // cfg.strategy.tau
-    opt = cfg.optimizer
-    local = "decay_accum" if opt is None else f"{opt.kind}_update"
-    moments = 0 if opt is None else opt.n_moments
-    out = {k: 0 for k in FLAT_KERNELS}
-    out[local] = n_updates
-    out["row_mean"] = syncs * (1 + moments) + cfg.n_epochs + 1
+    syncs = n_updates // strat.tau
+    out = {k: 0 for k in TRAIN_KERNELS}
+    out["decay_accum" if opt is None else f"{opt.kind}_update"] += n_updates
+    out["row_mean"] += syncs * (0 if opt is None else opt.n_moments)
+    out["row_mean"] += cfg.n_epochs + 1
+    out["topk_scatter" if strat.comm.kind == "topk" else "row_mean"] += syncs
+    if hasattr(strat, "rounds"):                     # consensus
+        e = strat.rounds
+        if strat.sparse:
+            out["decay_accum"] += n_updates
+            out["consensus_gather"] += e * n_updates
+        elif strat.comm.enabled:
+            out["decay_accum"] += n_updates
+            out["consensus_step"] += n_updates
+        else:
+            out["consensus_step"] += (1 if strat.fused else e) * n_updates
     return out
 
 
-def _kernel_counts(dacc, fu) -> dict:
-    return dict(fu.launches, decay_accum=dacc.launches)
+def _kernel_counts(km) -> dict:
+    return dict(km.fu.launches, decay_accum=km.dacc.launches,
+                consensus_step=km.cs.launches,
+                consensus_gather=km.cg.launches,
+                topk_scatter=km.tks.launches)
 
 
-def _reset_counts(dacc, fu) -> None:
-    dacc.launches = 0
-    for k in fu.launches:
-        fu.launches[k] = 0
+def _reset_counts(km) -> None:
+    km.dacc.launches = km.cs.launches = km.cg.launches = 0
+    km.tks.launches = 0
+    for k in km.fu.launches:
+        km.fu.launches[k] = 0
 
 
 def _max_rel(a, b) -> float:
@@ -675,39 +866,28 @@ def _compare_runs(label, cfg, card_run, cpu_run) -> dict:
     return {"metrics_max_rel": worst_rel, "params_max_abs": worst_abs}
 
 
-def training_path(dacc, fu, _build, rl, core, optim, serve, card) -> dict:
-    # warm the card's libraries (cuBLAS, the generator) outside the counts
-    rl.run_fedrl(_train_cfg(rl, core, optim, "periodic", "sgd", 7, n_epochs=1,
-                            epoch_len=50), SEED, device="cuda")
-    torch.cuda.synchronize()
+def run_plan(phase, plan, km, _build, rl, core, optim, comm, card) -> dict:
+    """Drive one slice's training path: every configuration of ``plan``
+    ``(label, compare, kwargs of _train_cfg)`` as a seeded, timed run that
+    draws on the card (updates/sec), and, where ``compare``, again on draws
+    made on the host, on the card and on the CPU, which must agree. The
+    kernel counts are set to 0 just before the path and read just after;
+    every run's launches must equal the count the loop implies, with no
+    build on the hot path."""
     builds_before = _build.n_builds
-    runs, plan = [], []
-    for kind in ("periodic", "decay"):
-        for opt in ("sgd", "momentum", "adam"):
-            plan.append((f"m=7 shared env {kind} {opt}", True,
-                         (kind, opt, dict(m=7))))
-            plan.append((f"m=64 B=1 {kind} {opt}", True,
-                         (kind, opt, dict(m=64, B=1))))
-            plan.append((f"m=64 B=4 ppo2x2 {kind} {opt}", True,
-                         (kind, opt, dict(m=64, B=4, ppo_epochs=2,
-                                          n_minibatches=2))))
-            for m in TRAIN_FLEETS[1:]:
-                plan.append((f"m={m} B=1 {kind} {opt}", False,
-                             (kind, opt, dict(m=m, B=1))))
-    plan.append(("m=64 B=1 decay adam bf16", True,
-                 ("decay", "adam", dict(m=64, B=1, buffer_dtype="bfloat16"))))
+    total = {k: 0 for k in TRAIN_KERNELS}
+    by_m = {}
+    runs = []
 
     def card_run(label, cfg, draws):
-        """One ``run_fedrl`` on the card: its result, wall seconds and kernel
-        launches, the launches held to the count the loop implies."""
-        before = _kernel_counts(dacc, fu)
+        before = _kernel_counts(km)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, metrics, ledger = rl.run_fedrl(cfg, draws, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        after = _kernel_counts(dacc, fu)
-        got = {k: after[k] - before[k] for k in FLAT_KERNELS}
+        after = _kernel_counts(km)
+        got = {k: after[k] - before[k] for k in TRAIN_KERNELS}
         want = _expected_launches(cfg)
         if got != want:
             raise AssertionError(f"{label}: launches {got}, the loop implies "
@@ -715,32 +895,27 @@ def training_path(dacc, fu, _build, rl, core, optim, serve, card) -> dict:
         for k in metrics:
             if not np.all(np.isfinite(metrics[k])):
                 raise AssertionError(f"{label}: non-finite {k}: {metrics[k]}")
-        for k in FLAT_KERNELS:
+        for k in TRAIN_KERNELS:
             total[k] += got[k]
             by_m.setdefault(str(cfg.strategy.m),
-                            {kk: 0 for kk in FLAT_KERNELS})[k] += got[k]
+                            {kk: 0 for kk in TRAIN_KERNELS})[k] += got[k]
         return params, metrics, ledger, wall, got
 
-    _reset_counts(dacc, fu)                 # the training path starts here
-    total = {k: 0 for k in FLAT_KERNELS}
-    by_m = {}
+    _reset_counts(km)                      # the path starts here
     last_params = None
-    for label, compare, (kind, opt, kw) in plan:
+    for label, compare, kw in plan:
         kw = dict(kw)
-        m = kw.pop("m")
-        cfg = _train_cfg(rl, core, optim, kind, opt, m, **kw)
-        # timed: the seeded run, drawing on the card as a user's run does
+        cfg = _train_cfg(rl, core, optim, comm, **kw)
         params, metrics, ledger, wall, got = card_run(label, cfg, SEED)
         n_updates = cfg.n_epochs * cfg.updates_per_epoch
-        rec = {"label": label, "m": m, "B": cfg.B, "strategy": kind,
-               "optimizer": opt, "buffer_dtype": cfg.buffer_dtype,
+        rec = {"label": label, "m": cfg.strategy.m, "B": cfg.B,
+               "strategy": cfg.strategy.name, "comm": cfg.strategy.comm.label,
+               "optimizer": kw["opt"], "buffer_dtype": cfg.buffer_dtype,
                "updates": n_updates, "seconds": wall,
                "updates_per_sec": n_updates / wall, "launches": got,
                "metrics": {k: v.tolist() for k, v in metrics.items()},
                "ledger": ledger.table_row()}
         if compare:
-            # untimed: draws made on the host, replayed on the card and on
-            # the CPU
             draws = rl.replay_of(cfg, rl.TorchDraws(SEED, "cpu"))
             rp, rmet, _, _, rgot = card_run(f"{label} replayed", cfg, draws)
             cpu = rl.run_fedrl(cfg, draws, device="cpu")
@@ -751,20 +926,110 @@ def training_path(dacc, fu, _build, rl, core, optim, serve, card) -> dict:
         log(f"training {label}: {n_updates} updates in {wall!r} s = "
             f"{n_updates / wall!r} updates/s (seeded draws on the card, incl. "
             f"per-epoch eval); nas {metrics['nas'].tolist()} grad_sq "
-            f"{metrics['server_grad_sq_norm'].tolist()}; launches {got}"
+            f"{metrics['server_grad_sq_norm'].tolist()}; launches "
+            f"{ {k: v for k, v in got.items() if v} }"
             + (f"; replayed draws card vs CPU {rec['vs_cpu']}" if compare
                else "")
             + f" card=\"{card}\"")
-    launches = _kernel_counts(dacc, fu)        # read right after the path
+    launches = _kernel_counts(km)          # read right after the path
     if launches != total:
-        raise AssertionError(f"training launches {launches} != {total}")
+        raise AssertionError(f"{phase} launches {launches} != {total}")
     if _build.n_builds != builds_before:
-        raise AssertionError("a build on the training hot path")
+        raise AssertionError(f"a build on the {phase} hot path")
+    per_m = {}
+    for r in runs:
+        per_m.setdefault(r["label"].split(" ")[0] + (
+            f" B={r['B']}" if r["m"] == 64 and r["B"] > 1 else "")
+            + (" bf16" if r["buffer_dtype"] else ""), []).append(
+                r["updates_per_sec"])
+    n_cmp = sum("vs_cpu" in r for r in runs)
+    med = {k: statistics.median(v) for k, v in per_m.items()}
+    log(f"{phase}: {len(runs) + n_cmp} card runs ({len(runs)} seeded and "
+        f"timed, {n_cmp} on replayed draws held against the CPU), launches "
+        f"{launches} as the loop implies, no build; updates/s by m (median "
+        f"over the path's runs at that m): {med} card=\"{card}\"")
+    return {"runs": runs, "launches": launches, "launches_by_m": by_m,
+            "updates_per_sec_median": med, "last_params": last_params}
 
-    # the trained server parameters serve through slice 1's engine
+
+def training_plan() -> list:
+    """Slice 2's path: periodic and decay with SGD, momentum and Adam, at
+    m = 7 on the shared env and on fleets, and one bf16 run."""
+    plan = []
+    for kind in ("periodic", "decay"):
+        for opt in ("sgd", "momentum", "adam"):
+            base = dict(kind=kind, opt=opt)
+            plan.append((f"m=7 shared env {kind} {opt}", True,
+                         dict(base, m=7)))
+            plan.append((f"m=64 B=1 {kind} {opt}", True,
+                         dict(base, m=64, B=1)))
+            plan.append((f"m=64 B=4 ppo2x2 {kind} {opt}", True,
+                         dict(base, m=64, B=4, ppo_epochs=2, n_minibatches=2)))
+            for m in TRAIN_FLEETS[1:]:
+                plan.append((f"m={m} B=1 {kind} {opt}", False,
+                             dict(base, m=m, B=1)))
+    plan.append(("m=64 B=1 decay adam bf16", True,
+                 dict(kind="decay", opt="adam", m=64, B=1,
+                      buffer_dtype="bfloat16")))
+    return plan
+
+
+def consensus_plan() -> list:
+    """Slice 3's path: consensus at m = 7 on the Fig. 6 topologies
+    (``benchmarks/fmarl_bench.py:29-36``), E in {1, 2}, with SGD, momentum
+    and Adam; sparse by auto-selection and dense forced on k-NN rings at
+    m = 64 and 1024; compressed uplinks (top-k 584 = n // 16, int8 on decay
+    tau = 15 as ``benchmarks/compression_bench.py:59-69``) and top-k
+    gossip."""
+    plan = []
+    for topo in (("random_regularish", 7, 3, 4, 0),
+                 ("random_regularish", 7, 5, 6, 0)):
+        for rounds in (1, 2):
+            for opt in ("sgd", "momentum", "adam"):
+                plan.append((
+                    f"m=7 consensus rand{topo[2]}-{topo[3]} E={rounds} {opt}",
+                    True, dict(kind="consensus", opt=opt, m=7, topo=topo,
+                               eps="0.9/D", rounds=rounds)))
+    for m, k in ((64, 4), (1024, 8)):
+        for opt in ("sgd", "momentum", "adam"):
+            plan.append((f"m={m} B=1 consensus knn{k} sparse(auto) E=2 {opt}",
+                         m == 64, dict(kind="consensus", opt=opt, m=m, B=1,
+                                       topo=("knn_ring", m, k), eps=0.5 / 8,
+                                       rounds=2)))
+        plan.append((f"m={m} B=1 consensus knn{k} dense(forced) adam",
+                     m == 64, dict(kind="consensus", opt="adam", m=m, B=1,
+                                   topo=("knn_ring", m, k), eps=0.5 / 8,
+                                   sparse=False)))
+    plan += [
+        ("m=7 periodic topk584 momentum", True,
+         dict(kind="periodic", opt="momentum", m=7, payload=("topk", 584))),
+        ("m=7 decay(tau=15) int8 adam", True,
+         dict(kind="decay", opt="adam", m=7, lam=0.98, payload=("qint8",))),
+        ("m=7 consensus topk584-gossip sgd", True,
+         dict(kind="consensus", opt="sgd", m=7,
+              topo=("random_regularish", 7, 3, 4, 0), eps="0.9/D",
+              payload=("topk", 584))),
+        ("m=64 B=1 consensus knn4 sparse topk584-gossip E=2 adam", True,
+         dict(kind="consensus", opt="adam", m=64, B=1,
+              topo=("knn_ring", 64, 4), eps=0.5 / 8, rounds=2,
+              payload=("topk", 584))),
+    ]
+    return plan
+
+
+def training_path(km, _build, rl, core, optim, comm, serve, card) -> dict:
+    """Slice 2's path (``training_plan``), then the trained server
+    parameters served through slice 1's engine."""
+    # warm the card's libraries (cuBLAS, the generator) outside the counts
+    rl.run_fedrl(_train_cfg(rl, core, optim, comm, "periodic", "sgd", 7,
+                            n_epochs=1, epoch_len=50), SEED, device="cuda")
+    torch.cuda.synchronize()
+    out = run_plan("training", training_plan(), km, _build, rl, core, optim,
+                   comm, card)
+
     ckpt = os.path.join(ROOT, "build", "chip_smoke", "trained_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
-    serve.save_for_serving(ckpt, TRAIN_EPOCHS, last_params)
+    serve.save_for_serving(ckpt, TRAIN_EPOCHS, out.pop("last_params"))
     eng = serve.ServeEngine.from_checkpoint(ckpt, mode="mean", seed=SEED,
                                             device="cuda")
     ref = serve.ServeEngine.from_checkpoint(ckpt, mode="mean", seed=SEED,
@@ -776,23 +1041,19 @@ def training_path(dacc, fu, _build, rl, core, optim, serve, card) -> dict:
     if act.shape != (64, ACT_DIM) or not np.all(np.isfinite(act)) or \
             err > SERVE_ATOL:
         raise AssertionError(f"trained policy serving: {act.shape}, err {err}")
-    per_m = {}
-    for r in runs:
-        per_m.setdefault(str(r["m"]) + (f" B={r['B']}" if r["m"] == 64 else "")
-                         + (" bf16" if r["buffer_dtype"] else ""),
-                         []).append(r["updates_per_sec"])
-    n_cmp = sum("vs_cpu" in r for r in runs)
-    log(f"training: {len(runs) + n_cmp} card runs ({len(runs)} seeded and "
-        f"timed, {n_cmp} on replayed draws held against the CPU), launches "
-        f"{launches} as the loop implies, no "
-        f"build; trained policy served on the card (max err vs CPU {err!r}); "
-        f"updates/s by m (median over strategies x optimizers): "
-        f"{ {k: statistics.median(v) for k, v in per_m.items()} } "
-        f"card=\"{card}\"")
-    return {"runs": runs, "launches": launches, "launches_by_m": by_m,
-            "serve_max_abs_err": err,
-            "updates_per_sec_median": {k: statistics.median(v)
-                                       for k, v in per_m.items()}}
+    log(f"training: trained policy served on the card (max err vs CPU "
+        f"{err!r}) card=\"{card}\"")
+    out["serve_max_abs_err"] = err
+    return out
+
+
+def consensus_path(km, _build, rl, core, optim, comm, card) -> dict:
+    """Slice 3's path (``consensus_plan``): consensus gossip (dense fused,
+    dense forced, sparse by auto-selection) and compressed payloads."""
+    out = run_plan("consensus training", consensus_plan(), km, _build, rl,
+                   core, optim, comm, card)
+    out.pop("last_params")
+    return out
 
 
 # --- phase 8: flat kernel times and a profiled training window --------------------
@@ -809,35 +1070,47 @@ def l2_flusher():
     return lambda: torch.amax(buf)
 
 
-def cupti_ms(fn, flush, n: int = CUPTI_CALLS) -> float:
+def cupti_ms(fn, flush, n: int = CUPTI_CALLS,
+             windows: int = CUPTI_WINDOWS) -> float:
     """Device time per call by CUPTI: the device-side records of ``n`` calls
     in one ``torch.profiler`` window, less the device time of the ``n``
     flushes (the kernels launched under ``FLUSH_OP``), over ``n``. ``flush``
-    (or None) runs before each call to evict the L2."""
+    (or None) runs before each call to evict the L2.
+
+    A window whose device records came back empty or without the ``n``
+    flushes was lost by the tracer, not measured: it is taken again, up to
+    ``windows`` windows in all, and the loss is logged."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            if flush is not None:
-                flush()
-            fn()
-        torch.cuda.synchronize()
-    ev = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in ev
-               if e.device_type == DeviceType.CUDA)
-    ops = [e for e in ev
-           if e.key == FLUSH_OP and e.device_type == DeviceType.CPU]
-    flush_us = sum(e.device_time_total for e in ops)
-    if flush is not None and (sum(e.count for e in ops) != n
-                              or not 0 < flush_us < busy):
-        raise AssertionError(f"cannot tell the L2 flush apart: {len(ops)} "
-                             f"{FLUSH_OP} records, {flush_us} of {busy} us")
-    return (busy - flush_us) / n / 1e3
+    for window in range(1, windows + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in ev
+                   if e.device_type == DeviceType.CUDA)
+        ops = [e for e in ev
+               if e.key == FLUSH_OP and e.device_type == DeviceType.CPU]
+        flush_us = sum(e.device_time_total for e in ops)
+        if flush is None:
+            lost = f"{busy} us of device time" if busy <= 0 else None
+        elif sum(e.count for e in ops) != n or not 0 < flush_us < busy:
+            lost = (f"cannot tell the L2 flush apart: {len(ops)} {FLUSH_OP} "
+                    f"records, {flush_us} of {busy} us")
+        else:
+            lost = None
+        if lost is None:
+            return (busy - flush_us) / n / 1e3
+        log(f"cupti window {window} of {windows} lost: {lost}")
+    raise AssertionError(f"every CUPTI window was lost: {lost}")
 
 
 def flat_bound(name, m, n) -> tuple:
@@ -924,6 +1197,116 @@ def flat_times(dacc, fu, dispatch, training, card) -> dict:
     return rows
 
 
+def gossip_bound(name, m, n, k=None) -> tuple:
+    """Least time for the work of one call (fp32): bytes over the HBM rate
+    (each input read once, each output written once) against FLOP over the
+    fp32 rate."""
+    elems = m * n
+    nbytes, flops = {
+        "consensus_step": (4 * m * m + 8 * elems, 2 * m * m * n),
+        "consensus_gather": (8 * elems + 8 * m * (k or 0), 2 * (k or 0) * elems),
+        "topk_scatter": (8 * elems + 4 * n + 4 * m, 3 * elems),
+    }[name]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def gossip_csr(nl, w: torch.Tensor) -> torch.Tensor:
+    """The sparse ``(m, m)`` gossip matrix of neighbour list ``nl`` and its
+    weights ``w`` in CSR form, built once from each row's valid prefix (the
+    padding slots, weight 0 on the agent's own column, are left out):
+    ``torch.sparse.mm`` of it with ``g`` is the gather's library yardstick."""
+    valid = torch.tensor(nl.valid, device=w.device)
+    idx = torch.tensor(nl.idx, device=w.device, dtype=torch.int64)
+    crow = torch.zeros(nl.idx.shape[0] + 1, dtype=torch.int64, device=w.device)
+    crow[1:] = valid.sum(1).cumsum(0)
+    m = nl.idx.shape[0]
+    return torch.sparse_csr_tensor(crow, idx[valid], w[valid], size=(m, m),
+                                   check_invariants=True)
+
+
+def gossip_times(km, core, comm, consensus, card) -> dict:
+    """Kernel, plain and library device times of the three gossip and
+    compression kernels at the consensus path's shapes (the L2 flushed
+    before every call, and by CUPTI also warm)."""
+    cyc = sleep_cycles_per_ms()
+    flush = l2_flusher()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rows = {}
+    cases = []
+    for m, spec in ((1024, ("knn_ring", 1024, 8)),
+                    (7, ("random_regularish", 7, 3, 4, 0))):
+        topo = _topology(core, spec)
+        strat = core.make_strategy("consensus", tau=10, topo=topo,
+                                   eps=0.5 / topo.max_degree, sparse=False)
+        p = torch.tensor(strat.p_e_masked[0], device="cuda")
+        g = torch.randn(m, 9347, generator=gen, device="cuda")
+        out = torch.empty_like(g)
+        cases.append(("consensus_step", m, None,
+                      lambda g=g, p=p, out=out: km.cs.consensus_step_cuda(
+                          g, p, out=out),
+                      lambda g=g, p=p, out=out: km.cs.consensus_step_plain(
+                          g, p, out=out),
+                      lambda g=g, p=p, out=out: torch.matmul(p, g, out=out)))
+    for m, nl in ((1024, core.neighbor_list(core.knn_ring(1024, 8))),
+                  (10000, core.knn_ring_neighbors(10000, 8))):
+        idx = torch.tensor(nl.idx, device="cuda")
+        w = torch.tensor(core.neighbor_weights(nl, 0.5 / 8), device="cuda")
+        g = torch.randn(m, 9347, generator=gen, device="cuda")
+        out = torch.empty_like(g)
+        w_csr = gossip_csr(nl, w)
+        cases.append(("consensus_gather", m, nl.k_max,
+                      lambda g=g, i=idx, w=w, o=out:
+                          km.cg.consensus_gather_cuda(g, i, w, out=o),
+                      lambda g=g, i=idx, w=w, o=out:
+                          km.cg.consensus_gather_plain(g, i, w, out=o),
+                      lambda g=g, a=w_csr: torch.sparse.mm(a, g)))
+    for m in (1024, 7):
+        x = torch.randn(m, 9347, generator=gen, device="cuda")
+        t = comm.topk_threshold(x, 584)
+        cases.append(("topk_scatter", m, None,
+                      lambda x=x, t=t: km.tks.topk_scatter_cuda(x, t),
+                      lambda x=x, t=t: km.tks.topk_scatter_plain(x, t),
+                      None))
+    for name, m, k, kern, plain, lib in cases:
+        timed = lambda f: device_ms(f, cyc, flush)[0]
+        p1, k1, k2, p2 = timed(plain), timed(kern), timed(kern), timed(plain)
+        lib_ms = lib_err = None
+        if lib is not None:
+            lib_ms = (timed(lib) + timed(lib)) / 2
+            want = kern().clone()   # kernel and library may share `out`
+            got = lib()
+            lib_err = float((got.float() - want.float()).abs().max())
+            ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
+            log(f"library check {name} shape=({m}, 9347): max_abs_err="
+                f"{lib_err!r} (rtol 1e-5, atol 1e-5) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name}: the library yardstick computes "
+                                     f"another function (max_abs_err "
+                                     f"{lib_err!r})")
+        b_ms, b_by, nbytes, flops = gossip_bound(name, m, 9347, k)
+        on_path = consensus["launches_by_m"].get(str(m), {}).get(name, 0)
+        rec = {"shape": [m, 9347], "dtype": "float32", "k_max": k,
+               "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+               "library_ms": lib_ms, "library_max_abs_err": lib_err,
+               "cupti_ms": cupti_ms(kern, flush),
+               "plain_cupti_ms": cupti_ms(plain, flush),
+               "library_cupti_ms": cupti_ms(lib, flush) if lib else None,
+               "warm_l2_cupti_ms": cupti_ms(kern, None),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "flops": flops, "launches_on_path": on_path}
+        rows[f"{name}/{m}x9347"] = rec
+        log(f"time {name} shape=({m}, 9347) fp32 L2 flushed: kernel_ms="
+            f"{rec['ms']!r} (cupti {rec['cupti_ms']!r}; L2-warm cupti "
+            f"{rec['warm_l2_cupti_ms']!r}) plain_ms={rec['plain_ms']!r} "
+            f"(cupti {rec['plain_cupti_ms']!r}) library_ms={lib_ms!r} "
+            f"(cupti {rec['library_cupti_ms']!r}) bound_ms={b_ms!r} ({b_by}) "
+            f"launches_on_path(m={m})={on_path} card=\"{card}\"")
+    return rows
+
+
 def profile_training(rl, core, optim, card) -> dict:
     """One ``torch.profiler`` window over a short training run at m = 1024
     (4 local updates, 2 syncs, one eval; Adam): wall time, device busy time
@@ -977,12 +1360,17 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch.rl as rl
-    from repro_torch import core, optim, serve
+    from repro_torch import comm, core, optim, serve
     from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels import consensus_gather as cg
+    from repro_torch.kernels import consensus_step as cs
     from repro_torch.kernels import decay_accum as dacc
     from repro_torch.kernels import flat_update as fu
     from repro_torch.kernels import policy_infer as pinf
+    from repro_torch.kernels import topk_scatter as tks
     from repro_torch.rl import policy
+
+    km = types.SimpleNamespace(dacc=dacc, fu=fu, cs=cs, cg=cg, tks=tks)
 
     t_start = time.perf_counter()
     # 1. device
@@ -1023,11 +1411,18 @@ def main() -> int:
     # 6. flat kernels vs plain
     flat = flat_kernels_vs_plain(dacc, fu, dispatch)
 
-    # 7. the training path
-    training = training_path(dacc, fu, _build, rl, core, optim, serve, card)
+    # 6b. gossip and compression kernels vs plain
+    gossip = gossip_kernels_vs_plain(km, core, comm)
 
-    # 8. flat kernel times, a profiled training window
+    # 7. the training path (slice 2)
+    training = training_path(km, _build, rl, core, optim, comm, serve, card)
+
+    # 7b. the consensus and compression path (slice 3)
+    consensus = consensus_path(km, _build, rl, core, optim, comm, card)
+
+    # 8. kernel times, a profiled training window
     flat_rows = flat_times(dacc, fu, dispatch, training, card)
+    gossip_rows = gossip_times(km, core, comm, consensus, card)
     train_prof = profile_training(rl, core, optim, card)
 
     top = rows["mean/1024"]
@@ -1067,6 +1462,29 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "shape": {"m": m0, "n": n0, "dtype": "float32"},
         })
+    sources = {"consensus_step": "consensus_step.py:36",
+               "consensus_gather": "consensus_gather.py:51",
+               "topk_scatter": "topk_scatter.py:37"}
+    for name, tpu in sources.items():
+        r = gossip_rows[f"{name}/{m0}x{n0}"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{tpu}",
+            "launches": consensus["launches"][name],
+            "max_abs_err": gossip["max_abs_err"][name]["float32"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": {"m": m0, "n": n0, "dtype": "float32",
+                      "k_max": r["k_max"]},
+        })
+    if len(kernels) != 8 or any(k["launches"] < 1 for k in kernels):
+        raise AssertionError(f"kernels line: {len(kernels)} kernels, "
+                             f"launches {[k['launches'] for k in kernels]}")
     with open(os.path.join(ROOT, "build", "chip_smoke", "result.json"),
               "w") as f:
         json.dump({"card": card, "torch": torch.__version__,
@@ -1075,6 +1493,8 @@ def main() -> int:
                    "parity": parity, "serving": serving, "times": rows,
                    "profile": prof, "flat_parity": flat,
                    "training": training, "flat_times": flat_rows,
+                   "gossip_parity": gossip, "consensus_training": consensus,
+                   "gossip_times": gossip_rows,
                    "training_profile": train_prof,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,

@@ -1,15 +1,17 @@
 """Resource-cost ledger in units of C1/C2/W1/W2 (paper eqs. 7, 27; Table II).
 
-The counterpart of ``repro.core.accounting`` for the strategies the port has
-(dense payloads only: no compression yet).
+The counterpart of ``repro.core.accounting`` for the synchronous strategies
+(the async arrival billing is not ported yet).
 
 C1: one agent->server upload.                C2: one local update.
 W1: one neighbor->agent gossip receive.      W2: one gossip combine.
 
 The ledger counts events and, when told the payload size, wire bytes: each
-communication event (C1 uplink, W1 gossip receive) carries one dense fp32
-payload, ``payload_elems * 4`` bytes. A trailing partial period bills its
-events and bytes like the JAX ledger does.
+communication event (C1 uplink, W1 gossip receive) carries one encoded
+payload, whose size the strategy's payload transform gives
+(``AggregationStrategy.comm_bytes_per_event`` ->
+``PayloadTransform.payload_bytes``; dense fp32 is ``payload_elems * 4``). A
+trailing partial period bills its events and bytes like the JAX ledger does.
 """
 from __future__ import annotations
 

@@ -1,35 +1,104 @@
 """Aggregation strategies: the paper's methods on the flat ``(m, n)`` carry.
 
-The counterpart of ``repro.core.strategies`` for the synchronous
-mask/decay family. A strategy owns (a) the within-period weight applied at
-each local update (variation mask, times the decay factor for the decay
-method), (b) the variation masks I(tau_i > s - t0), and (c) the period length
-tau. The server averaging step (eq. 11) is the same for every strategy: the
-mean over the replica axis.
+The counterpart of ``repro.core.strategies``. A strategy owns (a) the
+within-period transform applied at each local update (the variation mask,
+times the decay factor for the decay method, or the consensus gossip mix),
+(b) the variation masks I(tau_i > s - t0), (c) the period length tau and
+(d) the payload transform ``comm`` (``repro_torch.comm``) applied to what it
+communicates. The server averaging step (eq. 11) is the same for every
+strategy: the mean over the replica axis.
 
 The hot path runs through the port's dispatch: the weighted SGD step is one
 ``decay_accum`` launch with ``d = -eta * w`` (the weight folds into the
-coefficient), the momentum/Adam steps one fused optimizer launch, and the
-period sync one ``row_mean`` launch whose row is copied back into every row
-of the carry. Where the buffers lie picks the path: the hand-written kernels
-on the card, the plain PyTorch versions on the CPU.
+coefficient), the momentum/Adam steps one fused optimizer launch, the dense
+gossip one ``consensus_step`` launch with the mask folded into ``P^E``, the
+sparse gossip E ``consensus_gather`` launches, and the period sync one
+``row_mean`` launch whose row is copied back into every row of the carry
+(one ``topk_scatter`` launch for a top-k uplink). Where the buffers lie
+picks the path: the hand-written kernels on the card, the plain PyTorch
+versions on the CPU. Every table a step reads (weights, mixing matrices,
+neighbour lists) is copied to a device once and kept there.
 
-Not ported yet: ``ConsensusStrategy`` (gossip, with ``core/topology.py`` and
-the consensus kernels) and ``AsyncStrategy``; ``make_strategy`` names the
-slice that brings each. The payload transforms of ``repro.comm`` are not
-ported either: every strategy here communicates dense fp32 rows.
+Not ported yet: ``AsyncStrategy``, ``with_mask`` (the sweeps' traced masks)
+and the tree-space transforms; ``make_strategy`` names the slice that
+brings async.
 """
 from __future__ import annotations
 
+import collections
+import copy
 import dataclasses
+import hashlib
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.comm.transforms import IDENTITY, PayloadTransform
 from repro_torch.core.decay import DecayFn, no_decay
+from repro_torch.core.topology import (
+    NeighborList,
+    Topology,
+    density,
+    mixing_matrix,
+    neighbor_list,
+    neighbor_weights_from_matrix,
+)
 from repro_torch.core.variation import masked_update_counts, validate_a2
 from repro_torch.kernels import dispatch
+
+
+# --- mixing-matrix power cache ---------------------------------------------------
+#
+# ConsensusStrategy needs P = I - eps*La (cheap) and, on the dense path, P^E via
+# np.linalg.matrix_power (O(m^3 log E)). Keyed by (adjacency digest, m, eps,
+# rounds) in a bounded LRU; P^E is filled lazily so sparse strategies never pay
+# the matrix power. Cache hits return the same ndarray objects.
+
+_POWER_CACHE_MAXSIZE = 32
+_POWER_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+
+
+def _topology_digest(topo: Topology) -> str:
+    return hashlib.sha1(
+        np.ascontiguousarray(topo.adj, np.int8).tobytes()
+    ).hexdigest()
+
+
+def clear_power_cache() -> None:
+    """Drop all cached mixing-matrix powers (tests)."""
+    _POWER_CACHE.clear()
+
+
+def mixing_powers(topo: Topology, eps: float, rounds: int, *,
+                  need_power: bool = True):
+    """Cached ``(P_float64, P_fp32, P^rounds_fp32)`` for one consensus config.
+
+    ``P^rounds`` is ``None`` until some caller passes ``need_power=True`` (the
+    dense path); it is computed from the fp32 ``P`` exactly as the JAX package
+    computes it, so the tables are identical.
+    """
+    key = (_topology_digest(topo), topo.m, float(eps), int(rounds))
+    entry = _POWER_CACHE.get(key)
+    if entry is None:
+        p64 = mixing_matrix(topo, eps)
+        entry = {"p64": p64, "p": p64.astype(np.float32), "p_e": None}
+        _POWER_CACHE[key] = entry
+        if len(_POWER_CACHE) > _POWER_CACHE_MAXSIZE:
+            _POWER_CACHE.popitem(last=False)
+    else:
+        _POWER_CACHE.move_to_end(key)
+    if need_power and entry["p_e"] is None:
+        entry["p_e"] = np.linalg.matrix_power(entry["p"], rounds).astype(
+            np.float32
+        )
+    return entry["p64"], entry["p"], entry["p_e"]
+
+
+# Sparse-path auto selection: gather beats the dense mix once the graph is
+# sparse AND the agent count is big enough for O(m*k) vs O(m^2) to matter.
+SPARSE_DENSITY_THRESHOLD = 0.25
+SPARSE_MIN_AGENTS = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,21 +109,59 @@ class AggregationStrategy:
       tau: local updates per period for the pacing agent (period length).
       taus: per-agent tau_i (A2); shape (m,).
       mask: (m, tau) float32 indicator I(tau_i > j) for period offset j.
+      comm: payload transform applied to what the strategy communicates
+        (``repro_torch.comm``): uplink deltas at the period sync and, on the
+        consensus path, the gossip payloads. The identity default keeps the
+        dense behaviour exactly; a compressed transform adds per-agent
+        error-feedback state to the run's ``comm_state``.
     """
 
     name: str
     tau: int
     taus: np.ndarray
     mask: np.ndarray
+    comm: PayloadTransform = IDENTITY
 
     @staticmethod
     def _build_mask(taus: np.ndarray, tau: int) -> np.ndarray:
         offs = np.arange(tau)[None, :]
         return (np.asarray(taus)[:, None] > offs).astype(np.float32)
 
+    def with_comm(self, comm: PayloadTransform) -> "AggregationStrategy":
+        """Copy with a replacement payload transform."""
+        if not isinstance(comm, PayloadTransform):
+            raise TypeError(
+                f"with_comm expects a PayloadTransform, got {type(comm).__name__}"
+            )
+        new = copy.copy(self)
+        object.__setattr__(new, "comm", comm)
+        new.__dict__.pop("_scratch", None)      # buffers are not shared
+        return new
+
     @property
     def m(self) -> int:
         return len(self.taus)
+
+    # --- tables on the device, scratch buffers -----------------------------------
+    def _on(self, name: str, table, device) -> torch.Tensor:
+        """The host table ``table()`` as a tensor on ``device``, copied once
+        per device and kept (a step never copies a table)."""
+        cache: Dict = self.__dict__.setdefault("_on_device", {})
+        key = (name, str(torch.device(device)))
+        if key not in cache:
+            cache[key] = torch.tensor(table(), device=device)
+        return cache[key]
+
+    def _buffers(self, like: torch.Tensor):
+        """Two preallocated buffers shaped like ``like``, for the gossip
+        rounds to ping-pong between (gossip cannot run in place)."""
+        cache: Dict = self.__dict__.setdefault("_scratch", {})
+        key = (tuple(like.shape), like.dtype, str(like.device))
+        if key not in cache:
+            cache[key] = tuple(torch.empty(like.shape, dtype=like.dtype,
+                                           device=like.device)
+                               for _ in range(2))
+        return cache[key]
 
     # --- per-step weights ---------------------------------------------------------
     def weight_table(self) -> np.ndarray:
@@ -65,11 +172,7 @@ class AggregationStrategy:
     def weights_on(self, device) -> torch.Tensor:
         """:meth:`weight_table` on ``device``, made once per device; row j
         is a contiguous ``(m,)`` view."""
-        cache: Dict = self.__dict__.setdefault("_weights_on", {})
-        key = str(torch.device(device))
-        if key not in cache:
-            cache[key] = torch.tensor(self.weight_table(), device=device)
-        return cache[key]
+        return self._on("weights", self.weight_table, device)
 
     def weight(self, offset: int, device="cpu") -> torch.Tensor:
         """Per-agent weight vector ``(m,)`` at period offset ``offset``."""
@@ -101,30 +204,80 @@ class AggregationStrategy:
         (fp32 accumulation, in ``flat.dtype``)."""
         return dispatch.row_mean(flat)
 
+    # --- comm layer (payload transforms + error feedback) -------------------------
+    def init_comm_state(self, flat: torch.Tensor) -> dict:
+        """Comm-layer state for a flat ``(m, n)`` run: ``{}`` when dense.
+
+        With a compressed ``comm``: ``ref``, the fp32 server reference the
+        uplink deltas are taken against (a copy of row 0: all replicas start
+        equal), plus the ``(m, n)`` fp32 ``err_up`` uplink error-feedback
+        accumulator when enabled.
+        """
+        if not self.comm.enabled:
+            return {}
+        state = {"ref": flat[0].to(torch.float32, copy=True)}
+        if self.comm.error_feedback:
+            state["err_up"] = torch.zeros(flat.shape, dtype=torch.float32,
+                                          device=flat.device)
+        return state
+
     def flat_local_step(self, flat: torch.Tensor, g: torch.Tensor,
-                        offset: int, eta: float, opt, opt_state: dict):
+                        offset: int, eta: float, opt, opt_state: dict,
+                        comm_state: dict):
         """One local step on the flat carry, in place: plain SGD
-        (``opt is None``) or the fused optimizer step. Returns
-        ``(flat, opt_state)`` with ``flat`` the same buffer, updated."""
+        (``opt is None``) or the fused optimizer step. The base strategies
+        communicate nothing within a period, so ``comm_state`` passes
+        through. Returns ``(flat, opt_state, comm_state)`` with ``flat`` the
+        same buffer, updated."""
         if opt is None:
             self.flat_update(flat, g, offset, eta, out=flat)
-            return flat, opt_state
-        return self.flat_opt_step(flat, g, offset, eta, opt, opt_state,
-                                  inplace=True)
+        else:
+            flat, opt_state = self.flat_opt_step(flat, g, offset, eta, opt,
+                                                 opt_state, inplace=True)
+        return flat, opt_state, comm_state
 
-    def flat_sync(self, flat: torch.Tensor) -> torch.Tensor:
-        """Period-boundary server sync, in place: the row mean (eq. 11) is
-        copied into every row of the contiguous carry (the JAX package
-        broadcasts; a stride-0 view here would alias every row of a buffer
-        the kernels later write in place). Returns ``flat``."""
-        row = self.flat_server_average(flat)
-        return flat.copy_(row[None, :].expand_as(flat))
+    def flat_sync(self, flat: torch.Tensor, comm_state: dict, *, period=None):
+        """Period-boundary server sync, in place; returns ``(flat,
+        comm_state)`` with ``flat`` the same buffer, every row the server row.
+
+        Dense (identity comm): eq. (11), the row mean copied into every row
+        of the contiguous carry (the JAX package broadcasts; a stride-0 view
+        here would alias every row of a buffer the kernels later write in
+        place). Compressed: each agent uplinks ``encode(flat_i - ref +
+        err_i)``; the server averages the reconstructions in fp32
+        (``PayloadTransform.reduce_mean``: the ``topk_scatter`` kernel for
+        top-k), advances ``ref`` by the mean payload, and the unsent
+        remainder becomes the next ``err_up``. ``period`` is the index of
+        the boundary; the synchronous strategies ignore it.
+        """
+        del period
+        if not self.comm.enabled:
+            row = self.flat_server_average(flat)
+            flat.copy_(row[None, :].expand_as(flat))
+            return flat, comm_state
+        ref = comm_state["ref"]
+        delta = flat.float() - ref[None, :]
+        if self.comm.error_feedback:
+            delta = delta + comm_state["err_up"]
+        mean_sent, residual = self.comm.reduce_mean(delta)
+        row = ref + mean_sent
+        new_state = dict(comm_state, ref=row)
+        if self.comm.error_feedback:
+            new_state["err_up"] = residual
+        flat.copy_(row.to(flat.dtype)[None, :].expand_as(flat))
+        return flat, new_state
+
+    def server_row(self, flat: torch.Tensor, comm_state: dict) -> torch.Tensor:
+        """The server's parameter row after a ``flat_sync``: every row is the
+        server row on the synchronous path, ``flat[0]`` by convention."""
+        del comm_state
+        return flat[0]
 
     # --- accounting ---------------------------------------------------------------
     def comm_bytes_per_event(self, payload_elems: int) -> dict:
         """Wire bytes of one C1 uplink / one W1 gossip receive of
-        ``payload_elems`` dense fp32 parameters."""
-        per = int(payload_elems) * 4
+        ``payload_elems`` parameters under the payload transform."""
+        per = self.comm.payload_bytes(payload_elems)
         return {"c1": per, "w1": per}
 
     def comm_events_per_period(self) -> dict:
@@ -207,38 +360,231 @@ class DecayStrategy(AggregationStrategy):
         return np.ascontiguousarray(self.mask.T * self.decay_weights[:, None])
 
 
-_LATER = {
-    "consensus": "the consensus slice (slice 3: core/topology.py and the "
-                 "consensus_step / consensus_gather kernels)",
-    "async": "the async-federation slice (core/async_fed.py)",
-}
+@dataclasses.dataclass(frozen=True)
+class ConsensusStrategy(AggregationStrategy):
+    """Consensus-based method (Alg. 2 / T5): E gossip rounds before each
+    local update.
+
+    Three forms, as in the JAX package:
+
+    * dense, fused (default): the E rounds are one precomputed ``P^E``, and
+      the variation mask is folded into its columns per period offset
+      (``p_e_masked``, ``(tau, m, m)``), so the masked gossip is ONE
+      ``consensus_step`` launch;
+    * dense, ``fused=False``: ``p_masked[offset]`` then ``rounds - 1`` mixes
+      by ``P`` (the paper's explicit loop);
+    * sparse (``density <= SPARSE_DENSITY_THRESHOLD and m >=
+      SPARSE_MIN_AGENTS``, or ``sparse=True``): no dense tables; the mask
+      is a ``scale_rows`` and the gossip E ``consensus_gather`` rounds over
+      the padded ``(m, k_max)`` neighbour list. ``nl_w`` gathers its weights
+      out of the float64 mixing matrix, so sparse and dense see the same
+      fp32 weights.
+
+    The mask is already folded into the gossip, so the optimizer step takes
+    the weight 1.0 (``weight`` stays the mask alone; consensus has no decay).
+    """
+
+    p_e: np.ndarray = dataclasses.field(default=None)   # (m, m) = P^E (dense)
+    p: np.ndarray = dataclasses.field(default=None)     # (m, m) = P
+    p_e_masked: np.ndarray = dataclasses.field(default=None)  # (tau, m, m)
+    p_masked: np.ndarray = dataclasses.field(default=None)    # (tau, m, m)
+    rounds: int = 1
+    fused: bool = True
+    topo: Topology = None
+    eps: float = 0.0
+    sparse: bool = False
+    nl: NeighborList = None                             # sparse neighbor layout
+    nl_w: np.ndarray = None                             # (m, k_max) P gathered
+
+    def __init__(self, tau: int, topo: Topology, eps: float, rounds: int = 1,
+                 taus=None, m: Optional[int] = None, fused: bool = True,
+                 sparse: Optional[bool] = None):
+        m = m if m is not None else topo.m
+        if taus is None:
+            taus = np.full(m, tau, int)
+        taus = np.asarray(taus, int)
+        validate_a2(taus, tau)
+        if topo.m != m:
+            raise ValueError("topology size must match agent count")
+        if sparse is None:
+            sparse = (density(topo) <= SPARSE_DENSITY_THRESHOLD
+                      and m >= SPARSE_MIN_AGENTS)
+        p64, p, p_e = mixing_powers(topo, eps, rounds, need_power=not sparse)
+        mask = self._build_mask(taus, tau)
+        set_ = lambda k, v: object.__setattr__(self, k, v)
+        set_("p", p)
+        set_("p_e", p_e)
+        set_("sparse", bool(sparse))
+        if sparse:
+            nl = neighbor_list(topo)
+            # the card's gather reads idx unchecked: check it once, here
+            if nl.idx.min() < 0 or nl.idx.max() >= m:
+                raise ValueError(f"neighbor list rows must lie in [0, {m})")
+            set_("nl", nl)
+            set_("nl_w", neighbor_weights_from_matrix(nl, p64))
+            set_("p_e_masked", None)
+            set_("p_masked", None)
+        else:
+            # mask-folded mixing per offset:
+            # (P^E @ diag(w_j))[i, l] = P^E[i, l] * w_j[l]
+            set_("nl", None)
+            set_("nl_w", None)
+            set_("p_e_masked", p_e[None, :, :] * mask.T[:, None, :])
+            set_("p_masked", p[None, :, :] * mask.T[:, None, :])
+        set_("rounds", rounds)
+        set_("fused", fused)
+        set_("topo", topo)
+        set_("eps", eps)
+        AggregationStrategy.__init__(
+            self,
+            name=(f"consensus(tau={tau},E={rounds},eps={eps:.3f}"
+                  + (",sparse)" if sparse else ")")),
+            tau=tau, taus=taus, mask=mask,
+        )
+
+    def _gossip(self, x: torch.Tensor, bufs) -> torch.Tensor:
+        """E sparse gossip rounds over the neighbour list, round r writing
+        ``bufs[(r + 1) % 2]`` (``x`` must not be ``bufs[1]``)."""
+        idx = self._on("idx", lambda: self.nl.idx, x.device)
+        w = self._on("nl_w", lambda: self.nl_w, x.device)
+        out = x
+        for r in range(self.rounds):
+            out = dispatch.consensus_gather(out, idx, w, out=bufs[(r + 1) % 2])
+        return out
+
+    def _transform(self, g: torch.Tensor, offset: int, bufs) -> torch.Tensor:
+        dev = g.device
+        if self.sparse:
+            # mask first (diag(w_j) commutes out of the product), then E
+            # O(m*k) gather rounds
+            x = dispatch.scale_rows(g, self.weight(offset, dev), out=bufs[0])
+            return self._gossip(x, bufs)
+        if self.fused:
+            mix = self._on("p_e_masked", lambda: self.p_e_masked, dev)
+            return dispatch.consensus_mix(g, mix[offset], out=bufs[0])
+        mix = self._on("p_masked", lambda: self.p_masked, dev)
+        out = dispatch.consensus_mix(g, mix[offset], out=bufs[0])
+        p = self._on("p", lambda: self.p, dev)
+        for r in range(self.rounds - 1):
+            out = dispatch.consensus_mix(out, p, out=bufs[(r + 1) % 2])
+        return out
+
+    def flat_update(self, params, g, offset, eta, *, out=None):
+        mixed = self._transform(g, offset, self._buffers(g))
+        return dispatch.decay_accum(params, mixed, -eta, out=out)
+
+    def flat_opt_step(self, params, g, offset, eta, opt, opt_state, *,
+                      inplace: bool = False):
+        """Masked gossip mix (mask folded into the mix) then the optimizer
+        pass with weight 1.0."""
+        mixed = self._transform(g, offset, self._buffers(g))
+        return opt.update(params, mixed, 1.0, opt_state, eta, inplace=inplace)
+
+    def init_comm_state(self, flat: torch.Tensor) -> dict:
+        """Adds the ``(m, n)`` fp32 gossip error-feedback accumulator
+        ``err_gossip``: the consensus path communicates every local step."""
+        state = AggregationStrategy.init_comm_state(self, flat)
+        if self.comm.enabled and self.comm.error_feedback:
+            state["err_gossip"] = torch.zeros(flat.shape, dtype=torch.float32,
+                                              device=flat.device)
+        return state
+
+    def flat_local_step(self, flat, g, offset, eta, opt, opt_state,
+                        comm_state):
+        """Gossip step with the broadcast payload compressed.
+
+        Each agent masks its gradient, folds in its gossip residual, encodes
+        once and broadcasts; the neighbours mix the reconstructions through
+        ``P^E`` (dense) or E gather rounds (sparse): compress-then-gossip,
+        one encode per agent per step whatever E. The unsent remainder
+        becomes the next residual. Identity comm takes the base step.
+        """
+        if not self.comm.enabled:
+            return AggregationStrategy.flat_local_step(
+                self, flat, g, offset, eta, opt, opt_state, comm_state)
+        dev = flat.device
+        x = dispatch.scale_rows(g.float(), self.weight(offset, dev))
+        if self.comm.error_feedback:
+            x = x + comm_state["err_gossip"]
+        payload, residual = self.comm.encode(x)
+        bufs = self._buffers(payload)
+        if self.sparse:
+            mixed = self._gossip(payload, bufs)
+        else:
+            mixed = dispatch.consensus_mix(
+                payload, self._on("p_e", lambda: self.p_e, dev), out=bufs[0])
+        if self.comm.error_feedback:
+            comm_state = dict(comm_state, err_gossip=residual)
+        mixed = mixed.to(flat.dtype)
+        if opt is None:
+            dispatch.decay_accum(flat, mixed, -eta, out=flat)
+        else:
+            flat, opt_state = opt.update(flat, mixed, 1.0, opt_state, eta,
+                                         inplace=True)
+        return flat, opt_state, comm_state
+
+    def comm_events_partial_period(self, n_offsets: int) -> dict:
+        base = AggregationStrategy.comm_events_partial_period(self, n_offsets)
+        gossip = int(self.topo.degrees.sum()) * self.rounds * int(n_offsets)
+        base["w1"] = gossip
+        base["w2"] = gossip
+        return base
+
+    def comm_events_per_period(self) -> dict:
+        base = AggregationStrategy.comm_events_per_period(self)
+        # every local iteration (tau of them; all agents listen even when
+        # their own g is masked to zero, Alg. 2 lines 14-17) costs |Omega_i|
+        # receives per round
+        gossip = int(self.topo.degrees.sum()) * self.rounds * self.tau
+        base["w1"] = gossip
+        base["w2"] = gossip
+        return base
 
 
 def make_strategy(kind: str, *, m: Optional[int] = None,
                   tau: Optional[int] = None, taus=None,
                   decay: Optional[DecayFn] = None,
-                  comm=None) -> AggregationStrategy:
-    """``sync`` (``m``), ``periodic`` (``tau`` and ``taus`` or ``m``) or
-    ``decay`` (the same, plus ``decay``), with the JAX package's keyword
-    names. A keyword the kind does not take raises ``TypeError``."""
-    if comm is not None:
+                  topo: Optional[Topology] = None, eps: Optional[float] = None,
+                  rounds: Optional[int] = None, fused: Optional[bool] = None,
+                  sparse: Optional[bool] = None,
+                  comm: Optional[PayloadTransform] = None
+                  ) -> AggregationStrategy:
+    """``sync`` (``m``), ``periodic`` (``tau`` and ``taus`` or ``m``),
+    ``decay`` (the same, plus ``decay``) or ``consensus`` (``tau``, ``topo``,
+    ``eps``; ``rounds`` = 1, ``fused`` = True and ``sparse`` = auto by
+    default; ``taus`` / ``m`` as for periodic), with the JAX package's
+    keyword names; ``comm`` sets the payload transform of any kind. A
+    keyword the kind does not take raises ``TypeError``."""
+    if kind == "async":
         raise NotImplementedError(
-            "make_strategy: payload compression (repro.comm) is not ported "
-            "yet; it comes with the compression slice")
-    if kind in _LATER:
-        raise NotImplementedError(
-            f"make_strategy: {kind!r} is not ported yet; it comes with "
-            f"{_LATER[kind]}")
-    if kind not in ("sync", "periodic", "decay"):
+            "make_strategy: 'async' is not ported yet; it comes with the "
+            "async-federation slice (core/async_fed.py)")
+    if kind not in ("sync", "periodic", "decay", "consensus"):
         raise ValueError(f"unknown strategy kind: {kind}")
     if decay is not None and kind != "decay":
         raise TypeError(f"make_strategy: {kind!r} takes no decay")
+    if kind != "consensus":
+        for name, v in (("topo", topo), ("eps", eps), ("rounds", rounds),
+                        ("fused", fused), ("sparse", sparse)):
+            if v is not None:
+                raise TypeError(f"make_strategy: {kind!r} takes no {name}")
     if kind == "sync":
         if tau is not None or taus is not None:
             raise TypeError("make_strategy: 'sync' takes m only (its tau is 1)")
-        return SyncStrategy(m=m)
-    if tau is None:
+        strat = SyncStrategy(m=m)
+    elif tau is None:
         raise TypeError(f"make_strategy: {kind!r} needs tau")
-    if kind == "periodic":
-        return PeriodicStrategy(tau=tau, taus=taus, m=m)
-    return DecayStrategy(tau=tau, taus=taus, m=m, decay=decay)
+    elif kind == "periodic":
+        strat = PeriodicStrategy(tau=tau, taus=taus, m=m)
+    elif kind == "decay":
+        strat = DecayStrategy(tau=tau, taus=taus, m=m, decay=decay)
+    else:
+        if topo is None or eps is None:
+            raise TypeError("make_strategy: 'consensus' needs topo and eps")
+        strat = ConsensusStrategy(
+            tau=tau, topo=topo, eps=eps, rounds=1 if rounds is None else rounds,
+            taus=taus, m=m, fused=True if fused is None else fused,
+            sparse=sparse)
+    if comm is not None:
+        strat = strat.with_comm(comm)
+    return strat

@@ -81,6 +81,24 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         _P,                              # stream
     ]
     lib.repro_adam_update.restype = _I
+    lib.repro_consensus_step.argtypes = [
+        _P, _P, _P,                      # P, G, out
+        _L, _L, _I,                      # m, n, dtype
+        _P,                              # stream
+    ]
+    lib.repro_consensus_step.restype = _I
+    lib.repro_consensus_gather.argtypes = [
+        _P, _P, _P, _P,                  # g, idx, w, out
+        _L, _L, _I, _I,                  # m, n, k_max, dtype
+        _P,                              # stream
+    ]
+    lib.repro_consensus_gather.restype = _I
+    lib.repro_topk_scatter.argtypes = [
+        _P, _P, _P, _P,                  # x, t, ssum, residual
+        _L, _L, _I,                      # m, n, dtype
+        _P,                              # stream
+    ]
+    lib.repro_topk_scatter.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

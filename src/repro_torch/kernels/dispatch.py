@@ -14,9 +14,11 @@ is none. There is no ``auto`` that drops to the CPU.
 
 The flat ``(m, n)`` primitives of the federated hot path (m agents by n
 parameters; ``decay_accum``, ``scale_rows``, ``row_mean``,
-``flat_opt_update``) raise the validation errors of the JAX dispatch. Every
-one computes in fp32 and casts back to the buffer's dtype, as
-``repro.kernels.dispatch`` does (its lines 32-35). The ``(S, m, n)`` sweep
+``flat_opt_update``, the gossip mixes ``consensus_mix`` and
+``consensus_gather`` and the compressed reduction ``topk_scatter``) raise
+the validation errors of the JAX dispatch. Every one computes in fp32 and
+casts back to the buffer's dtype, as ``repro.kernels.dispatch`` does (its
+lines 32-35). The ``(S, m, n)`` sweep
 shapes of the JAX dispatch are not ported yet and raise
 ``NotImplementedError``.
 """
@@ -27,6 +29,14 @@ from typing import Dict, List, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.kernels.consensus_gather import (
+    consensus_gather_cuda,
+    consensus_gather_plain,
+)
+from repro_torch.kernels.consensus_step import (
+    consensus_step_cuda,
+    consensus_step_plain,
+)
 from repro_torch.kernels.decay_accum import decay_accum_cuda, decay_accum_plain
 from repro_torch.kernels.flat_update import (
     adam_update_cuda,
@@ -40,6 +50,10 @@ from repro_torch.kernels.policy_infer import (
     PI_KEYS,
     policy_infer_cuda,
     policy_infer_plain,
+)
+from repro_torch.kernels.topk_scatter import (
+    topk_scatter_cuda,
+    topk_scatter_plain,
 )
 
 OPT_KINDS = ("sgd", "momentum", "adam")
@@ -291,6 +305,104 @@ def row_mean(g: torch.Tensor, *,
     if _is_cuda(g):
         return row_mean_cuda(g, out=out)
     return row_mean_plain(g, out=out)
+
+
+def consensus_mix(g: torch.Tensor, mixing, *,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One (possibly fused-E, possibly mask-folded) gossip mix: ``mixing @ g``.
+
+    ``g``: ``(m, n)`` flat grads; ``mixing``: ``(m, m)``, cast to fp32 on
+    ``g``'s device. Accumulates in fp32 (no TF32) and casts back to
+    ``g.dtype``. ``out`` receives the result and must not be ``g``.
+    """
+    _no_sweep("consensus_mix", g)
+    if g.ndim != 2:
+        raise ValueError(f"consensus_mix: g must be (m, n), got "
+                         f"{tuple(g.shape)}")
+    m = g.shape[0]
+    mixing = torch.as_tensor(mixing, device=g.device)
+    if tuple(mixing.shape) != (m, m):
+        raise ValueError(
+            f"consensus_mix: mixing must be ({m}, {m}) for g {tuple(g.shape)}, "
+            f"got {tuple(mixing.shape)}"
+        )
+    mixing = mixing.to(torch.float32).contiguous()
+    if _is_cuda(g):
+        return consensus_step_cuda(g, mixing, out=out)
+    return consensus_step_plain(g, mixing, out=out)
+
+
+def consensus_gather(g: torch.Tensor, idx, w, *,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One sparse neighbor-list gossip round: ``out[i] = sum_k w[i,k] *
+    g[idx[i,k]]``.
+
+    ``g``: ``(m, n)`` flat grads; ``idx``: ``(m, k_max)`` integer neighbor
+    ids in the ``NeighborList`` layout (ascending valid prefix, self
+    included, padding = own row); ``w``: ``(m, k_max)`` edge weights, 0.0 on
+    padding. The sum is the sequential fp32 chain in ascending k on both
+    paths, cast back to ``g.dtype``. An ``idx`` handed over on the host
+    (numpy or a CPU tensor) is range-checked before it moves to the card; a
+    CUDA ``idx`` is taken as it is (checked once, when it was built). ``out``
+    receives the result and must not be ``g``.
+    """
+    _no_sweep("consensus_gather", g)
+    on_host = not (isinstance(idx, torch.Tensor) and idx.device.type == "cuda")
+    idx = torch.as_tensor(idx)
+    if idx.ndim != 2 or idx.dtype.is_floating_point or idx.dtype == torch.bool:
+        raise ValueError(
+            f"consensus_gather: idx must be an (m, k_max) integer array, got "
+            f"shape {tuple(idx.shape)} dtype {idx.dtype}"
+        )
+    if g.ndim != 2:
+        raise ValueError(f"consensus_gather: g must be (m, n), got "
+                         f"{tuple(g.shape)}")
+    m = g.shape[0]
+    if idx.shape[0] != m:
+        raise ValueError(
+            f"consensus_gather: idx must be ({m}, k_max) for g "
+            f"{tuple(g.shape)}, got {tuple(idx.shape)}"
+        )
+    w = torch.as_tensor(w, dtype=torch.float32, device=g.device)
+    if w.shape != idx.shape:
+        raise ValueError(
+            f"consensus_gather: w must match idx {tuple(idx.shape)}, got "
+            f"{tuple(w.shape)}"
+        )
+    if on_host and idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= m):
+        raise ValueError(f"consensus_gather: idx rows must lie in [0, {m})")
+    if _is_cuda(g):
+        idx = idx.to(device=g.device, dtype=torch.int32).contiguous()
+        return consensus_gather_cuda(g, idx, w.contiguous(), out=out)
+    return consensus_gather_plain(g, idx, w, out=out)
+
+
+def topk_scatter(x: torch.Tensor, thresh
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused top-k select + scatter-accumulate: the compressed server
+    reduction.
+
+    ``x``: ``(m, n)`` payload rows; ``thresh``: ``(m,)`` per-agent magnitude
+    thresholds (normally ``repro_torch.comm.topk_threshold(x, k)``).
+    Selection keeps ``|x| >= thresh`` with ties included. Returns
+    ``(sent_sum, residual)``: the ``(n,)`` fp32 sum of the selected entries
+    over agents, cast to ``x.dtype``, and the ``(m, n)`` unselected remainder
+    (``sent + residual == x`` exactly).
+    """
+    _no_sweep("topk_scatter", x)
+    if x.ndim != 2:
+        raise ValueError(f"topk_scatter: x must be (m, n), got "
+                         f"{tuple(x.shape)}")
+    m = x.shape[0]
+    thresh = torch.as_tensor(thresh, dtype=torch.float32, device=x.device)
+    if tuple(thresh.shape) != (m,):
+        raise ValueError(
+            f"topk_scatter: thresh must be ({m},) for x {tuple(x.shape)}, "
+            f"got {tuple(thresh.shape)}"
+        )
+    if _is_cuda(x):
+        return topk_scatter_cuda(x, thresh.contiguous())
+    return topk_scatter_plain(x, thresh)
 
 
 def _check_opt_state(state, required, params, kind):

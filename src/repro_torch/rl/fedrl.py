@@ -35,8 +35,14 @@ The random draws come from a draw source (``repro_torch.rl.draws``): a seed
 makes a :class:`~repro_torch.rl.draws.TorchDraws` on the run's device; a
 :class:`~repro_torch.rl.draws.ReplayDraws` replays given arrays.
 
-Not ported yet: the tree-space carry (the port keeps the flat one only), the
-consensus and async strategies, and compressed payloads.
+The strategy's communication state (``comm_state``: the server reference
+and the error-feedback residuals of a compressed payload transform) is
+threaded through the loop beside the optimizer state, as in the JAX flat
+driver; the ledger and the bytes curve bill each event at the transform's
+``payload_bytes``.
+
+Not ported yet: the tree-space carry (the port keeps the flat one only) and
+the async strategy.
 """
 from __future__ import annotations
 
@@ -368,6 +374,7 @@ def run_fedrl(cfg: FedRLConfig,
     if dtype is not None:
         flat = flat.to(dtype)
     opt_state = opt.init(flat) if opt is not None else {}
+    comm_state = strat.init_comm_state(flat)
     # the dynamics on the device once per run: (m,)-stacked rows on the
     # fleet, the shared env's 0-d defaults otherwise
     if cfg.env_params is not None:
@@ -390,12 +397,13 @@ def run_fedrl(cfg: FedRLConfig,
             with record_function("fedrl.local_step"):
                 if dtype is not None:
                     g = g.to(dtype)
-                flat, opt_state = strat.flat_local_step(flat, g, k % tau,
-                                                        cfg.eta, opt, opt_state)
+                flat, opt_state, comm_state = strat.flat_local_step(
+                    flat, g, k % tau, cfg.eta, opt, opt_state, comm_state)
             k += 1
             if k % tau == 0:
                 with record_function("fedrl.sync"):
-                    strat.flat_sync(flat)
+                    flat, comm_state = strat.flat_sync(
+                        flat, comm_state, period=k // tau - 1)
                     server_average_state(strat, opt_state)
             nas.append(r)
             loss.append(losses.mean())

@@ -13,11 +13,25 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import exponential_decay, make_strategy, uniform_taus
+from repro_torch import comm
+from repro_torch.core import (
+    exponential_decay,
+    knn_ring,
+    make_strategy,
+    mixing_matrix,
+    neighbor_list,
+    neighbor_weights,
+    neighbor_weights_from_matrix,
+    random_regularish,
+    uniform_taus,
+)
+from repro_torch.kernels import consensus_gather as cg
+from repro_torch.kernels import consensus_step as cs
 from repro_torch.kernels import decay_accum as dacc
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import flat_update as fu
 from repro_torch.kernels import policy_infer as pinf
+from repro_torch.kernels import topk_scatter as tks
 from repro_torch.optim import flat_adam, flat_momentum
 from repro_torch.rl import FIGURE_EIGHT, FedRLConfig, TorchDraws, replay_of, run_fedrl
 from repro_torch.rl.policy import init_policy
@@ -233,3 +247,135 @@ def test_run_fedrl_on_the_card_matches_the_cpu_run(card, opt):
     syncs, moments = 8 // 3, {None: 0, "momentum": 1, "adam": 2}[opt]
     assert after["row_mean"] - before["row_mean"] == \
         syncs * (1 + moments) + cfg.n_epochs + 1
+
+
+# --- the gossip and compression kernels ----------------------------------------------
+#
+# consensus_step sums in ascending l with separate fp32 roundings; torch's
+# matmul (the plain version) sums in another order: |kernel - plain| <=
+# m * 2^-23 * (|P| @ |G32|) + one ulp of the output dtype. It is bitwise
+# equal to consensus_gather over the full neighbour list with P's entries as
+# weights. consensus_gather and topk_scatter's residual are bitwise equal to
+# their plain versions; topk_scatter's sum is within m * 2^-24 * sum_i
+# |sent[i, j]| + one ulp of the dtype.
+
+
+def _gossip_case(m, n, dtype, seed, card):
+    topo = knn_ring(m, 4) if m >= 5 else None
+    if topo is None:
+        p = torch.rand(m, m, generator=torch.Generator().manual_seed(seed))
+    else:
+        p = torch.tensor(mixing_matrix(topo, 0.5 / topo.max_degree),
+                         dtype=torch.float32)
+    return p.to(card), _buf((m, n), dtype, seed, card), topo
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=str)
+@pytest.mark.parametrize("m, n", [(7, 9347), (64, 4097), (5, 4097), (1, 1)])
+def test_consensus_step_kernel_matches_plain(card, m, n, dtype):
+    p, g, topo = _gossip_case(m, n, dtype, 11, card)
+    want = cs.consensus_step_plain(g, p)
+    before = cs.launches
+    got = cs.consensus_step_cuda(g, p)
+    torch.cuda.synchronize()
+    assert cs.launches == before + 1 and got.dtype == dtype
+    bound = m * 2.0 ** -23 * (p.abs() @ g.float().abs())
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= bound + torch.finfo(dtype).eps * want.float().abs()
+                 ).all()), err.max().item()
+    if topo is not None:      # bitwise equal to the full-list gather
+        full = neighbor_list(topo, k_max=m)
+        w = torch.tensor(neighbor_weights_from_matrix(
+            full, mixing_matrix(topo, 0.5 / topo.max_degree)), device=card)
+        idx = torch.tensor(full.idx, device=card)
+        assert torch.equal(cg.consensus_gather_cuda(g, idx, w), got)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=str)
+@pytest.mark.parametrize("case", ["knn_ring(64,4)", "padded rand(40)"])
+def test_consensus_gather_kernel_matches_plain_bitwise(card, case, dtype):
+    if case.startswith("knn"):
+        nl = neighbor_list(knn_ring(64, 4))
+        eps = 0.1
+    else:
+        nl = neighbor_list(random_regularish(40, 3, 5, 2), k_max=12)
+        eps = 0.05
+    idx = torch.tensor(nl.idx, device=card)
+    w = torch.tensor(neighbor_weights(nl, eps), device=card)
+    g = _buf((nl.m, 9347), dtype, 12, card)
+    want = cg.consensus_gather_plain(g, idx, w)
+    before = cg.launches
+    out = torch.empty_like(g)
+    got = cg.consensus_gather_cuda(g, idx, w, out=out)
+    torch.cuda.synchronize()
+    assert cg.launches == before + 1 and got.data_ptr() == out.data_ptr()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=str)
+@pytest.mark.parametrize("case", ["plain", "ties", "zero row"])
+@pytest.mark.parametrize("m", [7, 1024])
+def test_topk_scatter_kernel_matches_plain(card, m, case, dtype):
+    x = _buf((m, 9347), torch.float32, 13, card)
+    if case == "ties":
+        x = torch.round(x * 4) / 4
+    if case == "zero row":
+        x[3] = 0.0
+    x = x.to(dtype)
+    t = comm.topk_threshold(x.float(), 584)
+    want_sum, want_res = tks.topk_scatter_plain(x, t)
+    before = tks.launches
+    got_sum, got_res = tks.topk_scatter_cuda(x, t)
+    torch.cuda.synchronize()
+    assert tks.launches == before + 1
+    assert torch.equal(got_res, want_res)
+    x32 = x.float()
+    sent = torch.where(x32.abs() >= t[:, None], x32, 0.0)
+    bound = m * 2.0 ** -24 * sent.abs().sum(0) + \
+        torch.finfo(dtype).eps * want_sum.float().abs()
+    assert bool(((got_sum.float() - want_sum.float()).abs() <= bound).all())
+
+
+def test_gossip_kernels_refuse_what_they_do_not_take(card):
+    p, g, _ = _gossip_case(7, 64, torch.float32, 0, card)
+    with pytest.raises(ValueError, match="in place"):
+        cs.consensus_step_cuda(g, p, out=g)
+    with pytest.raises(TypeError):
+        cs.consensus_step_cuda(g, p.double())
+    nl = neighbor_list(knn_ring(7, 2))
+    idx = torch.tensor(nl.idx, device=card)
+    w = torch.tensor(neighbor_weights(nl, 0.1), device=card)
+    with pytest.raises(TypeError):
+        cg.consensus_gather_cuda(g, idx.long(), w)
+    with pytest.raises(ValueError, match="in place"):
+        cg.consensus_gather_cuda(g, idx, w, out=g)
+    with pytest.raises(TypeError):
+        tks.topk_scatter_cuda(g, torch.zeros(7, device=card).double())
+
+
+@pytest.mark.parametrize("case", ["dense", "sparse-E2", "topk-gossip"])
+def test_consensus_run_on_the_card_matches_the_cpu_run(card, case):
+    topo = random_regularish(7, 3, 4, 0)
+    kw = dict(tau=3, topo=topo, eps=0.9 / topo.max_degree)
+    if case == "sparse-E2":
+        kw.update(rounds=2, sparse=True)
+    if case == "topk-gossip":
+        kw.update(comm=comm.topk(584))
+    strat = make_strategy("consensus", **kw)
+    cfg = FedRLConfig(env=FIGURE_EIGHT, strategy=strat, eta=5e-3, n_epochs=2,
+                      epoch_len=40, minibatch=10, optimizer=flat_adam())
+    draws = replay_of(cfg, TorchDraws(0, "cpu"))
+    before = (cs.launches, cg.launches, tks.launches)
+    gpu_p, gpu_m, _ = run_fedrl(cfg, draws, device="cuda")
+    cpu_p, cpu_m, _ = run_fedrl(cfg, draws, device="cpu")
+    for k in cpu_m:
+        np.testing.assert_allclose(gpu_m[k], cpu_m[k], rtol=1e-4)
+    for h in ("pi", "vf"):
+        for k in cpu_p[h]:
+            np.testing.assert_allclose(gpu_p[h][k].detach().cpu().numpy(),
+                                       cpu_p[h][k].detach().numpy(), atol=1e-4)
+    got = tuple(a - b for a, b in zip((cs.launches, cg.launches, tks.launches),
+                                      before))
+    want = {"dense": (8, 0, 0), "sparse-E2": (0, 16, 0),
+            "topk-gossip": (8, 0, 8 // 3)}[case]
+    assert got == want

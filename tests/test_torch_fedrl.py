@@ -8,7 +8,9 @@ key the JAX driver uses for it (``fedrl.py:410, :473, :427``; the legacy
 rollout's ``split(sub, m)`` action keys, the fleet's ``split(sub, m * B)`` /
 ``split(k, n_rl)``; ``ppo.py:117``'s ``split(key, epochs)`` permutations).
 Short runs (2 epochs of 4 updates on FIGURE_EIGHT), so that no crash flip
-separates the two trajectories.
+separates the two trajectories: sync, periodic and decay, dense and sparse
+consensus (E = 1 and 2) with SGD, momentum and Adam, and compressed runs
+(a top-k uplink with error feedback, an int8 uplink, top-k gossip).
 
 Tolerances: the per-epoch ``nas``, ``loss`` and ``server_grad_sq_norm``
 within rtol 1e-4 (the figure ``tests/test_flat_loop.py`` allows between the
@@ -24,7 +26,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro import comm as jcomm
 from repro.core import make_strategy as jmake
+from repro.core import topology as jtop
 from repro.core.decay import exponential_decay as jexp
 from repro.optim.flat import flat_adam as jadam
 from repro.optim.flat import flat_momentum as jmom
@@ -33,7 +37,9 @@ from repro.rl import FedRLConfig as JConfig
 from repro.rl import run_fedrl as jrun
 from repro.rl.env import OBS_DIM
 from repro.rl.policy import init_policy as jinit
+from repro_torch import comm as tcomm
 from repro_torch.core import exponential_decay as texp
+from repro_torch.core import topology as ttop
 from repro_torch.core import make_strategy as tmake
 from repro_torch.optim import flat_adam, flat_momentum
 from repro_torch.rl import FIGURE_EIGHT as TF8
@@ -96,15 +102,26 @@ def jax_draws(cfg, key):
     return init, resets, noises, perm_draws, ev
 
 
-def _configs(kind, opt, m=7, backend="jnp", **kw):
-    skw = dict(tau=3, m=m)
+def _configs(kind, opt, m=7, backend="jnp", comm=None, gossip=None, **kw):
+    """The same run for both packages. ``comm``: ``(transform factory,
+    *args)`` of a payload transform; consensus runs on
+    ``random_regularish(m, 3, 4, seed=0)`` with eps = 0.9 / Delta and the
+    keywords ``gossip`` (``rounds``, ``sparse``)."""
+    jkw, tkw = dict(tau=3, m=m), dict(tau=3, m=m)
+    if kind == "sync":                  # sync takes m only
+        del jkw["tau"], tkw["tau"]
+    if comm is not None:
+        jkw["comm"] = getattr(jcomm, comm[0])(*comm[1:])
+        tkw["comm"] = getattr(tcomm, comm[0])(*comm[1:])
     if kind == "decay":
-        js = jmake("decay", decay=jexp(0.95), backend=backend, **skw)
-        ts = tmake("decay", decay=texp(0.95), **skw)
-    else:
-        if kind == "sync":                  # sync takes m only
-            skw.pop("tau")
-        js, ts = jmake(kind, backend=backend, **skw), tmake(kind, **skw)
+        jkw["decay"], tkw["decay"] = jexp(0.95), texp(0.95)
+    if kind == "consensus":
+        jkw["topo"] = jtop.random_regularish(m, 3, 4, 0)
+        tkw["topo"] = ttop.random_regularish(m, 3, 4, 0)
+        jkw["eps"] = tkw["eps"] = 0.9 / tkw["topo"].max_degree
+        jkw.update(gossip or {})
+        tkw.update(gossip or {})
+    js, ts = jmake(kind, backend=backend, **jkw), tmake(kind, **tkw)
     jo = {"adam": jadam(), "momentum": jmom(0.9), None: None}[opt]
     to = {"adam": flat_adam(), "momentum": flat_momentum(0.9), None: None}[opt]
     common = dict(n_epochs=2, epoch_len=40, minibatch=10, eta=5e-3, **kw)
@@ -122,6 +139,22 @@ CASES = {
                                  ppo_epochs=2, n_minibatches=2),
     "interpret-decay-adam": dict(kind="decay", opt="adam",
                                  backend="interpret"),
+    "consensus-E1-sgd": dict(kind="consensus", opt=None),
+    "consensus-E1-momentum": dict(kind="consensus", opt="momentum"),
+    "consensus-E1-adam": dict(kind="consensus", opt="adam"),
+    "consensus-E2-sgd": dict(kind="consensus", opt=None,
+                             gossip=dict(rounds=2)),
+    "consensus-E2-momentum": dict(kind="consensus", opt="momentum",
+                                  gossip=dict(rounds=2)),
+    "consensus-E2-adam": dict(kind="consensus", opt="adam",
+                              gossip=dict(rounds=2)),
+    "consensus-sparse-E2-adam": dict(kind="consensus", opt="adam",
+                                     gossip=dict(rounds=2, sparse=True)),
+    "periodic-topk584-momentum": dict(kind="periodic", opt="momentum",
+                                      comm=("topk", 584)),
+    "decay-int8-adam": dict(kind="decay", opt="adam", comm=("qint8",)),
+    "consensus-topk584-sgd": dict(kind="consensus", opt=None,
+                                  comm=("topk", 584)),
 }
 
 

@@ -37,7 +37,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                 "kernels.flat_update", "kernels.dispatch", "optim.flat",
                 "core.variation", "core.decay", "core.accounting",
                 "core.strategies", "rl.env", "rl.policy", "rl.ppo",
-                "rl.rollout", "rl.draws", "rl.fedrl"):
+                "rl.rollout", "rl.draws", "rl.fedrl", "core.topology",
+                "core.consensus", "comm", "comm.transforms",
+                "kernels.consensus_step", "kernels.consensus_gather",
+                "kernels.topk_scatter"):
         assert f"repro_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"

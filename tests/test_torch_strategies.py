@@ -14,16 +14,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro import comm as jcomm
 from repro.core import decay as jdecay
+from repro.core import topology as jtop
 from repro.core import strategies as jstrat
 from repro.core import variation as jvar
 from repro.core.accounting import CostLedger as JLedger
 from repro.rl import FIGURE_EIGHT as JF8
 from repro.rl import fedrl as jfed
 from repro.optim.flat import flat_adam as jadam
+from repro_torch import comm as tcomm
 from repro_torch.core import accounting as tacc
 from repro_torch.core import decay as tdecay
 from repro_torch.core import strategies as tstrat
+from repro_torch.core import topology as ttop
 from repro_torch.core import variation as tvar
 from repro_torch.optim import flat_adam, server_average_state
 from repro_torch.rl import FIGURE_EIGHT as TF8
@@ -95,7 +99,29 @@ def test_decay_a3_check_is_kept():
 
 def _pairs():
     taus = jvar.uniform_taus(1, 6, 5, seed=1)
+    jt, tt = jtop.random_regularish(5, 2, 3, 1), ttop.random_regularish(5, 2, 3, 1)
     return {
+        "consensus": (jstrat.make_strategy("consensus", tau=6, taus=taus,
+                                           topo=jt, eps=0.15, rounds=2),
+                      tstrat.make_strategy("consensus", tau=6, taus=taus,
+                                           topo=tt, eps=0.15, rounds=2)),
+        "consensus-topk": (
+            jstrat.make_strategy("consensus", tau=6, taus=taus, topo=jt,
+                                 eps=0.15, comm=jcomm.topk(100)),
+            tstrat.make_strategy("consensus", tau=6, taus=taus, topo=tt,
+                                 eps=0.15, comm=tcomm.topk(100))),
+        "periodic-int8": (
+            jstrat.make_strategy("periodic", tau=6, taus=taus,
+                                 comm=jcomm.qint8()),
+            tstrat.make_strategy("periodic", tau=6, taus=taus,
+                                 comm=tcomm.qint8())),
+        "decay-bf16": (
+            jstrat.make_strategy("decay", tau=6, taus=taus,
+                                 decay=jdecay.exponential_decay(0.9),
+                                 comm=jcomm.qbf16()),
+            tstrat.make_strategy("decay", tau=6, taus=taus,
+                                 decay=tdecay.exponential_decay(0.9),
+                                 comm=tcomm.qbf16())),
         "sync": (jstrat.make_strategy("sync", m=5),
                  tstrat.make_strategy("sync", m=5)),
         "periodic": (jstrat.make_strategy("periodic", tau=6, taus=taus),
@@ -127,8 +153,9 @@ def test_strategy_weights_and_flat_seams_match_jax(kind):
     assert ts.comm_events_per_period() == js.comm_events_per_period()
     # the sync is a copy of the row mean into every row of the carry
     flat = torch.tensor(p)
-    out = ts.flat_sync(flat)
-    assert out is flat and flat.is_contiguous() and flat.stride() == (33, 1)
+    out, state = ts.flat_sync(flat, {})
+    assert out is flat and state == {}
+    assert flat.is_contiguous() and flat.stride() == (33, 1)
     want, _ = js.flat_sync(jnp.asarray(p), {})
     np.testing.assert_allclose(flat.numpy(), np.asarray(want), rtol=ULP)
     flat[0, 0] = 7.0                     # rows are separate storage
@@ -142,18 +169,27 @@ def test_local_step_and_moment_sync_in_place():
     state = opt.init(flat)
     mu = state["mu"]
     g = torch.randn(4, 10)
-    out, state = ts.flat_local_step(flat, g, 0, 1e-2, opt, state)
+    comm_state = ts.init_comm_state(flat)
+    out, state, cs = ts.flat_local_step(flat, g, 0, 1e-2, opt, state,
+                                        comm_state)
     assert out is flat and state["mu"] is mu and state["t"] == 1
+    assert cs is comm_state == {}
     server_average_state(ts, state)
     assert state["mu"] is mu and torch.allclose(mu, mu.mean(0).expand(4, 10))
     before = flat.clone()
-    ts.flat_local_step(flat, g, 1, 1e-2, None, {})
+    ts.flat_local_step(flat, g, 1, 1e-2, None, {}, {})
     assert not torch.equal(before, flat)
 
 
 def test_make_strategy_names_the_slices_still_to_come():
-    with pytest.raises(NotImplementedError, match="consensus slice"):
+    # consensus and compression are ported: a consensus strategy needs its
+    # topology and step size, and any kind takes a payload transform
+    with pytest.raises(TypeError, match="needs topo and eps"):
         tstrat.make_strategy("consensus", tau=2, m=4)
+    topo = ttop.ring(4)
+    s = tstrat.make_strategy("consensus", tau=2, topo=topo, eps=0.1,
+                             comm=tcomm.qint8())
+    assert isinstance(s, tstrat.ConsensusStrategy) and s.comm.kind == "int8"
     with pytest.raises(NotImplementedError, match="async"):
         tstrat.make_strategy("async", tau=2, m=4)
     with pytest.raises(ValueError, match="unknown strategy"):
@@ -168,13 +204,26 @@ def test_make_strategy_names_the_slices_still_to_come():
     ("sync", dict(tau=3, m=4)),
     ("decay", dict(m=4)),
     ("decay", dict(tau=2, m=4, backend="jnp")),
+    ("periodic", dict(tau=2, m=4, topo="ring")),
+    ("decay", dict(tau=2, m=4, eps=0.1)),
+    ("sync", dict(m=4, rounds=2)),
+    ("periodic", dict(tau=2, m=4, sparse=True)),
+    ("consensus", dict(tau=2, topo="ring", eps=0.1, decay=None, fused=False,
+                       schedule=None)),
+    ("consensus", dict(tau=2, topo="ring", eps=0.1,
+                       decay=tdecay.exponential_decay(0.9))),
+    ("consensus", dict(topo="ring", eps=0.1)),
 ])
 def test_make_strategy_refuses_keywords_the_kind_does_not_take(kind, kw):
+    if kw.get("topo") == "ring":
+        kw = dict(kw, topo=ttop.ring(4))
     with pytest.raises(TypeError):
         tstrat.make_strategy(kind, **kw)
 
 
-@pytest.mark.parametrize("kind", ["sync", "periodic", "decay"])
+@pytest.mark.parametrize("kind", ["sync", "periodic", "decay", "consensus",
+                                  "consensus-topk", "periodic-int8",
+                                  "decay-bf16"])
 @pytest.mark.parametrize("n_updates", [12, 13, 17])
 def test_ledgers_equal_at_rtol_0(kind, n_updates):
     js, ts = _pairs()[kind]
