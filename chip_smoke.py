@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and consensus paths on one
-NVIDIA GPU.
+"""Drive the PyTorch port's serving, training, consensus and language-model
+serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -62,7 +62,34 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    the kernel's, the plain version's and the library call's device time by
    CUDA events and by CUPTI (``torch.profiler``) beside the bound, the L2
    evicted by a read-only pass before each call; one profiled window of
-   training updates at m = 1024 (device idle share, time by phase).
+   training updates at m = 1024 (device idle share, time by phase);
+9. wkv6 vs plain — the hand-written ``wkv6`` kernel against the plain
+   recurrence, both held to the plain loop in float64: (8, 512, 32, 64) and
+   (1, 4096, 32, 64) (prefill), (8 | 1, 1, 32, 64) (decode), odd T (7,
+   1000), zero and nonzero initial states, a slow decay, a split sequence
+   chained through the state in place;
+10. language-model serving (slice 4) — ``rwkv6-1.6b`` at full width and
+   depth (24 layers, d 2048, 1,584,144,384 seeded bf16 parameters on the
+   card) through ``make_prefill_step`` (8 x 512, 1 x 4096),
+   ``make_serve_step`` (32 tokens at B = 8) and a ``ServingLoop`` of 8
+   slots over 16 requests (prompts of 16-512 tokens, 32-64 new tokens):
+   prefill / decode / loop tokens per second; wkv6 launched exactly 24
+   times per prefill call and per decode step, no build. Checks: every
+   completion token by token against single-request greedy decoding on the
+   card (bf16: prefill and decode_step at B = 1 fed the loop's tokens, each
+   token the argmax, or at a near-tie a logit within 2 bf16 ulp of the max,
+   counted; the same requests in fp32: equal outright, each request's logits
+   by one B = 1 prefill over its prompt and the loop's tokens); an admission
+   leaves the other slots' state rows bitwise unchanged, where the JAX
+   loop's admission (the control) moves them; the fp32 model with the
+   kernel against the same with the plain loop (logits within 1e-3, greedy
+   tokens equal wherever the margin exceeds twice that); the fp32 model on
+   the card against the same on the CPU (2 x 16 prompt tokens, 4 decode
+   steps, atol 1e-3);
+11. times — wkv6 at the prefill and decode shapes (CUDA events and CUPTI,
+   L2 flushed and warm) beside its bound and the plain loop's time; one
+   profiled window of 16 decode steps at B = 8 (device idle share, wkv6 and
+   matmul device time).
 
 Its last lines are the kernel summary JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -70,7 +97,9 @@ prints no result. Details go to ``build/chip_smoke/result.json``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -527,11 +556,13 @@ def times(pinf, serving, card) -> dict:
             b_ms, b_by, flops, nbytes = bound(b, sample)
             rows[f"{mode}/{b}"] = {
                 "bucket": b, "mode": mode, "ms": ms, "plain_ms": plain_ms,
+                "cupti_ms": cupti_ms(kern, None),
                 "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
                 "bytes": nbytes, "launches_on_path": calls[str(b)],
                 "idle_gap_ms": gap,
             }
             log(f"time policy_infer mode={mode} bucket={b} kernel_ms={ms!r} "
+                f"(cupti {rows[f'{mode}/{b}']['cupti_ms']!r}) "
                 f"plain_ms={plain_ms!r} bound_ms={b_ms!r} ({b_by}) "
                 f"launches_on_path={calls[str(b)]} idle_gap_ms={gap!r} "
                 f"card=\"{card}\"")
@@ -770,18 +801,18 @@ def _train_cfg(rl, core, optim, comm, kind, opt, m, B=0, tau=None, topo=None,
     ``(factory, *args)``; a consensus run takes ``topo`` (a plan spec) and
     ``eps`` (a number, or ``"0.9/D"`` for 0.9 / Delta)."""
     tr = None if payload is None else getattr(comm, payload[0])(*payload[1:])
+    tau = tau or (15 if kind == "decay" else 10)
     if kind == "periodic":
-        strat = core.make_strategy("periodic", tau=tau or 10, m=m, comm=tr)
+        strat = core.make_strategy("periodic", tau=tau, m=m, comm=tr)
     elif kind == "decay":
-        t = tau or 15
-        strat = core.make_strategy("decay", tau=t,
-                                   taus=core.uniform_taus(1, t, m),
+        strat = core.make_strategy("decay", tau=tau,
+                                   taus=core.uniform_taus(1, tau, m),
                                    decay=core.exponential_decay(lam), comm=tr)
     else:
         graph = _topology(core, topo)
         if eps == "0.9/D":
             eps = 0.9 / graph.max_degree
-        strat = core.make_strategy("consensus", tau=tau or 10, topo=graph,
+        strat = core.make_strategy("consensus", tau=tau, topo=graph,
                                    eps=eps, rounds=rounds, sparse=sparse,
                                    fused=fused, comm=tr)
     optimizer = {"sgd": None, "momentum": optim.flat_momentum(0.9),
@@ -1353,6 +1384,635 @@ def profile_training(rl, core, optim, card) -> dict:
     return out
 
 
+# --- phases 9-11: the language-model serving path (slice 4) ------------------------
+
+LM_ARCH = "rwkv6-1.6b"
+LM_PARAMS = 1_584_144_384             # the JAX init tree's count at full width
+LM_SLOTS = 8
+LM_PREFILL = ((8, 512), (1, 4096))    # (B, T) of the prefill step
+LM_DECODE_TOKENS = 32
+LM_REQUESTS = 16
+LM_PROMPT = (16, 512)                 # prompt lengths, inclusive
+LM_NEW = (32, 64)                     # new tokens, inclusive
+LM_MAX_SEQ = 1024
+LM_TIMED = 3                          # timed calls per prefill shape
+# wkv6 kernel vs plain: both against the plain loop in float64 on the same
+# inputs; the kernel's error within max(WKV_ATOL, 2x the fp32 plain loop's).
+WKV_ATOL = 1e-5
+# bf16 logits are a bf16 product rounded once, so a batch of 8 and a batch
+# of 1 through cuBLAS, which round differently upstream, may put each logit
+# one bf16 ulp apart: two logits, LM_BF16_ULPS = 2 ulp of the largest. The
+# bf16 ServingLoop against single-request greedy decoding (fed the loop's
+# own tokens): every token the single-request argmax, or, at a near-tie, its
+# logit within that of the max; near-ties are counted. The same loop in fp32
+# must equal single-request greedy decoding outright.
+LM_BF16_ULPS = 2
+# fp32 at full width (TF32 off): the model with the kernel against the same
+# with the plain recurrence on the card (sums in another order), and the
+# card against the CPU (cuBLAS and the CPU's BLAS summing in other orders
+# over 24 layers); logits within LM_F32_ATOL.
+LM_F32_ATOL = 1e-3
+LM_ADMIT_PROMPT = 16      # the admission control's prompt length
+LM_F32_PROMPT, LM_F32_DECODE = (2, 16), 4
+
+
+def wkv6_bound(b, t, h, d=64) -> tuple:
+    """Bytes: r, k, v, w read and y written once, u, the state in and out.
+    FLOP: what the function needs per (b, t, h) step, 5 per (i, j) term (an
+    FMA for r . S, a multiply and an FMA for the decay update) and 5 per
+    index for the bonus, which factors out as v_j * sum_i r_i u_i k_i (the
+    kernel spends 7 per term; the bound does not count its extra)."""
+    nbytes = 4 * (5 * b * t * h * d + h * d + 2 * b * h * d * d)
+    flops = 5 * b * t * h * d * (d + 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def wkv6_inputs(b, t, h, seed, decay="model", state=0.1):
+    """r, k, v ~ N(0, 1) (the model's r, k, v at its init scales); the
+    model's decay exp(-exp(N(0, 0.5))), or a slow one exp(-exp(N(-4, 0.5)))
+    (w ~ 0.98); u ~ 0.5 N(0, 1); the initial state ~ ``state`` N(0, 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    r, k, v = rnd(b, t, h, 64), rnd(b, t, h, 64), rnd(b, t, h, 64)
+    shift = -4.0 if decay == "slow" else 0.0
+    w = torch.exp(-torch.exp(0.5 * rnd(b, t, h, 64) + shift))
+    u = 0.5 * rnd(h, 64)
+    s0 = state * rnd(b, h, 64, 64)
+    return r, k, v, w, u, s0
+
+
+def wkv6_vs_plain(wk) -> dict:
+    """Phase 9: the kernel against its plain version on the card at the
+    slice's shapes (prefill 8 x 512 and 1 x 4096, decode at the slot count
+    and at B = 1), odd T, zero and nonzero initial states, a slow decay, and
+    a sequence split in two and chained through the state in place."""
+    cases = [((8, 512, 32), "model", 0.0), ((8, 512, 32), "model", 0.1),
+             ((1, 4096, 32), "model", 0.1), ((1, 4096, 32), "slow", 0.1),
+             ((LM_SLOTS, 1, 32), "model", 0.1), ((1, 1, 32), "model", 0.1),
+             ((1, 7, 32), "model", 0.1), ((1, 1000, 32), "model", 0.1)]
+    worst = {"y": 0.0, "state": 0.0, "plain_fp32_vs_fp64": 0.0}
+    rows = []
+
+    def check(label, got, plain32, want64):
+        err = float((got.double() - want64).abs().max())
+        e_plain = float((plain32.double() - want64).abs().max())
+        tol = max(WKV_ATOL, 2.0 * e_plain)
+        if not err <= tol:
+            raise AssertionError(f"wkv6 {label}: kernel err {err!r} > {tol!r} "
+                                 f"(plain fp32 err {e_plain!r})")
+        return err, e_plain
+
+    for n, ((b, t, h), decay, state) in enumerate(cases):
+        args = wkv6_inputs(b, t, h, SEED + 90 + n, decay, state)
+        want_y, want_s = wk.wkv6_plain(*[a.double() for a in args])
+        y32, s32 = wk.wkv6_plain(*args)
+        y, s = wk.wkv6_cuda(*args)
+        torch.cuda.synchronize()
+        ey, py = check(f"y {b}x{t}x{h} {decay} s0={state}", y, y32, want_y)
+        es, ps = check(f"state {b}x{t}x{h} {decay} s0={state}", s, s32, want_s)
+        worst["y"], worst["state"] = max(worst["y"], ey), max(worst["state"], es)
+        worst["plain_fp32_vs_fp64"] = max(worst["plain_fp32_vs_fp64"], py, ps)
+        rows.append({"shape": [b, t, h, 64], "decay": decay, "state": state,
+                     "y_err": ey, "state_err": es, "plain_y_err": py,
+                     "plain_state_err": ps})
+    # split at an odd point, chained in place through the state
+    r, k, v, w, u, s0 = wkv6_inputs(1, 1000, 32, SEED + 99)
+    y_full, s_full = wk.wkv6_cuda(r, k, v, w, u, s0)
+    st = s0.clone()
+    parts = []
+    for sl in (slice(0, 417), slice(417, 1000)):
+        cut = [a[:, sl].contiguous() for a in (r, k, v, w)]
+        parts.append(wk.wkv6_cuda(*cut, u, st, state_out=st)[0])
+    torch.cuda.synchronize()
+    if not (torch.equal(torch.cat(parts, 1), y_full)
+            and torch.equal(st, s_full)):
+        raise AssertionError("wkv6: the chained halves differ from one run")
+    log(f"phase wkv6 vs plain: {len(cases)} shapes + chained halves ok; max "
+        f"abs err vs float64: y {worst['y']!r}, state {worst['state']!r} "
+        f"(plain fp32 {worst['plain_fp32_vs_fp64']!r}); rule max({WKV_ATOL}, "
+        f"2x fp32 plain's error); chained halves bitwise equal to one run")
+    return {"max_abs_err": max(worst["y"], worst["state"]), "worst": worst,
+            "cases": rows}
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 numbers at ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def _margins(logits: torch.Tensor):
+    """(greedy index, top1 - top2) over the last axis, in fp32. The index is
+    ``argmax``'s (the first of tied maxima, as the serving loop takes it),
+    not ``topk``'s, which may name another of them."""
+    lf = logits.float()
+    top2 = torch.topk(lf, 2, dim=-1).values
+    return lf.argmax(-1), top2[..., 0] - top2[..., 1]
+
+
+def _prompt_tokens(rng, cfg, b, t):
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, t)),
+                           device="cuda")
+
+
+def lm_greedy_check(TM, cfg, params, req, tokens, near_tie) -> dict:
+    """Single-request greedy decoding of ``req`` on the card (prefill, then
+    decode_step), fed the loop's own tokens, so that every position is
+    checked. Where a loop token is not the single-request argmax, its logit
+    must lie within ``near_tie(max logit)`` of the max: such near-ties are
+    returned (with how far below the max it lies), any other divergence
+    raises."""
+    lg, st = TM.prefill(cfg, params, torch.as_tensor(
+        req.prompt[None], device="cuda"))
+    lg = lg[:, -1:]
+    pos = len(req.prompt)
+    min_margin, ties = float("inf"), []
+    for i, tok in enumerate(tokens):
+        top, margin = _margins(lg[0, 0])
+        min_margin = min(min_margin, float(margin))
+        if int(top) != tok:
+            best = float(lg[0, 0].max())
+            below = best - float(lg[0, 0, tok])
+            tie = {"rid": req.rid, "index": i, "loop": tok,
+                   "single": int(top), "below_max": below,
+                   "tolerance": near_tie(best)}
+            if not below <= near_tie(best):
+                raise AssertionError(f"ServingLoop request {req.rid}: token {i}"
+                                     f" is not single-request greedy: {tie}")
+            ties.append(tie)
+        if i + 1 < len(tokens):
+            lg, st = TM.decode_step(cfg, params, torch.tensor(
+                [[tok]], device="cuda"), st, torch.tensor([pos], device="cuda"))
+            pos += 1
+    return {"positions": len(tokens), "min_margin": min_margin, "ties": ties}
+
+
+def recurrence_in_model(TM, wk, cfg, params, toks, decoded, pos) -> dict:
+    """The model with the kernel and with the plain loop on the same tokens:
+    the prefill of ``toks`` at every position, then one decode step per
+    token of ``decoded``. Returns the largest logit difference between the
+    two, and per position both greedy tokens and the plain path's top-2
+    margin."""
+    impls = {"kernel": None, "plain": wk.wkv6_plain}
+    hidden, states = {}, {}
+    for name, impl in impls.items():
+        hidden[name], states[name], _ = TM.forward(
+            cfg, params, toks, mode="prefill", unembed_out=False,
+            wkv_impl=impl)
+    err, top_k, top_p, margins = 0.0, [], [], []
+
+    def take(lg):
+        nonlocal err
+        err = max(err, float((lg["kernel"] - lg["plain"]).abs().max()))
+        tk, _ = _margins(lg["kernel"])
+        tp, mp = _margins(lg["plain"])
+        top_k.append(tk.reshape(-1))
+        top_p.append(tp.reshape(-1))
+        margins.append(mp.reshape(-1))
+
+    for r0 in range(0, toks.shape[1], 128):         # 128 positions at a time
+        take({n: TM.lm_head(cfg, params, h[:, r0:r0 + 128])
+              for n, h in hidden.items()})
+    del hidden
+    for i, tok in enumerate(decoded[:-1]):
+        lg = {}
+        for name, impl in impls.items():
+            lg[name], states[name] = TM.decode_step(
+                cfg, params, tok, states[name], pos + i, wkv_impl=impl)
+        take(lg)
+    return {"kernel_vs_plain": err, "kernel_top": torch.cat(top_k),
+            "plain_top": torch.cat(top_p), "margins": torch.cat(margins)}
+
+
+def admission_control(TM, launch, cfg, params, reqs) -> dict:
+    """An admission writes only its own slot, at full width: the first
+    ``LM_SLOTS - 1`` requests fill all slots but the last, every state leaf
+    is copied, and a request of ``LM_ADMIT_PROMPT`` tokens is admitted into
+    the last slot. The other slots' rows must be bitwise unchanged and the
+    new slot's bitwise equal to a B = 1 prefill of its prompt but the last
+    token. The control: the JAX loop's admission from the same copy (each
+    prompt token but the last through ``decode_step`` over every slot, the
+    others fed their pending tokens) must move the other slots' rows; how
+    far, and how far it moves their next logits, is reported."""
+    tree_leaves = TM.transformer.tree_leaves
+    loop = launch.ServingLoop(cfg, params, n_slots=LM_SLOTS,
+                              max_seq=LM_MAX_SEQ)
+    for i, r in enumerate(reqs[:LM_SLOTS - 1]):
+        loop._admit(r, i)
+    new = launch.Request(-1, reqs[LM_SLOTS - 1].prompt[:LM_ADMIT_PROMPT], 1)
+    snap = TM.transformer.tree_map(torch.clone, loop.state)
+    last = LM_SLOTS - 1
+    loop._admit(new, last)
+    after = tree_leaves(loop.state)
+    if not all(torch.equal(a[:, :last], b[:, :last])
+               for a, b in zip(after, tree_leaves(snap))):
+        raise AssertionError("admission changed another slot's state rows")
+    _, want = TM.prefill(cfg, params, torch.as_tensor(
+        new.prompt[None, :-1], device="cuda"))
+    if not all(torch.equal(a[:, last:], b)
+               for a, b in zip(after, tree_leaves(want))):
+        raise AssertionError("the admitted slot's state rows differ from a "
+                             "B = 1 prefill of its prompt")
+    # the control: the JAX loop's admission of the same request
+    jax_state = snap
+    for t in tree_leaves(jax_state):
+        t[:, last].zero_()
+    tok = torch.from_numpy(loop._tok).cuda()
+    pos = torch.zeros(LM_SLOTS, dtype=torch.long, device="cuda")
+    for t in new.prompt[:-1]:
+        tok[last, 0] = int(t)
+        TM.decode_step(cfg, params, tok, jax_state, pos)
+    moved = max(float((a[:, :last].float() - b[:, :last].float()).abs().max())
+                for a, b in zip(tree_leaves(jax_state), after))
+    if not moved > 0:
+        raise AssertionError("control: the JAX loop's admission left the "
+                             "other slots' state rows unchanged")
+    tok[last, 0] = int(new.prompt[-1])
+    lg_port, _ = TM.decode_step(cfg, params, tok, loop.state, pos)
+    lg_jax, _ = TM.decode_step(cfg, params, tok, jax_state, pos)
+    lp, lj = lg_port[:last, -1], lg_jax[:last, -1]
+    out = {"slots_unchanged": last, "control_state_max_abs_change": moved,
+           "control_logit_max_abs_change": float((lp - lj).abs().max()),
+           "control_greedy_changed": int((lp.argmax(-1) != lj.argmax(-1))
+                                         .sum())}
+    log(f"check lm admission: {last} other slots' state rows bitwise "
+        f"unchanged and the new slot's equal to a B = 1 prefill; control, the "
+        f"JAX loop's admission of the same {LM_ADMIT_PROMPT}-token prompt: "
+        f"their state rows move by up to {moved!r}, their next logits by "
+        f"{out['control_logit_max_abs_change']!r} "
+        f"({out['control_greedy_changed']} of {last} greedy tokens change)")
+    return out
+
+
+def loop_vs_single_request(TM, cfg, params, reqs, got, near_tie) -> dict:
+    checks = [lm_greedy_check(TM, cfg, params, r, got[r.rid], near_tie)
+              for r in reqs]
+    ties = [t for c in checks for t in c["ties"]]
+    return {"requests": len(checks),
+            "positions": sum(c["positions"] for c in checks),
+            "min_top2_margin": min(c["min_margin"] for c in checks),
+            "equal_requests": sum(not c["ties"] for c in checks),
+            "near_ties": ties}
+
+
+def loop_vs_teacher_forced(TM, cfg, params, reqs, got) -> dict:
+    """Each completion against single-request greedy decoding, outright: one
+    B = 1 prefill of the request's prompt followed by the loop's tokens gives
+    the request's own logits at every generated position (the recurrence
+    over a sequence equals its steps one by one), and every loop token must
+    be the argmax there; so, position by position, the completion is the
+    request's greedy decoding."""
+    positions, min_margin = 0, float("inf")
+    for r in reqs:
+        toks = got[r.rid]
+        seq = np.concatenate([np.asarray(r.prompt), toks[:-1]])[None]
+        x, _, _ = TM.forward(cfg, params, torch.as_tensor(seq, device="cuda"),
+                             mode="prefill", unembed_out=False)
+        top, margin = _margins(TM.lm_head(cfg, params,
+                                          x[0, len(r.prompt) - 1:]))
+        bad = [i for i, (a, b) in enumerate(zip(top.tolist(), toks)) if a != b]
+        if bad:
+            raise AssertionError(f"ServingLoop {cfg.param_dtype}: request "
+                                 f"{r.rid} leaves single-request greedy "
+                                 f"decoding at tokens {bad}")
+        positions += len(toks)
+        min_margin = min(min_margin, float(margin.min()))
+    return {"requests": len(reqs), "positions": positions,
+            "min_top2_margin": min_margin}
+
+
+def lm_serving_path(wk, _build, TC, TM, launch, card) -> dict:
+    """Phase 10: rwkv6-1.6b at full width and depth, seeded bf16 weights on
+    the card, through the user's entry points: ``make_prefill_step`` at
+    B x T = 8 x 512 and 1 x 4096, ``make_serve_step`` for 32 tokens at B = 8,
+    and a ``ServingLoop`` of 8 slots over 16 requests. The wkv6 counter is
+    set to 0 before this main path and read after it; each prefill call and
+    each decode step must launch the kernel once per layer, with no build.
+    Then the checks: every completion against single-request greedy
+    decoding on the card, an admission against the other slots' states (and
+    the JAX loop's admission as the control), and in fp32 the card against
+    the CPU, the kernel against the plain recurrence inside the model and
+    the loop's completions outright."""
+    cfg = TC.get_arch(LM_ARCH)
+    L = cfg.n_layers
+    rng = np.random.default_rng(SEED + 40)
+    t0 = time.perf_counter()
+    params = TM.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = TM.count_params(params)
+    if n_params != LM_PARAMS:
+        raise AssertionError(f"{LM_ARCH}: {n_params} parameters, expected "
+                             f"{LM_PARAMS}")
+    prefill_step = launch.make_prefill_step(cfg)
+    serve_step = launch.make_serve_step(cfg)
+    builds = _build.n_builds
+    out = {"arch": LM_ARCH, "params": n_params, "init_s": init_s,
+           "dtype": cfg.param_dtype, "prefill": {}}
+
+    # --- the main path, counted ---
+    wk.launches = 0
+    for b, t in LM_PREFILL:
+        toks = _prompt_tokens(rng, cfg, b, t)
+        secs = []
+        for _ in range(1 + LM_TIMED):
+            before = wk.launches
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, states = prefill_step(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            if wk.launches - before != L:
+                raise AssertionError(f"prefill {b}x{t}: {wk.launches - before} "
+                                     f"wkv6 launches, expected {L}")
+        if tuple(logits.shape) != (b, 1, TM.padded_vocab(cfg)) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"prefill {b}x{t}: bad logits "
+                                 f"{tuple(logits.shape)}")
+        med = statistics.median(secs[1:])
+        out["prefill"][f"{b}x{t}"] = {"first_s": secs[0], "median_s": med,
+                                      "tokens_per_s": b * t / med}
+        if b == LM_SLOTS:
+            dec_logits, dec_states, dec_toks = logits, states, toks
+    tok = dec_logits.argmax(-1)
+    decoded = [tok]
+    pos = torch.full((LM_SLOTS,), LM_PREFILL[0][1], device="cuda")
+    # one untimed step first: the first call of a shape loads its kernels
+    before = wk.launches
+    serve_step(params, tok, TM.init_decode_state(cfg, LM_SLOTS,
+                                                 device="cuda"), pos)
+    if wk.launches - before != L:
+        raise AssertionError(f"decode warm-up: {wk.launches - before} wkv6 "
+                             f"launches, expected {L}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(LM_DECODE_TOKENS):
+        before = wk.launches
+        logits, dec_states = serve_step(params, tok, dec_states, pos + i)
+        if wk.launches - before != L:
+            raise AssertionError(f"decode step {i}: {wk.launches - before} "
+                                 f"wkv6 launches, expected {L}")
+        tok = logits.argmax(-1)
+        decoded.append(tok)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t1
+    out["decode"] = {"batch": LM_SLOTS, "steps": LM_DECODE_TOKENS,
+                     "seconds": dec_s,
+                     "tokens_per_s": LM_SLOTS * LM_DECODE_TOKENS / dec_s}
+    reqs = [launch.Request(i, rng.integers(0, cfg.vocab_size, int(rng.integers(
+        LM_PROMPT[0], LM_PROMPT[1] + 1))), int(rng.integers(LM_NEW[0],
+                                                            LM_NEW[1] + 1)))
+            for i in range(LM_REQUESTS)]
+    warm = launch.ServingLoop(cfg, params, n_slots=LM_SLOTS,
+                              max_seq=LM_MAX_SEQ)
+    before = wk.launches
+    warm.run([launch.Request(-1, r.prompt[:24], 2) for r in reqs[:2]])
+    if wk.launches - before != L * (warm.n_prefills + warm.n_steps):
+        raise AssertionError("ServingLoop warm-up: launches off the count")
+    loop = launch.ServingLoop(cfg, params, n_slots=LM_SLOTS,
+                              max_seq=LM_MAX_SEQ)
+    before = wk.launches
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    done = loop.run(reqs)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t1
+    loop_launches = wk.launches - before
+    launches = wk.launches
+    # --- end of the main path ---
+    if _build.n_builds != builds:
+        raise AssertionError("an nvcc build ran on the LM serving path")
+    if loop_launches != L * (loop.n_prefills + loop.n_steps):
+        raise AssertionError(f"ServingLoop: {loop_launches} wkv6 launches for "
+                             f"{loop.n_prefills} prefills and {loop.n_steps} "
+                             f"steps of {L} layers")
+    got = {c.rid: c.tokens for c in done}
+    if sorted(got) != list(range(LM_REQUESTS)) or any(
+            len(got[r.rid]) != r.max_new_tokens for r in reqs):
+        raise AssertionError("ServingLoop: missing or short completions")
+    n_tok = sum(len(c.tokens) for c in done)
+    out["loop"] = {"slots": LM_SLOTS, "requests": LM_REQUESTS,
+                   "prompt_tokens": int(sum(len(r.prompt) for r in reqs)),
+                   "new_tokens": n_tok, "seconds": loop_s,
+                   "tokens_per_s": n_tok / loop_s,
+                   "prefills": loop.n_prefills, "steps": loop.n_steps,
+                   "launches": loop_launches}
+    out["launches"] = launches
+    out["launches_per_prefill_call"] = out["launches_per_decode_step"] = L
+    log(f"phase lm serving: {LM_ARCH} {n_params} params bf16 init "
+        f"{init_s!r} s; prefill tokens/s " + ", ".join(
+            f"{k}: {v['tokens_per_s']!r}" for k, v in out["prefill"].items())
+        + f"; decode B={LM_SLOTS} tokens/s {out['decode']['tokens_per_s']!r}; "
+        f"ServingLoop {LM_SLOTS} slots x {LM_REQUESTS} requests "
+        f"({out['loop']['prompt_tokens']} prompt + {n_tok} new tokens, "
+        f"{loop.n_prefills} prefills, {loop.n_steps} steps) "
+        f"{out['loop']['tokens_per_s']!r} new tokens/s; wkv6 launches "
+        f"{launches} ({L} per prefill call and per decode step; no build) "
+        f"card=\"{card}\"")
+
+    out["check_seconds"], t_chk = {}, [time.perf_counter()]
+
+    def checked(name):
+        now = time.perf_counter()
+        out["check_seconds"][name] = now - t_chk[0]
+        t_chk[0] = now
+
+    # --- check: every completion is single-request greedy decoding ---
+    near_tie = lambda best: LM_BF16_ULPS * bf16_ulp(best)
+    chk = loop_vs_single_request(TM, cfg, params, reqs, got, near_tie)
+    out["loop_vs_single_request"] = chk
+    log(f"check lm ServingLoop bf16: every token of the {LM_REQUESTS} "
+        f"completions ({chk['positions']}) is single-request greedy on the "
+        f"card or a near-tie; {chk['equal_requests']} completions equal "
+        f"outright; {len(chk['near_ties'])} near-ties (loop token's logit "
+        f"within {LM_BF16_ULPS} bf16 ulp of the max), below the max by "
+        f"{sorted({t['below_max'] for t in chk['near_ties']})}")
+
+    # --- check: an admission leaves the other slots untouched ---
+    checked("loop_vs_single_request_bf16")
+    out["admission"] = admission_control(TM, launch, cfg, params, reqs)
+    checked("admission")
+    del params, dec_states, states
+    torch.cuda.empty_cache()
+
+    # --- check: card vs CPU at full width in fp32 ---
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    p_gpu = TM.init_params(cfg32, seed=SEED, device="cuda")
+    p_cpu = TM.transformer.tree_map(lambda t: t.cpu(), p_gpu)
+    toks = _prompt_tokens(rng, cfg, *LM_F32_PROMPT)
+    t1 = time.perf_counter()
+    lg_g, st_g = TM.prefill(cfg32, p_gpu, toks)
+    lg_c, st_c = TM.prefill(cfg32, p_cpu, toks.cpu())
+    errs = [float((lg_g.cpu() - lg_c).abs().max())]
+    tok = lg_c[:, -1:].argmax(-1)
+    for i in range(LM_F32_DECODE):
+        p_i = torch.full((LM_F32_PROMPT[0],), LM_F32_PROMPT[1] + i)
+        lg_g, st_g = TM.decode_step(cfg32, p_gpu, tok.cuda(), st_g, p_i.cuda())
+        lg_c, st_c = TM.decode_step(cfg32, p_cpu, tok, st_c, p_i)
+        errs.append(float((lg_g.cpu() - lg_c).abs().max()))
+        tok = lg_c[:, -1:].argmax(-1)
+    state_err = float((st_g["tm"]["wkv"].cpu() - st_c["tm"]["wkv"]).abs().max())
+    if max(errs) > LM_F32_ATOL or not all(np.isfinite(errs)):
+        raise AssertionError(f"lm fp32 card vs CPU: logits errs {errs}")
+    out["card_vs_cpu_fp32"] = {"logits_max_abs_err": errs,
+                               "wkv_state_max_abs_err": state_err,
+                               "atol": LM_F32_ATOL,
+                               "seconds": time.perf_counter() - t1}
+    checked("card_vs_cpu_fp32 (with the fp32 init)")
+    log(f"check lm fp32 card vs CPU ({LM_F32_PROMPT[0]} x {LM_F32_PROMPT[1]} "
+        f"prompt tokens + {LM_F32_DECODE} decode steps): logits max abs err "
+        f"per call {errs} (atol {LM_F32_ATOL}); wkv state {state_err!r}")
+    del p_cpu, st_g, st_c
+    # --- check: the kernel against the plain recurrence in the model ---
+    rec = recurrence_in_model(TM, wk, cfg32, p_gpu, dec_toks, decoded, pos)
+    if not rec["kernel_vs_plain"] <= LM_F32_ATOL:
+        raise AssertionError(f"lm kernel vs plain recurrence (fp32 model): "
+                             f"logits max err {rec['kernel_vs_plain']!r}")
+    sure = rec["margins"] > 2 * LM_F32_ATOL
+    same = rec["kernel_top"] == rec["plain_top"]
+    if not bool(same[sure].all()):
+        raise AssertionError("lm kernel vs plain recurrence (fp32 model): "
+                             "greedy tokens differ where the top-2 margin "
+                             "exceeds twice the tolerance")
+    out["kernel_vs_plain_model_fp32"] = {
+        "logits_max_abs_err": rec["kernel_vs_plain"], "atol": LM_F32_ATOL,
+        "tokens_compared": same.numel(), "tokens_equal": int(same.sum()),
+        "positions_beyond_tolerance": int(sure.sum())}
+    log(f"check lm kernel vs plain recurrence (fp32 model, prefill "
+        f"{LM_SLOTS}x{LM_PREFILL[0][1]} every position + {LM_DECODE_TOKENS} "
+        f"decode steps): logits max abs err {rec['kernel_vs_plain']!r} (atol "
+        f"{LM_F32_ATOL}); greedy tokens equal at {int(same.sum())} of "
+        f"{same.numel()} positions, at every one of the {int(sure.sum())} "
+        f"whose margin exceeds {2 * LM_F32_ATOL}")
+    checked("kernel_vs_plain_fp32")
+    # the same requests through the loop in fp32: equal outright
+    loop32 = launch.ServingLoop(cfg32, p_gpu, n_slots=LM_SLOTS,
+                                max_seq=LM_MAX_SEQ)
+    got32 = {c.rid: c.tokens for c in loop32.run(reqs)}
+    chk = loop_vs_teacher_forced(TM, cfg32, p_gpu, reqs, got32)
+    out["loop_vs_single_request_fp32"] = chk
+    same = sum(got32[r.rid] == got[r.rid] for r in reqs)
+    log(f"check lm ServingLoop fp32: all {LM_REQUESTS} completions "
+        f"({chk['positions']} tokens) equal single-request greedy decoding on "
+        f"the card (logits of one B = 1 prefill per request over its prompt "
+        f"and the loop's tokens); smallest top-2 margin "
+        f"{chk['min_top2_margin']!r}; {same} of {LM_REQUESTS} equal the bf16 "
+        f"loop's")
+    checked("loop_fp32")
+    log(f"phase lm serving: seconds by check {out['check_seconds']}")
+    del p_gpu, loop32
+    torch.cuda.empty_cache()
+    return out
+
+
+def events_ms(fn, n: int) -> float:
+    """Time per call by CUDA events around ``n`` calls after one warm call:
+    for the plain recurrence, a host loop of small launches, the events
+    measure the host's enqueue as much as the device."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def lm_times(wk, lm, card) -> dict:
+    """Phase 11: wkv6 at the prefill and decode shapes, L2 flushed and warm
+    (CUDA events and CUPTI), beside its bound and the plain loop's time."""
+    cyc = sleep_cycles_per_ms()
+    flush = l2_flusher()
+    rows = {}
+    for b, t in LM_PREFILL + ((LM_SLOTS, 1), (1, 1)):
+        args = wkv6_inputs(b, t, 32, SEED + 7)
+        st = args[5].clone()
+        kern = lambda a=args, st=st: wk.wkv6_cuda(*a[:5], st, state_out=st)
+        plain = lambda a=args: wk.wkv6_plain(*a)
+        n_plain = 1 if t > 1 else 50
+        p1 = events_ms(plain, n_plain)
+        k1, k2 = device_ms(kern, cyc, flush)[0], device_ms(kern, cyc, flush)[0]
+        p2 = events_ms(plain, n_plain)
+        b_ms, b_by, nbytes, flops = wkv6_bound(b, t, 32)
+        rec = {"shape": [b, t, 32, 64], "ms": (k1 + k2) / 2,
+               "plain_ms": (p1 + p2) / 2, "library_ms": None,
+               "cupti_ms": cupti_ms(kern, flush),
+               "warm_l2_cupti_ms": cupti_ms(kern, None),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "flops": flops}
+        rows[f"wkv6/{b}x{t}"] = rec
+        log(f"time wkv6 shape=({b}, {t}, 32, 64) fp32 L2 flushed: kernel_ms="
+            f"{rec['ms']!r} (cupti {rec['cupti_ms']!r}; L2-warm cupti "
+            f"{rec['warm_l2_cupti_ms']!r}) plain_ms={rec['plain_ms']!r} "
+            f"(events over {n_plain} calls) library_ms=None bound_ms="
+            f"{b_ms!r} ({b_by}) card=\"{card}\"")
+    loop = lm["loop"]
+    rows["launches_per_request"] = {
+        "single_request": {str(n): lm["launches_per_prefill_call"] * (1 + n)
+                           for n in LM_NEW},
+        "loop_mean": loop["launches"] / loop["requests"]}
+    return rows
+
+
+def profile_decode(TC, TM, launch, card) -> dict:
+    """One ``torch.profiler`` window over 16 decode steps at B = 8 (full
+    width, bf16): wall time, device busy time and idle share, and the device
+    time of the wkv6 kernel against the matrix products."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = TC.get_arch(LM_ARCH)
+    params = TM.init_params(cfg, seed=SEED, device="cuda")
+    serve_step = launch.make_serve_step(cfg)
+    toks = _prompt_tokens(np.random.default_rng(SEED + 41), cfg, LM_SLOTS, 64)
+    logits, st = launch.make_prefill_step(cfg)(params, {"tokens": toks})
+    tok = logits.argmax(-1)
+    pos = torch.full((LM_SLOTS,), 64, device="cuda")
+    for i in range(4):
+        logits, st = serve_step(params, tok, st, pos + i)
+    torch.cuda.synchronize()
+    steps = 16
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, st = serve_step(params, tok, st, pos + 4 + i)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = {e.key: (e.count, e.self_device_time_total)
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    busy = sum(t for _, t in dev.values())
+    wkv = sum(t for k, (_, t) in dev.items() if "wkv6" in k)
+    mm = sum(t for k, (_, t) in dev.items()
+             if any(s in k.lower() for s in ("gemm", "gemv", "xmma", "cutlass",
+                                             "cublas", "nvjet")))
+    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:12]
+    out = {"steps": steps, "batch": LM_SLOTS, "wall_ms": wall_us / 1e3,
+           "device_busy_ms": busy / 1e3,
+           "device_idle_share": 1.0 - busy / wall_us,
+           "wkv6_ms": wkv / 1e3, "matmul_ms": mm / 1e3,
+           "wkv6_share_of_busy": wkv / busy if busy else None,
+           "matmul_share_of_busy": mm / busy if busy else None,
+           "top_device_ops": {k: {"count": c, "device_ms": t / 1e3}
+                              for k, (c, t) in top}}
+    log(f"profile lm decode B={LM_SLOTS} x {steps} steps: wall_ms="
+        f"{out['wall_ms']!r} device_busy_ms={out['device_busy_ms']!r} "
+        f"device_idle_share={out['device_idle_share']!r} wkv6_ms="
+        f"{out['wkv6_ms']!r} matmul_ms={out['matmul_ms']!r} (shares of busy "
+        f"{out['wkv6_share_of_busy']!r} / {out['matmul_share_of_busy']!r}) "
+        f"card=\"{card}\"")
+    del params, st
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1368,11 +2028,23 @@ def main() -> int:
     from repro_torch.kernels import flat_update as fu
     from repro_torch.kernels import policy_infer as pinf
     from repro_torch.kernels import topk_scatter as tks
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch import configs as TC
+    from repro_torch import launch
+    from repro_torch import models as TM
     from repro_torch.rl import policy
 
     km = types.SimpleNamespace(dacc=dacc, fu=fu, cs=cs, cg=cg, tks=tks)
 
     t_start = time.perf_counter()
+    phase_s, t_lap = {}, [t_start]
+
+    def lap(name):
+        """Seconds since the previous phase ended, under ``name``."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_lap[0]
+        t_lap[0] = now
+
     # 1. device
     card = card_line()
     nvcc = _build.nvcc_path()
@@ -1391,6 +2063,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
+    lap("1-2 device_and_build")
     log(f"phase build: {build_s!r} s, {_build.build_info.get('sources')} -> "
         f"{_build.build_info['library']} (nvcc runs: {_build.n_builds}; "
         f"flags {_build.build_info.get('flags')})")
@@ -1400,30 +2073,51 @@ def main() -> int:
 
     # 3. kernel vs plain
     parity = kernel_vs_plain(pinf)
+    lap('3 kernel_vs_plain')
 
     # 4. the serving path
     serving = serving_path(pinf, _build, serve, policy, card)
+    lap('4 serving')
 
     # 5. times
     rows = times(pinf, serving, card)
     prof = profile_serving(serve, card)
+    lap('5 times')
 
     # 6. flat kernels vs plain
     flat = flat_kernels_vs_plain(dacc, fu, dispatch)
+    lap('6 flat_kernel_vs_plain')
 
     # 6b. gossip and compression kernels vs plain
     gossip = gossip_kernels_vs_plain(km, core, comm)
+    lap('6b gossip_kernel_vs_plain')
 
     # 7. the training path (slice 2)
     training = training_path(km, _build, rl, core, optim, comm, serve, card)
+    lap('7 training')
 
     # 7b. the consensus and compression path (slice 3)
     consensus = consensus_path(km, _build, rl, core, optim, comm, card)
+    lap('7b consensus')
 
     # 8. kernel times, a profiled training window
     flat_rows = flat_times(dacc, fu, dispatch, training, card)
     gossip_rows = gossip_times(km, core, comm, consensus, card)
     train_prof = profile_training(rl, core, optim, card)
+    lap('8 times')
+
+    # 9. the wkv6 kernel vs plain (slice 4)
+    wkv = wkv6_vs_plain(wk)
+    lap('9 wkv6_vs_plain')
+
+    # 10. the language-model serving path (slice 4)
+    lm = lm_serving_path(wk, _build, TC, TM, launch, card)
+    lap('10 lm_serving')
+
+    # 11. wkv6 times, a profiled decode window
+    lm_rows = lm_times(wk, lm, card)
+    lm_prof = profile_decode(TC, TM, launch, card)
+    lap('11 lm_times')
 
     top = rows["mean/1024"]
     kernels = [{
@@ -1482,7 +2176,23 @@ def main() -> int:
             "shape": {"m": m0, "n": n0, "dtype": "float32",
                       "k_max": r["k_max"]},
         })
-    if len(kernels) != 8 or any(k["launches"] < 1 for k in kernels):
+    r = lm_rows[f"wkv6/{LM_PREFILL[0][0]}x{LM_PREFILL[0][1]}"]
+    kernels.append({
+        "name": "wkv6",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6.py:56",
+        "launches": lm["launches"],
+        "max_abs_err": wkv["max_abs_err"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": None,
+        "shape": {"B": LM_PREFILL[0][0], "T": LM_PREFILL[0][1], "H": 32,
+                  "D": 64, "dtype": "float32"},
+    })
+    if len(kernels) != 9 or any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"kernels line: {len(kernels)} kernels, "
                              f"launches {[k['launches'] for k in kernels]}")
     with open(os.path.join(ROOT, "build", "chip_smoke", "result.json"),
@@ -1496,10 +2206,13 @@ def main() -> int:
                    "gossip_parity": gossip, "consensus_training": consensus,
                    "gossip_times": gossip_rows,
                    "training_profile": train_prof,
-                   "kernels": kernels,
+                   "wkv6_parity": wkv, "lm_serving": lm, "lm_times": lm_rows,
+                   "lm_decode_profile": lm_prof,
+                   "kernels": kernels, "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)
-    log(f"chip_smoke: all phases ok in {time.perf_counter() - t_start!r} s")
+    log(f"chip_smoke: all phases ok in {time.perf_counter() - t_start!r} s; "
+        f"seconds by phase {phase_s}")
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -10,7 +10,13 @@ names and imports neither ``jax`` nor ``repro``. Ported so far:
   momentum and Adam optimizers (``repro_torch.optim``), whose local steps
   and server averages run the hand-written ``decay_accum``,
   ``momentum_update``, ``adam_update`` and ``row_mean`` kernels
-  (``repro_torch.kernels``).
+  (``repro_torch.kernels``);
+* consensus gossip and compressed payloads (``repro_torch.core``,
+  ``repro_torch.comm``) through the ``consensus_step``,
+  ``consensus_gather`` and ``topk_scatter`` kernels;
+* language-model serving: ``rwkv6-1.6b`` (``repro_torch.configs``,
+  ``repro_torch.models``) through ``repro_torch.launch`` (prefill and serve
+  steps, the ``ServingLoop``), with the recurrence in the ``wkv6`` kernel.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -1,0 +1,30 @@
+"""Architecture configs of the port (``repro.configs``).
+
+``ModelConfig`` and the registries are copies of the JAX package's. Only the
+configurations whose model the port runs are registered: ``rwkv6-1.6b``
+(slice 4). The other nine come with the slices that port their block kinds.
+"""
+from repro_torch.configs.base import (
+    ARCH_REGISTRY,
+    InputShape,
+    ModelConfig,
+    SHAPE_REGISTRY,
+    get_arch,
+    get_shape,
+    list_archs,
+    register_arch,
+)
+
+# Import for registration side effects.
+from repro_torch.configs import rwkv6_1_6b  # noqa: F401
+
+__all__ = [
+    "ARCH_REGISTRY",
+    "InputShape",
+    "ModelConfig",
+    "SHAPE_REGISTRY",
+    "get_arch",
+    "get_shape",
+    "list_archs",
+    "register_arch",
+]

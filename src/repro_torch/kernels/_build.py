@@ -99,6 +99,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         _P,                              # stream
     ]
     lib.repro_topk_scatter.restype = _I
+    lib.repro_wkv6.argtypes = [
+        _P, _P, _P, _P, _P, _P,          # r, k, v, w, u, s0
+        _P, _P,                          # y, sT
+        _L, _L, _L, _L,                  # B, T, H, D
+        _P,                              # stream
+    ]
+    lib.repro_wkv6.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -21,6 +21,9 @@ casts back to the buffer's dtype, as ``repro.kernels.dispatch`` does (its
 lines 32-35). The ``(S, m, n)`` sweep
 shapes of the JAX dispatch are not ported yet and raise
 ``NotImplementedError``.
+
+The language models' recurrence ``wkv6`` routes the same way: the plain
+loop on CPU tensors, the hand-written kernel on CUDA tensors.
 """
 from __future__ import annotations
 
@@ -54,6 +57,11 @@ from repro_torch.kernels.policy_infer import (
 from repro_torch.kernels.topk_scatter import (
     topk_scatter_cuda,
     topk_scatter_plain,
+)
+from repro_torch.kernels.wkv6 import (
+    check_shapes as check_wkv6_shapes,
+    wkv6_cuda,
+    wkv6_plain,
 )
 
 OPT_KINDS = ("sgd", "momentum", "adam")
@@ -500,3 +508,27 @@ def flat_opt_update(params: torch.Tensor, g: torch.Tensor, w, state: dict, *,
         mu_out=mu if inplace else None, nu_out=nu if inplace else None,
     )
     return new_p, dict(state, mu=new_mu, nu=new_nu, t=t)
+
+
+# --- language-model primitives ------------------------------------------------------
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state: torch.Tensor, *,
+         state_out: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The WKV6 recurrence: ``(y, final_state)``.
+
+    ``r, k, v, w``: ``(B, T, H, D)``; ``u``: ``(H, D)``; ``state``:
+    ``(B, H, D, D)`` keyed ``[key, value]``. The time-mix hands them over in
+    fp32, as the TPU kernel takes them. The final state goes to
+    ``state_out`` when given (it may be ``state``: the in-place update),
+    else to a new tensor. CPU tensors run the plain loop; CUDA tensors launch
+    the kernel, which takes fp32 and D = 64 only and raises on anything else.
+    """
+    if _is_cuda(r):
+        return wkv6_cuda(r, k, v, w, u, state, state_out=state_out)
+    check_wkv6_shapes("wkv6", r, k, v, w, u, state)
+    y, s = wkv6_plain(r, k, v, w, u, state)
+    if state_out is None:
+        return y, s
+    return y, state_out.copy_(s)

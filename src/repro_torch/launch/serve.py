@@ -1,0 +1,43 @@
+"""Serving steps: prefill (context ingest) and serve_step (one-token decode),
+as ``repro.launch.serve`` builds them. There is no mesh: the steps run on
+the device the parameters lie on."""
+from __future__ import annotations
+
+from repro_torch.models.transformer import (
+    check_supported,
+    decode_step,
+    forward,
+    init_decode_state,
+    lm_head,
+)
+
+
+def make_prefill_step(cfg):
+    """``prefill_step(params, batch) -> (logits (B, 1, V), states)``:
+    ``batch["tokens"]`` (B, S) through the sequence path from a zero state.
+    Only the last position is unembedded (the JAX step slices it from the
+    full logits; the values are the same row of the same product)."""
+    check_supported(cfg)
+
+    def prefill_step(params, batch):
+        if batch.get("patch_embeds") is not None:
+            raise NotImplementedError("a VLM embedding prefix comes with a "
+                                      "later slice (internvl2-26b)")
+        tokens = batch["tokens"]
+        states = init_decode_state(cfg, tokens.shape[0], device=tokens.device)
+        x, states, _ = forward(cfg, params, tokens, mode="prefill",
+                               states=states, unembed_out=False)
+        return lm_head(cfg, params, x[:, -1:]), states
+
+    return prefill_step
+
+
+def make_serve_step(cfg):
+    """``serve_step(params, token, states, pos) -> (logits (B, 1, V),
+    states)``: one decode step; ``states`` are updated in place."""
+    check_supported(cfg)
+
+    def serve_step(params, token, states, pos):
+        return decode_step(cfg, params, token, states, pos)
+
+    return serve_step

@@ -1,0 +1,345 @@
+"""Decoder LM of the port (``repro.models.transformer``), ``wkv`` blocks only.
+
+The JAX package groups layers into [head] + [cycles scanned over stacked
+params] + [tail]; here the scan over cycles is a Python loop over one
+parameter dict per layer (``params["blocks"]``), and :func:`layer_plan` is
+kept to read the JAX tree (:func:`params_from_jax`). Slice 4 runs the
+attention-free RWKV6 (``rwkv6-1.6b``): the ``wkv`` block kind, the ``ln0``
+of the ssm family and an untied unembedding. Other block kinds, MoE,
+modality frontends and encoder-decoder models raise
+``NotImplementedError`` naming the slice that brings them.
+
+Modes: ``train`` and ``prefill`` run a whole sequence from a zero state
+(train discards nothing here: both return the final states); ``decode``
+runs one token against the states.
+
+The decode state is one dict for all layers, each leaf stacked over them:
+``{"tm": {"shift": (L, B, d), "wkv": (L, B, H, hd, hd) fp32}, "cm_shift":
+(L, B, d)}`` — the JAX package's ``state["cycles"][0]["wkv"]`` for a
+one-kind pattern. The batch axis is axis 1 of every leaf.
+
+In place: :func:`forward` (with ``states`` given) and :func:`decode_step`
+write the new states over the states they are given and return that same
+dict; the WKV kernel writes each layer's final state over its initial one.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.models import rwkv6 as rw
+from repro_torch.models.layers import (
+    apply_norm,
+    embed,
+    init_embedding,
+    init_norm,
+    mk,
+    torch_dtype,
+    unembed,
+)
+
+_LATER = {
+    "attn": "the SWA slice (h2o-danube-3-4b, models/attention.py)",
+    "local": "the SWA slice (h2o-danube-3-4b, models/attention.py)",
+    "rglru": "a later slice (recurrentgemma-9b, models/rglru.py)",
+}
+
+
+# ----------------------------------------------------------------------------
+# Layer plan
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    head: tuple          # absolute layer indices, unrolled
+    cycle_kinds: tuple   # block kinds within one scanned cycle
+    n_cycles: int
+    tail: tuple          # absolute layer indices, unrolled
+
+
+def layer_plan(cfg) -> LayerPlan:
+    head = tuple(range(cfg.first_k_dense)) if cfg.family == "moe" else ()
+    start = len(head)
+    cyc = len(cfg.layer_pattern)
+    remaining = cfg.n_layers - start
+    n_cycles = remaining // cyc if cfg.scan_layers else 0
+    tail_start = start + n_cycles * cyc
+    tail = tuple(range(tail_start, cfg.n_layers))
+    return LayerPlan(head, cfg.layer_pattern, n_cycles, tail)
+
+
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for what slice 4 does not run."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            "encoder-decoder models (whisper-small) come with a later slice")
+    if cfg.frontend is not None:
+        raise NotImplementedError(
+            f"the {cfg.frontend} frontend comes with a later slice")
+    if cfg.family == "moe":
+        raise NotImplementedError("MoE comes with a later slice (kimi-k2, "
+                                  "arctic; models/moe.py)")
+    for kind in cfg.layer_pattern:
+        if kind != "wkv":
+            raise NotImplementedError(
+                f"block kind {kind!r} comes with {_LATER[kind]}")
+    if cfg.pos_emb == "sinusoidal":
+        raise NotImplementedError("sinusoidal positions come with a later "
+                                  "slice (whisper-small)")
+
+
+def padded_vocab(cfg) -> int:
+    return -(-cfg.vocab_size // 128) * 128
+
+
+# ----------------------------------------------------------------------------
+# Parameters
+# ----------------------------------------------------------------------------
+
+def _init_block(gen, cfg, kind: str) -> dict:
+    d = cfg.d_model
+    return {"ln1": init_norm(gen, d, cfg.norm),
+            "tm": rw.init_time_mix(gen, cfg),
+            "ln2": init_norm(gen, d, cfg.norm),
+            "cm": rw.init_channel_mix(gen, cfg)}
+
+
+def _build_tree(cfg, gen) -> dict:
+    check_supported(cfg)
+    d, vp = cfg.d_model, padded_vocab(cfg)
+    p: dict = {"embed": init_embedding(gen, vp, d),
+               "final_norm": init_norm(gen, d, cfg.norm)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = {"w": mk(gen, (d, vp), std=0.02)}
+    if cfg.family == "ssm":
+        p["ln0"] = init_norm(gen, d, cfg.norm)
+    p["blocks"] = [_init_block(gen, cfg, cfg.block_kind(i))
+                   for i in range(cfg.n_layers)]
+    return p
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def param_shapes(cfg) -> dict:
+    """The parameter tree with ``meta`` tensors: shapes, no storage."""
+    return _build_tree(cfg, None)
+
+
+def count_params(params) -> int:
+    """Parameters in a tree (counted from the tree, not ``cfg.n_params()``,
+    which miscounts RWKV blocks)."""
+    return sum(int(t.numel()) for t in tree_leaves(params))
+
+
+def init_params(cfg, seed: int = 0, device="cuda") -> dict:
+    """Seeded random parameters in ``cfg.param_dtype`` on ``device``: one
+    ``torch.Generator`` on that device, drawn leaf by leaf in a fixed order
+    (embed, final norm, unembed, ln0, then each block). Not the JAX
+    package's numbers (another generator); carry those with
+    :func:`params_from_jax`."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    dtype = torch_dtype(cfg.param_dtype)
+    tree = _build_tree(cfg, gen)
+    return tree_map(lambda t: t.to(dtype), tree)
+
+
+def _as_tensor(a, dtype, device) -> torch.Tensor:
+    a = np.array(a)                          # a writable copy
+    if a.dtype.name == "bfloat16":           # ml_dtypes' bfloat16
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_jax(cfg, tree, device="cuda") -> dict:
+    """The port's parameters from the JAX package's ``init_params`` tree as
+    numpy arrays, or from a JAX-saved checkpoint of it
+    (``repro_torch.checkpoint.restore``).
+
+    ``cycles`` is unstacked: it holds one entry per ``layer_pattern``
+    element whose leaves carry a leading ``n_cycles`` axis; cycle c's entry
+    j is layer ``len(head) + c * len(pattern) + j``. Floating leaves are
+    cast to ``cfg.param_dtype`` (bfloat16 arrays are carried bit for bit).
+    Every leaf's shape is checked against the port's tree.
+    """
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.param_dtype)
+    plan = layer_plan(cfg)
+    want = param_shapes(cfg)
+    blocks: List[Optional[dict]] = [None] * cfg.n_layers
+    for i, li in enumerate(plan.head):
+        blocks[li] = tree["head_blocks"][i]
+    cycles = tree.get("cycles") or []
+    if plan.n_cycles and len(cycles) != len(plan.cycle_kinds):
+        raise ValueError(f"params_from_jax: 'cycles' has {len(cycles)} "
+                         f"entries, the pattern {len(plan.cycle_kinds)}")
+    for c in range(plan.n_cycles):
+        for j in range(len(plan.cycle_kinds)):
+            li = len(plan.head) + c * len(plan.cycle_kinds) + j
+            blocks[li] = tree_map(lambda a, c=c: np.asarray(a)[c], cycles[j])
+    for i, li in enumerate(plan.tail):
+        blocks[li] = tree["tail_blocks"][i]
+    src = {k: tree.get(k) for k in want if k != "blocks"}
+    src["blocks"] = blocks
+
+    def carry(w, a, path):
+        if isinstance(w, dict):
+            if not isinstance(a, dict) or set(a) != set(w):
+                raise ValueError(f"params_from_jax: {path or 'root'} has keys "
+                                 f"{sorted(a) if isinstance(a, dict) else a}, "
+                                 f"expected {sorted(w)}")
+            return {k: carry(w[k], a[k], f"{path}/{k}") for k in w}
+        if isinstance(w, list):
+            return [carry(x, y, f"{path}/{i}") for i, (x, y) in
+                    enumerate(zip(w, a))]
+        if tuple(np.shape(a)) != tuple(w.shape):
+            raise ValueError(f"params_from_jax: {path} has shape "
+                             f"{tuple(np.shape(a))}, expected {tuple(w.shape)}")
+        return _as_tensor(a, dtype, dev)
+
+    return carry(want, src, "")
+
+
+# ----------------------------------------------------------------------------
+# Stream state
+# ----------------------------------------------------------------------------
+
+def init_decode_state(cfg, batch: int, max_seq: int = 0, dtype=None,
+                      mode: str = "decode", device="cuda") -> dict:
+    """Zero states for ``batch`` streams, every leaf stacked over the layers.
+    ``dtype`` (default ``cfg.compute_dtype``) is that of the shift carries;
+    the WKV state is fp32. ``max_seq`` and ``mode`` (JAX signature) are
+    ignored."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.compute_dtype) if dtype is None else dtype
+    one = rw.init_wkv_state(cfg, batch, dtype, device="meta")
+    return tree_map(lambda t: torch.zeros((cfg.n_layers,) + tuple(t.shape),
+                                          dtype=t.dtype, device=dev), one)
+
+
+def layer_state(states: dict, i: int) -> dict:
+    """Layer ``i``'s state as views of the stacked leaves."""
+    return tree_map(lambda t: t[i], states)
+
+
+# ----------------------------------------------------------------------------
+# Forward
+# ----------------------------------------------------------------------------
+
+def _apply_block(p, x, cfg, st, wkv_impl):
+    """One ``wkv`` block; ``st`` (one layer's views) is updated in place."""
+    xa = apply_norm(p["ln1"], x, cfg.norm)
+    y, _ = rw.time_mix(p["tm"], xa, cfg, st["tm"], wkv_impl=wkv_impl)
+    x = x + y
+    xb = apply_norm(p["ln2"], x, cfg.norm)
+    y2, cm_shift = rw.channel_mix(p["cm"], xb, cfg, st["cm_shift"])
+    st["cm_shift"].copy_(cm_shift)
+    return x + y2
+
+
+def _run_layers(cfg, params, x, states, wkv_impl):
+    if len(params["blocks"]) != cfg.n_layers:
+        raise ValueError(f"params hold {len(params['blocks'])} blocks, the "
+                         f"config {cfg.n_layers} layers")
+    for i, p in enumerate(params["blocks"]):
+        x = _apply_block(p, x, cfg, layer_state(states, i), wkv_impl)
+    return x
+
+
+def _embed_in(cfg, params, tokens):
+    scale = cfg.d_model ** 0.5 if cfg.tie_embeddings else None
+    x = embed(params["embed"], tokens, scale=scale)
+    x = x.to(torch_dtype(cfg.compute_dtype))
+    if "ln0" in params:
+        x = apply_norm(params["ln0"], x, cfg.norm)
+    return x
+
+
+def lm_head(cfg, params, x):
+    """fp32 logits of hidden states ``x`` (after the final norm)."""
+    if cfg.tie_embeddings:
+        return unembed(params["embed"], x).float()
+    return (x @ params["unembed"]["w"]).float()
+
+
+def forward(cfg, params, tokens: torch.Tensor, *, embeds=None,
+            mode: str = "train", states: Optional[dict] = None,
+            unembed_out: bool = True, wkv_impl: Optional[Callable] = None):
+    """tokens: (B, S) integer. Returns ``(logits (B, S, V) fp32`` — or the
+    final hidden states when ``unembed_out=False`` — ``, states, aux)``.
+
+    ``states`` (default: zeros) are updated in place and returned. ``aux``
+    is the 0-d fp32 zero of a model without MoE. ``wkv_impl`` replaces the
+    dispatched recurrence in every block (see ``rwkv6.time_mix``).
+    ``mode`` (JAX signature) is checked, not read: the modes run one path.
+    """
+    check_supported(cfg)
+    if embeds is not None:
+        raise NotImplementedError("a VLM embedding prefix comes with a later "
+                                  "slice (internvl2-26b)")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if cfg.wkv_impl == "chunked" and tokens.shape[1] > 1:
+        raise NotImplementedError(
+            "wkv_impl='chunked' (the JAX matmul form wkv_chunked) is not "
+            "ported; the port runs the wkv6 kernel (wkv_impl='scan')")
+    x = _embed_in(cfg, params, tokens)
+    if states is None:
+        states = init_decode_state(cfg, tokens.shape[0], device=x.device)
+    x = _run_layers(cfg, params, x, states, wkv_impl)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    aux = torch.zeros((), device=x.device)
+    if not unembed_out:
+        return x, states, aux
+    return lm_head(cfg, params, x), states, aux
+
+
+def prefill(cfg, params, tokens: torch.Tensor, *, embeds=None,
+            cache_len: Optional[int] = None,
+            wkv_impl: Optional[Callable] = None):
+    """The prompt through the sequence path from a zero state: ``(logits
+    (B, S, V), states)``. ``cache_len`` (JAX signature) is ignored."""
+    logits, states, _ = forward(cfg, params, tokens, embeds=embeds,
+                                mode="prefill", wkv_impl=wkv_impl)
+    return logits, states
+
+
+def decode_step(cfg, params, token: torch.Tensor, states: dict,
+                pos: torch.Tensor, *, wkv_impl: Optional[Callable] = None):
+    """token: (B, 1) integer; pos: (B,) positions (JAX signature; checked,
+    not read).
+    One serve step: ``(logits (B, 1, V) fp32, states)``, ``states`` updated
+    in place."""
+    check_supported(cfg)
+    if token.ndim != 2 or token.shape[1] != 1:
+        raise ValueError(f"decode_step: token must be (B, 1), got "
+                         f"{tuple(token.shape)}")
+    if tuple(pos.shape) != (token.shape[0],):
+        raise ValueError(f"decode_step: pos must be ({token.shape[0]},), got "
+                         f"{tuple(pos.shape)}")
+    x = _embed_in(cfg, params, token)
+    x = _run_layers(cfg, params, x, states, wkv_impl)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return lm_head(cfg, params, x), states
+

@@ -6,14 +6,17 @@ and ``nvcc`` but no JAX:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Each kernel is held against its plain PyTorch version on the card, the
-serving engine on the card against the engine on the CPU, and a short
-training run on the card against the same run (same draws) on the CPU.
+serving engine on the card against the engine on the CPU, a short training
+run on the card against the same run (same draws) on the CPU, and the
+reduced RWKV6 language model on the card against the port on the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import comm
+from repro_torch import configs as TC
+from repro_torch import models as TM
 from repro_torch.core import (
     exponential_decay,
     knn_ring,
@@ -32,6 +35,8 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels import flat_update as fu
 from repro_torch.kernels import policy_infer as pinf
 from repro_torch.kernels import topk_scatter as tks
+from repro_torch.kernels import wkv6 as wk
+from repro_torch.launch import Request, ServingLoop
 from repro_torch.optim import flat_adam, flat_momentum
 from repro_torch.rl import FIGURE_EIGHT, FedRLConfig, TorchDraws, replay_of, run_fedrl
 from repro_torch.rl.policy import init_policy
@@ -379,3 +384,135 @@ def test_consensus_run_on_the_card_matches_the_cpu_run(card, case):
     want = {"dense": (8, 0, 0), "sparse-E2": (0, 16, 0),
             "topk-gossip": (8, 0, 8 // 3)}[case]
     assert got == want
+
+
+# --- the WKV6 recurrence and the RWKV6 model -------------------------------------
+#
+# The kernel and the plain loop sum the contraction over i in another order,
+# so both are held against the plain loop evaluated in float64 on the same
+# inputs: the kernel's error within max(1e-5, 2x the fp32 plain loop's own
+# error).
+
+WKV_ATOL = 1e-5
+
+
+def _wkv_case(b, t, h, seed, card, state_scale=0.1):
+    """r, k, v ~ 0.5 N(0, 1); the model's decay exp(-exp(N(0, 0.5)));
+    u ~ 0.5 N(0, 1); a nonzero initial state."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.tensor((0.5 * rng.standard_normal(s)).astype(
+        np.float32), device=card)
+    r, k, v = f(b, t, h, 64), f(b, t, h, 64), f(b, t, h, 64)
+    w = torch.exp(-torch.exp(f(b, t, h, 64)))
+    u = f(h, 64)
+    s0 = state_scale * f(b, h, 64, 64) / 0.5
+    return r, k, v, w, u, s0
+
+
+def _assert_near_f64(got, plain32, want64, what):
+    err = float((got.double() - want64).abs().max())
+    plain_err = float((plain32.double() - want64).abs().max())
+    assert err <= max(WKV_ATOL, 2 * plain_err), (what, err, plain_err)
+
+
+@pytest.mark.parametrize("b,t,h", [(8, 512, 32), (8, 1, 32), (1, 7, 1),
+                                   (1, 1000, 2), (3, 33, 4), (1, 1, 1)])
+def test_wkv6_kernel_matches_plain(card, b, t, h):
+    args = _wkv_case(b, t, h, b * 1000 + t + h, card)
+    want_y, want_s = wk.wkv6_plain(*[a.double() for a in args])
+    y32, s32 = wk.wkv6_plain(*args)
+    before = wk.launches
+    y, s = wk.wkv6_cuda(*args)
+    torch.cuda.synchronize()
+    assert wk.launches == before + 1
+    _assert_near_f64(y, y32, want_y, "y")
+    _assert_near_f64(s, s32, want_s, "state")
+
+
+def test_wkv6_kernel_in_place_state_and_chaining(card):
+    """The final state written over the initial one; two halves chained
+    through the state equal one run."""
+    r, k, v, w, u, s0 = _wkv_case(2, 64, 3, 5, card)
+    y_full, s_full = wk.wkv6_cuda(r, k, v, w, u, s0)
+    st = s0.clone()
+    y1, out = wk.wkv6_cuda(r[:, :29].contiguous(), k[:, :29].contiguous(),
+                           v[:, :29].contiguous(), w[:, :29].contiguous(), u,
+                           st, state_out=st)
+    assert out is st
+    y2, _ = wk.wkv6_cuda(r[:, 29:].contiguous(), k[:, 29:].contiguous(),
+                         v[:, 29:].contiguous(), w[:, 29:].contiguous(), u,
+                         st, state_out=st)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([y1, y2], 1), y_full)
+    assert torch.equal(st, s_full)
+
+
+def test_wkv6_kernel_refuses_what_it_does_not_take(card):
+    r, k, v, w, u, s0 = _wkv_case(1, 4, 2, 0, card)
+    with pytest.raises(TypeError):
+        wk.wkv6_cuda(r.double(), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="head size"):
+        wk.wkv6_cuda(r[..., :32], k[..., :32], v[..., :32], w[..., :32],
+                     u[:, :32], s0[:, :, :32, :32])
+    with pytest.raises(ValueError, match="contiguous"):
+        wk.wkv6_cuda(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w,
+                     u, s0)
+    with pytest.raises(ValueError, match="T >= 1"):
+        wk.wkv6_cuda(r[:, :0], k[:, :0], v[:, :0], w[:, :0], u, s0)
+    buf = torch.zeros(s0.numel() + 64, device=card)
+    with pytest.raises(ValueError, match="overlaps"):
+        wk.wkv6_cuda(r, k, v, w, u, buf[:s0.numel()].view(s0.shape),
+                     state_out=buf[64:].view(s0.shape))
+
+
+def _reduced_lm(card, scale=1.0):
+    cfg = TC.get_arch("rwkv6-1.6b").reduced()
+    params = TM.init_params(cfg, seed=0, device="cpu")
+    params = TM.transformer.tree_map(lambda t: t * scale, params)
+    return cfg, params, TM.transformer.tree_map(lambda t: t.to(card), params)
+
+
+def test_lm_on_the_card_matches_the_cpu_port(card):
+    """Reduced RWKV6 in fp32: prefill and three decode steps on the card
+    against the same on the CPU (atol 1e-4: fp32 in another summation
+    order), one kernel launch per layer and call."""
+    cfg, cpu_p, gpu_p = _reduced_lm(card)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 21)))
+    lg_c, st_c = TM.prefill(cfg, cpu_p, toks[:, :18])
+    before = wk.launches
+    lg_g, st_g = TM.prefill(cfg, gpu_p, toks[:, :18].to(card))
+    assert wk.launches - before == cfg.n_layers
+    torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=0)
+    for i in range(3):
+        tok = toks[:, 18 + i:19 + i]
+        pos = torch.full((3,), 18 + i)
+        lg_c, st_c = TM.decode_step(cfg, cpu_p, tok, st_c, pos)
+        before = wk.launches
+        lg_g, st_g = TM.decode_step(cfg, gpu_p, tok.to(card), st_g,
+                                    pos.to(card))
+        assert wk.launches - before == cfg.n_layers
+        torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=0)
+    torch.testing.assert_close(st_g["tm"]["wkv"].cpu(), st_c["tm"]["wkv"],
+                               atol=1e-4, rtol=0)
+
+
+def test_serving_loop_on_the_card_matches_single_request_greedy(card):
+    """fp32 weights scaled x6, so that the recurrent state decides the
+    tokens; 2 slots, 5 requests (both slots recycled)."""
+    cfg, _, gpu_p = _reduced_lm(card, scale=6.0)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 3, 7, 1, 9)]
+    done = ServingLoop(cfg, gpu_p, n_slots=2, max_seq=64).run(
+        [Request(i, p, 4) for i, p in enumerate(prompts)])
+    got = {c.rid: c.tokens for c in done}
+    for i, p in enumerate(prompts):
+        lg, st = TM.prefill(cfg, gpu_p, torch.as_tensor(p[None], device=card))
+        tok = lg[:, -1:].argmax(-1)
+        want = [int(tok)]
+        for j in range(3):
+            lg, st = TM.decode_step(cfg, gpu_p, tok, st,
+                                    torch.tensor([len(p) + j], device=card))
+            tok = lg[:, -1:].argmax(-1)
+            want.append(int(tok))
+        assert got[i] == want, i

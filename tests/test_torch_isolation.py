@@ -40,7 +40,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                 "rl.rollout", "rl.draws", "rl.fedrl", "core.topology",
                 "core.consensus", "comm", "comm.transforms",
                 "kernels.consensus_step", "kernels.consensus_gather",
-                "kernels.topk_scatter"):
+                "kernels.topk_scatter", "kernels.wkv6", "configs",
+                "configs.base", "configs.rwkv6_1_6b", "models",
+                "models.layers", "models.rwkv6", "models.transformer",
+                "launch", "launch.serve", "launch.serving_loop"):
         assert f"repro_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
