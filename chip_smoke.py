@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, consensus and language-model
-serving paths on one NVIDIA GPU.
+serving paths (RWKV6 and sliding-window attention) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -89,7 +89,32 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
 11. times — wkv6 at the prefill and decode shapes (CUDA events and CUPTI,
    L2 flushed and warm) beside its bound and the plain loop's time; one
    profiled window of 16 decode steps at B = 8 (device idle share, wkv6 and
-   matmul device time).
+   matmul device time);
+12. swa_attention vs plain — the hand-written ``swa_attention`` kernel
+   against its plain version, both held to the plain version in float64:
+   (8, 512) and (1, 8192) with 32 / 8 heads of 120 and W = 4096, in bf16
+   and fp32; no window with causal on and off; W = 40 (below a tile) and
+   W = 1; ragged lengths (7, 1000, 4097); D = 128 with 24 / 8 heads; Sq !=
+   Sk either way;
+13. sliding-window attention serving (slice 5) — ``h2o-danube-3-4b`` at
+   full width and depth (24 layers, d 3840, 32 / 8 heads of 120, W 4096,
+   3,961,839,360 seeded bf16 parameters on the card) through
+   ``make_prefill_step`` (8 x 512, 1 x 8192), ``make_serve_step`` (32
+   tokens at B = 8) and a ``ServingLoop`` of 8 slots over 16 requests
+   (max_seq 4736; request 0's 4600-token prompt wraps its ring):
+   prefill / decode / loop tokens per second; swa_attention launched
+   exactly 24 times per prefill call and per admission, never in a decode
+   step, no build. Checks: every completion against single-request greedy
+   decoding on the card (bf16 with counted near-ties; fp32 outright); an
+   admission leaves the other slots' cache rows bitwise unchanged; in
+   fp32 the card against the CPU (2 x 16 tokens, 4 decode steps), a
+   prefill of 4100 tokens and 8 decode steps against one forward over the
+   4108 (the ring wrapped) and the model with the kernel against the same
+   with the plain attention (atol 1e-3);
+14. times — swa_attention in bf16 at (8, 512), (1, 8192) and (1, 16384),
+   W = 4096 (CUDA events and CUPTI, L2 flushed and warm) beside its bound,
+   SDPA's time and the plain version's; one profiled 1 x 8192 prefill
+   (device idle share, the kernel's and the matmuls' device time).
 
 Its last lines are the kernel summary JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -122,10 +147,11 @@ HORIZON_S = 0.25                             # open-loop schedule length
 THROUGHPUT_REPEATS = 3
 TIMED_LAUNCHES = 200
 CHUNK = 25
-# Published H100 SXM peaks at 700 W (NVIDIA data sheet): HBM3 rate and fp32
-# outside the tensor cores.
+# Published H100 SXM peaks at 700 W (NVIDIA data sheet): HBM3 rate, fp32
+# outside the tensor cores, and dense bf16 on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 # Kernel vs plain. Both are held against the plain version evaluated in
 # float64 on the same (fp32-valued) inputs. The kernel's fp32 error must be
 # within max(ATOL_F32, 2x the fp32 plain version's own error): at the
@@ -158,7 +184,7 @@ FLAT_ULPS = 2
 ROW_MEAN_REL = 1e-6
 TIMED_SHAPES = ((1024, 9347), (7, 9347))
 CUPTI_CALLS = 50
-CUPTI_WINDOWS = 3     # profiler windows tried before a lost trace fails
+CUPTI_WINDOWS = 8     # profiler windows tried before a lost trace fails
 
 # Training: the Table II geometry of benchmarks/fmarl_bench.py:23-26 (T, P,
 # eta), 3 epochs = 18 local updates so that the decay strategy's tau = 15
@@ -430,8 +456,10 @@ def sleep_cycles_per_ms() -> float:
     return 10_000_000 / a.elapsed_time(b)
 
 
-def device_ms(fn, cycles_per_ms: float, flush=None) -> tuple:
-    """Median device time of one call, from per-call CUDA events.
+def device_ms(fn, cycles_per_ms: float, flush=None,
+              launches: int = TIMED_LAUNCHES) -> tuple:
+    """Median device time of one call, from per-call CUDA events over
+    ``launches`` calls (a multiple of CHUNK).
 
     The calls are enqueued in chunks of CHUNK behind a spin kernel that holds
     the stream until the host has enqueued the whole chunk (a chunk stays
@@ -454,7 +482,7 @@ def device_ms(fn, cycles_per_ms: float, flush=None) -> tuple:
     torch.cuda.synchronize()
     hold_ms = 2.0 * (time.perf_counter() - t0) * 1e3 + 1.0
     times, gaps = [], []
-    for _ in range(TIMED_LAUNCHES // CHUNK):
+    for _ in range(launches // CHUNK):
         ev = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(CHUNK)]
         torch.cuda._sleep(int(cycles_per_ms * hold_ms))
@@ -556,7 +584,7 @@ def times(pinf, serving, card) -> dict:
             b_ms, b_by, flops, nbytes = bound(b, sample)
             rows[f"{mode}/{b}"] = {
                 "bucket": b, "mode": mode, "ms": ms, "plain_ms": plain_ms,
-                "cupti_ms": cupti_ms(kern, None),
+                "cupti_ms": cupti_ms(kern, None, "policy_infer_kernel"),
                 "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
                 "bytes": nbytes, "launches_on_path": calls[str(b)],
                 "idle_gap_ms": gap,
@@ -1101,16 +1129,21 @@ def l2_flusher():
     return lambda: torch.amax(buf)
 
 
-def cupti_ms(fn, flush, n: int = CUPTI_CALLS,
+def cupti_ms(fn, flush, kernel, n: int = CUPTI_CALLS,
              windows: int = CUPTI_WINDOWS) -> float:
-    """Device time per call by CUPTI: the device-side records of ``n`` calls
-    in one ``torch.profiler`` window, less the device time of the ``n``
-    flushes (the kernels launched under ``FLUSH_OP``), over ``n``. ``flush``
-    (or None) runs before each call to evict the L2.
+    """Device time per call by CUPTI over ``n`` calls in one
+    ``torch.profiler`` window. ``flush`` (or None) runs before each call to
+    evict the L2. ``kernel`` is a part of the name of the one kernel that
+    each call launches: the time is the mean of its records, so records the
+    tracer dropped (it drops some in many windows: 45 of 50 at (1024, 9347))
+    do not make it read low. ``kernel`` is None only for a plain or library
+    yardstick, whose kernels vary: its time is the window's device records
+    less the device time of the ``n`` flushes (the kernels launched under
+    ``FLUSH_OP``), over ``n``.
 
-    A window whose device records came back empty or without the ``n``
-    flushes was lost by the tracer, not measured: it is taken again, up to
-    ``windows`` windows in all, and the loss is logged."""
+    A lost window (no device records, not ``n`` flushes, fewer than ``n /
+    2`` records of ``kernel``) is not a measurement: it is taken again, up
+    to ``windows`` windows in all, and the loss is logged."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1126,20 +1159,29 @@ def cupti_ms(fn, flush, n: int = CUPTI_CALLS,
                 fn()
             torch.cuda.synchronize()
         ev = prof.key_averages()
-        busy = sum(e.self_device_time_total for e in ev
-                   if e.device_type == DeviceType.CUDA)
-        ops = [e for e in ev
-               if e.key == FLUSH_OP and e.device_type == DeviceType.CPU]
-        flush_us = sum(e.device_time_total for e in ops)
-        if flush is None:
-            lost = f"{busy} us of device time" if busy <= 0 else None
-        elif sum(e.count for e in ops) != n or not 0 < flush_us < busy:
-            lost = (f"cannot tell the L2 flush apart: {len(ops)} {FLUSH_OP} "
-                    f"records, {flush_us} of {busy} us")
+        if kernel is not None:
+            recs = [e for e in ev if e.device_type == DeviceType.CUDA
+                    and kernel in e.key]
+            got = sum(e.count for e in recs)
+            if 2 * got >= n:
+                if got != n:
+                    log(f"cupti: {got} of {n} records of {kernel}, timed "
+                        f"by their mean")
+                return sum(e.self_device_time_total for e in recs) / got / 1e3
+            lost = f"{got} records of {kernel}, expected {n}"
         else:
-            lost = None
-        if lost is None:
-            return (busy - flush_us) / n / 1e3
+            busy = sum(e.self_device_time_total for e in ev
+                       if e.device_type == DeviceType.CUDA)
+            ops = [e for e in ev
+                   if e.key == FLUSH_OP and e.device_type == DeviceType.CPU]
+            flush_us = sum(e.device_time_total for e in ops)
+            if flush is None and busy > 0:
+                return busy / n / 1e3
+            if flush is not None and sum(e.count for e in ops) == n and \
+                    0 < flush_us < busy:
+                return (busy - flush_us) / n / 1e3
+            lost = (f"{busy} us of device time, {len(ops)} {FLUSH_OP} "
+                    f"records of {flush_us} us")
         log(f"cupti window {window} of {windows} lost: {lost}")
     raise AssertionError(f"every CUPTI window was lost: {lost}")
 
@@ -1210,10 +1252,12 @@ def flat_times(dacc, fu, dispatch, training, card) -> dict:
             b_ms, b_by, nbytes, flops = flat_bound(name, m, n)
             rec = {"shape": [m, n], "dtype": "float32",
                    "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                   "library_ms": lib_ms, "cupti_ms": cupti_ms(kern, flush),
-                   "plain_cupti_ms": cupti_ms(plain, flush),
-                   "library_cupti_ms": cupti_ms(lib, flush) if lib else None,
-                   "warm_l2_cupti_ms": cupti_ms(kern, None),
+                   "library_ms": lib_ms,
+                   "cupti_ms": cupti_ms(kern, flush, f"{name}_kernel"),
+                   "plain_cupti_ms": cupti_ms(plain, flush, None),
+                   "library_cupti_ms": (cupti_ms(lib, flush, None) if lib
+                                        else None),
+                   "warm_l2_cupti_ms": cupti_ms(kern, None, f"{name}_kernel"),
                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                    "flops": flops,
                    "launches_on_path": on_path.get(name, 0)}
@@ -1322,10 +1366,11 @@ def gossip_times(km, core, comm, consensus, card) -> dict:
         rec = {"shape": [m, 9347], "dtype": "float32", "k_max": k,
                "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
                "library_ms": lib_ms, "library_max_abs_err": lib_err,
-               "cupti_ms": cupti_ms(kern, flush),
-               "plain_cupti_ms": cupti_ms(plain, flush),
-               "library_cupti_ms": cupti_ms(lib, flush) if lib else None,
-               "warm_l2_cupti_ms": cupti_ms(kern, None),
+               "cupti_ms": cupti_ms(kern, flush, f"{name}_kernel"),
+               "plain_cupti_ms": cupti_ms(plain, flush, None),
+               "library_cupti_ms": (cupti_ms(lib, flush, None) if lib
+                                    else None),
+               "warm_l2_cupti_ms": cupti_ms(kern, None, f"{name}_kernel"),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                "flops": flops, "launches_on_path": on_path}
         rows[f"{name}/{m}x9347"] = rec
@@ -1517,15 +1562,17 @@ def _prompt_tokens(rng, cfg, b, t):
                            device="cuda")
 
 
-def lm_greedy_check(TM, cfg, params, req, tokens, near_tie) -> dict:
+def lm_greedy_check(TM, cfg, params, req, tokens, near_tie,
+                    cache_len=None) -> dict:
     """Single-request greedy decoding of ``req`` on the card (prefill, then
     decode_step), fed the loop's own tokens, so that every position is
-    checked. Where a loop token is not the single-request argmax, its logit
-    must lie within ``near_tie(max logit)`` of the max: such near-ties are
-    returned (with how far below the max it lies), any other divergence
-    raises."""
+    checked; the prefill sizes the KV caches for ``cache_len`` positions, as
+    the loop's ``max_seq`` sizes its own. Where a loop token is not the
+    single-request argmax, its logit must lie within ``near_tie(max
+    logit)`` of the max: such near-ties are returned (with how far below the
+    max it lies), any other divergence raises."""
     lg, st = TM.prefill(cfg, params, torch.as_tensor(
-        req.prompt[None], device="cuda"))
+        req.prompt[None], device="cuda"), cache_len=cache_len)
     lg = lg[:, -1:]
     pos = len(req.prompt)
     min_margin, ties = float("inf"), []
@@ -1586,19 +1633,16 @@ def recurrence_in_model(TM, wk, cfg, params, toks, decoded, pos) -> dict:
             "plain_top": torch.cat(top_p), "margins": torch.cat(margins)}
 
 
-def admission_control(TM, launch, cfg, params, reqs) -> dict:
+def admission_rows(TM, launch, cfg, params, reqs, max_seq):
     """An admission writes only its own slot, at full width: the first
     ``LM_SLOTS - 1`` requests fill all slots but the last, every state leaf
     is copied, and a request of ``LM_ADMIT_PROMPT`` tokens is admitted into
     the last slot. The other slots' rows must be bitwise unchanged and the
     new slot's bitwise equal to a B = 1 prefill of its prompt but the last
-    token. The control: the JAX loop's admission from the same copy (each
-    prompt token but the last through ``decode_step`` over every slot, the
-    others fed their pending tokens) must move the other slots' rows; how
-    far, and how far it moves their next logits, is reported."""
+    token (its caches sized for ``max_seq``, as the loop's). Returns the
+    loop, the copy and the request."""
     tree_leaves = TM.transformer.tree_leaves
-    loop = launch.ServingLoop(cfg, params, n_slots=LM_SLOTS,
-                              max_seq=LM_MAX_SEQ)
+    loop = launch.ServingLoop(cfg, params, n_slots=LM_SLOTS, max_seq=max_seq)
     for i, r in enumerate(reqs[:LM_SLOTS - 1]):
         loop._admit(r, i)
     new = launch.Request(-1, reqs[LM_SLOTS - 1].prompt[:LM_ADMIT_PROMPT], 1)
@@ -1610,11 +1654,25 @@ def admission_control(TM, launch, cfg, params, reqs) -> dict:
                for a, b in zip(after, tree_leaves(snap))):
         raise AssertionError("admission changed another slot's state rows")
     _, want = TM.prefill(cfg, params, torch.as_tensor(
-        new.prompt[None, :-1], device="cuda"))
+        new.prompt[None, :-1], device="cuda"), cache_len=max_seq)
     if not all(torch.equal(a[:, last:], b)
                for a, b in zip(after, tree_leaves(want))):
         raise AssertionError("the admitted slot's state rows differ from a "
                              "B = 1 prefill of its prompt")
+    return loop, snap, new
+
+
+def admission_control(TM, launch, cfg, params, reqs) -> dict:
+    """:func:`admission_rows` for the RWKV6 loop, then the control: the JAX
+    loop's admission from the same copy (each prompt token but the last
+    through ``decode_step`` over every slot, the others fed their pending
+    tokens) must move the other slots' rows; how far, and how far it moves
+    their next logits, is reported."""
+    tree_leaves = TM.transformer.tree_leaves
+    loop, snap, new = admission_rows(TM, launch, cfg, params, reqs,
+                                     LM_MAX_SEQ)
+    last = LM_SLOTS - 1
+    after = tree_leaves(loop.state)
     # the control: the JAX loop's admission of the same request
     jax_state = snap
     for t in tree_leaves(jax_state):
@@ -1646,9 +1704,10 @@ def admission_control(TM, launch, cfg, params, reqs) -> dict:
     return out
 
 
-def loop_vs_single_request(TM, cfg, params, reqs, got, near_tie) -> dict:
-    checks = [lm_greedy_check(TM, cfg, params, r, got[r.rid], near_tie)
-              for r in reqs]
+def loop_vs_single_request(TM, cfg, params, reqs, got, near_tie,
+                           cache_len=None) -> dict:
+    checks = [lm_greedy_check(TM, cfg, params, r, got[r.rid], near_tie,
+                              cache_len) for r in reqs]
     ties = [t for c in checks for t in c["ties"]]
     return {"requests": len(checks),
             "positions": sum(c["positions"] for c in checks),
@@ -1660,8 +1719,8 @@ def loop_vs_single_request(TM, cfg, params, reqs, got, near_tie) -> dict:
 def loop_vs_teacher_forced(TM, cfg, params, reqs, got) -> dict:
     """Each completion against single-request greedy decoding, outright: one
     B = 1 prefill of the request's prompt followed by the loop's tokens gives
-    the request's own logits at every generated position (the recurrence
-    over a sequence equals its steps one by one), and every loop token must
+    the request's own logits at every generated position (the model over a
+    sequence equals its steps one by one), and every loop token must
     be the argmax there; so, position by position, the completion is the
     request's greedy decoding."""
     positions, min_margin = 0, float("inf")
@@ -1669,7 +1728,7 @@ def loop_vs_teacher_forced(TM, cfg, params, reqs, got) -> dict:
         toks = got[r.rid]
         seq = np.concatenate([np.asarray(r.prompt), toks[:-1]])[None]
         x, _, _ = TM.forward(cfg, params, torch.as_tensor(seq, device="cuda"),
-                             mode="prefill", unembed_out=False)
+                             mode="train", unembed_out=False)
         top, margin = _margins(TM.lm_head(cfg, params,
                                           x[0, len(r.prompt) - 1:]))
         bad = [i for i, (a, b) in enumerate(zip(top.tolist(), toks)) if a != b]
@@ -1941,8 +2000,8 @@ def lm_times(wk, lm, card) -> dict:
         b_ms, b_by, nbytes, flops = wkv6_bound(b, t, 32)
         rec = {"shape": [b, t, 32, 64], "ms": (k1 + k2) / 2,
                "plain_ms": (p1 + p2) / 2, "library_ms": None,
-               "cupti_ms": cupti_ms(kern, flush),
-               "warm_l2_cupti_ms": cupti_ms(kern, None),
+               "cupti_ms": cupti_ms(kern, flush, "wkv6_kernel"),
+               "warm_l2_cupti_ms": cupti_ms(kern, None, "wkv6_kernel"),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                "flops": flops}
         rows[f"wkv6/{b}x{t}"] = rec
@@ -2012,6 +2071,519 @@ def profile_decode(TC, TM, launch, card) -> dict:
     torch.cuda.empty_cache()
     return out
 
+# --- phases 12-14: sliding-window attention serving (slice 5) -----------------------
+
+SWA_ARCH = "h2o-danube-3-4b"
+SWA_PARAMS = 3_961_839_360            # the JAX init tree's count at full width
+SWA_WINDOW = 4096
+SWA_PREFILL = ((8, 512), (1, 8192))   # (B, T) of the prefill step
+SWA_LONG = (1, 16384)                 # timed beside (1, 8192): O(S * W) work
+SWA_LONG_PROMPT = 4600                # request 0's prompt: its ring wraps
+SWA_MAX_SEQ = 4736
+SWA_F32_PREFILL, SWA_F32_DECODE = 4100, 8   # prefill, then decode past W
+# swa_attention kernel vs plain: both against the plain version in float64
+# on the same inputs; the kernel's error within max(SWA_ATOL, 2x the fp32
+# plain version's), bf16 outputs one bf16 ulp (BF16_REL) more.
+SWA_ATOL = 1e-5
+SWA_KERNEL = "swa_attention_kernel"   # the kernel's name in CUPTI records
+
+
+def swa_inputs(b, sq, sk, h, kv, d, dtype, seed):
+    """q, k, v ~ N(0, 1): scores of unit scale after the D^-1/2, as the
+    model's RMS-normed projections give."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)
+    return rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d)
+
+
+def swa_pairs(b, sq, sk, h, window, causal) -> int:
+    """Unmasked (i, j) pairs: the work the function needs for these shapes."""
+    i = np.arange(sq)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    hi = np.minimum(sk - 1, i) if causal else np.full_like(i, sk - 1)
+    return int(b * h * np.maximum(0, hi - lo + 1).sum())
+
+
+def swa_bound(b, sq, sk, h, kv, d, window, causal, esize) -> tuple:
+    """Bytes: q, k, v read and o written once. FLOP: 4 * D per unmasked
+    pair, 2 * D for q . k and 2 * D for p * v. For bf16 inputs q . k runs
+    at the card's bf16 tensor-core rate (its products are exact in fp32)
+    and p * v at the fp32 rate, since ``p`` stays fp32; for fp32 inputs
+    both run at the fp32 rate."""
+    nbytes = esize * d * (2 * b * sq * h + 2 * b * sk * kv)
+    half = 2 * d * swa_pairs(b, sq, sk, h, window, causal)
+    qk_rate = BF16_FLOP_PER_S if esize == 2 else FP32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (half / qk_rate + half / FP32_FLOP_PER_S) * 1e3
+    peak = (f"q.k at {qk_rate / 1e12:g} TFLOP/s "
+            f"({'bf16 tensor cores' if esize == 2 else 'fp32'}), p.v at "
+            f"{FP32_FLOP_PER_S / 1e12:g} TFLOP/s (fp32)")
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, 2 * half, peak)
+
+
+def swa_vs_plain(sw) -> dict:
+    """Phase 12: the kernel against its plain version on the card at the
+    slice's shapes (prefill 8 x 512 and 1 x 8192 at W = 4096, bf16 and
+    fp32), no window with causal on and off, a window smaller than a tile
+    and W = 1, ragged lengths (7, 1000, 4097), D = 128 with 24 / 8 heads
+    (phi4-mini's), and Sq != Sk either way."""
+    f32, b16 = (torch.float32,), (torch.bfloat16,)
+    both = f32 + b16
+    cases = [  # b, sq, sk, h, kv, d, window, causal, dtypes
+        (8, 512, 512, 32, 8, 120, SWA_WINDOW, True, both),
+        (1, 8192, 8192, 32, 8, 120, SWA_WINDOW, True, both),
+        (2, 1000, 1000, 32, 8, 120, None, True, f32),
+        (2, 1000, 1000, 32, 8, 120, None, False, both),
+        (1, 1000, 1000, 32, 8, 120, 40, True, f32),
+        (1, 1000, 1000, 32, 8, 120, 1, True, f32),
+        (1, 7, 7, 32, 8, 120, SWA_WINDOW, True, both),
+        (1, 4097, 4097, 32, 8, 120, SWA_WINDOW, True, b16),
+        (2, 512, 512, 24, 8, 128, None, True, both),
+        (1, 300, 700, 32, 8, 120, 256, True, f32),
+        (1, 700, 300, 24, 8, 128, None, True, f32),
+    ]
+    worst = {"float32": 0.0, "bfloat16": 0.0, "plain_fp32_vs_fp64": 0.0}
+    rows = []
+    for n, (b, sq, sk, h, kv, d, window, causal, dtypes) in enumerate(cases):
+        for dtype in dtypes:
+            q, k, v = swa_inputs(b, sq, sk, h, kv, d, dtype, SEED + 120 + n)
+            kw = dict(window=window, causal=causal)
+            want = sw.swa_attention_plain(q.double(), k.double(), v.double(),
+                                          **kw)
+            plain = sw.swa_attention_plain(q, k, v, **kw)
+            got = sw.swa_attention_cuda(q, k, v, **kw)
+            torch.cuda.synchronize()
+            e_plain = float((plain.double() - want).abs().max())
+            dev = (got.double() - want).abs()
+            tol = max(SWA_ATOL, 2.0 * e_plain)
+            lim = tol + (BF16_REL * want.abs() if dtype == torch.bfloat16
+                         else 0.0)
+            if not bool((dev <= lim).all()) or got.dtype != dtype:
+                raise AssertionError(
+                    f"swa_attention {(b, sq, sk, h, kv, d)} window={window} "
+                    f"causal={causal} {dtype}: kernel err {float(dev.max())!r} "
+                    f"beyond {tol!r} (plain err {e_plain!r})")
+            name = str(dtype).split(".")[-1]
+            err = float(dev.max())
+            worst[name] = max(worst[name], err)
+            if dtype == torch.float32:
+                worst["plain_fp32_vs_fp64"] = max(worst["plain_fp32_vs_fp64"],
+                                                  e_plain)
+            rows.append({"shape": [b, sq, sk, h, kv, d], "window": window,
+                         "causal": causal, "dtype": name, "err": err,
+                         "plain_err": e_plain})
+            del q, k, v, want, plain, got, dev
+    torch.cuda.empty_cache()
+    log(f"phase swa_attention vs plain: {len(rows)} cases ok; max abs err vs "
+        f"float64: fp32 {worst['float32']!r}, bf16 {worst['bfloat16']!r} "
+        f"(plain fp32 {worst['plain_fp32_vs_fp64']!r}); rule max({SWA_ATOL}, "
+        f"2x fp32 plain's error), + one bf16 ulp for bf16 outputs")
+    return {"max_abs_err": worst["float32"], "worst": worst, "cases": rows}
+
+
+def _swa_requests(rng, launch, cfg):
+    """16 requests: prompts of 16-512 tokens and 32-64 new tokens, but
+    request 0's prompt of SWA_LONG_PROMPT tokens, which wraps its ring."""
+    reqs = []
+    for i in range(LM_REQUESTS):
+        n = SWA_LONG_PROMPT if i == 0 else int(rng.integers(LM_PROMPT[0],
+                                                             LM_PROMPT[1] + 1))
+        reqs.append(launch.Request(i, rng.integers(0, cfg.vocab_size, n),
+                                   int(rng.integers(LM_NEW[0], LM_NEW[1] + 1))))
+    return reqs
+
+
+def swa_serving_path(sw, _build, TC, TM, launch, card) -> dict:
+    """Phase 13: h2o-danube-3-4b at full width and depth, seeded bf16
+    weights on the card, through the user's entry points:
+    ``make_prefill_step`` at 8 x 512 and 1 x 8192 (past the window),
+    ``make_serve_step`` for 32 tokens at B = 8, and a ``ServingLoop`` of 8
+    slots over 16 requests. The swa_attention counter is set to 0 before
+    this main path and read after it: 24 launches per prefill call and per
+    admission, none per decode step, no build. Then the checks: every
+    completion against single-request greedy decoding on the card, an
+    admission against the other slots' cache rows, and in fp32 the card
+    against the CPU, prefill-then-decode across the ring's wrap against one
+    forward, the kernel against the plain attention inside the model, and
+    the loop's completions outright."""
+    cfg = TC.get_arch(SWA_ARCH)
+    L = cfg.n_layers
+    rng = np.random.default_rng(SEED + 50)
+    t0 = time.perf_counter()
+    params = TM.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = TM.count_params(params)
+    if n_params != SWA_PARAMS:
+        raise AssertionError(f"{SWA_ARCH}: {n_params} parameters, expected "
+                             f"{SWA_PARAMS}")
+    prefill_step = launch.make_prefill_step(cfg)
+    serve_step = launch.make_serve_step(cfg)
+    builds = _build.n_builds
+    out = {"arch": SWA_ARCH, "params": n_params, "init_s": init_s,
+           "dtype": cfg.param_dtype, "prefill": {}}
+
+    # --- the main path, counted ---
+    sw.launches = 0
+    for b, t in SWA_PREFILL:
+        toks = _prompt_tokens(rng, cfg, b, t)
+        secs = []
+        for _ in range(1 + LM_TIMED):
+            before = sw.launches
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, states = prefill_step(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            if sw.launches - before != L:
+                raise AssertionError(f"prefill {b}x{t}: {sw.launches - before}"
+                                     f" swa_attention launches, expected {L}")
+        if tuple(logits.shape) != (b, 1, TM.padded_vocab(cfg)) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"prefill {b}x{t}: bad logits "
+                                 f"{tuple(logits.shape)}")
+        med = statistics.median(secs[1:])
+        out["prefill"][f"{b}x{t}"] = {"first_s": secs[0], "median_s": med,
+                                      "tokens_per_s": b * t / med}
+        if b == LM_SLOTS:
+            dec_logits, dec_states = logits, states
+        del states
+    tok = dec_logits.argmax(-1)
+    pos = torch.full((LM_SLOTS,), SWA_PREFILL[0][1], device="cuda")
+    serve_step(params, tok, TM.init_decode_state(
+        cfg, LM_SLOTS, max_seq=SWA_PREFILL[0][1], device="cuda"), pos)
+    before = sw.launches
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(LM_DECODE_TOKENS):
+        logits, dec_states = serve_step(params, tok, dec_states, pos + i)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t1
+    if sw.launches != before or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"decode: {sw.launches - before} swa_attention "
+                             f"launches in {LM_DECODE_TOKENS} steps, expected 0")
+    out["decode"] = {"batch": LM_SLOTS, "steps": LM_DECODE_TOKENS,
+                     "seconds": dec_s,
+                     "tokens_per_s": LM_SLOTS * LM_DECODE_TOKENS / dec_s}
+    del dec_states
+    reqs = _swa_requests(rng, launch, cfg)
+    warm = launch.ServingLoop(cfg, params, n_slots=LM_SLOTS, max_seq=64)
+    warm.run([launch.Request(-1, r.prompt[:24], 2) for r in reqs[1:3]])
+    del warm
+    loop = launch.ServingLoop(cfg, params, n_slots=LM_SLOTS,
+                              max_seq=SWA_MAX_SEQ)
+    before = sw.launches
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    done = loop.run(reqs)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t1
+    loop_launches = sw.launches - before
+    launches = sw.launches
+    # --- end of the main path ---
+    if _build.n_builds != builds:
+        raise AssertionError("an nvcc build ran on the SWA serving path")
+    if loop_launches != L * loop.n_prefills:
+        raise AssertionError(f"ServingLoop: {loop_launches} swa_attention "
+                             f"launches for {loop.n_prefills} prefills of {L} "
+                             f"layers (and none per decode step)")
+    got = {c.rid: c.tokens for c in done}
+    if sorted(got) != list(range(LM_REQUESTS)) or any(
+            len(got[r.rid]) != r.max_new_tokens for r in reqs):
+        raise AssertionError("ServingLoop: missing or short completions")
+    n_tok = sum(len(c.tokens) for c in done)
+    out["loop"] = {"slots": LM_SLOTS, "requests": LM_REQUESTS,
+                   "max_seq": SWA_MAX_SEQ,
+                   "prompt_tokens": int(sum(len(r.prompt) for r in reqs)),
+                   "new_tokens": n_tok, "seconds": loop_s,
+                   "tokens_per_s": n_tok / loop_s,
+                   "prefills": loop.n_prefills, "steps": loop.n_steps,
+                   "launches": loop_launches}
+    out["launches"] = launches
+    out["launches_per_prefill_call"], out["launches_per_decode_step"] = L, 0
+    del loop
+    log(f"phase swa serving: {SWA_ARCH} {n_params} params bf16 init "
+        f"{init_s!r} s; prefill tokens/s " + ", ".join(
+            f"{k}: {v['tokens_per_s']!r}" for k, v in out["prefill"].items())
+        + f"; decode B={LM_SLOTS} tokens/s {out['decode']['tokens_per_s']!r}; "
+        f"ServingLoop {LM_SLOTS} slots x {LM_REQUESTS} requests, max_seq "
+        f"{SWA_MAX_SEQ} ({out['loop']['prompt_tokens']} prompt + {n_tok} new "
+        f"tokens, {out['loop']['prefills']} prefills, {out['loop']['steps']} "
+        f"steps) {out['loop']['tokens_per_s']!r} new tokens/s; swa_attention "
+        f"launches {launches} ({L} per prefill call, 0 per decode step; no "
+        f"build) card=\"{card}\"")
+
+    out["check_seconds"], t_chk = {}, [time.perf_counter()]
+
+    def checked(name):
+        now = time.perf_counter()
+        out["check_seconds"][name] = now - t_chk[0]
+        t_chk[0] = now
+
+    # --- check: every completion is single-request greedy decoding ---
+    near_tie = lambda best: LM_BF16_ULPS * bf16_ulp(best)
+    chk = loop_vs_single_request(TM, cfg, params, reqs, got, near_tie,
+                                 cache_len=SWA_MAX_SEQ)
+    out["loop_vs_single_request"] = chk
+    log(f"check swa ServingLoop bf16: every token of the {LM_REQUESTS} "
+        f"completions ({chk['positions']}) is single-request greedy on the "
+        f"card or a near-tie; {chk['equal_requests']} completions equal "
+        f"outright; {len(chk['near_ties'])} near-ties (loop token's logit "
+        f"within {LM_BF16_ULPS} bf16 ulp of the max), below the max by "
+        f"{sorted({t['below_max'] for t in chk['near_ties']})}")
+    checked("loop_vs_single_request_bf16")
+    # --- check: an admission leaves the other slots untouched ---
+    adm, _, _ = admission_rows(TM, launch, cfg, params, reqs, SWA_MAX_SEQ)
+    wrapped = int((adm.state["cache"]["pos"][:, 0] >= 0).sum())
+    out["admission"] = {"slots_unchanged": LM_SLOTS - 1,
+                        "slot0_ring_slots_filled": wrapped}
+    log(f"check swa admission: {LM_SLOTS - 1} other slots' cache rows (k, v, "
+        f"pos) bitwise unchanged and the new slot's equal to a B = 1 prefill "
+        f"(slot 0 holds request 0's {SWA_LONG_PROMPT - 1}-token prefill in "
+        f"{wrapped // cfg.n_layers} of {SWA_WINDOW} ring slots per layer)")
+    del adm, params
+    torch.cuda.empty_cache()
+    checked("admission")
+
+    # --- fp32 at full width ---
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    p_gpu = TM.init_params(cfg32, seed=SEED, device="cuda")
+    p_cpu = TM.transformer.tree_map(lambda t: t.cpu(), p_gpu)
+    toks = _prompt_tokens(rng, cfg, *LM_F32_PROMPT)
+    t1 = time.perf_counter()
+    lg_g, st_g = TM.prefill(cfg32, p_gpu, toks, cache_len=64)
+    lg_c, st_c = TM.prefill(cfg32, p_cpu, toks.cpu(), cache_len=64)
+    errs = [float((lg_g.cpu() - lg_c).abs().max())]
+    tok = lg_c[:, -1:].argmax(-1)
+    for i in range(LM_F32_DECODE):
+        p_i = torch.full((LM_F32_PROMPT[0],), LM_F32_PROMPT[1] + i)
+        lg_g, st_g = TM.decode_step(cfg32, p_gpu, tok.cuda(), st_g, p_i.cuda())
+        lg_c, st_c = TM.decode_step(cfg32, p_cpu, tok, st_c, p_i)
+        errs.append(float((lg_g.cpu() - lg_c).abs().max()))
+        tok = lg_c[:, -1:].argmax(-1)
+    cache_err = float((st_g["cache"]["k"].cpu() - st_c["cache"]["k"]).abs()
+                      .max())
+    if max(errs) > LM_F32_ATOL or not all(np.isfinite(errs)):
+        raise AssertionError(f"swa fp32 card vs CPU: logits errs {errs}")
+    out["card_vs_cpu_fp32"] = {"logits_max_abs_err": errs,
+                               "cache_k_max_abs_err": cache_err,
+                               "atol": LM_F32_ATOL,
+                               "seconds": time.perf_counter() - t1}
+    log(f"check swa fp32 card vs CPU ({LM_F32_PROMPT[0]} x "
+        f"{LM_F32_PROMPT[1]} prompt tokens + {LM_F32_DECODE} decode steps): "
+        f"logits max abs err per call {errs} (atol {LM_F32_ATOL}); cache k "
+        f"{cache_err!r}")
+    del p_cpu, st_g, st_c
+    checked("card_vs_cpu_fp32 (with the fp32 init)")
+    # --- check: prefill then decode across the ring's wrap vs one forward ---
+    n = SWA_F32_PREFILL + SWA_F32_DECODE
+    seq = _prompt_tokens(rng, cfg, 1, n)
+    x_k, _, _ = TM.forward(cfg32, p_gpu, seq, mode="train", unembed_out=False)
+    full = TM.lm_head(cfg32, p_gpu, x_k[:, SWA_F32_PREFILL - 1:])
+    lg_pre, st = TM.prefill(cfg32, p_gpu, seq[:, :SWA_F32_PREFILL],
+                            cache_len=n)
+    dec_err = float((lg_pre[:, -1] - full[:, 0]).abs().max())
+    for i in range(SWA_F32_DECODE):           # full[:, i + 1]: position p_i
+        p_i = SWA_F32_PREFILL + i
+        lg, st = TM.decode_step(cfg32, p_gpu, seq[:, p_i:p_i + 1], st,
+                                torch.tensor([p_i], device="cuda"))
+        dec_err = max(dec_err, float((lg[:, 0] - full[:, i + 1]).abs().max()))
+    if not dec_err <= LM_F32_ATOL:
+        raise AssertionError(f"swa fp32 prefill + decode vs forward: {dec_err}")
+    out["decode_vs_forward_fp32"] = {
+        "prefill": SWA_F32_PREFILL, "decode": SWA_F32_DECODE,
+        "window": SWA_WINDOW, "logits_max_abs_err": dec_err,
+        "atol": LM_F32_ATOL}
+    log(f"check swa fp32 prefill {SWA_F32_PREFILL} + {SWA_F32_DECODE} decode "
+        f"steps (the ring of {SWA_WINDOW} wrapped) vs one forward over {n} "
+        f"tokens: logits max abs err {dec_err!r} (atol {LM_F32_ATOL})")
+    del st, lg_pre
+    checked("decode_vs_forward_fp32")
+    # --- check: the kernel against the plain attention in the model ---
+    x_p, _, _ = TM.forward(cfg32, p_gpu, seq, mode="train", unembed_out=False,
+                           swa_impl=sw.swa_attention_plain)
+    err, sure_eq, n_sure, n_pos = 0.0, 0, 0, 0
+    for r0 in range(0, n, 512):
+        lk = TM.lm_head(cfg32, p_gpu, x_k[:, r0:r0 + 512])
+        lp = TM.lm_head(cfg32, p_gpu, x_p[:, r0:r0 + 512])
+        err = max(err, float((lk - lp).abs().max()))
+        tk, _ = _margins(lk)
+        tp, mp = _margins(lp)
+        sure = mp > 2 * LM_F32_ATOL
+        sure_eq += int((tk == tp)[sure].sum())
+        n_sure += int(sure.sum())
+        n_pos += tk.numel()
+    if not err <= LM_F32_ATOL or sure_eq != n_sure:
+        raise AssertionError(f"swa kernel vs plain attention (fp32 model): "
+                             f"logits err {err!r}, greedy tokens equal at "
+                             f"{sure_eq} of {n_sure} clear positions")
+    out["kernel_vs_plain_model_fp32"] = {
+        "tokens": n, "logits_max_abs_err": err, "atol": LM_F32_ATOL,
+        "positions": n_pos, "clear_positions_equal": sure_eq}
+    log(f"check swa kernel vs plain attention (fp32 model, {n} tokens, every "
+        f"position): logits max abs err {err!r} (atol {LM_F32_ATOL}); greedy "
+        f"tokens equal at all {n_sure} positions whose margin exceeds "
+        f"{2 * LM_F32_ATOL}")
+    del x_k, x_p, full
+    checked("kernel_vs_plain_fp32")
+    # --- the same requests through the loop in fp32: equal outright ---
+    loop32 = launch.ServingLoop(cfg32, p_gpu, n_slots=LM_SLOTS,
+                                max_seq=SWA_MAX_SEQ)
+    got32 = {c.rid: c.tokens for c in loop32.run(reqs)}
+    del loop32
+    chk = loop_vs_teacher_forced(TM, cfg32, p_gpu, reqs, got32)
+    out["loop_vs_single_request_fp32"] = chk
+    same = sum(got32[r.rid] == got[r.rid] for r in reqs)
+    log(f"check swa ServingLoop fp32: all {LM_REQUESTS} completions "
+        f"({chk['positions']} tokens) equal single-request greedy decoding on "
+        f"the card (logits of one B = 1 forward per request over its prompt "
+        f"and the loop's tokens); smallest top-2 margin "
+        f"{chk['min_top2_margin']!r}; {same} of {LM_REQUESTS} equal the bf16 "
+        f"loop's")
+    checked("loop_fp32")
+    log(f"phase swa serving: seconds by check {out['check_seconds']}")
+    del p_gpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def sdpa_fn(q, k, v, window):
+    """The library yardstick: one ``scaled_dot_product_attention`` call on
+    (B, H, S, D) views of q and of K/V repeated to the query heads (the TPU
+    kernel's inputs; the repeat is made here, outside the timed call);
+    ``is_causal`` where the window does not bite, else a boolean band
+    mask."""
+    import torch.nn.functional as F
+    from repro_torch.models.attention import _repeat_kv
+    qt = q.transpose(1, 2)
+    kt, vt = (_repeat_kv(t, q.shape[2]).transpose(1, 2) for t in (k, v))
+    s = q.shape[1]
+    if window is None or s <= window:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+    i = torch.arange(s, device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+
+def swa_times(sw, swa, card) -> dict:
+    """Phase 14: swa_attention in bf16 at the prefill shapes (8 x 512 and
+    1 x 8192) and at 1 x 16384, W = 4096: L2 flushed and warm, by CUDA
+    events and CUPTI, beside its bound, SDPA's time and the plain version's
+    (one call, CUDA events). The long shapes take 25 event-timed and 10
+    CUPTI calls (each call is milliseconds), the short one the defaults;
+    the kernel's CUPTI time counts its own records (``SWA_KERNEL``), and
+    each CUPTI measurement may take up to ``CUPTI_WINDOWS`` windows (the
+    tracer lost up to four windows in a row at these shapes)."""
+    cyc = sleep_cycles_per_ms()
+    flush = l2_flusher()
+    rows = {}
+    for b, t in SWA_PREFILL + (SWA_LONG,):
+        n_ev, n_cu = ((TIMED_LAUNCHES, CUPTI_CALLS) if b * t <= 4096
+                      else (CHUNK, 10))
+        q, k, v = swa_inputs(b, t, t, 32, 8, 120, torch.bfloat16, SEED + 14)
+        kern = lambda: sw.swa_attention_cuda(q, k, v, window=SWA_WINDOW)
+        lib = sdpa_fn(q, k, v, SWA_WINDOW)
+        err = float((lib().transpose(1, 2).float() - kern().float()).abs()
+                    .max())
+        b_ms, b_by, nbytes, flops, peak = swa_bound(b, t, t, 32, 8, 120,
+                                                    SWA_WINDOW, True, 2)
+        rec = {"shape": [b, t, 32, 8, 120], "window": SWA_WINDOW,
+               "dtype": "bfloat16",
+               "cupti_ms": cupti_ms(kern, flush, SWA_KERNEL, n_cu),
+               "warm_l2_cupti_ms": cupti_ms(kern, None, SWA_KERNEL, n_cu),
+               "library_ms": cupti_ms(lib, flush, None, n_cu),
+               "ms": device_ms(kern, cyc, flush, n_ev)[0],
+               "warm_l2_ms": device_ms(kern, cyc, None, n_ev)[0],
+               "library_vs_kernel_max_abs_diff": err,
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "flops": flops, "bound_peak": peak}
+        if t <= SWA_PREFILL[1][1]:
+            plain = lambda: sw.swa_attention_plain(q, k, v, window=SWA_WINDOW)
+            rec["plain_ms"] = events_ms(plain, 1)
+        else:
+            rec["plain_ms"] = None
+        rows[f"swa_attention/{b}x{t}"] = rec
+        log(f"time swa_attention shape=({b}, {t}, 32/8, 120) bf16 W="
+            f"{SWA_WINDOW} L2 flushed: kernel_ms={rec['ms']!r} (cupti "
+            f"{rec['cupti_ms']!r}; L2-warm {rec['warm_l2_ms']!r}, cupti "
+            f"{rec['warm_l2_cupti_ms']!r}) plain_ms={rec['plain_ms']!r} "
+            f"library_ms={rec['library_ms']!r} (SDPA, cupti; max |SDPA - "
+            f"kernel| {err!r}) bound_ms={b_ms!r} ({b_by}; {peak}) "
+            f"card=\"{card}\"")
+        del q, k, v
+        torch.cuda.empty_cache()
+    long_ratio = (rows[f"swa_attention/{SWA_LONG[0]}x{SWA_LONG[1]}"]["ms"]
+                  / rows["swa_attention/1x8192"]["ms"])
+    rows["ratio_16384_over_8192"] = long_ratio
+    log(f"time swa_attention: (1, 16384) / (1, 8192) = {long_ratio!r} "
+        f"(O(S * W) work: {swa_pairs(1, 16384, 16384, 1, SWA_WINDOW, True) / swa_pairs(1, 8192, 8192, 1, SWA_WINDOW, True)!r}; "
+        f"O(S^2) would be 4)")
+    rows["launches_per_request"] = {
+        "single_request": swa["launches_per_prefill_call"],
+        "loop_mean": swa["loop"]["launches"] / swa["loop"]["requests"]}
+    return rows
+
+
+def profile_swa_prefill(TC, TM, launch, card) -> dict:
+    """One ``torch.profiler`` window over one 1 x 8192 prefill call (full
+    width, bf16): wall time, device busy time and idle share, and the
+    swa_attention kernel's and the matrix products' share of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = TC.get_arch(SWA_ARCH)
+    params = TM.init_params(cfg, seed=SEED, device="cuda")
+    prefill_step = launch.make_prefill_step(cfg)
+    toks = _prompt_tokens(np.random.default_rng(SEED + 51), cfg,
+                          *SWA_PREFILL[1])
+    prefill_step(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    for window in range(1, CUPTI_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prefill_step(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        dev = {e.key: (e.count, e.self_device_time_total)
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0}
+        n_swa = sum(c for k, (c, _) in dev.items() if SWA_KERNEL in k)
+        if n_swa == cfg.n_layers:
+            break
+        log(f"profile window {window} of {CUPTI_WINDOWS} lost: {n_swa} "
+            f"records of {SWA_KERNEL}, expected {cfg.n_layers}")
+    else:
+        raise AssertionError("every profiled prefill window was lost")
+    busy = sum(t for _, t in dev.values())
+    swa_us = sum(t for k, (_, t) in dev.items() if SWA_KERNEL in k)
+    mm = sum(t for k, (_, t) in dev.items()
+             if any(s in k.lower() for s in ("gemm", "gemv", "xmma", "cutlass",
+                                             "cublas", "nvjet")))
+    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:10]
+    out = {"shape": list(SWA_PREFILL[1]), "wall_ms": wall_us / 1e3,
+           "device_busy_ms": busy / 1e3,
+           "device_idle_share": 1.0 - busy / wall_us,
+           "swa_attention_ms": swa_us / 1e3, "swa_attention_launches": n_swa,
+           "matmul_ms": mm / 1e3,
+           "swa_share_of_busy": swa_us / busy if busy else None,
+           "matmul_share_of_busy": mm / busy if busy else None,
+           "top_device_ops": {k: {"count": c, "device_ms": t / 1e3}
+                              for k, (c, t) in top}}
+    log(f"profile swa prefill 1 x {SWA_PREFILL[1][1]}: wall_ms="
+        f"{out['wall_ms']!r} device_busy_ms={out['device_busy_ms']!r} "
+        f"device_idle_share={out['device_idle_share']!r} swa_attention_ms="
+        f"{out['swa_attention_ms']!r} ({n_swa} launches) matmul_ms="
+        f"{out['matmul_ms']!r} (shares of busy {out['swa_share_of_busy']!r} / "
+        f"{out['matmul_share_of_busy']!r}) card=\"{card}\"")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2027,6 +2599,7 @@ def main() -> int:
     from repro_torch.kernels import decay_accum as dacc
     from repro_torch.kernels import flat_update as fu
     from repro_torch.kernels import policy_infer as pinf
+    from repro_torch.kernels import swa_attention as sw
     from repro_torch.kernels import topk_scatter as tks
     from repro_torch.kernels import wkv6 as wk
     from repro_torch import configs as TC
@@ -2119,6 +2692,19 @@ def main() -> int:
     lm_prof = profile_decode(TC, TM, launch, card)
     lap('11 lm_times')
 
+    # 12. the swa_attention kernel vs plain (slice 5)
+    swa_parity = swa_vs_plain(sw)
+    lap('12 swa_vs_plain')
+
+    # 13. sliding-window attention serving (slice 5)
+    swa = swa_serving_path(sw, _build, TC, TM, launch, card)
+    lap('13 swa_serving')
+
+    # 14. swa_attention times, a profiled prefill
+    swa_rows = swa_times(sw, swa, card)
+    swa_prof = profile_swa_prefill(TC, TM, launch, card)
+    lap('14 swa_times')
+
     top = rows["mean/1024"]
     kernels = [{
         "name": "policy_infer",
@@ -2192,7 +2778,29 @@ def main() -> int:
         "shape": {"B": LM_PREFILL[0][0], "T": LM_PREFILL[0][1], "H": 32,
                   "D": 64, "dtype": "float32"},
     })
-    if len(kernels) != 9 or any(k["launches"] < 1 for k in kernels):
+    b1, t1 = SWA_PREFILL[1]
+    r = swa_rows[f"swa_attention/{b1}x{t1}"]
+    timed_err = [c["err"] for c in swa_parity["cases"]
+                 if c["shape"] == [b1, t1, t1, 32, 8, 120]
+                 and c["window"] == SWA_WINDOW and c["dtype"] == "bfloat16"]
+    kernels.append({
+        "name": "swa_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
+        "replaces": "src/repro/kernels/swa_attention.py:80",
+        "launches": swa["launches"],
+        "max_abs_err": timed_err[0],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
+        "shape": {"B": b1, "S": t1, "H": 32, "KV": 8, "D": 120,
+                  "window": SWA_WINDOW, "dtype": "bfloat16"},
+        "max_abs_err_all_cases": {k: swa_parity["worst"][k]
+                                  for k in ("float32", "bfloat16")},
+    })
+    if len(kernels) != 10 or any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"kernels line: {len(kernels)} kernels, "
                              f"launches {[k['launches'] for k in kernels]}")
     with open(os.path.join(ROOT, "build", "chip_smoke", "result.json"),
@@ -2208,6 +2816,8 @@ def main() -> int:
                    "training_profile": train_prof,
                    "wkv6_parity": wkv, "lm_serving": lm, "lm_times": lm_rows,
                    "lm_decode_profile": lm_prof,
+                   "swa_parity": swa_parity, "swa_serving": swa,
+                   "swa_times": swa_rows, "swa_prefill_profile": swa_prof,
                    "kernels": kernels, "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

@@ -22,8 +22,9 @@ lines 32-35). The ``(S, m, n)`` sweep
 shapes of the JAX dispatch are not ported yet and raise
 ``NotImplementedError``.
 
-The language models' recurrence ``wkv6`` routes the same way: the plain
-loop on CPU tensors, the hand-written kernel on CUDA tensors.
+The language models' recurrence ``wkv6`` and their full-sequence attention
+``swa_attention`` route the same way: the plain version on CPU tensors, the
+hand-written kernel on CUDA tensors.
 """
 from __future__ import annotations
 
@@ -53,6 +54,10 @@ from repro_torch.kernels.policy_infer import (
     PI_KEYS,
     policy_infer_cuda,
     policy_infer_plain,
+)
+from repro_torch.kernels.swa_attention import (
+    swa_attention_cuda,
+    swa_attention_plain,
 )
 from repro_torch.kernels.topk_scatter import (
     topk_scatter_cuda,
@@ -532,3 +537,19 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if state_out is None:
         return y, s
     return y, state_out.copy_(s)
+
+
+def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: Optional[int] = None, causal: bool = True
+                  ) -> torch.Tensor:
+    """Causal attention with an optional sliding window: ``o (B, Sq, H, D)``.
+
+    ``q``: ``(B, Sq, H, D)``; ``k``, ``v``: ``(B, Sk, KV, D)``, not repeated
+    (head h reads KV head ``h // (H // KV)``); positions of q and k both
+    start at 0. CPU tensors run the plain version (any float dtype and head
+    size); CUDA tensors launch the kernel, which takes fp32 or bf16 and head
+    sizes 120 and 128 and raises on anything else.
+    """
+    if _is_cuda(q):
+        return swa_attention_cuda(q, k, v, window=window, causal=causal)
+    return swa_attention_plain(q, k, v, window=window, causal=causal)

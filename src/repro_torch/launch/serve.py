@@ -14,7 +14,8 @@ from repro_torch.models.transformer import (
 
 def make_prefill_step(cfg):
     """``prefill_step(params, batch) -> (logits (B, 1, V), states)``:
-    ``batch["tokens"]`` (B, S) through the sequence path from a zero state.
+    ``batch["tokens"]`` (B, S) through the sequence path from an initial
+    state, the KV caches sized for S positions, as the JAX step sizes them.
     Only the last position is unembedded (the JAX step slices it from the
     full logits; the values are the same row of the same product)."""
     check_supported(cfg)
@@ -24,7 +25,9 @@ def make_prefill_step(cfg):
             raise NotImplementedError("a VLM embedding prefix comes with a "
                                       "later slice (internvl2-26b)")
         tokens = batch["tokens"]
-        states = init_decode_state(cfg, tokens.shape[0], device=tokens.device)
+        states = init_decode_state(cfg, tokens.shape[0],
+                                   max_seq=tokens.shape[1], mode="prefill",
+                                   device=tokens.device)
         x, states, _ = forward(cfg, params, tokens, mode="prefill",
                                states=states, unembed_out=False)
         return lm_head(cfg, params, x[:, -1:]), states

@@ -8,14 +8,17 @@ with one batched greedy argmax. Finished slots are recycled without
 disturbing their neighbours.
 
 Admission prefills only the new request's own slot: the slot's state rows
-are zeroed, then ``prompt[:-1]`` runs through the sequence path at B = 1
-(the WKV kernel over the whole prompt in one launch per layer) and writes
-that slot's rows. The last prompt token stays in the token buffer, so the
-request's first generated token comes out of the next lockstep decode, as
-in the JAX loop. The JAX loop instead feeds each prompt token through
-``decode_step`` over all slots (``repro/launch/serving_loop.py:95-100``),
-which advances every other active slot's recurrent state once per prompt
-token with that slot's pending token; the port does not copy that fault
+are reset to their initial values (zeros; -1 for the caches' positions, so
+that a recycled slot's stale K/V is never attended), then ``prompt[:-1]``
+runs through the sequence path at B = 1 (one kernel launch per layer over
+the whole prompt) and writes that slot's rows: its WKV states, or its ring
+of K/V. The last prompt token stays in the token buffer, so the request's
+first generated token comes out of the next lockstep decode, as in the JAX
+loop. The JAX loop instead feeds each prompt token through ``decode_step``
+over all slots (``repro/launch/serving_loop.py:95-100``), which advances
+every other active slot's recurrent state once per prompt token with that
+slot's pending token (for attention models it rewrites the same K/V at the
+same positions, which is harmless); the port does not copy that fault
 (ROADMAP, Queue C), so its completions equal single-request greedy
 decoding.
 
@@ -35,7 +38,7 @@ from repro_torch.models.transformer import (
     decode_step,
     forward,
     init_decode_state,
-    tree_leaves,
+    reset_state,
     tree_map,
 )
 
@@ -88,9 +91,7 @@ class ServingLoop:
         prompt = np.asarray(req.prompt).reshape(-1)
         if prompt.size == 0:
             raise ValueError(f"request {req.rid}: empty prompt")
-        view = self._slot_state(slot_idx)
-        for t in tree_leaves(view):
-            t.zero_()
+        view = reset_state(self._slot_state(slot_idx))
         if prompt.size > 1:
             toks = torch.as_tensor(prompt[None, :-1].astype(np.int64),
                                    device=self.device)

@@ -4,14 +4,15 @@ Parameters are nested dicts of tensors in the JAX package's layout
 (weights ``(in, out)``), made by :func:`mk` from a seeded
 ``torch.Generator`` on the target device. The JAX package's logical sharding
 axes have no counterpart here. Only the parts the ported models read are
-here: norms and (un)embedding; rotary and sinusoidal positions and the
-dense MLP come with the slices of the models that use them.
+here: norms, (un)embedding, rotary positions and the dense MLP; sinusoidal
+positions come with the slice of the model that uses them (whisper-small).
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -71,6 +72,63 @@ def apply_norm(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "rmsnorm":
         return rmsnorm(x, p["scale"])
     return layernorm(x, p["scale"], p["bias"])
+
+
+# ----------------------------------------------------------------------------
+# Rotary embeddings
+# ----------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    """``1 / theta ** (arange(half) / half)`` in fp32, as the JAX package
+    computes it (``layers.py:104-106``)."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """Split-half rotary embedding (``x1, x2 = split(x, 2)``, not
+    interleaved). x: ``(..., S, H, hd)`` or ``(..., S, hd)``; positions:
+    broadcastable to ``(..., S)``. Angles, cos/sin and the rotation are fp32;
+    the result is cast back to ``x.dtype``."""
+    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
+    angles = positions.to(torch.float32)[..., None] * freqs
+    if x.ndim == angles.ndim + 1:                     # head axis present
+        angles = angles[..., None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# MLP
+# ----------------------------------------------------------------------------
+
+def init_mlp(gen, d: int, d_ff: int, activation: str) -> dict:
+    p = {"w_down": mk(gen, (d_ff, d), std=0.02 / max(1, d_ff) ** 0.5)}
+    if activation in ("swiglu", "geglu"):
+        p["w_gate"] = mk(gen, (d, d_ff))
+        p["w_up"] = mk(gen, (d, d_ff))
+    else:
+        p["w_in"] = mk(gen, (d, d_ff))
+    return p
+
+
+def apply_mlp(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
+    """SwiGLU, GeGLU or GELU. GELU is the tanh form, ``jax.nn.gelu``'s
+    default."""
+    if activation in ("swiglu", "geglu"):
+        gate = x @ p["w_gate"]
+        up = x @ p["w_up"]
+        act = (F.silu(gate) if activation == "swiglu"
+               else F.gelu(gate, approximate="tanh"))
+        h = act * up
+    else:
+        h = F.gelu(x @ p["w_in"], approximate="tanh")
+    return h @ p["w_down"]
 
 
 # ----------------------------------------------------------------------------

@@ -1,26 +1,41 @@
-"""Decoder LM of the port (``repro.models.transformer``), ``wkv`` blocks only.
+"""Decoder LM of the port (``repro.models.transformer``).
 
 The JAX package groups layers into [head] + [cycles scanned over stacked
 params] + [tail]; here the scan over cycles is a Python loop over one
 parameter dict per layer (``params["blocks"]``), and :func:`layer_plan` is
-kept to read the JAX tree (:func:`params_from_jax`). Slice 4 runs the
-attention-free RWKV6 (``rwkv6-1.6b``): the ``wkv`` block kind, the ``ln0``
-of the ssm family and an untied unembedding. Other block kinds, MoE,
-modality frontends and encoder-decoder models raise
-``NotImplementedError`` naming the slice that brings them.
+kept to read the JAX tree (:func:`params_from_jax`). The port runs models
+whose every layer is of one block kind:
 
-Modes: ``train`` and ``prefill`` run a whole sequence from a zero state
-(train discards nothing here: both return the final states); ``decode``
-runs one token against the states.
+* ``wkv`` (slice 4, ``rwkv6-1.6b``): the RWKV6 time-mix and channel-mix,
+  the ``ln0`` of the ssm family;
+* ``attn`` and ``local`` (slice 5, ``phi4-mini-3.8b`` and
+  ``h2o-danube-3-4b``): ``ln1 -> attention -> +``, ``ln2 -> dense MLP ->
+  +``, global or sliding-window attention with RoPE.
 
-The decode state is one dict for all layers, each leaf stacked over them:
-``{"tm": {"shift": (L, B, d), "wkv": (L, B, H, hd, hd) fp32}, "cm_shift":
-(L, B, d)}`` — the JAX package's ``state["cycles"][0]["wkv"]`` for a
-one-kind pattern. The batch axis is axis 1 of every leaf.
+Mixed patterns, other block kinds, MoE, modality frontends and
+encoder-decoder models raise ``NotImplementedError`` naming the slice that
+brings them.
+
+Modes: ``train`` and ``prefill`` run a whole sequence from an initial state
+(train discards nothing here: both return the final states; attention
+layers keep a cache only where a state is given or the mode is not
+``train``); ``decode`` runs one token against the states.
+
+The decode state is one dict for all layers, each leaf stacked over them
+(the JAX package's ``state["cycles"][0]`` for a one-kind pattern):
+
+* ``wkv``: ``{"tm": {"shift": (L, B, d), "wkv": (L, B, H, hd, hd) fp32},
+  "cm_shift": (L, B, d)}``, zeros;
+* ``attn`` / ``local``: ``{"cache": {"k": (L, B, W, KV, hd), "v": ...,
+  "pos": (L, B, W) int32}}``, K/V zeros and ``pos`` -1 (empty slots), with
+  W = ``min(window, max_seq)`` for ``local`` and ``max_seq`` for ``attn``.
+
+The batch axis is axis 1 of every leaf.
 
 In place: :func:`forward` (with ``states`` given) and :func:`decode_step`
 write the new states over the states they are given and return that same
-dict; the WKV kernel writes each layer's final state over its initial one.
+dict; the WKV kernel writes each layer's final state over its initial one,
+a prefill fills each layer's cache and a decode step writes one ring slot.
 """
 from __future__ import annotations
 
@@ -31,22 +46,21 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.models import attention as at
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models.layers import (
+    apply_mlp,
     apply_norm,
     embed,
     init_embedding,
+    init_mlp,
     init_norm,
     mk,
     torch_dtype,
     unembed,
 )
 
-_LATER = {
-    "attn": "the SWA slice (h2o-danube-3-4b, models/attention.py)",
-    "local": "the SWA slice (h2o-danube-3-4b, models/attention.py)",
-    "rglru": "a later slice (recurrentgemma-9b, models/rglru.py)",
-}
+_LATER = {"rglru": "a later slice (recurrentgemma-9b, models/rglru.py)"}
 
 
 # ----------------------------------------------------------------------------
@@ -73,7 +87,7 @@ def layer_plan(cfg) -> LayerPlan:
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what slice 4 does not run."""
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             "encoder-decoder models (whisper-small) come with a later slice")
@@ -84,9 +98,13 @@ def check_supported(cfg) -> None:
         raise NotImplementedError("MoE comes with a later slice (kimi-k2, "
                                   "arctic; models/moe.py)")
     for kind in cfg.layer_pattern:
-        if kind != "wkv":
+        if kind in _LATER:
             raise NotImplementedError(
                 f"block kind {kind!r} comes with {_LATER[kind]}")
+    if len(set(cfg.layer_pattern)) > 1:
+        raise NotImplementedError(
+            f"mixed layer patterns {cfg.layer_pattern} come with a later "
+            f"slice (recurrentgemma-9b)")
     if cfg.pos_emb == "sinusoidal":
         raise NotImplementedError("sinusoidal positions come with a later "
                                   "slice (whisper-small)")
@@ -102,10 +120,15 @@ def padded_vocab(cfg) -> int:
 
 def _init_block(gen, cfg, kind: str) -> dict:
     d = cfg.d_model
+    if kind == "wkv":
+        return {"ln1": init_norm(gen, d, cfg.norm),
+                "tm": rw.init_time_mix(gen, cfg),
+                "ln2": init_norm(gen, d, cfg.norm),
+                "cm": rw.init_channel_mix(gen, cfg)}
     return {"ln1": init_norm(gen, d, cfg.norm),
-            "tm": rw.init_time_mix(gen, cfg),
+            "attn": at.init_attention(gen, cfg),
             "ln2": init_norm(gen, d, cfg.norm),
-            "cm": rw.init_channel_mix(gen, cfg)}
+            "mlp": init_mlp(gen, d, cfg.d_ff, cfg.activation)}
 
 
 def _build_tree(cfg, gen) -> dict:
@@ -145,7 +168,8 @@ def param_shapes(cfg) -> dict:
 
 def count_params(params) -> int:
     """Parameters in a tree (counted from the tree, not ``cfg.n_params()``,
-    which miscounts RWKV blocks)."""
+    which miscounts RWKV blocks and leaves out the norms' and the padded
+    vocabulary's rows)."""
     return sum(int(t.numel()) for t in tree_leaves(params))
 
 
@@ -226,16 +250,41 @@ def params_from_jax(cfg, tree, device="cuda") -> dict:
 
 def init_decode_state(cfg, batch: int, max_seq: int = 0, dtype=None,
                       mode: str = "decode", device="cuda") -> dict:
-    """Zero states for ``batch`` streams, every leaf stacked over the layers.
-    ``dtype`` (default ``cfg.compute_dtype``) is that of the shift carries;
-    the WKV state is fp32. ``max_seq`` and ``mode`` (JAX signature) are
-    ignored."""
+    """Initial states for ``batch`` streams, every leaf stacked over the
+    layers (see the module docstring). ``dtype`` (default
+    ``cfg.compute_dtype``) is that of the shift carries and the KV cache;
+    the WKV state is fp32. Attention layers hold a cache of
+    ``min(window, max_seq)`` slots (``max_seq`` for global attention), none
+    in ``train`` mode; the WKV state ignores ``max_seq`` and ``mode``."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.compute_dtype) if dtype is None else dtype
-    one = rw.init_wkv_state(cfg, batch, dtype, device="meta")
-    return tree_map(lambda t: torch.zeros((cfg.n_layers,) + tuple(t.shape),
-                                          dtype=t.dtype, device=dev), one)
+    kind = cfg.layer_pattern[0]
+    if kind == "wkv":
+        one = rw.init_wkv_state(cfg, batch, dtype, device="meta")
+    elif mode == "train":
+        one = {}
+    else:
+        if max_seq < 1:
+            raise ValueError(f"init_decode_state: attention layers need "
+                             f"max_seq >= 1, got {max_seq}")
+        one = {"cache": at.init_kv_cache(cfg, batch, kind, max_seq, dtype,
+                                         device="meta")}
+    return reset_state(tree_map(
+        lambda t: torch.empty((cfg.n_layers,) + tuple(t.shape), dtype=t.dtype,
+                              device=dev), one))
+
+
+def reset_state(states: dict) -> dict:
+    """Every leaf of ``states`` (or of a view of some of its rows) back to
+    its initial value, in place: -1 for the caches' ``pos`` (an empty slot),
+    zero for everything else."""
+    for key, t in states.items():
+        if isinstance(t, dict):
+            reset_state(t)
+        else:
+            t.fill_(-1 if key == "pos" else 0)
+    return states
 
 
 def layer_state(states: dict, i: int) -> dict:
@@ -247,23 +296,43 @@ def layer_state(states: dict, i: int) -> dict:
 # Forward
 # ----------------------------------------------------------------------------
 
-def _apply_block(p, x, cfg, st, wkv_impl):
-    """One ``wkv`` block; ``st`` (one layer's views) is updated in place."""
+def _apply_block(p, x, cfg, kind, st, *, positions, pos, wkv_impl,
+                 swa_impl):
+    """One block; ``st`` (one layer's views) is updated in place. ``pos``
+    (B,) is given for a decode step, ``positions`` (B, S) otherwise."""
     xa = apply_norm(p["ln1"], x, cfg.norm)
-    y, _ = rw.time_mix(p["tm"], xa, cfg, st["tm"], wkv_impl=wkv_impl)
+    if kind == "wkv":
+        y, _ = rw.time_mix(p["tm"], xa, cfg, st["tm"], wkv_impl=wkv_impl)
+        x = x + y
+        xb = apply_norm(p["ln2"], x, cfg.norm)
+        y2, cm_shift = rw.channel_mix(p["cm"], xb, cfg, st["cm_shift"])
+        st["cm_shift"].copy_(cm_shift)
+        return x + y2
+    if pos is not None:
+        y, _ = at.attention_decode(p["attn"], xa, st["cache"], cfg, kind=kind,
+                                   pos=pos)
+    elif "cache" in st:
+        y, _ = at.attention_prefill(
+            p["attn"], xa, cfg, kind=kind, positions=positions,
+            cache_len=st["cache"]["k"].shape[1], out=st["cache"],
+            swa_impl=swa_impl)
+    else:
+        y = at.attention(p["attn"], xa, cfg, kind=kind, positions=positions,
+                         swa_impl=swa_impl)
     x = x + y
     xb = apply_norm(p["ln2"], x, cfg.norm)
-    y2, cm_shift = rw.channel_mix(p["cm"], xb, cfg, st["cm_shift"])
-    st["cm_shift"].copy_(cm_shift)
-    return x + y2
+    return x + apply_mlp(p["mlp"], xb, cfg.activation)
 
 
-def _run_layers(cfg, params, x, states, wkv_impl):
+def _run_layers(cfg, params, x, states, *, positions=None, pos=None,
+                wkv_impl=None, swa_impl=None):
     if len(params["blocks"]) != cfg.n_layers:
         raise ValueError(f"params hold {len(params['blocks'])} blocks, the "
                          f"config {cfg.n_layers} layers")
     for i, p in enumerate(params["blocks"]):
-        x = _apply_block(p, x, cfg, layer_state(states, i), wkv_impl)
+        x = _apply_block(p, x, cfg, cfg.block_kind(i), layer_state(states, i),
+                         positions=positions, pos=pos, wkv_impl=wkv_impl,
+                         swa_impl=swa_impl)
     return x
 
 
@@ -285,14 +354,19 @@ def lm_head(cfg, params, x):
 
 def forward(cfg, params, tokens: torch.Tensor, *, embeds=None,
             mode: str = "train", states: Optional[dict] = None,
-            unembed_out: bool = True, wkv_impl: Optional[Callable] = None):
-    """tokens: (B, S) integer. Returns ``(logits (B, S, V) fp32`` — or the
-    final hidden states when ``unembed_out=False`` — ``, states, aux)``.
+            unembed_out: bool = True, wkv_impl: Optional[Callable] = None,
+            swa_impl: Optional[Callable] = None):
+    """tokens: (B, S) integer, at positions 0..S-1. Returns ``(logits (B, S,
+    V) fp32`` — or the final hidden states when ``unembed_out=False`` —
+    ``, states, aux)``.
 
-    ``states`` (default: zeros) are updated in place and returned. ``aux``
-    is the 0-d fp32 zero of a model without MoE. ``wkv_impl`` replaces the
-    dispatched recurrence in every block (see ``rwkv6.time_mix``).
-    ``mode`` (JAX signature) is checked, not read: the modes run one path.
+    ``states`` (default: :func:`init_decode_state` for ``mode`` with
+    ``max_seq`` = S) are updated in place and returned: the WKV states
+    advance, the KV caches are filled from the sequence. ``aux`` is the 0-d
+    fp32 zero of a model without MoE. ``wkv_impl`` replaces the dispatched
+    recurrence in every ``wkv`` block (see ``rwkv6.time_mix``), ``swa_impl``
+    the dispatched attention in every attention block (see
+    ``attention.attention``). ``mode`` picks the default states only.
     """
     check_supported(cfg)
     if embeds is not None:
@@ -305,9 +379,13 @@ def forward(cfg, params, tokens: torch.Tensor, *, embeds=None,
             "wkv_impl='chunked' (the JAX matmul form wkv_chunked) is not "
             "ported; the port runs the wkv6 kernel (wkv_impl='scan')")
     x = _embed_in(cfg, params, tokens)
+    b, s = tokens.shape
     if states is None:
-        states = init_decode_state(cfg, tokens.shape[0], device=x.device)
-    x = _run_layers(cfg, params, x, states, wkv_impl)
+        states = init_decode_state(cfg, b, max_seq=s, mode=mode,
+                                   device=x.device)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    x = _run_layers(cfg, params, x, states, positions=positions,
+                    wkv_impl=wkv_impl, swa_impl=swa_impl)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     aux = torch.zeros((), device=x.device)
     if not unembed_out:
@@ -317,20 +395,26 @@ def forward(cfg, params, tokens: torch.Tensor, *, embeds=None,
 
 def prefill(cfg, params, tokens: torch.Tensor, *, embeds=None,
             cache_len: Optional[int] = None,
-            wkv_impl: Optional[Callable] = None):
-    """The prompt through the sequence path from a zero state: ``(logits
-    (B, S, V), states)``. ``cache_len`` (JAX signature) is ignored."""
+            wkv_impl: Optional[Callable] = None,
+            swa_impl: Optional[Callable] = None):
+    """The prompt through the sequence path from an initial state: ``(logits
+    (B, S, V), states)``, the KV caches sized for ``cache_len`` (default S)
+    positions."""
+    b, s = tokens.shape
+    states = init_decode_state(cfg, b, max_seq=cache_len or s, mode="prefill",
+                               device=tokens.device)
     logits, states, _ = forward(cfg, params, tokens, embeds=embeds,
-                                mode="prefill", wkv_impl=wkv_impl)
+                                mode="prefill", states=states,
+                                wkv_impl=wkv_impl, swa_impl=swa_impl)
     return logits, states
 
 
 def decode_step(cfg, params, token: torch.Tensor, states: dict,
                 pos: torch.Tensor, *, wkv_impl: Optional[Callable] = None):
-    """token: (B, 1) integer; pos: (B,) positions (JAX signature; checked,
-    not read).
-    One serve step: ``(logits (B, 1, V) fp32, states)``, ``states`` updated
-    in place."""
+    """token: (B, 1) integer; pos: (B,) absolute positions of the tokens
+    (read by the rotary embedding and the cache write; the WKV recurrence
+    does not read them). One serve step: ``(logits (B, 1, V) fp32,
+    states)``, ``states`` updated in place."""
     check_supported(cfg)
     if token.ndim != 2 or token.shape[1] != 1:
         raise ValueError(f"decode_step: token must be (B, 1), got "
@@ -339,7 +423,8 @@ def decode_step(cfg, params, token: torch.Tensor, states: dict,
         raise ValueError(f"decode_step: pos must be ({token.shape[0]},), got "
                          f"{tuple(pos.shape)}")
     x = _embed_in(cfg, params, token)
-    x = _run_layers(cfg, params, x, states, wkv_impl)
+    x = _run_layers(cfg, params, x, states, positions=pos[:, None], pos=pos,
+                    wkv_impl=wkv_impl)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return lm_head(cfg, params, x), states
 

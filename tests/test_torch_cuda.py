@@ -8,7 +8,8 @@ and ``nvcc`` but no JAX:
 Each kernel is held against its plain PyTorch version on the card, the
 serving engine on the card against the engine on the CPU, a short training
 run on the card against the same run (same draws) on the CPU, and the
-reduced RWKV6 language model on the card against the port on the CPU.
+reduced RWKV6 and sliding-window attention language models on the card
+against the port on the CPU.
 """
 import numpy as np
 import pytest
@@ -34,6 +35,7 @@ from repro_torch.kernels import decay_accum as dacc
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import flat_update as fu
 from repro_torch.kernels import policy_infer as pinf
+from repro_torch.kernels import swa_attention as sw
 from repro_torch.kernels import topk_scatter as tks
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.launch import Request, ServingLoop
@@ -508,6 +510,123 @@ def test_serving_loop_on_the_card_matches_single_request_greedy(card):
     got = {c.rid: c.tokens for c in done}
     for i, p in enumerate(prompts):
         lg, st = TM.prefill(cfg, gpu_p, torch.as_tensor(p[None], device=card))
+        tok = lg[:, -1:].argmax(-1)
+        want = [int(tok)]
+        for j in range(3):
+            lg, st = TM.decode_step(cfg, gpu_p, tok, st,
+                                    torch.tensor([len(p) + j], device=card))
+            tok = lg[:, -1:].argmax(-1)
+            want.append(int(tok))
+        assert got[i] == want, i
+
+
+# --- sliding-window attention ------------------------------------------------------
+
+SWA_ATOL = 1e-5
+BF16_REL = 2.0 ** -7
+
+
+def _swa_case(b, sq, sk, h, kv, d, dtype, seed, card):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32),
+                                device=card).to(dtype)
+    return f(b, sq, h, d), f(b, sk, kv, d), f(b, sk, kv, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,window,causal", [
+    (2, 512, 512, 8, 2, 120, 96, True),
+    (1, 300, 300, 4, 1, 120, None, True),
+    (1, 200, 200, 4, 4, 128, None, False),
+    (2, 100, 100, 4, 2, 120, 1, True),
+    (1, 77, 130, 6, 2, 128, 40, True),
+    (1, 130, 77, 6, 3, 120, None, True),
+    (3, 7, 7, 2, 1, 120, 5, False),
+])
+def test_swa_attention_kernel_matches_plain(card, b, sq, sk, h, kv, d, window,
+                                            causal, dtype):
+    """Both against the plain version in float64 on the same inputs: the
+    kernel within max(1e-5, 2x the fp32 plain version's error), bf16 outputs
+    one bf16 ulp more."""
+    q, k, v = _swa_case(b, sq, sk, h, kv, d, dtype, sq * 7 + h + d, card)
+    kw = dict(window=window, causal=causal)
+    want = sw.swa_attention_plain(q.double(), k.double(), v.double(), **kw)
+    plain = sw.swa_attention_plain(q, k, v, **kw)
+    before = sw.launches
+    got = sw.swa_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert sw.launches == before + 1 and got.dtype == dtype
+    tol = max(SWA_ATOL, 2 * float((plain.double() - want).abs().max()))
+    if dtype == torch.bfloat16:
+        tol = tol + BF16_REL * want.abs()
+    assert bool(((got.double() - want).abs() <= tol).all())
+
+
+def test_swa_attention_kernel_refuses_what_it_does_not_take(card):
+    q, k, v = _swa_case(1, 8, 8, 4, 2, 120, torch.float32, 0, card)
+    with pytest.raises(ValueError, match=r"head sizes \(120, 128\)"):
+        sw.swa_attention_cuda(q[..., :64].contiguous(),
+                              k[..., :64].contiguous(),
+                              v[..., :64].contiguous())
+    with pytest.raises(TypeError):
+        sw.swa_attention_cuda(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        sw.swa_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        sw.swa_attention_cuda(q.transpose(1, 2).contiguous().transpose(1, 2),
+                              k, v)
+    with pytest.raises(ValueError, match="Sq >= 1"):
+        sw.swa_attention_cuda(q[:, :0], k, v)
+    with pytest.raises(ValueError, match="no key in their window"):
+        sw.swa_attention_cuda(q, k[:, :2].contiguous(), v[:, :2].contiguous(),
+                              window=4)
+
+
+def _reduced_swa_lm(card, scale=1.0):
+    """The reduced danube at head size 120 (the kernel's), fp32."""
+    import dataclasses
+    cfg = dataclasses.replace(TC.get_arch("h2o-danube-3-4b").reduced(),
+                              head_dim=120, n_kv_heads=2)
+    params = TM.init_params(cfg, seed=0, device="cpu")
+    params = TM.transformer.tree_map(lambda t: t * scale, params)
+    return cfg, params, TM.transformer.tree_map(lambda t: t.to(card), params)
+
+
+def test_swa_lm_on_the_card_matches_the_cpu_port(card):
+    """Prefill 40 tokens (window 16) and four decode steps (the ring wraps)
+    on the card against the same on the CPU (atol 1e-4), one kernel launch
+    per layer and prefill, none per decode step."""
+    cfg, cpu_p, gpu_p = _reduced_swa_lm(card)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 44)))
+    lg_c, st_c = TM.prefill(cfg, cpu_p, toks[:, :40], cache_len=48)
+    before = sw.launches
+    lg_g, st_g = TM.prefill(cfg, gpu_p, toks[:, :40].to(card), cache_len=48)
+    assert sw.launches - before == cfg.n_layers
+    torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=0)
+    for i in range(4):
+        tok, pos = toks[:, 40 + i:41 + i], torch.full((2,), 40 + i)
+        lg_c, st_c = TM.decode_step(cfg, cpu_p, tok, st_c, pos)
+        before = sw.launches
+        lg_g, st_g = TM.decode_step(cfg, gpu_p, tok.to(card), st_g,
+                                    pos.to(card))
+        assert sw.launches == before
+        torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=0)
+    assert torch.equal(st_g["cache"]["pos"].cpu(), st_c["cache"]["pos"])
+
+
+def test_swa_serving_loop_on_the_card_matches_single_request_greedy(card):
+    """fp32 weights scaled x4; 2 slots, 5 requests, prompts past the
+    window, a 1-token prompt in a recycled slot."""
+    cfg, _, gpu_p = _reduced_swa_lm(card, scale=4.0)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 3, 27, 1, 9)]
+    done = ServingLoop(cfg, gpu_p, n_slots=2, max_seq=64).run(
+        [Request(i, p, 4) for i, p in enumerate(prompts)])
+    got = {c.rid: c.tokens for c in done}
+    for i, p in enumerate(prompts):
+        lg, st = TM.prefill(cfg, gpu_p, torch.as_tensor(p[None], device=card),
+                            cache_len=64)
         tok = lg[:, -1:].argmax(-1)
         want = [int(tok)]
         for j in range(3):

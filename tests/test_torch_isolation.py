@@ -43,7 +43,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                 "kernels.topk_scatter", "kernels.wkv6", "configs",
                 "configs.base", "configs.rwkv6_1_6b", "models",
                 "models.layers", "models.rwkv6", "models.transformer",
-                "launch", "launch.serve", "launch.serving_loop"):
+                "launch", "launch.serve", "launch.serving_loop",
+                "kernels.swa_attention", "configs.h2o_danube3_4b",
+                "configs.phi4_mini_3_8b", "models.attention"):
         assert f"repro_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"

@@ -358,8 +358,6 @@ def test_serving_loop_stops_at_max_seq(scaled):
 # --- what the port does not run yet ------------------------------------------------------
 
 @pytest.mark.parametrize("arch,match", [
-    ("h2o-danube-3-4b", "SWA slice"),
-    ("phi4-mini-3.8b", "SWA slice"),
     ("recurrentgemma-9b", "rglru"),
     ("kimi-k2-1t-a32b", "MoE"),
     ("whisper-small", "encoder-decoder"),

@@ -1,0 +1,195 @@
+"""Port parity: the sliding-window attention function on the CPU.
+
+The same numpy inputs go through the JAX package (the Pallas kernel
+``swa_attention_pallas`` in interpret mode and its oracle
+``swa_attention_ref``, both given K/V repeated to the query heads by the
+JAX ``_repeat_kv``) and through the port's ``swa_attention_plain`` /
+``dispatch.swa_attention``, which take K/V un-repeated. Tolerances:
+
+* fp32: ``atol 2e-6``, the figure of the JAX package's own kernel test
+  (``tests/test_kernels.py:51-80``); the sides differ only in summation
+  order;
+* bf16 against the Pallas kernel: both keep everything in fp32 and round
+  the output once, so they may land one bf16 ulp apart (``rtol 2^-7``);
+* bf16 against ``swa_attention_ref``: the oracle rounds the softmax
+  weights to bf16 before ``p @ v``, the port (like the Pallas kernel) does
+  not: ``atol 2e-2``, the JAX test's own bf16 figure.
+
+Lengths that do not divide the Pallas block sizes are held against the
+oracle only (the Pallas kernel refuses them).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.kernels.ref as ref
+from repro.kernels.swa_attention import swa_attention_pallas
+from repro.models.attention import _repeat_kv as jax_repeat_kv
+from repro_torch.kernels import dispatch
+from repro_torch.kernels import swa_attention as sw
+
+ATOL = 2e-6
+BF16_REL = 2.0 ** -7
+BF16_REF_ATOL = 2e-2
+
+# The largest |port - JAX| each comparison reached; ``python <this file>``
+# runs the tests and prints them (PERF.md records them).
+REACHED = {}
+
+
+def _close(what, got, want, atol, rtol=0.0):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    REACHED[what] = max(REACHED.get(what, 0.0), float(np.abs(got - want).max()))
+    np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
+
+
+def _inputs(b, sq, sk, h, kv, d, seed):
+    rng = np.random.default_rng(seed)
+    q = 0.5 * rng.standard_normal((b, sq, h, d), dtype=np.float32)
+    k = 0.5 * rng.standard_normal((b, sk, kv, d), dtype=np.float32)
+    v = 0.5 * rng.standard_normal((b, sk, kv, d), dtype=np.float32)
+    return q, k, v
+
+
+def _jax(q, k, v, h, dtype):
+    """The JAX side's inputs: K/V repeated to ``h`` heads."""
+    return (jnp.asarray(q, dtype), jax_repeat_kv(jnp.asarray(k, dtype), h),
+            jax_repeat_kv(jnp.asarray(v, dtype), h))
+
+
+def _torch(q, k, v, dtype):
+    return tuple(torch.from_numpy(x).to(dtype) for x in (q, k, v))
+
+
+def _f32(x):
+    return np.asarray(jnp.asarray(x, jnp.float32)) if not isinstance(
+        x, torch.Tensor) else x.float().numpy()
+
+
+# (Sq = Sk, window, Pallas blocks) — tests/test_kernels.py:51-56 — then the
+# same at head size 120 and with grouped queries (4 heads on 2 KV heads).
+PALLAS_CASES = [
+    # s, window, bq, bk, h, kv, d
+    (32, None, 16, 16, 2, 2, 32),
+    (64, 24, 16, 16, 2, 2, 32),
+    (64, 8, 32, 16, 2, 2, 32),      # window smaller than a block
+    (128, 48, 32, 32, 2, 2, 32),
+    (64, 24, 16, 16, 2, 2, 120),
+    (64, 8, 32, 16, 4, 2, 32),
+    (64, None, 32, 32, 4, 1, 120),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,window,bq,bk,h,kv,d", PALLAS_CASES)
+def test_plain_matches_pallas_kernel_and_oracle(s, window, bq, bk, h, kv, d,
+                                                dtype):
+    q, k, v = _inputs(2, s, s, h, kv, d, seed=s + (window or 0) + h + d)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    jq, jk, jv = _jax(q, k, v, h, jdt)
+    o_pallas = swa_attention_pallas(jq, jk, jv, window=window, block_q=bq,
+                                    block_kv=bk, interpret=True)
+    o_ref = ref.swa_attention_ref(jq, jk, jv, window=window)
+    got = sw.swa_attention_plain(*_torch(q, k, v, tdt), window=window)
+    assert got.dtype == tdt and got.shape == (2, s, h, d)
+    if dtype == "float32":
+        _close("fp32 vs pallas", got.numpy(), o_pallas, ATOL)
+        _close("fp32 vs ref", got.numpy(), o_ref, ATOL)
+    else:
+        _close("bf16 vs pallas", _f32(got), _f32(o_pallas), 1e-6, BF16_REL)
+        _close("bf16 vs ref", _f32(got), _f32(o_ref), BF16_REF_ATOL)
+
+
+@pytest.mark.parametrize("window", [16, 17, 31, 33])
+def test_block_skip_boundaries_match_the_pallas_kernel(window):
+    """tests/test_kernels.py:69-77: every (window, block) alignment."""
+    q, k, v = _inputs(1, 64, 64, 1, 1, 16, seed=window)
+    jq, jk, jv = _jax(q, k, v, 1, jnp.float32)
+    o_pallas = swa_attention_pallas(jq, jk, jv, window=window, block_q=16,
+                                    block_kv=16, interpret=True)
+    got = sw.swa_attention_plain(*_torch(q, k, v, torch.float32),
+                                 window=window)
+    _close("fp32 vs pallas", got.numpy(), o_pallas, ATOL)
+
+
+# Lengths no block divides, Sq != Sk, no causal mask, W = 1: the oracle only.
+RAGGED_CASES = [
+    # sq, sk, window, causal, h, kv, d
+    (7, 7, None, True, 4, 2, 32),
+    (37, 37, 16, True, 4, 1, 120),
+    (45, 45, 1, True, 2, 2, 16),
+    (13, 29, 8, True, 2, 2, 32),
+    (29, 13, None, True, 2, 1, 32),
+    (20, 13, 8, True, 4, 2, 32),
+    (33, 33, None, False, 2, 2, 32),
+    (33, 50, 5, False, 4, 2, 128),
+]
+
+
+@pytest.mark.parametrize("sq,sk,window,causal,h,kv,d", RAGGED_CASES)
+def test_ragged_lengths_match_the_oracle(sq, sk, window, causal, h, kv, d):
+    q, k, v = _inputs(2, sq, sk, h, kv, d, seed=sq * sk + d)
+    jq, jk, jv = _jax(q, k, v, h, jnp.float32)
+    want = ref.swa_attention_ref(jq, jk, jv, window=window, causal=causal)
+    args = _torch(q, k, v, torch.float32)
+    got = sw.swa_attention_plain(*args, window=window, causal=causal)
+    _close("fp32 vs ref (ragged)", got.numpy(), want, ATOL)
+    # the dispatched function is the plain version on CPU tensors, bit for bit
+    assert torch.equal(dispatch.swa_attention(*args, window=window,
+                                              causal=causal), got)
+
+
+def test_float64_inputs_compute_in_float64():
+    q, k, v = _inputs(1, 20, 20, 2, 1, 8, seed=1)
+    args = _torch(q, k, v, torch.float64)
+    got = sw.swa_attention_plain(*args, window=6)
+    assert got.dtype == torch.float64
+    jq, jk, jv = _jax(q, k, v, 2, jnp.float32)
+    _close("float64 vs ref", got.numpy(),
+           ref.swa_attention_ref(jq, jk, jv, window=6), ATOL)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(q=(2, 8, 3, 16)), "not a multiple"),
+    (dict(k=(2, 8, 2, 8)), "k must be"),
+    (dict(v=(2, 9, 2, 16)), "v must match"),
+    (dict(q=(2, 8, 16)), "q must be"),
+    (dict(k=(2, 0, 2, 16), v=(2, 0, 2, 16)), "Sk >= 1"),
+    (dict(window=0), "window must be"),
+    (dict(window=2.5), "window must be"),
+    (dict(causal=None), "causal must be"),
+    (dict(q=(2, 12, 4, 16), window=4), "no key in their window"),
+])
+def test_shapes_the_function_refuses(bad, match):
+    shapes = {"q": (2, 8, 4, 16), "k": (2, 8, 2, 16), "v": (2, 8, 2, 16)}
+    shapes.update({n: bad[n] for n in ("q", "k", "v") if n in bad})
+    q, k, v = (torch.zeros(shapes[n]) for n in ("q", "k", "v"))
+    kw = {"window": bad.get("window"), "causal": bad.get("causal", True)}
+    with pytest.raises(ValueError, match=match):
+        dispatch.swa_attention(q, k, v, **kw)
+
+
+def test_the_kernel_wrapper_refuses_cpu_tensors_and_the_dispatch_meta():
+    q, k, v = torch.zeros(1, 4, 2, 120), torch.zeros(1, 4, 1, 120), \
+        torch.zeros(1, 4, 1, 120)
+    before = sw.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        sw.swa_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="unsupported device"):
+        dispatch.swa_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert sw.launches == before
+
+
+if __name__ == "__main__":
+    import sys
+
+    rc = pytest.main([__file__, "-q", "-p", "no:cacheprovider"])
+    mod = next(m for m in list(sys.modules.values())
+               if getattr(m, "__file__", None) == __file__
+               and m.__name__ != "__main__")
+    for what, err in sorted(mod.REACHED.items()):
+        print(f"{what}: {err:.3g}")
+    sys.exit(rc)
