@@ -90,12 +90,18 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    L2 flushed and warm) beside its bound and the plain loop's time; one
    profiled window of 16 decode steps at B = 8 (device idle share, wkv6 and
    matmul device time);
-12. swa_attention vs plain — the hand-written ``swa_attention`` kernel
-   against its plain version, both held to the plain version in float64:
-   (8, 512) and (1, 8192) with 32 / 8 heads of 120 and W = 4096, in bf16
-   and fp32; no window with causal on and off; W = 40 (below a tile) and
-   W = 1; ragged lengths (7, 1000, 4097); D = 128 with 24 / 8 heads; Sq !=
-   Sk either way;
+12. swa_attention vs plain — the hand-written ``swa_attention`` kernels
+   (bf16: tensor cores, TMA, a K/V ring; fp32: CUDA cores) against their
+   plain version, both held to the plain version in float64: (8, 512) and
+   (1, 8192) with 32 / 8 heads of 120 and W = 4096, in bf16 and fp32; no
+   window with causal on and off; W = 40 (below a tile) and W = 1; ragged
+   lengths (7, 1000, 4097); D = 128 with 24 / 8 heads; Sq != Sk either way;
+   in bf16 the 128-row tile edges (Sq, Sk of 129 and 255 both ways, W = 1
+   and 100, causal off, B = 3 with H / KV = 4 and 1, D = 128). In bf16 also
+   the mean error: the kernel's within 1.1x the plain version's, a rule
+   that the control (the same function with one bf16 ``p``) must break
+   wherever W > 1. The build phase counts the bf16 kernel's ``HGMMA``
+   instructions (``cuobjdump -sass``) and fails on none;
 13. sliding-window attention serving (slice 5) — ``h2o-danube-3-4b`` at
    full width and depth (24 layers, d 3840, 32 / 8 heads of 120, W 4096,
    3,961,839,360 seeded bf16 parameters on the card) through
@@ -106,15 +112,22 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    exactly 24 times per prefill call and per admission, never in a decode
    step, no build. Checks: every completion against single-request greedy
    decoding on the card (bf16 with counted near-ties; fp32 outright); an
-   admission leaves the other slots' cache rows bitwise unchanged; in
-   fp32 the card against the CPU (2 x 16 tokens, 4 decode steps), a
-   prefill of 4100 tokens and 8 decode steps against one forward over the
-   4108 (the ring wrapped) and the model with the kernel against the same
-   with the plain attention (atol 1e-3);
+   admission leaves the other slots' cache rows bitwise unchanged; a bf16
+   prefill at 8 x 512 and 1 x 8192 whose every layer's kernel output is
+   held against the plain version on that layer's q, k, v by phase 12's
+   rules (the control's ratio reported); in fp32 (the CUDA-core kernel)
+   the card against the CPU (2 x 16 tokens, 4 decode steps), a prefill of
+   4100 tokens and 8 decode steps against one forward over the 4108 (the
+   ring wrapped) and the model with the kernel against the same with the
+   plain attention (atol 1e-3);
 14. times — swa_attention in bf16 at (8, 512), (1, 8192) and (1, 16384),
-   W = 4096 (CUDA events and CUPTI, L2 flushed and warm) beside its bound,
-   SDPA's time and the plain version's; one profiled 1 x 8192 prefill
-   (device idle share, the kernel's and the matmuls' device time).
+   W = 4096 (CUDA events and CUPTI, L2 flushed and warm) beside its bound
+   (tensor-core FLOP with p_hi + p_lo, bytes, the SFU's exponentials), the
+   plain version's time and SDPA's (the default call by CUDA events and
+   CUPTI with the backend it picks, and each of flash, efficient and cuDNN
+   that accepts the call); one profiled 1 x 8192 prefill (device idle share,
+   the kernel's and the matmuls' device time) and one profiled window of 16
+   decode steps at B = 8 (idle share, matmul share, top device ops).
 
 Its last lines are the kernel summary JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -2022,36 +2035,14 @@ def profile_decode(TC, TM, launch, card) -> dict:
     """One ``torch.profiler`` window over 16 decode steps at B = 8 (full
     width, bf16): wall time, device busy time and idle share, and the device
     time of the wkv6 kernel against the matrix products."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     cfg = TC.get_arch(LM_ARCH)
     params = TM.init_params(cfg, seed=SEED, device="cuda")
-    serve_step = launch.make_serve_step(cfg)
-    toks = _prompt_tokens(np.random.default_rng(SEED + 41), cfg, LM_SLOTS, 64)
-    logits, st = launch.make_prefill_step(cfg)(params, {"tokens": toks})
-    tok = logits.argmax(-1)
-    pos = torch.full((LM_SLOTS,), 64, device="cuda")
-    for i in range(4):
-        logits, st = serve_step(params, tok, st, pos + i)
-    torch.cuda.synchronize()
     steps = 16
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(steps):
-            logits, st = serve_step(params, tok, st, pos + 4 + i)
-            tok = logits.argmax(-1)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev = {e.key: (e.count, e.self_device_time_total)
-           for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    dev, wall_us = decode_window(launch, cfg, params, LM_SLOTS, 64, steps,
+                                 SEED + 41)
     busy = sum(t for _, t in dev.values())
     wkv = sum(t for k, (_, t) in dev.items() if "wkv6" in k)
-    mm = sum(t for k, (_, t) in dev.items()
-             if any(s in k.lower() for s in ("gemm", "gemv", "xmma", "cutlass",
-                                             "cublas", "nvjet")))
+    mm = _matmul_us(dev)
     top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:12]
     out = {"steps": steps, "batch": LM_SLOTS, "wall_ms": wall_us / 1e3,
            "device_busy_ms": busy / 1e3,
@@ -2067,9 +2058,48 @@ def profile_decode(TC, TM, launch, card) -> dict:
         f"{out['wkv6_ms']!r} matmul_ms={out['matmul_ms']!r} (shares of busy "
         f"{out['wkv6_share_of_busy']!r} / {out['matmul_share_of_busy']!r}) "
         f"card=\"{card}\"")
-    del params, st
+    del params
     torch.cuda.empty_cache()
     return out
+
+
+def _device_ops(prof) -> dict:
+    """Device time by kernel name of a profiled window: name -> (count,
+    device us)."""
+    from torch.autograd import DeviceType
+    return {e.key: (e.count, e.self_device_time_total)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def _matmul_us(dev) -> float:
+    return sum(t for k, (_, t) in dev.items()
+               if any(s in k.lower() for s in ("gemm", "gemv", "xmma",
+                                               "cutlass", "cublas", "nvjet")))
+
+
+def decode_window(launch, cfg, params, b, t, steps, seed) -> tuple:
+    """``steps`` greedy decode steps at batch ``b`` after a ``t``-token
+    prefill and 4 unprofiled steps, in one ``torch.profiler`` window:
+    (device time by kernel name, wall us)."""
+    from torch.profiler import ProfilerActivity, profile
+    serve_step = launch.make_serve_step(cfg)
+    toks = _prompt_tokens(np.random.default_rng(seed), cfg, b, t)
+    logits, st = launch.make_prefill_step(cfg)(params, {"tokens": toks})
+    tok = logits.argmax(-1)
+    pos = torch.full((b,), t, device="cuda")
+    for i in range(4):
+        logits, st = serve_step(params, tok, st, pos + i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, st = serve_step(params, tok, st, pos + 4 + i)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return _device_ops(prof), wall_us
 
 # --- phases 12-14: sliding-window attention serving (slice 5) -----------------------
 
@@ -2083,9 +2113,15 @@ SWA_MAX_SEQ = 4736
 SWA_F32_PREFILL, SWA_F32_DECODE = 4100, 8   # prefill, then decode past W
 # swa_attention kernel vs plain: both against the plain version in float64
 # on the same inputs; the kernel's error within max(SWA_ATOL, 2x the fp32
-# plain version's), bf16 outputs one bf16 ulp (BF16_REL) more.
+# plain version's), bf16 outputs one bf16 ulp (BF16_REL) more. In bf16 also
+# the mean: the kernel's mean |err| within SWA_MEAN_RATIO x the plain
+# version's (fp32 p, o rounded once), a rule that one bf16 p breaks.
 SWA_ATOL = 1e-5
-SWA_KERNEL = "swa_attention_kernel"   # the kernel's name in CUPTI records
+SWA_MEAN_RATIO = 1.1
+SWA_KERNEL = "swa_attention_hopper_kernel"   # the bf16 kernel in CUPTI
+# The SFU's exponentials: 132 SMs x 16 ex2 a clock at ~1.85 GHz (H100 SXM).
+SFU_EXP_PER_S = 3.9e12
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 
 
 def swa_inputs(b, sq, sk, h, kv, d, dtype, seed):
@@ -2104,22 +2140,114 @@ def swa_pairs(b, sq, sk, h, window, causal) -> int:
     return int(b * h * np.maximum(0, hi - lo + 1).sum())
 
 
-def swa_bound(b, sq, sk, h, kv, d, window, causal, esize) -> tuple:
-    """Bytes: q, k, v read and o written once. FLOP: 4 * D per unmasked
-    pair, 2 * D for q . k and 2 * D for p * v. For bf16 inputs q . k runs
-    at the card's bf16 tensor-core rate (its products are exact in fp32)
-    and p * v at the fp32 rate, since ``p`` stays fp32; for fp32 inputs
-    both run at the fp32 rate."""
-    nbytes = esize * d * (2 * b * sq * h + 2 * b * sk * kv)
-    half = 2 * d * swa_pairs(b, sq, sk, h, window, causal)
-    qk_rate = BF16_FLOP_PER_S if esize == 2 else FP32_FLOP_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (half / qk_rate + half / FP32_FLOP_PER_S) * 1e3
-    peak = (f"q.k at {qk_rate / 1e12:g} TFLOP/s "
-            f"({'bf16 tensor cores' if esize == 2 else 'fp32'}), p.v at "
-            f"{FP32_FLOP_PER_S / 1e12:g} TFLOP/s (fp32)")
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            nbytes, 2 * half, peak)
+def swa_bound(b, sq, sk, h, kv, d, window, causal) -> dict:
+    """The least time of the function on bf16 inputs under the kernel's
+    contract: the larger of its bytes (q, k, v read and o written once) over
+    the HBM rate and its FLOP over the bf16 tensor cores' peak. Per unmasked
+    pair, 2 * D for q . k and, with ``p`` kept to fp32 accuracy as bf16
+    p_hi + p_lo, 2 * 2 * D for p . v. Beside it, the same bound if ``p``
+    were one bf16 (2 * D for p . v) and the pairs' exponentials on the SFU,
+    and the largest of the three limits."""
+    pairs = swa_pairs(b, sq, sk, h, window, causal)
+    nbytes = 2 * d * (2 * b * sq * h + 2 * b * sk * kv)
+    flops = 6 * d * pairs
+    limits = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+              "operations": flops / BF16_FLOP_PER_S * 1e3,
+              "sfu_exp": pairs / SFU_EXP_PER_S * 1e3}
+    peak = (f"{BF16_FLOP_PER_S / 1e12:g} TFLOP/s (bf16 tensor cores), "
+            f"{HBM_BYTES_PER_S / 1e12:g} TB/s, exp {SFU_EXP_PER_S / 1e12:g} "
+            f"T/s (SFU)")
+    return {"bound_ms": max(limits["bytes"], limits["operations"]),
+            "bound_by": ("bytes" if limits["bytes"] >= limits["operations"]
+                         else "operations"),
+            "bytes": nbytes, "flops": flops, "pairs": pairs,
+            "bound_peak": peak, "limits_ms": limits,
+            "largest_limit": max(limits, key=limits.get),
+            "bound_single_bf16_p_ms": max(
+                limits["bytes"], 4 * d * pairs / BF16_FLOP_PER_S * 1e3)}
+
+
+def swa_one_bf16_p(sw, q, k, v, window, causal):
+    """The control of the mean-error rule: the function with its softmax
+    weights rounded once to bf16 for ``p @ v`` (scores, sums and products in
+    fp32), what the bf16 kernel would compute without ``p_lo``. Loops over
+    (b, KV group) as the plain version does."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= kp > qp - window
+    out = torch.empty_like(q)
+    for b in range(B):
+        for g in range(KV):
+            s = torch.einsum("shd,td->hst", q[b, :, g * rep:(g + 1) * rep]
+                             .float(), k[b, :, g].float()) * D ** -0.5
+            s = s.masked_fill(~ok, sw.NEG_INF)
+            p = torch.exp(s - s.amax(-1, keepdim=True))
+            o = torch.einsum("hst,td->shd", p.bfloat16().float(),
+                             v[b, :, g].float())
+            out[b, :, g * rep:(g + 1) * rep] = (
+                o / p.sum(-1).T[..., None]).to(q.dtype)
+    return out
+
+
+def swa_mean_rule(sw, q, k, v, got, want, plain, window, causal, what,
+                  control=True) -> dict:
+    """bf16: the kernel's mean |err| against float64 within SWA_MEAN_RATIO x
+    the plain version's and, if ``control``, the control (one bf16 p)
+    beyond it wherever W > 1 (with W = 1, p = 1 is exact in bf16); raises
+    otherwise. The control's mean error is returned either way."""
+    mean = lambda x: float((x.double() - want).abs().mean())
+    m_plain, m_kern = mean(plain), mean(got)
+    m_ctrl = mean(swa_one_bf16_p(sw, q, k, v, window, causal))
+    lim = SWA_MEAN_RATIO * m_plain
+    if not m_kern <= lim:
+        raise AssertionError(f"{what}: kernel mean err {m_kern!r} beyond "
+                             f"{SWA_MEAN_RATIO} x plain's {m_plain!r}")
+    if control and window != 1 and not m_ctrl > lim:
+        raise AssertionError(f"{what}: the control (one bf16 p) mean err "
+                             f"{m_ctrl!r} within {SWA_MEAN_RATIO} x plain's "
+                             f"{m_plain!r}: the rule cannot see it")
+    return {"mean_err": m_kern, "plain_mean_err": m_plain,
+            "one_bf16_p_mean_err": m_ctrl, "mean_limit": lim}
+
+
+def swa_check(sw, q, k, v, got, window, causal, what,
+              control=True) -> dict:
+    """The kernel's output ``got`` on q, k, v against the plain version, both
+    held to the plain version in float64: the largest error within
+    max(SWA_ATOL, 2x the plain version's), bf16 outputs one bf16 ulp more,
+    and in bf16 the mean-error rule (``swa_mean_rule``); raises otherwise."""
+    kw = dict(window=window, causal=causal)
+    want = sw.swa_attention_plain(q.double(), k.double(), v.double(), **kw)
+    plain = sw.swa_attention_plain(q, k, v, **kw)
+    e_plain = float((plain.double() - want).abs().max())
+    dev = (got.double() - want).abs()
+    tol = max(SWA_ATOL, 2.0 * e_plain)
+    lim = tol + (BF16_REL * want.abs() if q.dtype == torch.bfloat16 else 0.0)
+    if not bool((dev <= lim).all()) or got.dtype != q.dtype:
+        raise AssertionError(f"{what}: kernel err {float(dev.max())!r} beyond "
+                             f"{tol!r} (plain err {e_plain!r})")
+    row = {"err": float(dev.max()), "plain_err": e_plain}
+    if q.dtype == torch.bfloat16:
+        row.update(swa_mean_rule(sw, q, k, v, got, want, plain, window,
+                                 causal, what, control))
+    return row
+
+
+def _mean_ratios(rows) -> dict:
+    """The largest kernel / plain mean-error ratio of the bf16 rows and the
+    smallest control / plain ratio of those with W > 1."""
+    ratio = lambda r, key: r[key] / max(r["plain_mean_err"], 1e-30)
+    b16 = [r for r in rows if "mean_err" in r]
+    return {"mean_ratio_max": max(ratio(r, "mean_err") for r in b16),
+            "control_ratio_min": min(ratio(r, "one_bf16_p_mean_err")
+                                     for r in b16 if r["window"] != 1)}
 
 
 def swa_vs_plain(sw) -> dict:
@@ -2127,7 +2255,10 @@ def swa_vs_plain(sw) -> dict:
     slice's shapes (prefill 8 x 512 and 1 x 8192 at W = 4096, bf16 and
     fp32), no window with causal on and off, a window smaller than a tile
     and W = 1, ragged lengths (7, 1000, 4097), D = 128 with 24 / 8 heads
-    (phi4-mini's), and Sq != Sk either way."""
+    (phi4-mini's), and Sq != Sk either way; in bf16 also the tensor-core
+    kernel's tile edges: Sq and Sk of 129 and 255 (Sq != Sk both ways),
+    W = 1 and W = 100 (below one 128-key tile), causal off, B = 3 with
+    H / KV = 4 and 1, D = 128."""
     f32, b16 = (torch.float32,), (torch.bfloat16,)
     both = f32 + b16
     cases = [  # b, sq, sk, h, kv, d, window, causal, dtypes
@@ -2142,44 +2273,87 @@ def swa_vs_plain(sw) -> dict:
         (2, 512, 512, 24, 8, 128, None, True, both),
         (1, 300, 700, 32, 8, 120, 256, True, f32),
         (1, 700, 300, 24, 8, 128, None, True, f32),
+        # bf16 at the tensor-core kernel's tile edges (128 rows and keys)
+        (1, 129, 255, 32, 8, 120, None, True, b16),
+        (1, 255, 129, 32, 8, 120, None, True, b16),
+        (2, 255, 255, 24, 8, 128, 100, True, b16),
+        (1, 1000, 1000, 32, 8, 120, 1, True, b16),
+        (1, 1000, 1000, 32, 8, 120, 100, True, b16),
+        (1, 129, 300, 32, 8, 120, None, False, b16),
+        (3, 200, 200, 32, 8, 120, 100, True, b16),
+        (3, 300, 300, 8, 8, 128, None, True, b16),
     ]
     worst = {"float32": 0.0, "bfloat16": 0.0, "plain_fp32_vs_fp64": 0.0}
     rows = []
     for n, (b, sq, sk, h, kv, d, window, causal, dtypes) in enumerate(cases):
         for dtype in dtypes:
             q, k, v = swa_inputs(b, sq, sk, h, kv, d, dtype, SEED + 120 + n)
-            kw = dict(window=window, causal=causal)
-            want = sw.swa_attention_plain(q.double(), k.double(), v.double(),
-                                          **kw)
-            plain = sw.swa_attention_plain(q, k, v, **kw)
-            got = sw.swa_attention_cuda(q, k, v, **kw)
+            got = sw.swa_attention_cuda(q, k, v, window=window, causal=causal)
             torch.cuda.synchronize()
-            e_plain = float((plain.double() - want).abs().max())
-            dev = (got.double() - want).abs()
-            tol = max(SWA_ATOL, 2.0 * e_plain)
-            lim = tol + (BF16_REL * want.abs() if dtype == torch.bfloat16
-                         else 0.0)
-            if not bool((dev <= lim).all()) or got.dtype != dtype:
-                raise AssertionError(
-                    f"swa_attention {(b, sq, sk, h, kv, d)} window={window} "
-                    f"causal={causal} {dtype}: kernel err {float(dev.max())!r} "
-                    f"beyond {tol!r} (plain err {e_plain!r})")
             name = str(dtype).split(".")[-1]
-            err = float(dev.max())
-            worst[name] = max(worst[name], err)
+            row = {"shape": [b, sq, sk, h, kv, d], "window": window,
+                   "causal": causal, "dtype": name}
+            row.update(swa_check(sw, q, k, v, got, window, causal,
+                                 f"swa_attention {(b, sq, sk, h, kv, d)} "
+                                 f"window={window} causal={causal} {dtype}"))
+            worst[name] = max(worst[name], row["err"])
             if dtype == torch.float32:
                 worst["plain_fp32_vs_fp64"] = max(worst["plain_fp32_vs_fp64"],
-                                                  e_plain)
-            rows.append({"shape": [b, sq, sk, h, kv, d], "window": window,
-                         "causal": causal, "dtype": name, "err": err,
-                         "plain_err": e_plain})
-            del q, k, v, want, plain, got, dev
+                                                  row["plain_err"])
+            rows.append(row)
+            del q, k, v, got
     torch.cuda.empty_cache()
+    worst.update(_mean_ratios(rows))
     log(f"phase swa_attention vs plain: {len(rows)} cases ok; max abs err vs "
         f"float64: fp32 {worst['float32']!r}, bf16 {worst['bfloat16']!r} "
         f"(plain fp32 {worst['plain_fp32_vs_fp64']!r}); rule max({SWA_ATOL}, "
-        f"2x fp32 plain's error), + one bf16 ulp for bf16 outputs")
+        f"2x fp32 plain's error), + one bf16 ulp for bf16 outputs; bf16 mean "
+        f"err / plain's at most {worst['mean_ratio_max']!r} (rule "
+        f"<= {SWA_MEAN_RATIO}); the control (one bf16 p) at least "
+        f"{worst['control_ratio_min']!r} (W > 1)")
     return {"max_abs_err": worst["float32"], "worst": worst, "cases": rows}
+
+
+def swa_model_kernel_vs_plain(sw, TM, cfg, params, rng) -> dict:
+    """bf16 inside the model: one prefill at each of the slice's shapes
+    (8 x 512, 1 x 8192) through the kernel, and at every layer the kernel's
+    output on that layer's own q, k, v held against the plain version by
+    phase 12's rules (``swa_check``: largest error, mean error). The
+    control's ratio is reported, not required: how far one bf16 p moves the
+    mean depends on the layer's inputs (V rows alike hide it); phase 12
+    shows the rule breaks it."""
+    out = {}
+    for b, t in SWA_PREFILL:
+        rows = []
+
+        def checked_kernel(q, k, v, *, window, causal):
+            got = sw.swa_attention_cuda(q, k, v, window=window, causal=causal)
+            row = {"layer": len(rows), "window": window}
+            row.update(swa_check(sw, q, k, v, got, window, causal,
+                                 f"{SWA_ARCH} {b}x{t} layer {len(rows)}",
+                                 control=False))
+            rows.append(row)
+            return got
+
+        TM.prefill(cfg, params, _prompt_tokens(rng, cfg, b, t),
+                   swa_impl=checked_kernel)
+        if len(rows) != cfg.n_layers:
+            raise AssertionError(f"{b}x{t}: {len(rows)} attention calls, "
+                                 f"expected {cfg.n_layers}")
+        ctrl = [r["one_bf16_p_mean_err"] / r["plain_mean_err"] for r in rows]
+        res = dict(layers=len(rows), max_err=max(r["err"] for r in rows),
+                   **_mean_ratios(rows), control_ratio_median=float(
+                       np.median(ctrl)), control_ratio_max=max(ctrl))
+        out[f"{b}x{t}"] = res
+        log(f"check swa kernel vs plain attention (bf16 model, prefill {b} x "
+            f"{t}, each of {len(rows)} layers on its own q, k, v): max abs err "
+            f"{res['max_err']!r} (phase 12's rule); mean err / plain's at most "
+            f"{res['mean_ratio_max']!r} (rule <= {SWA_MEAN_RATIO}); the "
+            f"control (one bf16 p, not required): min "
+            f"{res['control_ratio_min']!r}, median "
+            f"{res['control_ratio_median']!r}, max {res['control_ratio_max']!r}")
+    torch.cuda.empty_cache()
+    return out
 
 
 def _swa_requests(rng, launch, cfg):
@@ -2203,7 +2377,8 @@ def swa_serving_path(sw, _build, TC, TM, launch, card) -> dict:
     this main path and read after it: 24 launches per prefill call and per
     admission, none per decode step, no build. Then the checks: every
     completion against single-request greedy decoding on the card, an
-    admission against the other slots' cache rows, and in fp32 the card
+    admission against the other slots' cache rows, the bf16 kernel against
+    the plain attention on each layer's inputs, and in fp32 the card
     against the CPU, prefill-then-decode across the ring's wrap against one
     forward, the kernel against the plain attention inside the model, and
     the loop's completions outright."""
@@ -2343,9 +2518,13 @@ def swa_serving_path(sw, _build, TC, TM, launch, card) -> dict:
         f"pos) bitwise unchanged and the new slot's equal to a B = 1 prefill "
         f"(slot 0 holds request 0's {SWA_LONG_PROMPT - 1}-token prefill in "
         f"{wrapped // cfg.n_layers} of {SWA_WINDOW} ring slots per layer)")
+    checked("admission")
+    # --- check: the bf16 kernel against the plain attention in the model ---
+    out["kernel_vs_plain_model_bf16"] = swa_model_kernel_vs_plain(
+        sw, TM, cfg, params, np.random.default_rng(SEED + 51))
     del adm, params
     torch.cuda.empty_cache()
-    checked("admission")
+    checked("kernel_vs_plain_bf16")
 
     # --- fp32 at full width ---
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
@@ -2450,34 +2629,85 @@ def swa_serving_path(sw, _build, TC, TM, launch, card) -> dict:
     return out
 
 
-def sdpa_fn(q, k, v, window):
-    """The library yardstick: one ``scaled_dot_product_attention`` call on
-    (B, H, S, D) views of q and of K/V repeated to the query heads (the TPU
-    kernel's inputs; the repeat is made here, outside the timed call);
-    ``is_causal`` where the window does not bite, else a boolean band
-    mask."""
-    import torch.nn.functional as F
+def _sdpa_args(q, k, v, window) -> tuple:
+    """(B, H, S, D) views of q and of K/V repeated to the query heads (the
+    TPU kernel's inputs; the repeat is made here, outside any timed call),
+    and ``is_causal`` where the window does not bite, else a boolean band
+    mask, over which SDPA computes all S^2 pairs."""
     from repro_torch.models.attention import _repeat_kv
     qt = q.transpose(1, 2)
     kt, vt = (_repeat_kv(t, q.shape[2]).transpose(1, 2) for t in (k, v))
     s = q.shape[1]
     if window is None or s <= window:
-        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True)
+        return qt, kt, vt, {"is_causal": True}
     i = torch.arange(s, device=q.device)
-    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    return qt, kt, vt, {"attn_mask": (i[None, :] <= i[:, None])
+                        & (i[None, :] > i[:, None] - window)}
+
+
+def sdpa_fn(q, k, v, window, backend=None):
+    """The library yardstick: one ``scaled_dot_product_attention`` call on
+    the inputs of ``_sdpa_args``; ``backend`` (an ``SDPBackend`` name)
+    restricts it to that backend."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt, kw = _sdpa_args(q, k, v, window)
+    if backend is None:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+    def call():
+        with sdpa_kernel([getattr(SDPBackend, backend)]):
+            return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    return call
+
+
+def sdpa_backend_of(q, k, v, window) -> str:
+    """The backend the default SDPA call picks, as PyTorch's own dispatcher
+    (``torch._fused_sdp_choice``) chooses it."""
+    from torch.nn.attention import SDPBackend
+    qt, kt, vt, kw = _sdpa_args(q, k, v, window)
+    return SDPBackend(torch._fused_sdp_choice(
+        qt, kt, vt, kw.get("attn_mask"), 0.0, kw.get("is_causal", False))).name
+
+
+def sdpa_backends(q, k, v, got, cyc, flush, n_ev) -> dict:
+    """Each SDPA backend of ``SDPA_BACKENDS`` on these inputs: refused (and
+    why), or its device time by CUDA events, L2 flushed, and its largest
+    difference from the kernel's output ``got``."""
+    import warnings
+    out = {}
+    for backend in SDPA_BACKENDS:
+        fn = sdpa_fn(q, k, v, SWA_WINDOW, backend)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                o = fn()
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                out[backend] = {"accepted": False,
+                                "why": str(e).strip().splitlines()[0][:160]}
+                continue
+            out[backend] = {
+                "accepted": True,
+                "max_abs_diff": float((o.transpose(1, 2).float()
+                                       - got.float()).abs().max()),
+                "ms": device_ms(fn, cyc, flush, n_ev)[0]}
+        del o
+    return out
 
 
 def swa_times(sw, swa, card) -> dict:
     """Phase 14: swa_attention in bf16 at the prefill shapes (8 x 512 and
     1 x 8192) and at 1 x 16384, W = 4096: L2 flushed and warm, by CUDA
-    events and CUPTI, beside its bound, SDPA's time and the plain version's
-    (one call, CUDA events). The long shapes take 25 event-timed and 10
-    CUPTI calls (each call is milliseconds), the short one the defaults;
-    the kernel's CUPTI time counts its own records (``SWA_KERNEL``), and
-    each CUPTI measurement may take up to ``CUPTI_WINDOWS`` windows (the
-    tracer lost up to four windows in a row at these shapes)."""
+    events and CUPTI, beside its bound (and the SFU's limit), the plain
+    version's time (one call, CUDA events) and SDPA's: the default call by
+    CUDA events (the kernels line's ``library_ms``) and by CUPTI, which
+    backend it picks, and each backend that accepts the call by CUDA events.
+    The long shapes take 25 event-timed and 10 CUPTI calls (each call is
+    milliseconds), the short one the defaults; the kernel's CUPTI time
+    counts its own records (``SWA_KERNEL``), and each CUPTI measurement may
+    take up to ``CUPTI_WINDOWS`` windows (the tracer lost up to four windows
+    in a row at these shapes)."""
     cyc = sleep_cycles_per_ms()
     flush = l2_flusher()
     rows = {}
@@ -2487,34 +2717,53 @@ def swa_times(sw, swa, card) -> dict:
         q, k, v = swa_inputs(b, t, t, 32, 8, 120, torch.bfloat16, SEED + 14)
         kern = lambda: sw.swa_attention_cuda(q, k, v, window=SWA_WINDOW)
         lib = sdpa_fn(q, k, v, SWA_WINDOW)
-        err = float((lib().transpose(1, 2).float() - kern().float()).abs()
+        got = kern()
+        err = float((lib().transpose(1, 2).float() - got.float()).abs()
                     .max())
-        b_ms, b_by, nbytes, flops, peak = swa_bound(b, t, t, 32, 8, 120,
-                                                    SWA_WINDOW, True, 2)
+        bnd = swa_bound(b, t, t, 32, 8, 120, SWA_WINDOW, True)
+        backend = sdpa_backend_of(q, k, v, SWA_WINDOW)
         rec = {"shape": [b, t, 32, 8, 120], "window": SWA_WINDOW,
                "dtype": "bfloat16",
                "cupti_ms": cupti_ms(kern, flush, SWA_KERNEL, n_cu),
                "warm_l2_cupti_ms": cupti_ms(kern, None, SWA_KERNEL, n_cu),
-               "library_ms": cupti_ms(lib, flush, None, n_cu),
+               "library_ms": device_ms(lib, cyc, flush, n_ev)[0],
+               "library_cupti_ms": cupti_ms(lib, flush, None, n_cu),
+               "library_backend": backend,
+               "library_pairs": "all S^2 (band mask)" if t > SWA_WINDOW
+               else "causal half",
+               "library_backends": sdpa_backends(q, k, v, got, cyc, flush,
+                                                 n_ev),
                "ms": device_ms(kern, cyc, flush, n_ev)[0],
                "warm_l2_ms": device_ms(kern, cyc, None, n_ev)[0],
-               "library_vs_kernel_max_abs_diff": err,
-               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-               "flops": flops, "bound_peak": peak}
+               "library_vs_kernel_max_abs_diff": err, **bnd}
+        rec["share_of_bound"] = bnd["bound_ms"] / rec["ms"]
         if t <= SWA_PREFILL[1][1]:
             plain = lambda: sw.swa_attention_plain(q, k, v, window=SWA_WINDOW)
             rec["plain_ms"] = events_ms(plain, 1)
         else:
             rec["plain_ms"] = None
         rows[f"swa_attention/{b}x{t}"] = rec
+        lim = bnd["limits_ms"]
         log(f"time swa_attention shape=({b}, {t}, 32/8, 120) bf16 W="
             f"{SWA_WINDOW} L2 flushed: kernel_ms={rec['ms']!r} (cupti "
             f"{rec['cupti_ms']!r}; L2-warm {rec['warm_l2_ms']!r}, cupti "
             f"{rec['warm_l2_cupti_ms']!r}) plain_ms={rec['plain_ms']!r} "
-            f"library_ms={rec['library_ms']!r} (SDPA, cupti; max |SDPA - "
-            f"kernel| {err!r}) bound_ms={b_ms!r} ({b_by}; {peak}) "
+            f"bound_ms={bnd['bound_ms']!r} ({bnd['bound_by']}; "
+            f"{bnd['bound_peak']}; share reached {rec['share_of_bound']!r}) "
             f"card=\"{card}\"")
-        del q, k, v
+        log(f"time swa_attention ({b}, {t}) limits ms: bytes "
+            f"{lim['bytes']!r}, tensor-core FLOP {lim['operations']!r} "
+            f"({bnd['flops']} FLOP, p_hi + p_lo), SFU exp {lim['sfu_exp']!r} "
+            f"({bnd['pairs']} pairs): the largest is {bnd['largest_limit']}; "
+            f"bound if p were one bf16 {bnd['bound_single_bf16_p_ms']!r}")
+        log(f"time swa_attention ({b}, {t}) SDPA default: {backend} "
+            f"({rec['library_pairs']} pairs) events {rec['library_ms']!r} ms, "
+            f"cupti {rec['library_cupti_ms']!r} ms, max |SDPA - kernel| "
+            f"{err!r}; by backend: " + "; ".join(
+                f"{k_}: {v_['ms']!r} ms (diff {v_['max_abs_diff']!r})"
+                if v_["accepted"] else f"{k_}: refused ({v_['why']})"
+                for k_, v_ in rec["library_backends"].items()))
+        del q, k, v, got
         torch.cuda.empty_cache()
     long_ratio = (rows[f"swa_attention/{SWA_LONG[0]}x{SWA_LONG[1]}"]["ms"]
                   / rows["swa_attention/1x8192"]["ms"])
@@ -2528,11 +2777,12 @@ def swa_times(sw, swa, card) -> dict:
     return rows
 
 
-def profile_swa_prefill(TC, TM, launch, card) -> dict:
-    """One ``torch.profiler`` window over one 1 x 8192 prefill call (full
-    width, bf16): wall time, device busy time and idle share, and the
-    swa_attention kernel's and the matrix products' share of it."""
-    from torch.autograd import DeviceType
+def profile_swa(TC, TM, launch, card) -> dict:
+    """Two ``torch.profiler`` windows of h2o-danube-3-4b at full width,
+    bf16: one 1 x 8192 prefill call (device idle share, the swa_attention
+    kernel's and the matrix products' share of the busy time) and 16
+    decode steps at B = 8 after a 512-token prefill (idle share, the matrix
+    products' share, the top device ops)."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = TC.get_arch(SWA_ARCH)
@@ -2549,9 +2799,7 @@ def profile_swa_prefill(TC, TM, launch, card) -> dict:
             prefill_step(params, {"tokens": toks})
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        dev = {e.key: (e.count, e.self_device_time_total)
-               for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0}
+        dev = _device_ops(prof)
         n_swa = sum(c for k, (c, _) in dev.items() if SWA_KERNEL in k)
         if n_swa == cfg.n_layers:
             break
@@ -2561,11 +2809,9 @@ def profile_swa_prefill(TC, TM, launch, card) -> dict:
         raise AssertionError("every profiled prefill window was lost")
     busy = sum(t for _, t in dev.values())
     swa_us = sum(t for k, (_, t) in dev.items() if SWA_KERNEL in k)
-    mm = sum(t for k, (_, t) in dev.items()
-             if any(s in k.lower() for s in ("gemm", "gemv", "xmma", "cutlass",
-                                             "cublas", "nvjet")))
+    mm = _matmul_us(dev)
     top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:10]
-    out = {"shape": list(SWA_PREFILL[1]), "wall_ms": wall_us / 1e3,
+    pre = {"shape": list(SWA_PREFILL[1]), "wall_ms": wall_us / 1e3,
            "device_busy_ms": busy / 1e3,
            "device_idle_share": 1.0 - busy / wall_us,
            "swa_attention_ms": swa_us / 1e3, "swa_attention_launches": n_swa,
@@ -2575,14 +2821,55 @@ def profile_swa_prefill(TC, TM, launch, card) -> dict:
            "top_device_ops": {k: {"count": c, "device_ms": t / 1e3}
                               for k, (c, t) in top}}
     log(f"profile swa prefill 1 x {SWA_PREFILL[1][1]}: wall_ms="
-        f"{out['wall_ms']!r} device_busy_ms={out['device_busy_ms']!r} "
-        f"device_idle_share={out['device_idle_share']!r} swa_attention_ms="
-        f"{out['swa_attention_ms']!r} ({n_swa} launches) matmul_ms="
-        f"{out['matmul_ms']!r} (shares of busy {out['swa_share_of_busy']!r} / "
-        f"{out['matmul_share_of_busy']!r}) card=\"{card}\"")
+        f"{pre['wall_ms']!r} device_busy_ms={pre['device_busy_ms']!r} "
+        f"device_idle_share={pre['device_idle_share']!r} swa_attention_ms="
+        f"{pre['swa_attention_ms']!r} ({n_swa} launches) matmul_ms="
+        f"{pre['matmul_ms']!r} (shares of busy {pre['swa_share_of_busy']!r} / "
+        f"{pre['matmul_share_of_busy']!r}) card=\"{card}\"")
+    del toks
+
+    b, t, steps = SWA_PREFILL[0][0], SWA_PREFILL[0][1], 16
+    dev, wall_us = decode_window(launch, cfg, params, b, t, steps, SEED + 52)
+    busy = sum(t_ for _, t_ in dev.values())
+    if busy <= 0:
+        raise AssertionError("the profiled decode window has no device time")
+    mm = _matmul_us(dev)
+    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:12]
+    dec = {"steps": steps, "batch": b, "prompt": t, "wall_ms": wall_us / 1e3,
+           "device_busy_ms": busy / 1e3,
+           "device_idle_share": 1.0 - busy / wall_us,
+           "host_ms_per_step": wall_us / steps / 1e3,
+           "device_kernels_per_step": sum(c for c, _ in dev.values()) / steps,
+           "matmul_ms": mm / 1e3, "matmul_share_of_busy": mm / busy,
+           "top_device_ops": {k: {"count": c, "device_ms": t_ / 1e3}
+                              for k, (c, t_) in top}}
+    log(f"profile swa decode B={b} x {steps} steps after {t} tokens: wall_ms="
+        f"{dec['wall_ms']!r} device_busy_ms={dec['device_busy_ms']!r} "
+        f"device_idle_share={dec['device_idle_share']!r} matmul_ms="
+        f"{dec['matmul_ms']!r} (share of busy {dec['matmul_share_of_busy']!r}"
+        f"); {dec['device_kernels_per_step']!r} device kernels per step; top: "
+        + ", ".join(f"{k[:48]} {v['device_ms']!r} ms x {v['count']}"
+                    for k, v in list(dec["top_device_ops"].items())[:5])
+        + f" card=\"{card}\"")
     del params
     torch.cuda.empty_cache()
-    return out
+    return {"prefill": pre, "decode": dec}
+
+
+def hgmma_count(_build) -> int:
+    """``HGMMA`` instructions (wgmma on the tensor cores) in the built
+    library's bf16 swa_attention kernels, by ``cuobjdump -sass``."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", _build.build_info["library"]],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = SWA_KERNEL in line
+        elif inside and "HGMMA" in line:
+            count += 1
+    return count
 
 
 def main() -> int:
@@ -2641,8 +2928,14 @@ def main() -> int:
         f"{_build.build_info['library']} (nvcc runs: {_build.n_builds}; "
         f"flags {_build.build_info.get('flags')})")
     for line in str(_build.build_info.get("log", "")).splitlines():
-        if "ptxas info" in line and ("Used" in line or "spill" in line):
+        if ("ptxas info" in line and "Used" in line) or "(C75" in line or (
+                "spill" in line and " 0 bytes spill stores" not in line):
             log(f"phase build: {line.strip()}")
+    n_hgmma = hgmma_count(_build)
+    log(f"phase build: {n_hgmma} HGMMA instructions in {SWA_KERNEL} "
+        f"(cuobjdump -sass)")
+    if n_hgmma == 0:
+        raise AssertionError(f"{SWA_KERNEL} issues no wgmma")
 
     # 3. kernel vs plain
     parity = kernel_vs_plain(pinf)
@@ -2702,7 +2995,7 @@ def main() -> int:
 
     # 14. swa_attention times, a profiled prefill
     swa_rows = swa_times(sw, swa, card)
-    swa_prof = profile_swa_prefill(TC, TM, launch, card)
+    swa_prof = profile_swa(TC, TM, launch, card)
     lap('14 swa_times')
 
     top = rows["mean/1024"]
@@ -2780,25 +3073,28 @@ def main() -> int:
     })
     b1, t1 = SWA_PREFILL[1]
     r = swa_rows[f"swa_attention/{b1}x{t1}"]
-    timed_err = [c["err"] for c in swa_parity["cases"]
-                 if c["shape"] == [b1, t1, t1, 32, 8, 120]
-                 and c["window"] == SWA_WINDOW and c["dtype"] == "bfloat16"]
+    timed = [c for c in swa_parity["cases"]
+             if c["shape"] == [b1, t1, t1, 32, 8, 120]
+             and c["window"] == SWA_WINDOW and c["dtype"] == "bfloat16"][0]
     kernels.append({
         "name": "swa_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
         "replaces": "src/repro/kernels/swa_attention.py:80",
         "launches": swa["launches"],
-        "max_abs_err": timed_err[0],
+        "max_abs_err": timed["err"],
         "ms": r["ms"],
         "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
+        "library_backend": r["library_backend"],
         "shape": {"B": b1, "S": t1, "H": 32, "KV": 8, "D": 120,
                   "window": SWA_WINDOW, "dtype": "bfloat16"},
         "max_abs_err_all_cases": {k: swa_parity["worst"][k]
                                   for k in ("float32", "bfloat16")},
+        "mean_abs_err": {k: timed[k] for k in (
+            "mean_err", "plain_mean_err", "one_bf16_p_mean_err")},
     })
     if len(kernels) != 10 or any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"kernels line: {len(kernels)} kernels, "
@@ -2817,7 +3113,8 @@ def main() -> int:
                    "wkv6_parity": wkv, "lm_serving": lm, "lm_times": lm_rows,
                    "lm_decode_profile": lm_prof,
                    "swa_parity": swa_parity, "swa_serving": swa,
-                   "swa_times": swa_rows, "swa_prefill_profile": swa_prof,
+                   "swa_times": swa_rows, "swa_profile": swa_prof,
+                   "swa_hgmma": n_hgmma,
                    "kernels": kernels, "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

@@ -8,8 +8,10 @@
 //     o_i     = sum_j softmax_j(s[i, :]) v_j          (fp32, cast to q's type)
 // q is (B, Sq, H, D); k and v are (B, Sk, KV, D), not repeated: head h
 // reads KV head h / (H / KV), the mapping of the JAX package's _repeat_kv
-// (each KV head repeated H / KV times in a row). Inputs are fp32 or bf16,
-// converted to fp32 on load; D is 120 or 128.
+// (each KV head repeated H / KV times in a row). Inputs are fp32 or bf16;
+// D is 120 or 128. The softmax weights p keep fp32 accuracy for p @ v in
+// both kernels below, as in the TPU kernel (the JAX model's own
+// flash_attention rounds them to q's type first).
 //
 // Replaces the Pallas TPU kernel swa_attention_pallas
 // (src/repro/kernels/swa_attention.py:80, body _swa_kernel at :25). That
@@ -18,33 +20,65 @@
 // VMEM scratch; kv blocks outside [q_lo - W + 1, q_hi] are skipped. Hopper
 // blocks run in no order, so here the kv axis is a loop inside the block,
 // which visits only the kv tiles that overlap that range (the same skip: the
-// work is O(Sq * W), not O(Sq * Sk)). The softmax weights p stay in fp32 for
-// p @ v, as in the TPU kernel (the JAX model's own flash_attention rounds
-// them to q's type first). Unlike the TPU kernel, any Sq and Sk are taken:
-// rows past Sq are computed on zeros and not stored, keys past Sk get
-// weight 0. The caller refuses shapes with a query row that has no key in
-// its window (Sq >= Sk + W): its softmax is over no key at all.
+// work is O(Sq * W), not O(Sq * Sk)). Unlike the TPU kernel, any Sq and Sk
+// are taken: rows past Sq are computed on zeros and not stored, keys past
+// Sk get weight 0. The caller refuses shapes with a query row that has no
+// key in its window (Sq >= Sk + W): its softmax is over no key at all.
+// repro_swa_attention picks the kernel by dtype, a static choice.
 //
-// Design (simple first). One block of 256 threads per (b, h, 64-row q
-// tile). The q tile and each 64-row k and v tile are staged in shared
-// memory as fp32 (row stride D + 4 floats: float4 reads of 8 neighbouring
-// rows fall in distinct banks), 112-119 KB of dynamic shared memory, so one
-// block per SM. Thread (ty, tx) of a 16 x 16 grid owns query rows
-// 4ty..4ty+3: it computes their scores against keys tx + 16c (c < 4) with
-// fp32 FMAs on the CUDA cores, the row max and sum go across the 16
-// threads of the row by warp shuffles, p goes through shared memory, and
-// the thread accumulates columns 4tx..4tx+3 and 64+4tx..64+4tx+3 of its
-// rows' outputs in 32 registers. No tensor cores, no TMA, no overlap of the
-// next tile's loads with this tile's compute: those are for a later kernel.
+// bf16: swa_attention_hopper_kernel. Bound: 2*D FLOP per unmasked (i, j)
+// pair for q.k and 2 * 2*D for p*v, which runs twice (below), against q, k,
+// v read and o written once. At the prefill shape (1, 8192, 32 heads / 8
+// KV, D 120, W 4096) that is 805M pairs, 580 GFLOP on the bf16 tensor cores
+// (0.59 ms at 989 TFLOP/s) against 157 MB (47 us at 3.35 TB/s): operations
+// bound it, and the exponentials (805M, 0.21 ms on the SFU) come next. The
+// CUDA-core kernel it replaces spent its time on shared-memory operands and
+// fp32 FMAs (30 TFLOP/s); this one keeps the tensor cores fed:
+// - one block of 384 threads per unit (b, h, 128-row q tile), the q tiles
+//   with the most kv tiles first, so the short causal tiles fill the tail.
+//   Two consumer warpgroups of 64 query rows and a producer warpgroup in
+//   which one thread issues TMA; setmaxnreg moves registers from the
+//   producer (56 a thread) to the consumers (224), ptxas -v: 168 at
+//   entry, no spill;
+// - the producer loads the q tile once and each 128-key k and v tile into a
+//   ring of kStages slots by TMA (4-d tensor maps over (D, heads, S, B),
+//   boxes of 64 columns x 128 rows with the 128-byte swizzle; columns past D
+//   and rows past S arrive as zeros, so D = 120 is padded to 128 for free).
+//   Each slot has mbarriers for its load and its release (k right after its
+//   q k^T, v after its p v), so the next tiles load while this one
+//   computes. 161 KB of dynamic shared memory, one block per SM;
+// - a consumer computes s = q k^T with wgmma (bf16 operands from shared
+//   memory, fp32 accumulators: 8 m64n128k16), masks only the tiles a mask
+//   reaches, runs the online softmax on the accumulator registers (the row
+//   max across the four threads of a row by shuffles) and accumulates
+//   o += p v with wgmma, p from registers and v (MN-major) from shared
+//   memory. Tile i's q k^T is issued together with tile i - 1's p v, and
+//   tile i's softmax runs while that p v is on the tensor cores;
+// - p keeps fp32 accuracy: p_hi = bf16(p) and p_lo = bf16(p - p_hi) both go
+//   through the tensor cores into one fp32 accumulator (|p - p_hi - p_lo| <=
+//   2^-17 p), 16 m64n128k16 per tile instead of 8;
+// - within a q tile the blocks run the heads that share a KV head side by
+//   side (their k and v meet in the L2).
+// D = 64 is kBoxes = 1 (64-column boxes per row) and an n64 p v wgmma.
+// D = 256 is kBoxes = 4 and an n256 p v wgmma whose accumulator takes 128
+// registers: it also needs 64-key tiles (s and p in 32 each; the 64 KB q
+// tile and the ring then fit in shared memory).
 //
-// Bound. The function needs 4*D FLOP per unmasked (i, j) pair (2*D for
-// q.k, 2*D for p*v) and reads q, k, v and writes o once. At the prefill
-// shape (1, 8192, 32 heads / 8 KV, D 120) with W = 4096 that is 805M pairs,
-// 387 GFLOP: 5.8 ms at 67 TFLOP/s fp32 (this kernel computes in fp32 on the
-// CUDA cores), against 157 MB of bf16 I/O (47 us at 3.35 TB/s): operations
-// bound it. Its weakness: every product is a shared-memory operand, so the
-// loads from shared memory, not the FMAs, limit the inner loops.
+// fp32: swa_attention_kernel, on the CUDA cores (fp32 q.k on the tensor
+// cores would need TF32, which the port's numerics rule out). One block of
+// 256 threads per (b, h, 64-row q tile). The q tile and each 64-row k and v
+// tile are staged in shared memory (row stride D + 4 floats: float4 reads
+// of 8 neighbouring rows fall in distinct banks), 112-119 KB of dynamic
+// shared memory, so one block per SM. Thread (ty, tx) of a 16 x 16 grid owns
+// query rows 4ty..4ty+3: it computes their scores against keys tx + 16c
+// (c < 4) with fp32 FMAs, the row max and sum go across the 16 threads of
+// the row by warp shuffles, p goes through shared memory, and the thread
+// accumulates columns 4tx..4tx+3 and 64+4tx..64+4tx+3 of its rows' outputs
+// in 32 registers. Bound: 4*D FLOP per pair at 67 TFLOP/s fp32; every
+// product is a shared-memory operand, so the shared-memory loads, not the
+// FMAs, limit its inner loops.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,40 +86,27 @@
 
 namespace {
 
+constexpr float kMasked = -1e30f;
+
+// --- fp32: CUDA cores ----------------------------------------------------
+
 constexpr int kBQ = 64;          // query rows per block
 constexpr int kBK = 64;          // key rows per tile
 constexpr int kThreads = 256;    // 16 x 16
 constexpr int kPS = kBK + 4;     // row stride of the p tile (floats)
-constexpr float kMasked = -1e30f;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const uint32_t*>(&a);
-  raw.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
 // 64 rows of D elements (row r at src + r * stride) into dst (row stride
-// D + 4) as fp32; rows at or past `valid` are zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+// D + 4); rows at or past `valid` are zeros.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int64_t stride, int valid) {
   constexpr int kC = D / 4;
   for (int idx = threadIdx.x; idx < 64 * kC; idx += kThreads) {
@@ -96,11 +117,11 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int Sq,
-                     int Sk, int H, int KV, int window, int causal,
+swa_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int Sq, int Sk, int H, int KV, int window, int causal,
                      float scale) {
   constexpr int DP = D + 4;
   extern __shared__ __align__(16) float smem[];
@@ -115,11 +136,11 @@ swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBQ;
   const int q_hi = min(q0 + kBQ, Sq) - 1;
   const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)KV * D;
-  const T* q_blk = q + ((int64_t)b * Sq + q0) * q_stride + (int64_t)h * D;
-  const T* k_bh = k + (int64_t)b * Sk * kv_stride + (int64_t)g * D;
-  const T* v_bh = v + (int64_t)b * Sk * kv_stride + (int64_t)g * D;
+  const float* q_blk = q + ((int64_t)b * Sq + q0) * q_stride + (int64_t)h * D;
+  const float* k_bh = k + (int64_t)b * Sk * kv_stride + (int64_t)g * D;
+  const float* v_bh = v + (int64_t)b * Sk * kv_stride + (int64_t)g * D;
 
-  load_tile<T, D>(q_s, q_blk, q_stride, Sq - q0);
+  load_tile<D>(q_s, q_blk, q_stride, Sq - q0);
 
   // The kv tiles that overlap [q0 - W + 1, q_hi] (the Pallas block skip).
   const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
@@ -137,8 +158,8 @@ swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = (lo / kBK) * kBK; k0 <= hi; k0 += kBK) {
     __syncthreads();   // the previous tile's k, v and p have been read
-    load_tile<T, D>(k_s, k_bh + k0 * kv_stride, kv_stride, Sk - k0);
-    load_tile<T, D>(v_s, v_bh + k0 * kv_stride, kv_stride, Sk - k0);
+    load_tile<D>(k_s, k_bh + k0 * kv_stride, kv_stride, Sk - k0);
+    load_tile<D>(v_s, v_bh + k0 * kv_stride, kv_stride, Sk - k0);
     __syncthreads();
 
     // s = q k^T for rows 4ty + i, keys tx + 16c
@@ -240,7 +261,7 @@ swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + 4 * ty + i;
     if (r >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* out = o + ((int64_t)b * Sq + r) * q_stride + (int64_t)h * D;
+    float* out = o + ((int64_t)b * Sq + r) * q_stride + (int64_t)h * D;
     store4(out + 4 * tx, make_float4(acc[i][0] / den, acc[i][1] / den,
                                      acc[i][2] / den, acc[i][3] / den));
     if (hi_cols)
@@ -249,24 +270,521 @@ swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int KV, int window, int causal, float scale,
-           cudaStream_t stream) {
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int Sq, int Sk, int H, int KV, int window, int causal,
+               float scale, cudaStream_t stream) {
   constexpr int kSmem = (3 * 64 * (D + 4) + kBQ * kPS) * (int)sizeof(float);
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        swa_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        swa_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmem);
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
   }
   const dim3 grid((unsigned)((Sq + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  swa_attention_kernel<T, D><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, window,
-      causal, scale);
+  swa_attention_kernel<D><<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV,
+      window, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// --- bf16: tensor cores, TMA, a K/V ring ---------------------------------
+
+constexpr int kRows = 128;               // q rows per block, keys per tile
+constexpr int kStages = 2;               // K/V ring depth
+constexpr int kConsumers = 256;          // two warpgroups of 64 query rows
+constexpr int kHThreads = kConsumers + 128;  // + the producer warpgroup
+// Registers a thread after setmaxnreg: 128 x 56 + 256 x 224 <= 65,536.
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+constexpr int kBoxCols = 64;             // bf16 columns of one 128-byte row
+constexpr int kBoxBytes = kRows * 128;   // one box: 128 rows x 128 bytes
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// One arrival per warp, once every lane is done with the slot.
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0)
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                     smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  }
+}
+
+// One box of the 4-d tensor map at coordinates (c0, c1, c2, c3) into dst.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Wait until at most n committed wgmma groups are still in flight.
+template <int n>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(n) : "memory");
+}
+
+// Ties the registers to the point in the instruction stream where this is
+// issued, so no access to them moves across a wgmma wait.
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+#define REPRO_ACC64(d)                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),            \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),        \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),        \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),        \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),        \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),        \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),        \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),        \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),        \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+#define REPRO_D64                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "    \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "    \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128, fp32) (+)= a (64 x 16, shared memory, K-major) x
+// b (16 x 128, shared memory, K-major); d is zeroed first unless accumulate.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REPRO_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : REPRO_ACC64(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, fp32) += a (64 x 16, bf16 pairs in registers) x
+// b (16 x 128, shared memory, MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REPRO_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : REPRO_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef REPRO_D64
+#undef REPRO_ACC64
+
+// 2^x on the SFU (relative error about 2^-22; results below 2^-126 are 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// s = q k^T for 64 query rows x 128 keys: K = D in 16-column steps, four
+// per 128-byte box (both operands K-major).
+template <int kBoxes>
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_addr,
+                                         uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * kBoxes; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    wgmma_ss_n128(s, sw128_desc(q_addr + off, 16, 1024),
+                  sw128_desc(k_addr + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// acc += p_hi v + p_lo v: K = 128 keys in 16-row steps of v (MN-major; the
+// next 64 columns one box further on).
+__device__ __forceinline__ void issue_pv(float (&acc)[64],
+                                         const uint32_t (&p_hi)[32],
+                                         const uint32_t (&p_lo)[32],
+                                         uint32_t v_addr) {
+#pragma unroll
+  for (int kk = 0; kk < kRows / 16; ++kk) {
+    const uint64_t dv = sw128_desc(v_addr + kk * 16 * 128, kBoxBytes, 1024);
+    wgmma_rs_n128(acc, p_hi + 4 * kk, dv);
+    wgmma_rs_n128(acc, p_lo + 4 * kk, dv);
+  }
+  wgmma_commit();
+}
+
+// A thread's two query rows: running max (log2 domain) and its own part of
+// each row's sum (the four threads of a row add theirs at the end).
+struct Rows {
+  float m_a, m_b, l_a, l_b;
+};
+
+// Scores to p in place for one 64 x 128 tile, in the log2 domain, masked
+// where some mask reaches the warpgroup's rows r_wg..r_wg + 63. The thread
+// holds rows r_a (accumulator elements 4j, 4j + 1) and r_a + 8 (4j + 2,
+// 4j + 3) at keys k0 + 8j + col0 + {0, 1}, j < 16. Updates the running max
+// and sums, and returns the factors that rescale the earlier output.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], Rows& st,
+                                             float& al_a, float& al_b, int k0,
+                                             int r_wg, int r_a, int col0,
+                                             int Sk, int window, int causal,
+                                             float scale_log2) {
+  const bool masked = k0 + kRows > Sk || (causal && k0 + kRows - 1 > r_wg) ||
+                      (window > 0 && k0 <= r_wg + 63 - window);
+  float mx_a = kMasked, mx_b = kMasked;
+#pragma unroll
+  for (int e = 0; e < 64; ++e) {
+    float x = s[e] * scale_log2;
+    if (masked) {
+      const int kp = k0 + 8 * (e / 4) + col0 + (e & 1);
+      const int qp = r_a + ((e & 2) ? 8 : 0);
+      if (kp >= Sk) {
+        x = -INFINITY;                        // no such key: weight 0
+      } else if ((causal && kp > qp) || (window > 0 && kp <= qp - window)) {
+        x = kMasked;
+      }
+    }
+    s[e] = x;
+    if (e & 2) mx_b = fmaxf(mx_b, x);
+    else mx_a = fmaxf(mx_a, x);
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+  }
+  const float mn_a = fmaxf(st.m_a, mx_a), mn_b = fmaxf(st.m_b, mx_b);
+  al_a = fast_exp2(st.m_a - mn_a);
+  al_b = fast_exp2(st.m_b - mn_b);
+  st.m_a = mn_a;
+  st.m_b = mn_b;
+  float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 64; ++e) {
+    s[e] = fast_exp2(s[e] - ((e & 2) ? mn_b : mn_a));
+    if (e & 2) sum_b += s[e];
+    else sum_a += s[e];
+  }
+  st.l_a = st.l_a * al_a + sum_a;
+  st.l_b = st.l_b * al_b + sum_b;
+}
+
+// p split into bf16 p_hi + p_lo, in the A-fragment order of the m64k16
+// wgmma: register r of k-step kk holds elements 8kk + 2r and 8kk + 2r + 1.
+__device__ __forceinline__ void split_p(const float (&p)[64],
+                                        uint32_t (&p_hi)[32],
+                                        uint32_t (&p_lo)[32]) {
+#pragma unroll
+  for (int e = 0; e < 64; e += 2) {
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(p[e], p[e + 1]);
+    const float lo0 = p[e] - __low2float(hi), lo1 = p[e + 1] - __high2float(hi);
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(lo0, lo1);
+    p_hi[e / 2] = *reinterpret_cast<const uint32_t*>(&hi);
+    p_lo[e / 2] = *reinterpret_cast<const uint32_t*>(&lo);
+  }
+}
+
+// o rows r_a and r_a + 8 of (b, h), where below Sq: the accumulator over
+// the row sums (the four threads of a row add their parts first), bf16.
+template <int D, int kBoxes>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ o,
+                                          const float (&acc)[64],
+                                          const Rows& st, int b, int h,
+                                          int r_a, int col0, int Sq, int H) {
+  float l_a = st.l_a, l_b = st.l_b;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+  const int64_t q_stride = (int64_t)H * D;
+  __nv_bfloat16* out_a = o + ((int64_t)b * Sq + r_a) * q_stride +
+                         (int64_t)h * D + col0;
+  __nv_bfloat16* out_b = out_a + 8 * q_stride;
+#pragma unroll
+  for (int j = 0; j < 8 * kBoxes; ++j) {
+    if (8 * j + col0 >= D) continue;
+    if (r_a < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(out_a + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j] * inv_a, acc[4 * j + 1] * inv_a);
+    if (r_a + 8 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(out_b + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2] * inv_b,
+                                acc[4 * j + 3] * inv_b);
+  }
+}
+
+// One block's work: a (b, h, 128-row q tile) and the kv tiles that overlap
+// [q0 - W + 1, q_hi] (the Pallas block skip). Blocks are numbered with the q
+// tiles that visit the most kv tiles first (the short causal tiles fill the
+// tail), and within a q tile the heads that share a KV head side by side
+// (their k and v meet in the L2).
+struct Unit {
+  int b, h, q0, t0, n_tiles;
+};
+
+__device__ __forceinline__ Unit unit_of(int u, int n_q, int B, int H, int Sq,
+                                        int Sk, int window, int causal) {
+  Unit w;
+  const int bh = u % (B * H);
+  w.h = bh % H;
+  w.b = bh / H;
+  w.q0 = (n_q - 1 - u / (B * H)) * kRows;
+  const int q_hi = min(w.q0 + kRows, Sq) - 1;
+  const int lo = window > 0 ? max(0, w.q0 - window + 1) : 0;
+  const int hi = causal ? min(Sk - 1, q_hi) : Sk - 1;
+  w.t0 = lo / kRows;
+  w.n_tiles = hi / kRows - w.t0 + 1;
+  return w;
+}
+
+// One block per unit. The head size D is padded to kBoxes 64-column boxes
+// (kBoxes = 2 here: the p v product is one m64n128 wgmma wide).
+template <int D>
+__global__ void __launch_bounds__(kHThreads, 1)
+swa_attention_hopper_kernel(__grid_constant__ const CUtensorMap tq,
+                            __grid_constant__ const CUtensorMap tk,
+                            __grid_constant__ const CUtensorMap tv,
+                            __nv_bfloat16* __restrict__ o, int B, int Sq,
+                            int Sk, int H, int KV, int window, int causal,
+                            float scale_log2) {
+  constexpr int kBoxes = 2;
+  static_assert(D > 64 * (kBoxes - 1) && D <= 64 * kBoxes, "head size");
+  constexpr int kTile = kBoxes * kBoxBytes;       // 128 rows, padded D
+  extern __shared__ uint8_t smem_raw[];
+  // Full barriers (the producer's TMA) and release barriers (the consumer
+  // warps) of the q tile and of the kStages slots of the k and v ring; k is
+  // released right after its s = q k^T, v after its p v.
+  __shared__ __align__(8) uint64_t bar_q, bar_k[kStages], bar_v[kStages],
+      free_k[kStages], free_v[kStages];
+  // The 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
+  uint8_t* q_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* k_s = q_s + kTile;              // kStages tiles
+  uint8_t* v_s = k_s + kStages * kTile;    // kStages tiles
+  const Unit w = unit_of(blockIdx.x, (Sq + kRows - 1) / kRows, B, H, Sq, Sk,
+                         window, causal);
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bar_k[s], 1);
+      mbar_init(&bar_v[s], 1);
+      mbar_init(&free_k[s], kConsumers / 32);
+      mbar_init(&free_v[s], kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // Tile n of the unit sits in ring slot n % kStages, in use for the
+  // (n / kStages)-th time.
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= kConsumers / 32) {
+    // Producer warpgroup (one thread works): q, then the kv tiles into the
+    // ring as slots free.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (warp == kConsumers / 32 && lane == 0) {
+      const int g = w.h / (H / KV);
+      mbar_expect_tx(&bar_q, kTile);
+      for (int c = 0; c < kBoxes; ++c)
+        tma_load(q_s + c * kBoxBytes, &tq, &bar_q, c * kBoxCols, w.h, w.q0,
+                 w.b);
+      for (int n = 0; n < w.n_tiles; ++n) {
+        const int s = n % kStages;
+        const uint32_t par = (n / kStages - 1) & 1;   // the slot's last use
+        const int k0 = (w.t0 + n) * kRows;
+        if (n >= kStages) mbar_wait(&free_k[s], par);
+        mbar_expect_tx(&bar_k[s], kTile);
+        for (int c = 0; c < kBoxes; ++c)
+          tma_load(k_s + s * kTile + c * kBoxBytes, &tk, &bar_k[s],
+                   c * kBoxCols, g, k0, w.b);
+        if (n >= kStages) mbar_wait(&free_v[s], par);
+        mbar_expect_tx(&bar_v[s], kTile);
+        for (int c = 0; c < kBoxes; ++c)
+          tma_load(v_s + s * kTile + c * kBoxBytes, &tv, &bar_v[s],
+                   c * kBoxCols, g, k0, w.b);
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: query rows q0 + 64 wg .. + 63, the thread's
+    // rows q0 + row0 and q0 + row0 + 8. Tile i's s = q k^T runs on the
+    // tensor cores while tile i - 1's p v is still in flight, and the
+    // softmax of tile i then overlaps that p v.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int wg = warp / 4;
+    const int row0 = 64 * wg + 16 * (warp % 4) + lane / 4;
+    const int col0 = 2 * (lane % 4);
+    const uint32_t q_addr = smem_u32(q_s) + wg * 64 * 128;
+    const uint32_t k_addr = smem_u32(k_s), v_addr = smem_u32(v_s);
+    const int r_wg = w.q0 + 64 * wg, r_a = w.q0 + row0;
+    float acc[64], s[64];
+    uint32_t p_hi[32], p_lo[32];
+    float al_a, al_b;
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = s[e] = 0.0f;
+
+    Rows st{kMasked, kMasked, 0.0f, 0.0f};
+    mbar_wait(&bar_q, 0);
+    mbar_wait(&bar_k[0], 0);
+    wgmma_fence();
+    issue_qk<kBoxes>(s, q_addr, k_addr);
+    wgmma_wait<0>();
+    fence_regs(s);
+    release(&free_k[0], lane);
+    softmax_tile(s, st, al_a, al_b, w.t0 * kRows, r_wg, r_a, col0, Sk,
+                 window, causal, scale_log2);
+    split_p(s, p_hi, p_lo);
+    for (int i = 1; i < w.n_tiles; ++i) {
+      const int sn = i % kStages, sp = (i - 1) % kStages;
+      mbar_wait(&bar_k[sn], (i / kStages) & 1);
+      mbar_wait(&bar_v[sp], ((i - 1) / kStages) & 1);
+      fence_regs(acc);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      wgmma_fence();
+      issue_qk<kBoxes>(s, q_addr, k_addr + sn * kTile);     // tile i
+      issue_pv(acc, p_hi, p_lo, v_addr + sp * kTile);        // tile i - 1
+      wgmma_wait<1>();
+      fence_regs(s);
+      release(&free_k[sn], lane);
+      softmax_tile(s, st, al_a, al_b, (w.t0 + i) * kRows, r_wg, r_a, col0, Sk,
+                   window, causal, scale_log2);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(&free_v[sp], lane);
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[e] *= (e & 2) ? al_b : al_a;
+      split_p(s, p_hi, p_lo);
+    }
+    // The last tile's p v.
+    const int last = w.n_tiles - 1, sl = last % kStages;
+    mbar_wait(&bar_v[sl], (last / kStages) & 1);
+    fence_regs(acc);
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    wgmma_fence();
+    issue_pv(acc, p_hi, p_lo, v_addr + sl * kTile);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    store_rows<D, kBoxes>(o, acc, st, w.b, w.h, r_a, col0, Sq, H);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once through the CUDA runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (B, S, heads, D) bf16 tensor as 64-column x 128-row boxes with the
+// 128-byte swizzle; reads past D or S give zeros.
+bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
+                int S, int heads, int D) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kBoxCols, 1, (cuuint32_t)kRows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int Sq, int Sk, int H, int KV, int window, int causal,
+                float scale, cudaStream_t stream) {
+  constexpr int kSmem = 1024 + (1 + 2 * kStages) * 2 * kBoxBytes;
+  const int64_t n_units = (int64_t)((Sq + kRows - 1) / kRows) * B * H;
+  if (n_units > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(enc, &tq, q, B, Sq, H, D) ||
+      !encode_map(enc, &tk, k, B, Sk, KV, D) ||
+      !encode_map(enc, &tv, v, B, Sk, KV, D))
+    return (int)cudaErrorInvalidValue;
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        swa_attention_hopper_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
+  }
+  swa_attention_hopper_kernel<D><<<(unsigned)n_units, kHThreads, kSmem,
+                                   stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, Sq, Sk, H, KV, window,
+      causal, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -275,14 +793,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // Attention over contiguous q (B, Sq, H, D) and k, v (B, Sk, KV, D), all of
 // one dtype (0 = fp32, 1 = bf16), into o (B, Sq, H, D) of that dtype.
 // window <= 0 means no window; causal is 0 or 1; D is 120 or 128; H a
-// multiple of KV. Returns 0 or a cudaError_t.
+// multiple of KV; the pointers 16-byte aligned. Returns 0 or a cudaError_t.
 extern "C" int repro_swa_attention(const void* q, const void* k, const void* v,
                                    void* o, int64_t B, int64_t Sq, int64_t Sk,
                                    int64_t H, int64_t KV, int64_t D,
                                    int64_t window, int causal, float scale,
                                    int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV ||
-      B > 65535 || H > 65535 || Sq > 0x7fffffff - kBQ || Sk > 0x7fffffff ||
+      B > 65535 || H > 65535 || Sq > 0x7fffffff - kRows || Sk > 0x7fffffff ||
       window > 0x7fffffff || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const int w = window > 0 ? (int)window : 0;
@@ -290,13 +808,11 @@ extern "C" int repro_swa_attention(const void* q, const void* k, const void* v,
   const int b = (int)B, sq = (int)Sq, sk = (int)Sk, h = (int)H, kv = (int)KV;
   if (D == 120)
     return dtype == 0
-        ? launch<float, 120>(q, k, v, o, b, sq, sk, h, kv, w, causal, scale, s)
-        : launch<__nv_bfloat16, 120>(q, k, v, o, b, sq, sk, h, kv, w, causal,
-                                     scale, s);
+        ? launch_f32<120>(q, k, v, o, b, sq, sk, h, kv, w, causal, scale, s)
+        : launch_bf16<120>(q, k, v, o, b, sq, sk, h, kv, w, causal, scale, s);
   if (D == 128)
     return dtype == 0
-        ? launch<float, 128>(q, k, v, o, b, sq, sk, h, kv, w, causal, scale, s)
-        : launch<__nv_bfloat16, 128>(q, k, v, o, b, sq, sk, h, kv, w, causal,
-                                     scale, s);
+        ? launch_f32<128>(q, k, v, o, b, sq, sk, h, kv, w, causal, scale, s)
+        : launch_bf16<128>(q, k, v, o, b, sq, sk, h, kv, w, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,11 +8,13 @@ with query and key positions both counted from 0:
     s = -1e30 where (causal and j > i) or (window and j <= i - window)
     o = softmax(s) @ v                           p kept in fp32 for p @ v
 
-* :func:`swa_attention_cuda` wraps the hand-written Hopper kernel of
+* :func:`swa_attention_cuda` wraps the hand-written Hopper kernels of
   ``csrc/swa_attention.cu`` (one launch on the current stream, no
-  synchronisation; launches counted in :data:`launches`). It takes fp32 or
-  bf16, head sizes :data:`HEAD_DIMS`, any lengths, and visits only the key
-  tiles inside each query tile's window;
+  synchronisation; launches counted in :data:`launches`): bf16 on the
+  tensor cores (wgmma, TMA loads into a K/V ring, ``p`` as bf16 ``p_hi +
+  p_lo``), fp32 on the CUDA cores, chosen by dtype. They take head sizes
+  :data:`HEAD_DIMS`, any lengths, and visit only the key tiles inside each
+  query tile's window;
 * :func:`swa_attention_plain` is the same function in plain PyTorch: the
   masked scores materialised in fp32 (float64 for float64 inputs), softmax,
   p @ v, cast to ``q``'s dtype. The CPU path runs it; on the card it is
@@ -111,8 +113,9 @@ def swa_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def swa_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        window: Optional[int] = None, causal: bool = True
                        ) -> torch.Tensor:
-    """Launch ``swa_attention_kernel``: returns ``o (B, Sq, H, D)`` in
-    ``q``'s dtype.
+    """Launch ``swa_attention_hopper_kernel`` (bf16) or
+    ``swa_attention_kernel`` (fp32): returns ``o (B, Sq, H, D)`` in ``q``'s
+    dtype.
 
     ``q`` is a contiguous ``(B, Sq, H, D)`` CUDA tensor, ``k`` and ``v``
     contiguous ``(B, Sk, KV, D)``, all fp32 or all bf16 on one device, D in

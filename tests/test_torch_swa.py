@@ -183,6 +183,88 @@ def test_the_kernel_wrapper_refuses_cpu_tensors_and_the_dispatch_meta():
     assert sw.launches == before
 
 
+def _kernel_numerics(q, k, v, window, causal, split):
+    """The bf16 kernel's arithmetic in plain torch: fp32 scores and softmax
+    weights ``p`` (normalised by their fp32 sum), ``p @ v`` with bf16 ``v``
+    and ``p`` as ``bf16(p) + bf16(p - bf16(p))`` (``split``) or as one
+    ``bf16(p)``; the tensor cores' exact products and fp32 sums stand in
+    float64 here. ``q``, ``k``, ``v`` hold bf16 values."""
+    B, Sq, H, D = q.shape
+    Sk, rep = k.shape[1], H // k.shape[2]
+    kr, vr = (t.repeat_interleave(rep, dim=2).double() for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), kr).float() * D ** -0.5
+    qp, kp = torch.arange(Sq)[:, None], torch.arange(Sk)[None, :]
+    ok = torch.ones(Sq, Sk, dtype=torch.bool)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= kp > qp - window
+    s = torch.where(ok, s, torch.tensor(sw.NEG_INF))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    hi = p.bfloat16()
+    parts = [hi, (p - hi.float()).bfloat16()] if split else [hi]
+    o = sum(torch.einsum("bhqk,bkhd->bqhd", x.double(), vr) for x in parts)
+    return o / p.sum(-1).double().transpose(1, 2)[..., None]
+
+
+@pytest.mark.parametrize("sq,sk,h,kv,window,causal", [
+    (160, 160, 4, 1, None, True),
+    (200, 200, 4, 2, 40, True),
+    (130, 260, 2, 2, None, False),
+])
+def test_split_p_keeps_fp32_accuracy_and_one_bf16_p_does_not(sq, sk, h, kv,
+                                                              window, causal):
+    """Why the bf16 kernel splits p: with p_hi + p_lo against bf16 v, the
+    attention matches the plain version in float64 within 1e-5 of its
+    largest output (p to about 2^-17 relative); with one bf16 p it does not
+    (p to 2^-9)."""
+    q, k, v = (x.bfloat16() for x in _torch(*_inputs(2, sq, sk, h, kv, 120,
+                                                     seed=sq + h),
+                                            torch.float32))
+    want = sw.swa_attention_plain(q.double(), k.double(), v.double(),
+                                  window=window, causal=causal)
+    scale = float(want.abs().max())
+    err = {split: float((_kernel_numerics(q, k, v, window, causal, split)
+                         - want).abs().max()) / scale
+           for split in (True, False)}
+    REACHED["split p vs float64 (relative)"] = max(
+        REACHED.get("split p vs float64 (relative)", 0.0), err[True])
+    REACHED["one bf16 p vs float64 (relative)"] = max(
+        REACHED.get("one bf16 p vs float64 (relative)", 0.0), err[False])
+    assert err[True] <= 1e-5
+    assert err[False] > 1e-5
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,window,causal", [
+    (2, 512, 512, 8, 2, 96, True),
+    (1, 130, 77, 6, 3, None, True),
+    (3, 7, 7, 2, 1, 5, False),
+    (1, 255, 129, 4, 4, None, True),
+    (3, 200, 200, 8, 2, 100, True),
+])
+def test_mean_error_rule_passes_the_split_and_fails_one_bf16_p(
+        b, sq, sk, h, kv, window, causal):
+    """The card's mean-error rule for the bf16 kernel (its mean |err|
+    against float64 within 1.1x the plain version's, fp32 p and o rounded
+    once to bf16) on the kernel's arithmetic: p_hi + p_lo keeps it, one
+    bf16 p breaks it, at card-test shapes with W > 1."""
+    q, k, v = (x.bfloat16() for x in _torch(*_inputs(b, sq, sk, h, kv, 120,
+                                                     seed=sq * 7 + h),
+                                            torch.float32))
+    kw = dict(window=window, causal=causal)
+    want = sw.swa_attention_plain(q.double(), k.double(), v.double(), **kw)
+    mean = lambda x: float((x.bfloat16().double() - want).abs().mean())
+    lim = 1.1 * mean(sw.swa_attention_plain(q, k, v, **kw))
+    split = mean(_kernel_numerics(q, k, v, window, causal, True))
+    one = mean(_kernel_numerics(q, k, v, window, causal, False))
+    REACHED["split p mean err / limit"] = max(
+        REACHED.get("split p mean err / limit", 0.0), split / lim)
+    REACHED["one bf16 p mean err / limit (smallest)"] = min(
+        REACHED.get("one bf16 p mean err / limit (smallest)", np.inf),
+        one / lim)
+    assert split <= lim < one
+
+
 if __name__ == "__main__":
     import sys
 
