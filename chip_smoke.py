@@ -30,7 +30,10 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    training path (m in {7, 64, 1024, 10000}; m = 10000 in fp32 only) and odd
    sizes, scalar / device-scalar / per-row coefficients, fp32 / bf16 / fp16
    buffers, Nesterov on and off, Adam with weight decay 0 and 0.01, outputs
-   written in place;
+   written in place; ``decay_accum`` also bitwise where its 16-byte vectors
+   straddle rows or meet an unaligned head and tail (n in {1, 3, 7, 8,
+   9347}, acc / g / out at element offsets 0-3 of larger allocations, in
+   place and into a separate buffer, all three coefficient forms);
 7. training — federated PPO (``repro_torch.rl.run_fedrl(device="cuda")``)
    with the periodic (tau 10) and decay (tau 15, tau_i ~ U{1..15}, lambda
    0.95) strategies, each with SGD, momentum and Adam: the Table II geometry
@@ -45,7 +48,10 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    ``ServeEngine.from_checkpoint(device="cuda")`` -> one ``decide``;
 6b. gossip and compression kernels vs plain — the hand-written
    ``consensus_step`` (against ``torch.matmul`` within its rounding bound,
-   and bitwise against ``consensus_gather`` over the full list),
+   and bitwise against ``consensus_gather`` over the full list; also at its
+   tile edges, m in {1, 7, 31, 33, 64, 127, 129, 1024, 1025} x n in {1,
+   127, 9347} with dense random P, and a NaN / Inf in a row of G whose
+   column of P is 0 giving NaN where ``torch.matmul`` does),
    ``consensus_gather`` (bitwise, on the k-NN rings of the sparse path, at
    m = 10000 and on a padded list) and ``topk_scatter`` (residual bitwise,
    sum within its rounding bound; k = 584, ties, a zero row), fp32 / bf16 /
@@ -58,11 +64,15 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    on the CPU, launches held to the loop's count (consensus_step once per
    dense update, consensus_gather E times per sparse update, topk_scatter
    once per top-k sync);
-8. times — per kernel at (1024, 9347) and a second shape of its path, fp32:
-   the kernel's, the plain version's and the library call's device time by
-   CUDA events and by CUPTI (``torch.profiler``) beside the bound, the L2
-   evicted by a read-only pass before each call; one profiled window of
-   training updates at m = 1024 (device idle share, time by phase);
+8. times — per kernel at (1024, 9347) and a second shape of its path
+   (``consensus_step`` also at (64, 9347)), fp32: the kernel's, the plain
+   version's and the library call's device time by CUDA events and by
+   CUPTI (``torch.profiler``) beside the bound, the L2 evicted by a
+   read-only pass before each call, the SM clock sampled by ``nvidia-smi``
+   over each row's window; one profiled window of training updates at
+   m = 1024 (device idle share, time by phase). ``consensus_step_alone``
+   times ``consensus_step`` the same way from a copy of the repository
+   whose kernel source was edited (to price a variant on the same card);
 9. wkv6 vs plain — the hand-written ``wkv6`` kernel against the plain
    recurrence, both held to the plain loop in float64: (8, 512, 32, 64) and
    (1, 4096, 32, 64) (prefill), (8 | 1, 1, 32, 64) (decode), odd T (7,
@@ -196,6 +206,15 @@ FLAT_SHAPES = (((9347,), ALL_DTYPES), ((4097,), ALL_DTYPES),
 FLAT_ULPS = 2
 ROW_MEAN_REL = 1e-6
 TIMED_SHAPES = ((1024, 9347), (7, 9347))
+# decay_accum's edges: n where a 16-byte vector straddles rows (odd, < 8) and
+# element offsets of acc, g and out into larger allocations (16-byte
+# alignments that differ), each case in place and into a separate out.
+DACC_EDGE_N = (1, 3, 7, 8, 9347)
+DACC_EDGE_OFFSETS = ((0, 0, 0), (1, 1, 1), (1, 3, 2), (3, 2, 1), (2, 2, 0))
+# consensus_step's tile edges: the small-m kernel (m <= 32), the 64- and
+# 128-row tiles and one past each; 96-column tiles and short rows.
+STEP_EDGE_M = (1, 7, 31, 33, 64, 127, 129, 1024, 1025)
+STEP_EDGE_N = (1, 127, 9347)
 CUPTI_CALLS = 50
 CUPTI_WINDOWS = 8     # profiler windows tried before a lost trace fails
 
@@ -686,12 +705,68 @@ def flat_kernels_vs_plain(dacc, fu, dispatch) -> dict:
                 check("row_mean", fu.row_mean_cuda(g), fu.row_mean_plain(g), dt,
                       f"shape={shape} dtype={dt}",
                       scale=g.float().abs().mean(0))
+    n_edges = decay_accum_edges(dacc, rnd)
+    counts["decay_accum"] += n_edges
+    bitwise["decay_accum"] += n_edges
     torch.cuda.synchronize()
     log(f"phase flat_kernel_vs_plain: {sum(counts.values())} checks ok "
         f"({counts}); bitwise equal to the plain version in {bitwise}; max "
         f"|kernel - plain| {worst}; tolerance {FLAT_ULPS} ulp of the output "
-        f"dtype (row_mean: {ROW_MEAN_REL} x mean|g| + 1 ulp)")
-    return {"checks": counts, "bitwise": bitwise, "max_abs_err": worst}
+        f"dtype (row_mean: {ROW_MEAN_REL} x mean|g| + 1 ulp); decay_accum "
+        f"bitwise at {n_edges} edge cases (n {DACC_EDGE_N}, element offsets "
+        f"of acc / g / out {DACC_EDGE_OFFSETS}, in place and not, three "
+        f"coefficient forms)")
+    return {"checks": counts, "bitwise": bitwise, "max_abs_err": worst,
+            "decay_accum_edges": n_edges}
+
+
+def at_offset(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A copy of ``t`` that starts ``offset`` elements into a larger
+    allocation: a contiguous view whose address is not 16-byte aligned when
+    ``offset`` elements are not a multiple of 16 bytes."""
+    big = torch.zeros(t.numel() + 8, dtype=t.dtype, device=t.device)
+    return big[offset:offset + t.numel()].view(t.shape).copy_(t)
+
+
+def decay_accum_edges(dacc, rnd) -> int:
+    """decay_accum bitwise against its plain version where its 16-byte
+    vectors straddle rows or meet a head and tail that are not aligned:
+    (n,) and (3, n) buffers for n in DACC_EDGE_N, acc / g / out at the
+    element offsets of DACC_EDGE_OFFSETS, fp32 / bf16 / fp16, a scalar, a
+    device scalar and a per-row coefficient, written in place and into a
+    separate buffer. Returns the number of checks."""
+    checks = 0
+    for n in DACC_EDGE_N:
+        for shape in ((n,), (3, n)):
+            for dt in ALL_DTYPES:
+                acc0, g0 = rnd(shape, dt), rnd(shape, dt)
+                coefs = [0.37, torch.tensor(-0.61, device="cuda")]
+                if len(shape) == 2:
+                    coefs.append(torch.linspace(-1.0, 1.0, 3, device="cuda"))
+                for o_acc, o_g, o_out in DACC_EDGE_OFFSETS:
+                    acc, g = at_offset(acc0, o_acc), at_offset(g0, o_g)
+                    for ci, c in enumerate(coefs):
+                        want = dacc.decay_accum_plain(acc, g, c)
+                        buf = at_offset(acc, o_acc)
+                        got = dacc.decay_accum_cuda(buf, g, c, out=buf)
+                        out = at_offset(torch.full_like(acc, float("nan")),
+                                        o_out)
+                        sep = dacc.decay_accum_cuda(acc, g, c, out=out)
+                        case = (f"decay_accum edge shape={shape} dtype={dt} "
+                                f"offsets={(o_acc, o_g, o_out)} coef#{ci}")
+                        if got.data_ptr() != buf.data_ptr() or \
+                                sep.data_ptr() != out.data_ptr():
+                            raise AssertionError(f"{case}: output not "
+                                                 f"written where asked")
+                        for what, t in (("in place", got), ("out", sep)):
+                            if not torch.equal(t, want):
+                                err = (t.float() - want.float()).abs().max()
+                                raise AssertionError(
+                                    f"{case} {what}: not bitwise equal to "
+                                    f"the plain version, max err "
+                                    f"{err.item():.3e}")
+                        checks += 2
+    return checks
 
 
 # --- phase 6b: gossip and compression kernels vs plain ------------------------------
@@ -751,6 +826,42 @@ def gossip_kernels_vs_plain(km, core, comm) -> dict:
                 raise AssertionError(f"{case}: not bitwise equal to the "
                                      f"full-list gather")
             note("consensus_step", got, want, err.max().item())
+    # the tile edges, dense random P: bitwise against the gather over 0..m-1
+    for m in STEP_EDGE_M:
+        p = torch.rand(m, m, generator=gen, device="cuda") / m
+        idx = all_l(m)
+        for n in STEP_EDGE_N:
+            for dt in ALL_DTYPES:
+                g = rnd((m, n), dt)
+                got = km.cs.consensus_step_cuda(g, p)
+                want = km.cs.consensus_step_plain(g, p)
+                err = (got.float() - want.float()).abs()
+                tol = m * 2.0 ** -23 * (p.abs() @ g.float().abs()) + \
+                    torch.finfo(dt).eps * want.float().abs()
+                case = f"consensus_step edge ({m}, {n}) {dt}"
+                if got.dtype != dt or bool((err > tol).any()) or \
+                        not bool(torch.isfinite(got.float()).all()):
+                    raise AssertionError(f"{case}: max err "
+                                         f"{err.max().item():.3e}")
+                if not torch.equal(km.cg.consensus_gather_cuda(g, idx, p), got):
+                    raise AssertionError(f"{case}: not bitwise equal to the "
+                                         f"full-list gather")
+                note("consensus_step", got, want, err.max().item())
+    # a NaN / Inf in a row of G whose column of P is 0 comes out as NaN where
+    # torch.matmul gives NaN: no tile of P is skipped for being zero
+    for m in (7, 129):
+        p = torch.rand(m, m, generator=gen, device="cuda")
+        p[:, 2] = 0.0
+        g = rnd((m, 300), torch.float32)
+        g[2, 5], g[2, 100] = float("inf"), float("nan")
+        got = km.cs.consensus_step_cuda(g, p)
+        nan = torch.isnan(torch.matmul(p, g))
+        if not torch.equal(torch.isnan(got), nan) or \
+                not bool(nan[:, [5, 100]].all()):
+            raise AssertionError(f"consensus_step ({m}, 300): NaN where "
+                                 f"torch.matmul has none, or none where it "
+                                 f"has")
+        counts["consensus_step"] += 1
     # ... and the full neighbour list of a sparse topology with P's entries
     topo = core.knn_ring(64, 4)
     p64 = core.mixing_matrix(topo, 0.1)
@@ -822,7 +933,9 @@ def gossip_kernels_vs_plain(km, core, comm) -> dict:
         f"({counts}); bitwise equal to the plain version in {bitwise} "
         f"(consensus_gather and topk_scatter's residual must be, and are); "
         f"consensus_step bitwise equal to the full-list gather in every "
-        f"check; max |kernel - plain| {worst}; tolerance consensus_step "
+        f"check (tile edges m {STEP_EDGE_M} x n {STEP_EDGE_N} x 3 dtypes), "
+        f"NaN where torch.matmul has NaN (2 checks); max |kernel - plain| "
+        f"{worst}; tolerance consensus_step "
         f"m*2^-23*(|P|@|G|) + 1 ulp, topk_scatter sum m*2^-24*sum|sent| + "
         f"1 ulp")
     return {"checks": counts, "bitwise": bitwise, "max_abs_err": worst}
@@ -1154,9 +1267,14 @@ def cupti_ms(fn, flush, kernel, n: int = CUPTI_CALLS,
     less the device time of the ``n`` flushes (the kernels launched under
     ``FLUSH_OP``), over ``n``.
 
-    A lost window (no device records, not ``n`` flushes, fewer than ``n /
-    2`` records of ``kernel``) is not a measurement: it is taken again, up
-    to ``windows`` windows in all, and the loss is logged."""
+    A lost window (no device records, not ``n`` flushes, fewer than half
+    its calls' records of ``kernel``) is not a measurement: it is taken
+    again, up to ``windows`` windows in all, and the loss is logged. A
+    window taken again has twice the calls of the one before, up to 4 n:
+    after a large profiled window earlier in the process (phases 5, 8, 11)
+    the tracer drops a roughly fixed number of a window's records (28 of 50
+    in every window of one run's L2-warm swa_attention timing), which a
+    longer window outgrows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1164,9 +1282,10 @@ def cupti_ms(fn, flush, kernel, n: int = CUPTI_CALLS,
         fn()
     torch.cuda.synchronize()
     for window in range(1, windows + 1):
+        calls = n * min(4, 2 ** (window - 1))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
+            for _ in range(calls):
                 if flush is not None:
                     flush()
                 fn()
@@ -1176,12 +1295,12 @@ def cupti_ms(fn, flush, kernel, n: int = CUPTI_CALLS,
             recs = [e for e in ev if e.device_type == DeviceType.CUDA
                     and kernel in e.key]
             got = sum(e.count for e in recs)
-            if 2 * got >= n:
-                if got != n:
-                    log(f"cupti: {got} of {n} records of {kernel}, timed "
+            if 2 * got >= calls:
+                if got != calls:
+                    log(f"cupti: {got} of {calls} records of {kernel}, timed "
                         f"by their mean")
                 return sum(e.self_device_time_total for e in recs) / got / 1e3
-            lost = f"{got} records of {kernel}, expected {n}"
+            lost = f"{got} records of {kernel}, expected {calls}"
         else:
             busy = sum(e.self_device_time_total for e in ev
                        if e.device_type == DeviceType.CUDA)
@@ -1189,14 +1308,42 @@ def cupti_ms(fn, flush, kernel, n: int = CUPTI_CALLS,
                    if e.key == FLUSH_OP and e.device_type == DeviceType.CPU]
             flush_us = sum(e.device_time_total for e in ops)
             if flush is None and busy > 0:
-                return busy / n / 1e3
-            if flush is not None and sum(e.count for e in ops) == n and \
+                return busy / calls / 1e3
+            if flush is not None and sum(e.count for e in ops) == calls and \
                     0 < flush_us < busy:
-                return (busy - flush_us) / n / 1e3
+                return (busy - flush_us) / calls / 1e3
             lost = (f"{busy} us of device time, {len(ops)} {FLUSH_OP} "
                     f"records of {flush_us} us")
         log(f"cupti window {window} of {windows} lost: {lost}")
     raise AssertionError(f"every CUPTI window was lost: {lost}")
+
+
+class SmClock:
+    """The card's SM clock (MHz) while a timing window runs: ``nvidia-smi``
+    samples it every 20 ms from just before the window to its end (the
+    first sample is taken before the window starts; a window shorter than
+    20 ms may have no other). ``summary()`` gives min, median, max."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+             "nounits", "-i", "0", "-lms", "20"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.first = self.proc.stdout.readline()
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        rest = self.proc.communicate(timeout=60)[0]
+        nums = lambda text: [int(float(v)) for v in text.split()
+                             if v.replace(".", "", 1).isdigit()]
+        self.mhz = nums(rest) or nums(self.first)
+        return False
+
+    def summary(self) -> list:
+        if not self.mhz:
+            return [None, None, None]
+        return [min(self.mhz), int(statistics.median(self.mhz)), max(self.mhz)]
 
 
 def flat_bound(name, m, n) -> tuple:
@@ -1257,32 +1404,46 @@ def flat_times(dacc, fu, dispatch, training, card) -> dict:
         }
         on_path = training["launches_by_m"].get(str(m), {})
         for name, (kern, plain, lib) in fns.items():
-            timed = lambda f: device_ms(f, cyc, flush)[0]
-            p1, k1, k2, p2 = timed(plain), timed(kern), timed(kern), timed(plain)
-            lib_ms = None
-            if lib is not None:
-                lib_ms = (timed(lib) + timed(lib)) / 2
             b_ms, b_by, nbytes, flops = flat_bound(name, m, n)
-            rec = {"shape": [m, n], "dtype": "float32",
-                   "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                   "library_ms": lib_ms,
-                   "cupti_ms": cupti_ms(kern, flush, f"{name}_kernel"),
-                   "plain_cupti_ms": cupti_ms(plain, flush, None),
-                   "library_cupti_ms": (cupti_ms(lib, flush, None) if lib
-                                        else None),
-                   "warm_l2_cupti_ms": cupti_ms(kern, None, f"{name}_kernel"),
-                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                   "flops": flops,
+            rec = {"shape": [m, n], "dtype": "float32", "bound_ms": b_ms,
+                   "bound_by": b_by, "bytes": nbytes, "flops": flops,
                    "launches_on_path": on_path.get(name, 0)}
+            rec.update(kernel_times(name, kern, plain, lib, cyc, flush))
             rows[f"{name}/{m}x{n}"] = rec
-            log(f"time {name} shape=({m}, {n}) fp32 L2 flushed: kernel_ms="
-                f"{rec['ms']!r} (cupti {rec['cupti_ms']!r}; L2-warm cupti "
-                f"{rec['warm_l2_cupti_ms']!r}) plain_ms={rec['plain_ms']!r} "
-                f"(cupti {rec['plain_cupti_ms']!r}) library_ms={lib_ms!r} "
-                f"(cupti {rec['library_cupti_ms']!r}) bound_ms={b_ms!r} "
-                f"({b_by}) launches_on_path(m={m})={rec['launches_on_path']} "
+            log(f"time {name} shape=({m}, {n}) fp32 L2 flushed: "
+                f"{times_text(rec)} bound_ms={b_ms!r} ({b_by}) "
+                f"launches_on_path(m={m})={rec['launches_on_path']} "
                 f"card=\"{card}\"")
     return rows
+
+
+def kernel_times(name, kern, plain, lib, cyc, flush) -> dict:
+    """The kernel's, the plain version's and the library call's device
+    times, L2 flushed before every call: by CUDA events (``device_ms``:
+    plain, kernel, kernel, plain; library twice) and by CUPTI
+    (``cupti_ms``), and the kernel's by CUPTI with a warm L2; the SM clock
+    sampled over the whole window."""
+    timed = lambda f: device_ms(f, cyc, flush)[0]
+    with SmClock() as clock:
+        p1, k1, k2, p2 = timed(plain), timed(kern), timed(kern), timed(plain)
+        lib_ms = (timed(lib) + timed(lib)) / 2 if lib is not None else None
+        rec = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+               "library_ms": lib_ms,
+               "cupti_ms": cupti_ms(kern, flush, f"{name}_kernel"),
+               "plain_cupti_ms": cupti_ms(plain, flush, None),
+               "library_cupti_ms": (cupti_ms(lib, flush, None) if lib
+                                    else None),
+               "warm_l2_cupti_ms": cupti_ms(kern, None, f"{name}_kernel")}
+    rec["sm_clock_mhz"] = clock.summary()
+    return rec
+
+
+def times_text(rec) -> str:
+    return (f"kernel_ms={rec['ms']!r} (cupti {rec['cupti_ms']!r}; L2-warm "
+            f"cupti {rec['warm_l2_cupti_ms']!r}) plain_ms={rec['plain_ms']!r}"
+            f" (cupti {rec['plain_cupti_ms']!r}) library_ms="
+            f"{rec['library_ms']!r} (cupti {rec['library_cupti_ms']!r}) "
+            f"sm_clock_mhz(min, median, max)={rec['sm_clock_mhz']}")
 
 
 def gossip_bound(name, m, n, k=None) -> tuple:
@@ -1324,7 +1485,7 @@ def gossip_times(km, core, comm, consensus, card) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rows = {}
     cases = []
-    for m, spec in ((1024, ("knn_ring", 1024, 8)),
+    for m, spec in ((1024, ("knn_ring", 1024, 8)), (64, ("knn_ring", 64, 4)),
                     (7, ("random_regularish", 7, 3, 4, 0))):
         topo = _topology(core, spec)
         strat = core.make_strategy("consensus", tau=10, topo=topo,
@@ -1359,11 +1520,8 @@ def gossip_times(km, core, comm, consensus, card) -> dict:
                       lambda x=x, t=t: km.tks.topk_scatter_plain(x, t),
                       None))
     for name, m, k, kern, plain, lib in cases:
-        timed = lambda f: device_ms(f, cyc, flush)[0]
-        p1, k1, k2, p2 = timed(plain), timed(kern), timed(kern), timed(plain)
-        lib_ms = lib_err = None
+        lib_err = None
         if lib is not None:
-            lib_ms = (timed(lib) + timed(lib)) / 2
             want = kern().clone()   # kernel and library may share `out`
             got = lib()
             lib_err = float((got.float() - want.float()).abs().max())
@@ -1377,23 +1535,44 @@ def gossip_times(km, core, comm, consensus, card) -> dict:
         b_ms, b_by, nbytes, flops = gossip_bound(name, m, 9347, k)
         on_path = consensus["launches_by_m"].get(str(m), {}).get(name, 0)
         rec = {"shape": [m, 9347], "dtype": "float32", "k_max": k,
-               "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-               "library_ms": lib_ms, "library_max_abs_err": lib_err,
-               "cupti_ms": cupti_ms(kern, flush, f"{name}_kernel"),
-               "plain_cupti_ms": cupti_ms(plain, flush, None),
-               "library_cupti_ms": (cupti_ms(lib, flush, None) if lib
-                                    else None),
-               "warm_l2_cupti_ms": cupti_ms(kern, None, f"{name}_kernel"),
-               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-               "flops": flops, "launches_on_path": on_path}
+               "library_max_abs_err": lib_err, "bound_ms": b_ms,
+               "bound_by": b_by, "bytes": nbytes, "flops": flops,
+               "launches_on_path": on_path}
+        rec.update(kernel_times(name, kern, plain, lib, cyc, flush))
         rows[f"{name}/{m}x9347"] = rec
-        log(f"time {name} shape=({m}, 9347) fp32 L2 flushed: kernel_ms="
-            f"{rec['ms']!r} (cupti {rec['cupti_ms']!r}; L2-warm cupti "
-            f"{rec['warm_l2_cupti_ms']!r}) plain_ms={rec['plain_ms']!r} "
-            f"(cupti {rec['plain_cupti_ms']!r}) library_ms={lib_ms!r} "
-            f"(cupti {rec['library_cupti_ms']!r}) bound_ms={b_ms!r} ({b_by}) "
+        log(f"time {name} shape=({m}, 9347) fp32 L2 flushed: "
+            f"{times_text(rec)} bound_ms={b_ms!r} ({b_by}) "
             f"launches_on_path(m={m})={on_path} card=\"{card}\"")
     return rows
+
+
+def consensus_step_alone(m: int = 1024, n: int = 9347) -> dict:
+    """Build the kernels of this checkout and time ``consensus_step`` alone
+    at (m, n), fp32, as ``gossip_times`` does (its P, L2 flushed, CUDA
+    events and CUPTI, the SM clock): run from a copy of the repository
+    whose ``csrc/consensus_step.cu`` was edited, it prices the edit against
+    the committed kernel on the same card. Prints one line."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import core
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import consensus_step as cs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load()
+    topo = core.knn_ring(m, 8)
+    strat = core.make_strategy("consensus", tau=10, topo=topo,
+                               eps=0.5 / topo.max_degree, sparse=False)
+    p = torch.tensor(strat.p_e_masked[0], device="cuda")
+    g = torch.randn(m, n, generator=torch.Generator(device="cuda")
+                    .manual_seed(SEED + 3), device="cuda")
+    out = torch.empty_like(g)
+    rec = kernel_times("consensus_step",
+                       lambda: cs.consensus_step_cuda(g, p, out=out),
+                       lambda: cs.consensus_step_plain(g, p, out=out),
+                       lambda: torch.matmul(p, g, out=out),
+                       sleep_cycles_per_ms(), l2_flusher())
+    log(f"time consensus_step alone ({ROOT}) shape=({m}, {n}) fp32 L2 "
+        f"flushed: {times_text(rec)} card=\"{card_line()}\"")
+    return rec
 
 
 def profile_training(rl, core, optim, card) -> dict:

@@ -56,7 +56,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_decay_accum.argtypes = [
         _P, _P, _P,                      # acc, g, out
         _P, _L, _F,                      # d, d_stride, d_value
-        _L, _L, _I,                      # m, n, dtype
+        _L, _L, _I, _I,                  # m, n, dtype, device
         _P,                              # stream
     ]
     lib.repro_decay_accum.restype = _I
@@ -67,7 +67,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         _P, _P,                          # p_out, mu_out
         _P, _L, _F,                      # w, w_stride, w_value
         _F, _F, _I,                      # lr, beta, nesterov
-        _L, _L, _I,                      # m, n, dtype
+        _L, _L, _I, _I,                  # m, n, dtype, device
         _P,                              # stream
     ]
     lib.repro_momentum_update.restype = _I
@@ -77,7 +77,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         _P, _L, _F,                      # w, w_stride, w_value
         _F, _F, _F, _F, _F,              # lr, b1, 1 - b1, b2, 1 - b2
         _F, _F, _F, _F,                  # eps, wd, bc1, bc2
-        _L, _L, _I,                      # m, n, dtype
+        _L, _L, _I, _I,                  # m, n, dtype, device
         _P,                              # stream
     ]
     lib.repro_adam_update.restype = _I

@@ -50,7 +50,9 @@ def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def consensus_step_cuda(g: torch.Tensor, mixing: torch.Tensor, *,
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch ``consensus_step_kernel``: ``out = mixing @ g``.
+    """Launch the kernel of ``csrc/consensus_step.cu``: ``out = mixing @ g``
+    (``consensus_step_kernel_small`` for m <= 32, else
+    ``consensus_step_kernel_tiled``; the C entry point picks by m).
 
     ``g`` is a contiguous ``(m, n)`` CUDA buffer (fp32, bf16 or fp16),
     ``mixing`` a contiguous ``(m, m)`` fp32 matrix on the same device, and

@@ -1,6 +1,6 @@
 // Shared pieces of the flat-buffer kernels (decay_accum.cu, flat_update.cu):
 // fp32 loads and stores for the three buffer dtypes, the per-row coefficient,
-// and the launch grid over an (m, n) row-major matrix.
+// the cached SM count and the launch grid over an (m, n) row-major matrix.
 //
 // Every kernel here spells its arithmetic with the IEEE round-to-nearest
 // intrinsics (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn, __fsqrt_rn). nvcc
@@ -13,6 +13,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace repro_flat {
 
@@ -54,12 +56,22 @@ __device__ __forceinline__ float row_coef(const float* coef, int64_t stride,
   return coef != nullptr ? coef[row * stride] : value;
 }
 
-inline int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+// The SM count of a device, asked of the runtime once per device and
+// process and cached: the flat kernels size their grids by it on every
+// launch, and their launch path makes no other runtime call. -1 (a device
+// the runtime refuses; its error is then the launch's) gives a fixed grid:
+// every kernel here strides over its whole buffer, so the grid's size
+// changes speed only.
+inline int sm_count(int device) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> cache[kMaxDevices];   // 0: not asked yet
+  if (device < 0 || device >= kMaxDevices) return -1;
+  int sms = cache[device].load(std::memory_order_relaxed);
+  if (sms > 0) return sms;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
       cudaSuccess)
     return -1;
+  cache[device].store(sms, std::memory_order_relaxed);
   return sms;
 }
 
@@ -67,8 +79,8 @@ inline int sm_count() {
 // (grid-stride past 65,535), blockIdx.x and the threads walk the columns of a
 // row (grid-stride past the cap), so a thread reads its row's coefficient
 // once and neighbouring threads touch neighbouring addresses.
-inline dim3 rows_grid(int64_t m, int64_t n) {
-  const int sms = sm_count();
+inline dim3 rows_grid(int64_t m, int64_t n, int device) {
+  const int sms = sm_count(device);
   int64_t bx = (n + kThreads - 1) / kThreads;
   const int64_t cap_x = sms > 0 ? (int64_t)sms * 16 : 2048;
   if (bx > cap_x) bx = cap_x;

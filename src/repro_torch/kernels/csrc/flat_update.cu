@@ -136,10 +136,10 @@ template <typename T>
 int launch_momentum(const void* p, const void* g, const float* mu, void* p_out,
                     float* mu_out, const float* w, int64_t w_stride,
                     float w_value, float lr, float beta, int nesterov,
-                    int64_t m, int64_t n, cudaStream_t stream) {
+                    int64_t m, int64_t n, int device, cudaStream_t stream) {
   auto kernel = nesterov ? momentum_update_kernel<T, true>
                          : momentum_update_kernel<T, false>;
-  kernel<<<rows_grid(m, n), kThreads, 0, stream>>>(
+  kernel<<<rows_grid(m, n, device), kThreads, 0, stream>>>(
       static_cast<const T*>(p), static_cast<const T*>(g), mu,
       static_cast<T*>(p_out), mu_out, w, w_stride, w_value, lr, beta, m, n);
   return (int)cudaGetLastError();
@@ -149,8 +149,8 @@ template <typename T>
 int launch_adam(const void* p, const void* g, const float* mu, const float* nu,
                 void* p_out, float* mu_out, float* nu_out, const float* w,
                 int64_t w_stride, const AdamScalars& s, int64_t m, int64_t n,
-                cudaStream_t stream) {
-  adam_update_kernel<T><<<rows_grid(m, n), kThreads, 0, stream>>>(
+                int device, cudaStream_t stream) {
+  adam_update_kernel<T><<<rows_grid(m, n, device), kThreads, 0, stream>>>(
       static_cast<const T*>(p), static_cast<const T*>(g), mu, nu,
       static_cast<T*>(p_out), mu_out, nu_out, w, w_stride, s, m, n);
   return (int)cudaGetLastError();
@@ -158,9 +158,10 @@ int launch_adam(const void* p, const void* g, const float* mu, const float* nu,
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16, 2 float16. Each returns 0 or a
-// cudaError_t. An (n,) buffer is m = 1. The per-row weight is
-// w[row * w_stride] when w is given, else w_value.
+// dtype codes: 0 float32, 1 bfloat16, 2 float16; device (momentum, Adam): the
+// buffers' CUDA device ordinal. Each returns 0 or a cudaError_t. An (n,)
+// buffer is m = 1. The per-row weight is w[row * w_stride] when w is given,
+// else w_value.
 
 // out[j] = (sum_i g[i, j]) / m, summed in fp32.
 extern "C" int repro_row_mean(const void* g, void* out, int64_t m, int64_t n,
@@ -179,13 +180,14 @@ extern "C" int repro_momentum_update(const void* p, const void* g,
                                      float* mu_out, const float* w,
                                      int64_t w_stride, float w_value, float lr,
                                      float beta, int nesterov, int64_t m,
-                                     int64_t n, int dtype, void* stream) {
+                                     int64_t n, int dtype, int device,
+                                     void* stream) {
   if (m <= 0 || n <= 0 || dtype < 0 || dtype > 2 || w_stride < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_MOMENTUM(T)                                                    \
   return launch_momentum<T>(p, g, mu, p_out, mu_out, w, w_stride, w_value,   \
-                            lr, beta, nesterov, m, n, s)
+                            lr, beta, nesterov, m, n, device, s)
   if (dtype == 0) REPRO_MOMENTUM(float);
   if (dtype == 1) REPRO_MOMENTUM(__nv_bfloat16);
   REPRO_MOMENTUM(__half);
@@ -201,7 +203,7 @@ extern "C" int repro_adam_update(const void* p, const void* g, const float* mu,
                                  float b1, float one_minus_b1, float b2,
                                  float one_minus_b2, float eps, float wd,
                                  float bc1, float bc2, int64_t m, int64_t n,
-                                 int dtype, void* stream) {
+                                 int dtype, int device, void* stream) {
   if (m <= 0 || n <= 0 || dtype < 0 || dtype > 2 || w_stride < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -209,7 +211,7 @@ extern "C" int repro_adam_update(const void* p, const void* g, const float* mu,
                       eps, wd, bc1, bc2};
 #define REPRO_ADAM(T)                                                         \
   return launch_adam<T>(p, g, mu, nu, p_out, mu_out, nu_out, w, w_stride, s, \
-                        m, n, st)
+                        m, n, device, st)
   if (dtype == 0) REPRO_ADAM(float);
   if (dtype == 1) REPRO_ADAM(__nv_bfloat16);
   REPRO_ADAM(__half);

@@ -148,6 +148,6 @@ def decay_accum_cuda(acc: torch.Tensor, g: torch.Tensor, d: Coef, *,
     lib = _build.load()
     raise_on(fn, lib, lib.repro_decay_accum(
         acc.data_ptr(), g.data_ptr(), out.data_ptr(), ptr, stride, value,
-        m, n, DTYPE_CODE[acc.dtype], stream_of(device)))
+        m, n, DTYPE_CODE[acc.dtype], device.index, stream_of(device)))
     launches += 1
     return out

@@ -157,7 +157,8 @@ def momentum_update_cuda(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
     raise_on(fn, lib, lib.repro_momentum_update(
         p.data_ptr(), g.data_ptr(), mu.data_ptr(), p_out.data_ptr(),
         mu_out.data_ptr(), ptr, stride, value, float(lr), float(beta),
-        int(bool(nesterov)), m, n, DTYPE_CODE[p.dtype], stream_of(device)))
+        int(bool(nesterov)), m, n, DTYPE_CODE[p.dtype], device.index,
+        stream_of(device)))
     launches["momentum_update"] += 1
     return p_out, mu_out
 
@@ -231,6 +232,7 @@ def adam_update_cuda(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
         p_out.data_ptr(), mu_out.data_ptr(), nu_out.data_ptr(),
         ptr, stride, value, float(lr), float(b1), float(1.0 - b1), float(b2),
         float(1.0 - b2), float(eps), float(weight_decay), float(bc1),
-        float(bc2), m, n, DTYPE_CODE[p.dtype], stream_of(device)))
+        float(bc2), m, n, DTYPE_CODE[p.dtype], device.index,
+        stream_of(device)))
     launches["adam_update"] += 1
     return p_out, mu_out, nu_out

@@ -13,7 +13,8 @@ the port on CPU tensors, which runs the plain PyTorch versions of the
   ulp of the output's dtype at its largest magnitude (the Pallas body may
   contract ``acc + w*g`` into an FMA);
 * inside the port, bitwise: the sparse transform equals mask + E full-list
-  gathers, and padding slots contribute exactly nothing; dense against
+  gathers, padding slots contribute exactly nothing, and the gather over
+  the full list 0..m-1 is a numpy fp32 ascending-l chain; dense against
   sparse within atol 1e-5 (as ``tests/test_sparse_consensus.py`` holds it);
 * tables (``p``, ``p_e``, ``p_e_masked``, ``p_masked``, the neighbour list,
   ``nl_w``) identical; ledgers and bytes curves equal at rtol 0;
@@ -40,6 +41,7 @@ from repro_torch.core import accounting as tacc
 from repro_torch.core import consensus as tcons
 from repro_torch.core import strategies as tstrat
 from repro_torch.core import topology as T
+from repro_torch.kernels import consensus_gather as tcg
 from repro_torch.kernels import dispatch as td
 from repro_torch.optim import flat_adam, flat_momentum
 from repro_torch.rl import FIGURE_EIGHT as TF8
@@ -194,6 +196,27 @@ def test_padding_contributes_exactly_zero():
     b = td.consensus_gather(g, nl_pad.idx, w_pad)
     assert torch.equal(a, b)
     assert np.all(w_pad[~nl_pad.valid] == 0.0)
+
+
+@pytest.mark.parametrize("m", [1, 7, 33, 129])
+def test_full_list_gather_is_the_ascending_l_chain_bitwise(m):
+    """The chain the dense consensus_step kernel must reproduce on the card
+    (every output one fp32 chain acc = -0.0, acc = acc + P[i, l] * G[l, j] in
+    ascending l, each product and sum rounded once) is, bit for bit, the
+    plain gather over the full list 0..m-1 with P's entries as weights. P
+    holds exact zeros, which add a signed zero and so change nothing."""
+    rng = np.random.default_rng(m)
+    p = rng.uniform(0.0, 2.0 / m, (m, m)).astype(np.float32)
+    p[rng.uniform(size=(m, m)) < 0.3] = 0.0
+    g = _arr((m, 37), m + 1)
+    acc = np.full((m, 37), -0.0, dtype=np.float32)
+    for l in range(m):
+        acc = acc + p[:, l:l + 1] * g[l:l + 1, :]
+    assert acc.dtype == np.float32
+    idx = torch.arange(m, dtype=torch.int32).repeat(m, 1)
+    got = tcg.consensus_gather_plain(torch.tensor(g), idx, torch.tensor(p))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  acc.view(np.uint32))
 
 
 # --- tables, the power cache, auto-selection ---------------------------------------

@@ -126,7 +126,7 @@ def test_engine_on_the_card_matches_the_cpu_engine(card, mode):
 # in the plain versions' order, so on fp32 / bf16 / fp16 buffers they agree
 # with the plain versions on the card to the last bit except where torch's
 # own CUDA ops round differently; the tolerance allows 2 ulp of the result's
-# dtype. row_mean sums in another order than torch: within 1e-6 of the mean
+# dtype (decay_accum: bitwise). row_mean sums in another order than torch: within 1e-6 of the mean
 # absolute value of its column.
 
 _DTYPES = [torch.float32, torch.bfloat16, torch.float16]
@@ -141,22 +141,41 @@ def _ulps(dtype):
     return 2 * torch.finfo(dtype).eps
 
 
+def _at_offset(t, offset):
+    """A contiguous copy of ``t`` that starts ``offset`` elements into a
+    larger allocation (a view whose address is not 16-byte aligned when the
+    offset is not a multiple of 16 bytes)."""
+    big = torch.zeros(t.numel() + 8, dtype=t.dtype, device=t.device)
+    v = big[offset:offset + t.numel()].view(t.shape)
+    return v.copy_(t)
+
+
+# decay_accum is bitwise equal to its plain version, also where a 16-byte
+# vector of the kernel straddles a row (odd n, n < 8), on views at element
+# offsets (acc, g and out at different alignments), and in place.
+@pytest.mark.parametrize("offsets", [(0, 0, 0), (1, 1, 0), (1, 3, 2),
+                                     (3, 2, 1)], ids=str)
 @pytest.mark.parametrize("dtype", _DTYPES, ids=str)
-@pytest.mark.parametrize("shape", [(9347,), (7, 9347), (64, 4097), (3, 1)])
-def test_decay_accum_kernel_matches_plain(card, shape, dtype):
-    acc, g = _buf(shape, dtype, 0, card), _buf(shape, dtype, 1, card)
-    coefs = [-0.37]
+@pytest.mark.parametrize("shape", [(9347,), (7, 9347), (64, 4097), (3, 1),
+                                   (5, 3), (4, 7), (3, 8), (2, 9347)])
+def test_decay_accum_kernel_matches_plain(card, shape, dtype, offsets):
+    o_acc, o_g, o_out = offsets
+    acc = _at_offset(_buf(shape, dtype, 0, card), o_acc)
+    g = _at_offset(_buf(shape, dtype, 1, card), o_g)
+    coefs = [-0.37, torch.tensor(-0.61, device=card)]
     if len(shape) == 2:
         coefs.append(torch.linspace(-1.0, 1.0, shape[0], device=card))
     for d in coefs:
         want = dacc.decay_accum_plain(acc, g, d)
         before = dacc.launches
-        buf = acc.clone()
+        buf = _at_offset(acc, o_acc)
         got = dacc.decay_accum_cuda(buf, g, d, out=buf)
+        out = _at_offset(torch.full_like(acc, float("nan")), o_out)
+        sep = dacc.decay_accum_cuda(acc, g, d, out=out)
         torch.cuda.synchronize()
-        assert dacc.launches == before + 1 and got.data_ptr() == buf.data_ptr()
-        torch.testing.assert_close(got.float(), want.float(), rtol=_ulps(dtype),
-                                   atol=0)
+        assert dacc.launches == before + 2 and got.data_ptr() == buf.data_ptr()
+        assert sep.data_ptr() == out.data_ptr()
+        assert torch.equal(got, want) and torch.equal(sep, want)
 
 
 @pytest.mark.parametrize("dtype", _DTYPES, ids=str)
@@ -262,25 +281,41 @@ def test_run_fedrl_on_the_card_matches_the_cpu_run(card, opt):
 # matmul (the plain version) sums in another order: |kernel - plain| <=
 # m * 2^-23 * (|P| @ |G32|) + one ulp of the output dtype. It is bitwise
 # equal to consensus_gather over the full neighbour list with P's entries as
-# weights. consensus_gather and topk_scatter's residual are bitwise equal to
+# weights, and propagates NaN as torch's matmul does. consensus_gather and topk_scatter's residual are bitwise equal to
 # their plain versions; topk_scatter's sum is within m * 2^-24 * sum_i
 # |sent[i, j]| + one ulp of the dtype.
 
 
 def _gossip_case(m, n, dtype, seed, card):
-    topo = knn_ring(m, 4) if m >= 5 else None
-    if topo is None:
-        p = torch.rand(m, m, generator=torch.Generator().manual_seed(seed))
-    else:
-        p = torch.tensor(mixing_matrix(topo, 0.5 / topo.max_degree),
-                         dtype=torch.float32)
+    """The mixing matrix of knn_ring(m, 4) (m >= 5) and a seeded G."""
+    topo = knn_ring(m, 4)
+    p = torch.tensor(mixing_matrix(topo, 0.5 / topo.max_degree),
+                     dtype=torch.float32)
     return p.to(card), _buf((m, n), dtype, seed, card), topo
 
 
+def _all_l(m, card):
+    """The list idx[i] = 0..m-1: a gather over it with w = P is the dense
+    product, term for term in ascending l."""
+    return torch.arange(m, dtype=torch.int32, device=card).repeat(m, 1)
+
+
+# The mixing matrices of k-NN rings (sparse P; bitwise against the gather
+# over neighbor_list(k_max=m)) and, at the kernel's tile edges (m = 1, 7:
+# the small-m kernel; 33, 129, 1025: one past a 32 / 64 / 128-row tile; n =
+# 1, 127, 4097: one past a 96-column tile and short rows), dense random P
+# (bitwise against the gather over 0..m-1 with P's entries).
 @pytest.mark.parametrize("dtype", _DTYPES, ids=str)
-@pytest.mark.parametrize("m, n", [(7, 9347), (64, 4097), (5, 4097), (1, 1)])
-def test_consensus_step_kernel_matches_plain(card, m, n, dtype):
-    p, g, topo = _gossip_case(m, n, dtype, 11, card)
+@pytest.mark.parametrize("m, n, dense", [
+    (7, 9347, False), (64, 4097, False), (5, 4097, False), (1, 1, True),
+    *[(m, n, True) for m in (1, 7, 33, 129, 1025) for n in (1, 127, 4097)]])
+def test_consensus_step_kernel_matches_plain(card, m, n, dense, dtype):
+    if dense:
+        gen = torch.Generator().manual_seed(m * 7919 + n)
+        p = (torch.rand(m, m, generator=gen) / m).to(card)
+        g = _buf((m, n), dtype, 11, card)
+    else:
+        p, g, topo = _gossip_case(m, n, dtype, 11, card)
     want = cs.consensus_step_plain(g, p)
     before = cs.launches
     got = cs.consensus_step_cuda(g, p)
@@ -290,12 +325,37 @@ def test_consensus_step_kernel_matches_plain(card, m, n, dtype):
     err = (got.float() - want.float()).abs()
     assert bool((err <= bound + torch.finfo(dtype).eps * want.float().abs()
                  ).all()), err.max().item()
-    if topo is not None:      # bitwise equal to the full-list gather
-        full = neighbor_list(topo, k_max=m)
+    if dense:
+        full = cg.consensus_gather_cuda(g, _all_l(m, card), p.contiguous())
+    else:       # bitwise equal to the gather over the full neighbour list
+        nl = neighbor_list(topo, k_max=m)
         w = torch.tensor(neighbor_weights_from_matrix(
-            full, mixing_matrix(topo, 0.5 / topo.max_degree)), device=card)
-        idx = torch.tensor(full.idx, device=card)
-        assert torch.equal(cg.consensus_gather_cuda(g, idx, w), got)
+            nl, mixing_matrix(topo, 0.5 / topo.max_degree)), device=card)
+        full = cg.consensus_gather_cuda(g, torch.tensor(nl.idx, device=card), w)
+    assert torch.equal(full, got)
+
+
+# A NaN or Inf in a row of G whose column of P is 0 comes out as NaN, as in
+# torch.matmul: no tile of P is skipped for being zero.
+@pytest.mark.parametrize("dtype", _DTYPES, ids=str)
+@pytest.mark.parametrize("m", [7, 129])
+def test_consensus_step_kernel_propagates_nan_like_matmul(card, m, dtype):
+    gen = torch.Generator().manual_seed(m)
+    p = torch.rand(m, m, generator=gen)
+    p[:, 2] = 0.0
+    g = _buf((m, 300), dtype, 12, card)
+    g[2, 5] = float("inf")
+    g[2, 200] = float("nan")
+    p = p.to(card)
+    got = cs.consensus_step_cuda(g, p)
+    want = torch.matmul(p, g.float()).to(dtype)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[:, [5, 200]]).all())
+    keep = ~torch.isnan(want)
+    bound = m * 2.0 ** -23 * (p.abs() @ g.float().abs().nan_to_num(0, 0, 0))
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= bound + torch.finfo(dtype).eps * want.float().abs())
+                [keep].all())
 
 
 @pytest.mark.parametrize("dtype", _DTYPES, ids=str)
