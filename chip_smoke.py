@@ -211,6 +211,20 @@ TIMED_SHAPES = ((1024, 9347), (7, 9347))
 # alignments that differ), each case in place and into a separate out.
 DACC_EDGE_N = (1, 3, 7, 8, 9347)
 DACC_EDGE_OFFSETS = ((0, 0, 0), (1, 1, 1), (1, 3, 2), (3, 2, 1), (2, 2, 0))
+# row_mean's edges: n in each residue mod 8 (a row starts at its own phase
+# inside the kernel's 16-byte vectors of 4 fp32 or 8 bf16 / fp16 elements),
+# n below one vector, and n where the tile width steps (tiles of about one a
+# SM: 528 and 1,056 columns are one and two fp32 vectors a tile on 132
+# SMs); m at the switch between the kernel for few rows and the tiled one
+# (64 / 65), one row past each step of the tiled kernel's row groups (8
+# more a step, m = 33, 97, ..., up to its cap) and past batch edges; g at
+# element offsets 0-7 into a larger allocation. Each case is also called
+# twice and must repeat bitwise.
+ROW_MEAN_EDGE_N = (1, 3, 7, 8, 9, 10, 11, 528, 529, 1057, 9347)
+ROW_MEAN_EDGE_M = (1, 2, 33, 64, 65, 97, 129, 161, 193, 257, 385, 1031)
+ROW_MEAN_EDGE_OFFSETS = tuple(range(8))
+# row_mean is timed at the training path's other fleets too
+ROW_MEAN_TIMED = ((64, 9347), (10000, 9347))
 # consensus_step's tile edges: the small-m kernel (m <= 32), the 64- and
 # 128-row tiles and one past each; 96-column tiles and short rows.
 STEP_EDGE_M = (1, 7, 31, 33, 64, 127, 129, 1024, 1025)
@@ -702,12 +716,17 @@ def flat_kernels_vs_plain(dacc, fu, dispatch) -> dict:
                     for a, b in zip(got, want):
                         check("adam_update", a, b, a.dtype, f"{case} wd={wd}")
             if len(shape) == 2:
-                check("row_mean", fu.row_mean_cuda(g), fu.row_mean_plain(g), dt,
+                got = fu.row_mean_cuda(g)
+                if not torch.equal(fu.row_mean_cuda(g), got):
+                    raise AssertionError(f"row_mean shape={shape} dtype={dt}: "
+                                         f"two calls differ")
+                check("row_mean", got, fu.row_mean_plain(g), dt,
                       f"shape={shape} dtype={dt}",
                       scale=g.float().abs().mean(0))
     n_edges = decay_accum_edges(dacc, rnd)
     counts["decay_accum"] += n_edges
     bitwise["decay_accum"] += n_edges
+    n_mean_edges = row_mean_edges(fu, rnd, check)
     torch.cuda.synchronize()
     log(f"phase flat_kernel_vs_plain: {sum(counts.values())} checks ok "
         f"({counts}); bitwise equal to the plain version in {bitwise}; max "
@@ -715,9 +734,12 @@ def flat_kernels_vs_plain(dacc, fu, dispatch) -> dict:
         f"dtype (row_mean: {ROW_MEAN_REL} x mean|g| + 1 ulp); decay_accum "
         f"bitwise at {n_edges} edge cases (n {DACC_EDGE_N}, element offsets "
         f"of acc / g / out {DACC_EDGE_OFFSETS}, in place and not, three "
-        f"coefficient forms)")
+        f"coefficient forms); row_mean at {n_mean_edges} edge cases (m "
+        f"{ROW_MEAN_EDGE_M}, n {ROW_MEAN_EDGE_N}, element offsets "
+        f"{ROW_MEAN_EDGE_OFFSETS}, three dtypes), every row_mean case "
+        f"bitwise the same on a second call")
     return {"checks": counts, "bitwise": bitwise, "max_abs_err": worst,
-            "decay_accum_edges": n_edges}
+            "decay_accum_edges": n_edges, "row_mean_edges": n_mean_edges}
 
 
 def at_offset(t: torch.Tensor, offset: int) -> torch.Tensor:
@@ -767,6 +789,35 @@ def decay_accum_edges(dacc, rnd) -> int:
                                     f"{err.item():.3e}")
                         checks += 2
     return checks
+
+
+def row_mean_edges(fu, rnd, check) -> int:
+    """row_mean against its plain version where its aligned 16-byte vectors
+    meet odd rows, short rows and tile edges, across its two kernels and its
+    row-group counts, on views at every element offset of a 16-byte vector
+    (ROW_MEAN_EDGE_*), fp32 / bf16 / fp16 (``check``: 1e-6 x mean|g| + 1
+    ulp); each case is called twice and must repeat bitwise. Returns the
+    number of cases."""
+    cases = 0
+    for n in ROW_MEAN_EDGE_N:
+        for m in ROW_MEAN_EDGE_M:
+            for dt in ALL_DTYPES:
+                g0 = rnd((m, n), dt)
+                want = fu.row_mean_plain(g0)
+                scale = g0.float().abs().mean(0)
+                for off in ROW_MEAN_EDGE_OFFSETS:
+                    g = at_offset(g0, off)
+                    out = torch.full((n + 8,), float("nan"), dtype=dt,
+                                     device="cuda")[off:off + n]
+                    got = fu.row_mean_cuda(g, out=out)
+                    case = f"row_mean edge m={m} n={n} dtype={dt} offset={off}"
+                    if got.data_ptr() != out.data_ptr() or \
+                            not torch.equal(fu.row_mean_cuda(g), got):
+                        raise AssertionError(f"{case}: not written where asked "
+                                             f"or two calls differ")
+                    check("row_mean", got, want, dt, case, scale=scale)
+                    cases += 1
+    return cases
 
 
 # --- phase 6b: gossip and compression kernels vs plain ------------------------------
@@ -1363,20 +1414,25 @@ def flat_bound(name, m, n) -> tuple:
 def flat_times(dacc, fu, dispatch, training, card) -> dict:
     """Kernel, plain and library device times with the L2 flushed before
     every call (the training loop reads each (m, n) buffer once per step,
-    after other work has passed through the cache)."""
+    after other work has passed through the cache): all four kernels at
+    TIMED_SHAPES, row_mean alone at ROW_MEAN_TIMED too."""
     cyc = sleep_cycles_per_ms()
     flush = l2_flusher()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = {}
     bc1, bc2 = dispatch.adam_bias_corrections(3, 0.9, 0.95)
-    for m, n in TIMED_SHAPES:
+    for m, n in TIMED_SHAPES + ROW_MEAN_TIMED:
         rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
-        p, g, mu = rnd(m, n), rnd(m, n), 0.1 * rnd(m, n)
+        g, row = rnd(m, n), torch.empty(n, device="cuda")
+        if (m, n) in ROW_MEAN_TIMED:
+            rows[f"row_mean/{m}x{n}"] = row_mean_times(
+                fu, g, row, cyc, flush, training, card)
+            continue
+        p, mu = rnd(m, n), 0.1 * rnd(m, n)
         nu = (0.1 * rnd(m, n)).abs()
         w = torch.rand(m, generator=gen, device="cuda")
         d = -TRAIN_ETA * w
         po, mo, vo = torch.empty_like(p), torch.empty_like(mu), torch.empty_like(nu)
-        row = torch.empty(n, device="cuda")
         akw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0)
         fns = {
             "decay_accum": (
@@ -1415,6 +1471,24 @@ def flat_times(dacc, fu, dispatch, training, card) -> dict:
                 f"launches_on_path(m={m})={rec['launches_on_path']} "
                 f"card=\"{card}\"")
     return rows
+
+
+def row_mean_times(fu, g, row, cyc, flush, training, card) -> dict:
+    """row_mean's times on g (m, n) fp32, as ``flat_times`` gives them."""
+    m, n = g.shape
+    b_ms, b_by, nbytes, flops = flat_bound("row_mean", m, n)
+    rec = {"shape": [m, n], "dtype": "float32", "bound_ms": b_ms,
+           "bound_by": b_by, "bytes": nbytes, "flops": flops,
+           "launches_on_path": training["launches_by_m"].get(str(m), {})
+           .get("row_mean", 0)}
+    rec.update(kernel_times("row_mean", lambda: fu.row_mean_cuda(g, out=row),
+                            lambda: fu.row_mean_plain(g, out=row),
+                            lambda: torch.mean(g, dim=0, out=row), cyc,
+                            flush))
+    log(f"time row_mean shape=({m}, {n}) fp32 L2 flushed: {times_text(rec)} "
+        f"bound_ms={b_ms!r} ({b_by}) launches_on_path(m={m})="
+        f"{rec['launches_on_path']} card=\"{card}\"")
+    return rec
 
 
 def kernel_times(name, kern, plain, lib, cyc, flush) -> dict:
@@ -1575,6 +1649,59 @@ def consensus_step_alone(m: int = 1024, n: int = 9347) -> dict:
     return rec
 
 
+def row_mean_wkv6_alone() -> dict:
+    """Build the kernels of this checkout and time row_mean at (m, 9347)
+    fp32 for the training path's fleets and wkv6 at phase 11's shapes: L2
+    flushed by CUDA events and CUPTI (row_mean beside ``mean(0)``), and
+    L2-warm by CUPTI, the SM clock sampled over each shape. Run from a copy
+    of the repository at another commit with this file copied into it, it
+    times that commit's kernels on the same card, in the same call as this
+    checkout's. Prints one line per shape."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flat_update as fu
+    from repro_torch.kernels import wkv6 as wk
+    _build.load()
+    cyc, flush, card = sleep_cycles_per_ms(), l2_flusher(), card_line()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    timed = lambda f: device_ms(f, cyc, flush)[0]
+    out = {}
+    for m, n in ((7, 9347), (64, 9347), (1024, 9347), (10000, 9347)):
+        g = torch.randn(m, n, generator=gen, device="cuda")
+        row = torch.empty(n, device="cuda")
+        kern = lambda: fu.row_mean_cuda(g, out=row)
+        lib = lambda: torch.mean(g, dim=0, out=row)
+        with SmClock() as clock:
+            rec = {"ms": (timed(kern) + timed(kern)) / 2,
+                   "library_ms": (timed(lib) + timed(lib)) / 2,
+                   "cupti_ms": cupti_ms(kern, flush, "row_mean_kernel"),
+                   "library_cupti_ms": cupti_ms(lib, flush, None),
+                   "warm_l2_cupti_ms": cupti_ms(kern, None, "row_mean_kernel")}
+        rec["sm_clock_mhz"] = clock.summary()
+        out[f"row_mean/{m}x{n}"] = rec
+        log(f"time row_mean alone ({ROOT}) shape=({m}, {n}) fp32 L2 flushed: "
+            f"kernel_ms={rec['ms']!r} (cupti {rec['cupti_ms']!r}; L2-warm "
+            f"cupti {rec['warm_l2_cupti_ms']!r}) library_ms="
+            f"{rec['library_ms']!r} (cupti {rec['library_cupti_ms']!r}) "
+            f"sm_clock_mhz(min, median, max)={rec['sm_clock_mhz']} "
+            f"card=\"{card}\"")
+    for b, t in LM_PREFILL + (LM_ADMIT_TIMED, (LM_SLOTS, 1), (1, 1)):
+        args = wkv6_inputs(b, t, 32, SEED + 7)
+        st = args[5].clone()
+        kern = lambda a=args, st=st: wk.wkv6_cuda(*a[:5], st, state_out=st)
+        with SmClock() as clock:
+            rec = {"ms": (timed(kern) + timed(kern)) / 2,
+                   "cupti_ms": cupti_ms(kern, flush, "wkv6_kernel"),
+                   "warm_l2_cupti_ms": cupti_ms(kern, None, "wkv6_kernel")}
+        rec["sm_clock_mhz"] = clock.summary()
+        out[f"wkv6/{b}x{t}"] = rec
+        log(f"time wkv6 alone ({ROOT}) shape=({b}, {t}, 32, 64) fp32 L2 "
+            f"flushed: kernel_ms={rec['ms']!r} (cupti {rec['cupti_ms']!r}; "
+            f"L2-warm cupti {rec['warm_l2_cupti_ms']!r}) sm_clock_mhz(min, "
+            f"median, max)={rec['sm_clock_mhz']} card=\"{card}\"")
+    return out
+
+
 def profile_training(rl, core, optim, card) -> dict:
     """One ``torch.profiler`` window over a short training run at m = 1024
     (4 local updates, 2 syncs, one eval; Adam): wall time, device busy time
@@ -1632,6 +1759,7 @@ LM_REQUESTS = 16
 LM_PROMPT = (16, 512)                 # prompt lengths, inclusive
 LM_NEW = (32, 64)                     # new tokens, inclusive
 LM_MAX_SEQ = 1024
+LM_ADMIT_TIMED = (1, 256)             # an admission of a mid-length prompt
 LM_TIMED = 3                          # timed calls per prefill shape
 # wkv6 kernel vs plain: both against the plain loop in float64 on the same
 # inputs; the kernel's error within max(WKV_ATOL, 2x the fp32 plain loop's).
@@ -1684,12 +1812,17 @@ def wkv6_inputs(b, t, h, seed, decay="model", state=0.1):
 def wkv6_vs_plain(wk) -> dict:
     """Phase 9: the kernel against its plain version on the card at the
     slice's shapes (prefill 8 x 512 and 1 x 4096, decode at the slot count
-    and at B = 1), odd T, zero and nonzero initial states, a slow decay, and
-    a sequence split in two and chained through the state in place."""
+    and at B = 1), odd T and T just past a stage (9, 33, 65), one and three
+    heads, zero and nonzero initial states, a slow decay, a sequence split
+    in two and chained through the state in place, and the bitwise edges of
+    ``wkv6_edges``."""
     cases = [((8, 512, 32), "model", 0.0), ((8, 512, 32), "model", 0.1),
              ((1, 4096, 32), "model", 0.1), ((1, 4096, 32), "slow", 0.1),
              ((LM_SLOTS, 1, 32), "model", 0.1), ((1, 1, 32), "model", 0.1),
-             ((1, 7, 32), "model", 0.1), ((1, 1000, 32), "model", 0.1)]
+             ((1, 7, 32), "model", 0.1), ((1, 1000, 32), "model", 0.1),
+             ((1, 33, 3), "model", 0.1), ((1, 65, 1), "model", 0.1),
+             ((2, 9, 3), "slow", 0.1), ((4, 17, 32), "model", 0.1),
+             ((LM_SLOTS, 40, 32), "model", 0.1)]
     worst = {"y": 0.0, "state": 0.0, "plain_fp32_vs_fp64": 0.0}
     rows = []
 
@@ -1727,12 +1860,72 @@ def wkv6_vs_plain(wk) -> dict:
     if not (torch.equal(torch.cat(parts, 1), y_full)
             and torch.equal(st, s_full)):
         raise AssertionError("wkv6: the chained halves differ from one run")
+    edges = wkv6_edges(wk)
     log(f"phase wkv6 vs plain: {len(cases)} shapes + chained halves ok; max "
         f"abs err vs float64: y {worst['y']!r}, state {worst['state']!r} "
         f"(plain fp32 {worst['plain_fp32_vs_fp64']!r}); rule max({WKV_ATOL}, "
-        f"2x fp32 plain's error); chained halves bitwise equal to one run")
+        f"2x fp32 plain's error); chained halves bitwise equal to one run; "
+        f"bitwise edges {edges}")
     return {"max_abs_err": max(worst["y"], worst["state"]), "worst": worst,
-            "cases": rows}
+            "cases": rows, "edges": edges}
+
+
+def wkv6_edges(wk) -> dict:
+    """wkv6 bitwise against itself where the kernel changes its block, its
+    path or its copies but not its arithmetic: each batch row alone against
+    the batch (the decode kernel at B = 8 against the one-stage tile at
+    B = 1; the prefill tiles of B = 8, 4 and 1), the state updated in place
+    against a separate output (decode at B = 1 and 8), inputs and states at
+    an element offset (4-byte copies) against aligned ones, and a sequence
+    cut at and around stage boundaries and chained through the state."""
+    def unaligned(t):
+        big = torch.zeros(t.numel() + 8, dtype=t.dtype, device=t.device)
+        return big[1:1 + t.numel()].view(t.shape).copy_(t)
+
+    def same(label, got, want):
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"wkv6 edge {label}: not bitwise equal")
+
+    counts = {"batch_rows": 0, "in_place": 0, "unaligned": 0, "cuts": 0}
+    for n, (b, t) in enumerate(((LM_SLOTS, 1), (LM_SLOTS, 40), (4, 70),
+                                (3, 9))):
+        args = wkv6_inputs(b, t, 32, SEED + 200 + n)
+        full = wk.wkv6_cuda(*args)
+        for i in range(b):
+            one = [a[i:i + 1].contiguous() if a.ndim == 4 else a
+                   for a in args]
+            same(f"batch row {i} of ({b}, {t})", wk.wkv6_cuda(*one),
+                 [x[i:i + 1] for x in full])
+            counts["batch_rows"] += 1
+    for n, b in enumerate((1, LM_SLOTS)):
+        args = wkv6_inputs(b, 1, 32, SEED + 210 + n)
+        want = wk.wkv6_cuda(*args)
+        st = args[5].clone()
+        got = wk.wkv6_cuda(*args[:5], st, state_out=st)
+        if got[1].data_ptr() != st.data_ptr():
+            raise AssertionError("wkv6 decode: state not written in place")
+        same(f"decode in place B={b}", got, want)
+        counts["in_place"] += 1
+    for n, (b, t, h) in enumerate(((2, 19, 3), (LM_SLOTS, 1, 32),
+                                   (1, 1, 32), (1, 70, 32))):
+        args = wkv6_inputs(b, t, h, SEED + 220 + n)
+        want = wk.wkv6_cuda(*args)
+        moved = [unaligned(a) for a in args]
+        st = unaligned(torch.zeros_like(args[5]))
+        same(f"unaligned ({b}, {t}, {h})",
+             wk.wkv6_cuda(*moved, state_out=st), want)
+        counts["unaligned"] += 1
+    r, k, v, w, u, s0 = wkv6_inputs(1, 65, 3, SEED + 230)
+    y_full, s_full = wk.wkv6_cuda(r, k, v, w, u, s0)
+    for cut in (1, 8, 9, 16, 32, 33, 64):
+        st = s0.clone()
+        ys = [wk.wkv6_cuda(*[a[:, sl].contiguous() for a in (r, k, v, w)],
+                           u, st, state_out=st)[0]
+              for sl in (slice(0, cut), slice(cut, 65))]
+        same(f"cut at {cut} of 65", (torch.cat(ys, 1), st), (y_full, s_full))
+        counts["cuts"] += 1
+    torch.cuda.synchronize()
+    return counts
 
 
 def bf16_ulp(x: float) -> float:
@@ -2052,6 +2245,19 @@ def lm_serving_path(wk, _build, TC, TM, launch, card) -> dict:
                    "launches": loop_launches}
     out["launches"] = launches
     out["launches_per_prefill_call"] = out["launches_per_decode_step"] = L
+    # every decode step runs all LM_SLOTS slots; an admission prefills its
+    # own slot alone (B = 1, its prompt's length)
+    out["launches_by_shape"] = {
+        f"prefill {b}x{t}": L * (1 + LM_TIMED) for b, t in LM_PREFILL}
+    out["launches_by_shape"].update({
+        f"admission 1x{LM_PROMPT[0]}-{LM_PROMPT[1]}":
+            L * (warm.n_prefills + loop.n_prefills),
+        f"decode {LM_SLOTS}x1":
+            L * (1 + LM_DECODE_TOKENS + warm.n_steps + loop.n_steps)})
+    if sum(out["launches_by_shape"].values()) != launches:
+        raise AssertionError(f"wkv6 launches by shape "
+                             f"{out['launches_by_shape']} do not add up to "
+                             f"{launches}")
     log(f"phase lm serving: {LM_ARCH} {n_params} params bf16 init "
         f"{init_s!r} s; prefill tokens/s " + ", ".join(
             f"{k}: {v['tokens_per_s']!r}" for k, v in out["prefill"].items())
@@ -2060,8 +2266,8 @@ def lm_serving_path(wk, _build, TC, TM, launch, card) -> dict:
         f"({out['loop']['prompt_tokens']} prompt + {n_tok} new tokens, "
         f"{loop.n_prefills} prefills, {loop.n_steps} steps) "
         f"{out['loop']['tokens_per_s']!r} new tokens/s; wkv6 launches "
-        f"{launches} ({L} per prefill call and per decode step; no build) "
-        f"card=\"{card}\"")
+        f"{launches} ({L} per prefill call and per decode step; by shape "
+        f"{out['launches_by_shape']}; no build) card=\"{card}\"")
 
     out["check_seconds"], t_chk = {}, [time.perf_counter()]
 
@@ -2175,12 +2381,13 @@ def events_ms(fn, n: int) -> float:
 
 
 def lm_times(wk, lm, card) -> dict:
-    """Phase 11: wkv6 at the prefill and decode shapes, L2 flushed and warm
-    (CUDA events and CUPTI), beside its bound and the plain loop's time."""
+    """Phase 11: wkv6 at the prefill, admission and decode shapes, L2
+    flushed and warm (CUDA events and CUPTI), beside its bound and the plain
+    loop's time."""
     cyc = sleep_cycles_per_ms()
     flush = l2_flusher()
     rows = {}
-    for b, t in LM_PREFILL + ((LM_SLOTS, 1), (1, 1)):
+    for b, t in LM_PREFILL + (LM_ADMIT_TIMED, (LM_SLOTS, 1), (1, 1)):
         args = wkv6_inputs(b, t, 32, SEED + 7)
         st = args[5].clone()
         kern = lambda a=args, st=st: wk.wkv6_cuda(*a[:5], st, state_out=st)

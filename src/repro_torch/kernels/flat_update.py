@@ -60,6 +60,11 @@ def row_mean_cuda(g: torch.Tensor, *,
     """Launch ``row_mean_kernel``: the ``(n,)`` fp32 mean of an ``(m, n)``
     buffer over its rows, cast to ``g.dtype`` (fp32, bf16 or fp16).
 
+    One launch a call (``row_mean_kernel_rows`` for up to 64 rows); ``g``
+    may start at any element. The sum's order is fixed by the shape, so a
+    call repeats bitwise; it is not torch's order, so it matches
+    :func:`row_mean_plain` to rounding.
+
     Library yardstick: ``g.float().mean(0)`` (timed beside the kernel, never
     called here).
     """

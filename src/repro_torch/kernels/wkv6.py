@@ -87,6 +87,13 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``state_out`` (allocated when not given), which may be ``state`` itself
     (the in-place decode update) but must not overlap it otherwise; ``y`` is
     allocated here.
+
+    The kernel picks its block shape by B * H and T (and a whole-column
+    kernel for a decode step over many (b, h)), none of which changes its
+    arithmetic: a (b, h) gives the same bits at any batch size, and a
+    sequence cut anywhere and chained through the state gives the bits of
+    one run. Its sum over i is not the einsum's, so it matches
+    :func:`wkv6_plain` to fp32 rounding.
     """
     global launches
     fn = "wkv6_cuda"

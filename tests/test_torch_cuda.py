@@ -194,6 +194,29 @@ def test_row_mean_kernel_matches_plain(card, shape, dtype):
         err.max().item()
 
 
+# row_mean's 16-byte vectors start at each row's own phase: odd n, n below
+# one vector, tile edges (72 fp32 / 16-bit columns at n = 9347), views at
+# element offsets, block sizes from m = 1 to 10,000. Every case repeats
+# bitwise on a second call.
+@pytest.mark.parametrize("offset", [0, 1, 3, 6, 7])
+@pytest.mark.parametrize("dtype", _DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(1, 3), (33, 9), (65, 10), (257, 11),
+                                   (129, 249), (5, 9347), (10000, 9347)])
+def test_row_mean_kernel_at_its_edges_repeats_bitwise(card, shape, dtype,
+                                                      offset):
+    g = _at_offset(_buf(shape, dtype, 7, card), offset)
+    want = fu.row_mean_plain(g).float()
+    out = _at_offset(torch.zeros(shape[1], dtype=dtype, device=card), offset)
+    got = fu.row_mean_cuda(g, out=out)
+    again = fu.row_mean_cuda(g)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr() and torch.equal(got, again)
+    scale = g.float().abs().mean(0)
+    err = (got.float() - want).abs()
+    assert bool((err <= 1e-6 * scale + _ulps(dtype) * want.abs()).all()), \
+        err.max().item()
+
+
 @pytest.mark.parametrize("nesterov", [False, True])
 @pytest.mark.parametrize("dtype", _DTYPES, ids=str)
 @pytest.mark.parametrize("shape", [(9347,), (7, 9347), (64, 4097)])
@@ -507,6 +530,65 @@ def test_wkv6_kernel_in_place_state_and_chaining(card):
     torch.cuda.synchronize()
     assert torch.equal(torch.cat([y1, y2], 1), y_full)
     assert torch.equal(st, s_full)
+
+
+# The kernel picks its block shape, its path (the one-stage tile, the ring
+# of stages, the whole-column decode kernel) and its copy width by shape and
+# alignment; none of them changes the arithmetic, so these hold bitwise.
+@pytest.mark.parametrize("b,t,h", [(1, 9, 1), (1, 33, 3), (2, 65, 3),
+                                   (4, 17, 32), (8, 40, 32), (1, 70, 32)])
+def test_wkv6_kernel_matches_plain_past_its_stages(card, b, t, h):
+    args = _wkv_case(b, t, h, 3 * b + t + h, card)
+    want_y, want_s = wk.wkv6_plain(*[a.double() for a in args])
+    y32, s32 = wk.wkv6_plain(*args)
+    y, s = wk.wkv6_cuda(*args)
+    torch.cuda.synchronize()
+    _assert_near_f64(y, y32, want_y, "y")
+    _assert_near_f64(s, s32, want_s, "state")
+
+
+@pytest.mark.parametrize("b,t", [(8, 1), (8, 40), (4, 70), (3, 9)])
+def test_wkv6_each_batch_row_alone_is_bitwise_the_batch(card, b, t):
+    args = _wkv_case(b, t, 32, 11 * b + t, card)
+    y, s = wk.wkv6_cuda(*args)
+    for i in range(b):
+        one = [a[i:i + 1].contiguous() if a.ndim == 4 else a for a in args]
+        yi, si = wk.wkv6_cuda(*one)
+        torch.cuda.synchronize()
+        assert torch.equal(yi, y[i:i + 1]) and torch.equal(si, s[i:i + 1])
+
+
+@pytest.mark.parametrize("cut", [1, 8, 9, 16, 32, 33, 64])
+def test_wkv6_chained_at_any_cut_is_bitwise_one_run(card, cut):
+    r, k, v, w, u, s0 = _wkv_case(1, 65, 3, 13, card)
+    y_full, s_full = wk.wkv6_cuda(r, k, v, w, u, s0)
+    st = s0.clone()
+    ys = [wk.wkv6_cuda(*[a[:, sl].contiguous() for a in (r, k, v, w)], u, st,
+                       state_out=st)[0]
+          for sl in (slice(0, cut), slice(cut, 65))]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(ys, 1), y_full) and torch.equal(st, s_full)
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_wkv6_decode_in_place_is_bitwise_a_separate_state(card, b):
+    args = _wkv_case(b, 1, 32, 17 + b, card)
+    y, s = wk.wkv6_cuda(*args)
+    st = args[5].clone()
+    y2, out = wk.wkv6_cuda(*args[:5], st, state_out=st)
+    torch.cuda.synchronize()
+    assert out is st and torch.equal(y2, y) and torch.equal(st, s)
+
+
+@pytest.mark.parametrize("b,t,h", [(2, 19, 3), (8, 1, 32), (1, 70, 32)])
+def test_wkv6_unaligned_views_are_bitwise_the_aligned_run(card, b, t, h):
+    args = _wkv_case(b, t, h, 19 + t, card)
+    y, s = wk.wkv6_cuda(*args)
+    moved = [_at_offset(a, 1) for a in args]
+    st = _at_offset(torch.zeros_like(args[5]), 1)
+    y2, s2 = wk.wkv6_cuda(*moved, state_out=st)
+    torch.cuda.synchronize()
+    assert torch.equal(y2, y) and torch.equal(s2, s)
 
 
 def test_wkv6_kernel_refuses_what_it_does_not_take(card):

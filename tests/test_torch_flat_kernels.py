@@ -97,7 +97,8 @@ def test_scale_rows_matches_jax(dtype, backend):
 
 @pytest.mark.parametrize("backend", ["jnp", "interpret"])
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("shape", [(3, 97), (3, 4097), (7, 1)], ids=str)
+@pytest.mark.parametrize("shape", [(3, 97), (3, 4097), (7, 1), (1, 3)],
+                         ids=str)
 def test_row_mean_matches_jax(shape, dtype, backend):
     jdt, tdt = DTYPES[dtype]
     g = _arr(shape, 3)

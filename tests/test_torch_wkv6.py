@@ -65,6 +65,8 @@ def _t(*arrays):
     (2, 1, 2, 64, 1),       # one decode step
     (4, 1, 3, 64, 256),     # one step, T below the chunk
     (1, 7, 2, 64, 7),       # odd T
+    (1, 9, 1, 64, 9),       # one head, one step past 8
+    (1, 33, 3, 64, 11),     # three heads, one step past 32
 ])
 def test_wkv6_plain_matches_pallas_interpret_and_ref(b, t, h, d, chunk):
     arrs = _inputs(b, t, h, d, seed=b * 100 + t + h)
