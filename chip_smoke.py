@@ -13,7 +13,9 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
 2. build — every kernel of ``src/repro_torch/kernels/csrc`` with ``nvcc``;
 3. kernel vs plain — the hand-written ``policy_infer`` kernel against its
    plain PyTorch version on the card, over widths, batch sizes, modes, init
-   scales and dtypes, and the in-place write into the noise buffer;
+   scales and dtypes, and the in-place write into the noise buffer; and at
+   its edges (``policy_infer_edges``: every bucket +-1, odd hidden widths,
+   weights, obs and noise at element offsets 1-3, the kernel's limits);
 4. serving — a seeded 6-64-1 policy through ``save_for_serving`` ->
    ``ServeEngine.from_checkpoint(device="cuda")`` -> ``MicroBatchQueue`` ->
    ``ServeEngine.decide``: full-fleet backlogs at m in {64, 1024, 10000}
@@ -23,7 +25,8 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    same seed; the kernel's launches must equal the engine calls, with no
    build and no device allocation on the hot path;
 5. times — per bucket, the kernel's and the plain version's device time
-   (median of per-launch CUDA-event times) beside the card's bound;
+   (median of per-launch CUDA-event times; the kernel also by CUPTI and
+   with the L2 flushed before each call) beside the card's bound;
 6. flat kernels vs plain — the hand-written ``decay_accum``, ``row_mean``,
    ``momentum_update`` and ``adam_update`` kernels against their plain
    PyTorch versions on the card: shapes (n,), every (m, 9347) matrix of the
@@ -53,7 +56,8 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    127, 9347} with dense random P, and a NaN / Inf in a row of G whose
    column of P is 0 giving NaN where ``torch.matmul`` does),
    ``consensus_gather`` (bitwise, on the k-NN rings of the sparse path, at
-   m = 10000 and on a padded list) and ``topk_scatter`` (residual bitwise,
+   m = 10000, on a padded list, and at both kernels' edges:
+   ``gather_edges``) and ``topk_scatter`` (residual bitwise,
    sum within its rounding bound; k = 584, ties, a zero row), fp32 / bf16 /
    fp16;
 7b. consensus and compression — ``run_fedrl`` with the consensus strategy
@@ -65,7 +69,8 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    dense update, consensus_gather E times per sparse update, topk_scatter
    once per top-k sync);
 8. times — per kernel at (1024, 9347) and a second shape of its path
-   (``consensus_step`` also at (64, 9347)), fp32: the kernel's, the plain
+   (``consensus_step`` and ``consensus_gather`` also at (64, 9347), the
+   gather with the plan that picked its kernel), fp32: the kernel's, the plain
    version's and the library call's device time by CUDA events and by
    CUPTI (``torch.profiler``) beside the bound, the L2 evicted by a
    read-only pass before each call, the SM clock sampled by ``nvidia-smi``
@@ -73,6 +78,9 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    m = 1024 (device idle share, time by phase). ``consensus_step_alone``
    times ``consensus_step`` the same way from a copy of the repository
    whose kernel source was edited (to price a variant on the same card);
+   ``policy_infer_gather_alone`` times ``policy_infer`` and
+   ``consensus_gather`` from a copy at another commit, and
+   ``gather_crossover`` the gather's two kernels against each other;
 9. wkv6 vs plain — the hand-written ``wkv6`` kernel against the plain
    recurrence, both held to the plain loop in float64: (8, 512, 32, 64) and
    (1, 4096, 32, 64) (prefill), (8 | 1, 1, 32, 64) (decode), odd T (7,
@@ -185,6 +193,18 @@ BF16_FLOP_PER_S = 989e12
 ATOL_F32 = 2e-6
 BF16_REL = 2.0 ** -7
 SERVE_ATOL = 2e-6                            # card engine vs CPU engine
+# policy_infer's edges (same rule): every serving bucket and one row either
+# side (one row a warp, 8 a block: the grid's edges), odd hidden widths (a
+# lane's last unit past hidden, an odd layer-2 chain), the weights, biases,
+# log_std, norm stats, obs and noise at element offsets 1-3 into larger
+# allocations (the kernel's 4-byte head and tail copies beside its 16-byte
+# body), and the kernel's limits (obs_dim 128, hidden 128, act_dim 32), fp32
+# and bf16, the actions written into the noise buffer.
+PI_BUCKETS = (8, 64, 256, 1024)
+PI_BUCKET_EDGES = (7, 8, 9, 63, 64, 65, 255, 256, 257, 1023, 1024, 1025)
+PI_ODD_DIMS = ((5, 33, 2), (3, 97, 4))
+PI_OFFSETS = (1, 2, 3)
+PI_LIMITS = (128, 128, 32)
 
 # Flat kernels vs plain: the kernels spell each operation with the IEEE
 # round-to-nearest intrinsics in the plain versions' order, so they are held
@@ -229,6 +249,12 @@ ROW_MEAN_TIMED = ((64, 9347), (10000, 9347))
 # 128-row tiles and one past each; 96-column tiles and short rows.
 STEP_EDGE_M = (1, 7, 31, 33, 64, 127, 129, 1024, 1025)
 STEP_EDGE_N = (1, 127, 9347)
+# consensus_gather's edges, each bitwise against the plain version: n in
+# every residue mod 8 (a source row's phase in the staged kernel's 16-byte
+# copies; one to three column tiles) with g at element offsets 0-7, three
+# dtypes, over the lists of GATHER_EDGE_LISTS (built by gather_edge_lists).
+GATHER_EDGE_N = (129, 130, 131, 132, 133, 134, 135, 136)
+GATHER_EDGE_OFFSETS = tuple(range(8))
 CUPTI_CALLS = 50
 CUPTI_WINDOWS = 8     # profiler windows tried before a lost trace fails
 
@@ -363,11 +389,90 @@ def kernel_vs_plain(pinf) -> dict:
         pass
     else:
         raise AssertionError("a float64 weight was not refused")
+    edges = policy_infer_edges(pinf)
     log(f"phase kernel_vs_plain: {n_cases} cases ok; max |kernel - plain| "
         f"fp32 {worst['float32']!r}, bf16 {worst['bfloat16']!r}; fp32 plain vs "
         f"fp64 up to {worst['plain_fp32_vs_fp64']!r}; tolerance vs fp64: "
-        f"max({ATOL_F32}, 2x fp32 plain's error) (+ 2^-7 |ref| in bf16)")
-    return {"cases": n_cases, "max_abs_err": worst}
+        f"max({ATOL_F32}, 2x fp32 plain's error) (+ 2^-7 |ref| in bf16); "
+        f"edges: {edges['cases']} cases ok (buckets {PI_BUCKET_EDGES}, odd "
+        f"dims {PI_ODD_DIMS}, offsets {PI_OFFSETS}, limits {PI_LIMITS}), max "
+        f"|kernel - plain| {edges['max_abs_err']}")
+    return {"cases": n_cases, "max_abs_err": worst, "edges": edges}
+
+
+def policy_infer_edges(pinf) -> dict:
+    """policy_infer at its edges (PI_* above) under kernel_vs_plain's rule:
+    within max(ATOL_F32, 2x the fp32 plain version's own error) of the plain
+    version in float64 (+ BF16_REL |ref| for bf16 outputs)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    cases = 0
+
+    def check(pi, nm, ns, obs, noise, sample, inplace, label):
+        nonlocal cases
+        pi64 = {k: v.double() for k, v in pi.items()}
+        r64 = pinf.policy_infer_plain(obs.double(), pi64, nm.double(),
+                                      ns.double(), noise.double(),
+                                      sample=sample)
+        plain32 = pinf.policy_infer_plain(obs.float(), pi, nm, ns,
+                                          noise.float(), sample=sample)
+        e_plain = (plain32.double() - r64).abs().max().item()
+        if inplace:
+            buf = noise.clone()
+            got = pinf.policy_infer_cuda(obs, pi, nm, ns, buf, sample=sample,
+                                         out=buf)
+            if got.data_ptr() != buf.data_ptr():
+                raise AssertionError(f"policy_infer edge {label}: output does "
+                                     f"not alias the noise buffer")
+        else:
+            got = pinf.policy_infer_cuda(obs, pi, nm, ns, noise,
+                                         sample=sample)
+        torch.cuda.synchronize()
+        err = (got.double() - r64).abs()
+        bound = max(ATOL_F32, 2.0 * e_plain) + (
+            BF16_REL * r64.abs() if obs.dtype == bf16 else 0.0)
+        if got.dtype != obs.dtype or not torch.isfinite(got.float()).all() \
+                or bool((err > bound).any()):
+            raise AssertionError(
+                f"policy_infer edge {label} sample={sample}: max err vs fp64 "
+                f"{err.max().item():.3e}, fp32 plain's own {e_plain:.3e}")
+        plain = pinf.policy_infer_plain(obs, pi, nm, ns, noise, sample=sample)
+        key = str(obs.dtype).replace("torch.", "")
+        worst[key] = max(worst[key],
+                         (got.float() - plain.float()).abs().max().item())
+        cases += 1
+
+    seed = 1000
+    for dims, batches in (((OBS_DIM, HIDDEN, ACT_DIM), PI_BUCKET_EDGES),
+                          *[(d, (1, 65)) for d in PI_ODD_DIMS]):
+        for batch in batches:
+            for init in ("jax_like", "unit"):
+                seed += 1
+                pi, nm, ns, obs, noise = make_inputs(*dims, batch, init, seed)
+                for sample in (False, True):
+                    check(pi, nm, ns, obs, noise, sample, sample,
+                          f"dims={dims} B={batch} init={init}")
+    for off in PI_OFFSETS:
+        for dims in ((OBS_DIM, HIDDEN, ACT_DIM), PI_LIMITS):
+            for batch in (64, 1025):
+                seed += 1
+                pi, nm, ns, obs, noise = make_inputs(*dims, batch, "jax_like",
+                                                     seed)
+                pi = {k: at_offset(v, off) for k, v in pi.items()}
+                nm, ns = at_offset(nm, off), at_offset(ns, off)
+                obs, noise = at_offset(obs, off), at_offset(noise, off)
+                for sample in (False, True):
+                    check(pi, nm, ns, obs, noise, sample, False,
+                          f"dims={dims} B={batch} offset={off}")
+    for batch in (1, 37, 64, 1024):
+        for init in ("jax_like", "unit"):
+            seed += 1
+            pi, nm, ns, obs, noise = make_inputs(*PI_LIMITS, batch, init, seed)
+            for sample in (False, True):
+                for dt in (f32, bf16):
+                    check(pi, nm, ns, obs.to(dt), noise.to(dt), sample, True,
+                          f"limits B={batch} init={init} {dt} in place")
+    return {"cases": cases, "max_abs_err": worst}
 
 
 # --- phase 4: the serving path --------------------------------------------------
@@ -611,10 +716,11 @@ def times(pinf, serving, card) -> dict:
     log(f"time floor: one zero_() of 8 floats reads {floor_ms!r} ms "
         f"card=\"{card}\"")
     rows = {"floor_ms": floor_ms}
+    flush = l2_flusher()
     for mode in ("mean", "sample"):
         sample = mode == "sample"
         calls = serving["modes"][mode]["bucket_calls"]
-        for b in (8, 64, 256, 1024):
+        for b in PI_BUCKETS:
             pi, nm, ns, obs, noise = make_inputs(
                 OBS_DIM, HIDDEN, ACT_DIM, b, "jax_like", seed=b)
             out = torch.empty_like(noise)
@@ -627,16 +733,23 @@ def times(pinf, serving, card) -> dict:
             (k2, g3), (p2, g4) = device_ms(kern, cyc), device_ms(plain, cyc)
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
             gap = max(g1, g2, g3, g4)
+            # the L2 flushed before every call: the weights come from
+            # device memory, as after other work has passed through the L2
+            f1, f2 = (device_ms(kern, cyc, flush)[0] for _ in range(2))
             b_ms, b_by, flops, nbytes = bound(b, sample)
-            rows[f"{mode}/{b}"] = {
+            rec = rows[f"{mode}/{b}"] = {
                 "bucket": b, "mode": mode, "ms": ms, "plain_ms": plain_ms,
                 "cupti_ms": cupti_ms(kern, None, "policy_infer_kernel"),
+                "flushed_ms": (f1 + f2) / 2,
+                "flushed_cupti_ms": cupti_ms(kern, flush,
+                                             "policy_infer_kernel"),
                 "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
                 "bytes": nbytes, "launches_on_path": calls[str(b)],
                 "idle_gap_ms": gap,
             }
             log(f"time policy_infer mode={mode} bucket={b} kernel_ms={ms!r} "
-                f"(cupti {rows[f'{mode}/{b}']['cupti_ms']!r}) "
+                f"(cupti {rec['cupti_ms']!r}; L2 flushed: events "
+                f"{rec['flushed_ms']!r}, cupti {rec['flushed_cupti_ms']!r}) "
                 f"plain_ms={plain_ms!r} bound_ms={b_ms!r} ({b_by}) "
                 f"launches_on_path={calls[str(b)]} idle_gap_ms={gap!r} "
                 f"card=\"{card}\"")
@@ -954,6 +1067,8 @@ def gossip_kernels_vs_plain(km, core, comm) -> dict:
             note("consensus_gather", got, want, err)
         del g
 
+    n_gather_edges = gather_edges(km, core)
+
     # topk_scatter: k = 584 (n // 16), with ties and an all-zero row
     for m in (7, 1024):
         for dt in (torch.float32, torch.bfloat16):
@@ -985,11 +1100,100 @@ def gossip_kernels_vs_plain(km, core, comm) -> dict:
         f"(consensus_gather and topk_scatter's residual must be, and are); "
         f"consensus_step bitwise equal to the full-list gather in every "
         f"check (tile edges m {STEP_EDGE_M} x n {STEP_EDGE_N} x 3 dtypes), "
-        f"NaN where torch.matmul has NaN (2 checks); max |kernel - plain| "
+        f"NaN where torch.matmul has NaN (2 checks); consensus_gather "
+        f"bitwise at {n_gather_edges} edge cases (n {GATHER_EDGE_N} x "
+        f"offsets {GATHER_EDGE_OFFSETS} x 3 dtypes x the lists of "
+        f"gather_edge_lists); max |kernel - plain| "
         f"{worst}; tolerance consensus_step "
         f"m*2^-23*(|P|@|G|) + 1 ulp, topk_scatter sum m*2^-24*sum|sent| + "
         f"1 ulp")
-    return {"checks": counts, "bitwise": bitwise, "max_abs_err": worst}
+    return {"checks": counts, "bitwise": bitwise, "max_abs_err": worst,
+            "consensus_gather_edges": n_gather_edges}
+
+
+def gather_edge_lists(core, cg, device="cuda") -> list:
+    """(label, idx, w) of the lists consensus_gather is held at: the staged
+    kernel's row groups (m = 1000 and 257, not multiples of its 16 rows;
+    every ring wraps past agents 0 and m - 1), lists whose rows share almost
+    no neighbour (random_regularish(256, 3, 5)), a padded list, m either
+    side of the switch between the staged and the row kernel
+    (cg.MIN_STAGED_ROWS), k_max either side of the other (cg.MAX_SLOTS:
+    k-NN rings padded out to it, and full lists 0..k-1 with dense random
+    weights), rows of MAX_SLOTS sources each (the staged kernel's one-stage
+    ring), and a small ring (m = 12)."""
+    def nl_case(label, nl, eps):
+        return (label, torch.tensor(nl.idx, device=device),
+                torch.tensor(core.neighbor_weights(nl, eps), device=device))
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    m_sw = cg.MIN_STAGED_ROWS
+    pad = core.neighbor_list(core.random_regularish(300, 3, 5, 3))
+    cases = [
+        nl_case("knn_ring(1000,8)", core.neighbor_list(core.knn_ring(1000, 8)),
+                0.05),
+        nl_case("knn_ring(257,4)", core.neighbor_list(core.knn_ring(257, 4)),
+                0.1),
+        nl_case(f"knn_ring({m_sw - 1},4)",
+                core.neighbor_list(core.knn_ring(m_sw - 1, 4)), 0.1),
+        nl_case(f"knn_ring({m_sw},8)",
+                core.neighbor_list(core.knn_ring(m_sw, 8)), 0.05),
+        nl_case("knn_ring(12,8)", core.neighbor_list(core.knn_ring(12, 8)),
+                0.05),
+        nl_case("rand3-5(256)", core.neighbor_list(
+            core.random_regularish(256, 3, 5, 1)), 0.08),
+        nl_case(f"rand3-5(300) padded to {pad.k_max + 7}", core.neighbor_list(
+            core.random_regularish(300, 3, 5, 3), k_max=pad.k_max + 7), 0.08),
+    ]
+    # every row with MAX_SLOTS sources of its own (a one-row group of 186
+    # unique rows: the staged kernel's ring holds a single stage)
+    k = cg.MAX_SLOTS
+    wide = (torch.arange(m_sw)[:, None] + torch.arange(k)[None, :]) % m_sw
+    cases.append((f"wide m={m_sw} k={k}", wide.to(torch.int32).to(device),
+                  (torch.rand(m_sw, k, generator=gen) / k).to(device)))
+    for k in (cg.MAX_SLOTS, cg.MAX_SLOTS + 1):
+        cases.append(nl_case(f"knn_ring({m_sw},4) padded to {k}",
+                             core.neighbor_list(core.knn_ring(m_sw, 4),
+                                                k_max=k), 0.1))
+        idx = torch.arange(k, dtype=torch.int32).repeat(k, 1)
+        cases.append((f"full list m={k}", idx.to(device),
+                      (torch.rand(k, k, generator=gen) / k).to(device)))
+    return cases
+
+
+def gather_edges(km, core) -> int:
+    """consensus_gather bitwise against its plain version on every list of
+    gather_edge_lists, n in GATHER_EDGE_N, g at GATHER_EDGE_OFFSETS and the
+    output at another offset, fp32 / bf16 / fp16; both kernels are run (the
+    plan picks the row kernel below cg.MIN_STAGED_ROWS rows and past
+    cg.MAX_SLOTS). Returns the number of cases."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases, kinds = 0, set()
+    for label, idx, w in gather_edge_lists(core, km.cg):
+        m, k = idx.shape
+        for n in GATHER_EDGE_N:
+            for dt in ALL_DTYPES:
+                kinds.add(km.cg.gather_plan(m, n, k, dt.itemsize, sms).kernel)
+                g0 = torch.randn(m, n, generator=gen, device="cuda").to(dt)
+                want = km.cg.consensus_gather_plain(g0, idx, w)
+                for off in GATHER_EDGE_OFFSETS:
+                    g = at_offset(g0, off)
+                    out = at_offset(torch.full_like(g0, float("nan")),
+                                    (off + 3) % 8)
+                    got = km.cg.consensus_gather_cuda(g, idx, w, out=out)
+                    if got.data_ptr() != out.data_ptr() or \
+                            not torch.equal(got, want):
+                        err = (got.float() - want.float()).abs().max().item()
+                        raise AssertionError(
+                            f"consensus_gather edge {label} n={n} {dt} "
+                            f"offset={off}: not bitwise equal to the plain "
+                            f"version (max err {err:.3e}) or not written "
+                            f"where asked")
+                    cases += 1
+    torch.cuda.synchronize()
+    if kinds != {"staged", "rows"}:
+        raise AssertionError(f"gather edges ran only the {kinds} kernel")
+    return cases
 
 
 # --- phases 7 and 7b: training -----------------------------------------------------
@@ -1573,10 +1777,10 @@ def gossip_times(km, core, comm, consensus, card) -> dict:
                       lambda g=g, p=p, out=out: km.cs.consensus_step_plain(
                           g, p, out=out),
                       lambda g=g, p=p, out=out: torch.matmul(p, g, out=out)))
-    for m, nl in ((1024, core.neighbor_list(core.knn_ring(1024, 8))),
-                  (10000, core.knn_ring_neighbors(10000, 8))):
+    for m, nl in gather_timed_lists(core):
         idx = torch.tensor(nl.idx, device="cuda")
-        w = torch.tensor(core.neighbor_weights(nl, 0.5 / 8), device="cuda")
+        w = torch.tensor(core.neighbor_weights(nl, 0.5 / nl.max_degree),
+                         device="cuda")
         g = torch.randn(m, 9347, generator=gen, device="cuda")
         out = torch.empty_like(g)
         w_csr = gossip_csr(nl, w)
@@ -1612,12 +1816,72 @@ def gossip_times(km, core, comm, consensus, card) -> dict:
                "library_max_abs_err": lib_err, "bound_ms": b_ms,
                "bound_by": b_by, "bytes": nbytes, "flops": flops,
                "launches_on_path": on_path}
+        if name == "consensus_gather":
+            rec["plan"] = km.cg.gather_plan(
+                m, 9347, k, 4, torch.cuda.get_device_properties(0)
+                .multi_processor_count)._asdict()
         rec.update(kernel_times(name, kern, plain, lib, cyc, flush))
         rows[f"{name}/{m}x9347"] = rec
         log(f"time {name} shape=({m}, 9347) fp32 L2 flushed: "
             f"{times_text(rec)} bound_ms={b_ms!r} ({b_by}) "
-            f"launches_on_path(m={m})={on_path} card=\"{card}\"")
+            f"launches_on_path(m={m})={on_path}"
+            f"{' plan=' + str(rec['plan']) if 'plan' in rec else ''} "
+            f"card=\"{card}\"")
     return rows
+
+
+def gather_timed_lists(core) -> tuple:
+    """The consensus path's neighbour lists, (m, list): its two sparse
+    fleets and the 10,000-agent ring."""
+    return ((1024, core.neighbor_list(core.knn_ring(1024, 8))),
+            (64, core.neighbor_list(core.knn_ring(64, 4))),
+            (10000, core.knn_ring_neighbors(10000, 8)))
+
+
+def gather_crossover() -> dict:
+    """consensus_gather's two kernels against each other on k-NN rings at
+    n = 9,347, fp32, m from 64 to 1,024 (L2 flushed, CUPTI, each kernel
+    twice in turns): where the staged kernel starts to win sets
+    ``MIN_STAGED_ROWS`` in ``repro_torch/kernels/consensus_gather.py``.
+    Both kernels are called through the library's C entry point with
+    explicit plans (these launches are not counted). Prints one line per
+    m."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import core
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import consensus_gather as cg
+    from repro_torch.kernels.decay_accum import raise_on, stream_of
+    lib = _build.load()
+    flush, card = l2_flusher(), card_line()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    out = {}
+    for m, k in ((64, 4), (128, 8), (256, 8), (512, 8), (1024, 8)):
+        nl = core.neighbor_list(core.knn_ring(m, k))
+        idx = torch.tensor(nl.idx, device="cuda")
+        w = torch.tensor(core.neighbor_weights(nl, 0.5 / k), device="cuda")
+        g = torch.randn(m, 9347, generator=gen, device="cuda")
+        res = torch.empty_like(g)
+        sp = cg.staged_plan(m, 9347, nl.k_max, 4, sms)
+        plans = {"rows": (0, 0, 0),
+                 "staged": (sp.rows, sp.blocks, sp.ring_bytes)}
+
+        def call(p):
+            raise_on("gather_crossover", lib, lib.repro_consensus_gather(
+                g.data_ptr(), idx.data_ptr(), w.data_ptr(), res.data_ptr(),
+                m, 9347, nl.k_max, 0, *p, 0, stream_of(g.device)))
+
+        rec = {name: [] for name in plans}
+        for name in ("rows", "staged", "staged", "rows"):
+            rec[name].append(cupti_ms(lambda p=plans[name]: call(p), flush,
+                                      "consensus_gather_kernel"))
+        out[m] = rec
+        log(f"time consensus_gather crossover m={m} k_max={nl.k_max} "
+            f"(9347 columns, fp32, L2 flushed, cupti ms): row kernel "
+            f"{rec['rows']}, staged kernel {rec['staged']} "
+            f"(plan picks {cg.gather_plan(m, 9347, nl.k_max, 4, sms).kernel})"
+            f" card=\"{card}\"")
+    return out
 
 
 def consensus_step_alone(m: int = 1024, n: int = 9347) -> dict:
@@ -1699,6 +1963,67 @@ def row_mean_wkv6_alone() -> dict:
             f"flushed: kernel_ms={rec['ms']!r} (cupti {rec['cupti_ms']!r}; "
             f"L2-warm cupti {rec['warm_l2_cupti_ms']!r}) sm_clock_mhz(min, "
             f"median, max)={rec['sm_clock_mhz']} card=\"{card}\"")
+    return out
+
+
+def policy_infer_gather_alone() -> dict:
+    """Build the kernels of this checkout and time policy_infer at the
+    serving buckets in both modes and consensus_gather at the consensus
+    path's lists (``gather_timed_lists``), as phases 5 and 8 do: L2 flushed
+    by CUDA events and CUPTI, L2-warm by CUDA events (policy_infer) and
+    CUPTI, the SM clock sampled over each shape. Run from a copy of the
+    repository at another commit with this file copied into it, it times
+    that commit's kernels on the same card, in the same call as this
+    checkout's. Prints one line per shape."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import core
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import consensus_gather as cg
+    from repro_torch.kernels import policy_infer as pinf
+    _build.load()
+    cyc, flush, card = sleep_cycles_per_ms(), l2_flusher(), card_line()
+    timed = lambda f, fl=flush: device_ms(f, cyc, fl)[0]
+    out = {}
+    for mode in ("mean", "sample"):
+        for b in PI_BUCKETS:
+            pi, nm, ns, obs, noise = make_inputs(
+                OBS_DIM, HIDDEN, ACT_DIM, b, "jax_like", seed=b)
+            res = torch.empty_like(noise)
+            kern = lambda: pinf.policy_infer_cuda(
+                obs, pi, nm, ns, noise, sample=mode == "sample", out=res)
+            name = "policy_infer_kernel"
+            with SmClock() as clock:
+                rec = {"ms": (timed(kern) + timed(kern)) / 2,
+                       "cupti_ms": cupti_ms(kern, flush, name),
+                       "warm_ms": (timed(kern, None) + timed(kern, None)) / 2,
+                       "warm_l2_cupti_ms": cupti_ms(kern, None, name)}
+            rec["sm_clock_mhz"] = clock.summary()
+            out[f"policy_infer/{mode}/{b}"] = rec
+            log(f"time policy_infer alone ({ROOT}) mode={mode} bucket={b} L2 "
+                f"flushed: kernel_ms={rec['ms']!r} (cupti {rec['cupti_ms']!r})"
+                f"; L2-warm: {rec['warm_ms']!r} (cupti "
+                f"{rec['warm_l2_cupti_ms']!r}) sm_clock_mhz(min, median, max)"
+                f"={rec['sm_clock_mhz']} card=\"{card}\"")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    for m, nl in gather_timed_lists(core):
+        idx = torch.tensor(nl.idx, device="cuda")
+        w = torch.tensor(core.neighbor_weights(nl, 0.5 / nl.max_degree),
+                         device="cuda")
+        g = torch.randn(m, 9347, generator=gen, device="cuda")
+        res = torch.empty_like(g)
+        kern = lambda: cg.consensus_gather_cuda(g, idx, w, out=res)
+        name = "consensus_gather_kernel"
+        with SmClock() as clock:
+            rec = {"ms": (timed(kern) + timed(kern)) / 2,
+                   "cupti_ms": cupti_ms(kern, flush, name),
+                   "warm_l2_cupti_ms": cupti_ms(kern, None, name)}
+        rec["sm_clock_mhz"] = clock.summary()
+        out[f"consensus_gather/{m}x9347"] = rec
+        log(f"time consensus_gather alone ({ROOT}) shape=({m}, 9347) k_max="
+            f"{nl.k_max} fp32 L2 flushed: kernel_ms={rec['ms']!r} (cupti "
+            f"{rec['cupti_ms']!r}; L2-warm cupti {rec['warm_l2_cupti_ms']!r})"
+            f" sm_clock_mhz(min, median, max)={rec['sm_clock_mhz']} "
+            f"card=\"{card}\"")
     return out
 
 

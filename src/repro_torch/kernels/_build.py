@@ -49,6 +49,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_int64,                  # batch
         _I, _I, _I,                      # obs_dim, hidden, act_dim
         _I, _I, _I,                      # sample, obs_dtype, noise_dtype
+        _I,                              # device
         _P,                              # stream
     ]
     lib.repro_policy_infer.restype = _I
@@ -90,6 +91,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_consensus_gather.argtypes = [
         _P, _P, _P, _P,                  # g, idx, w, out
         _L, _L, _I, _I,                  # m, n, k_max, dtype
+        _I, _I, _I, _I,                  # rows, blocks, ring_bytes, device
         _P,                              # stream
     ]
     lib.repro_consensus_gather.restype = _I

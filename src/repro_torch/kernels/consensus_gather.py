@@ -5,9 +5,12 @@ The port of the Pallas TPU kernel ``consensus_gather_pallas``
 padded ``(m, k_max)`` neighbour list (``repro_torch.core.topology``'s
 ``NeighborList`` layout), O(m*k) instead of the dense O(m^2) mix.
 
-* :func:`consensus_gather_cuda` wraps the hand-written Hopper kernel of
-  ``csrc/consensus_gather.cu`` (one launch on the current stream, no
-  synchronisation; launches counted in :data:`launches`);
+* :func:`consensus_gather_cuda` wraps the two hand-written Hopper kernels
+  of ``csrc/consensus_gather.cu`` (one launch on the current stream, no
+  synchronisation; launches counted in :data:`launches`), the one
+  :func:`gather_plan` picks for the shape: the staged kernel (groups of
+  rows that load each source row's tile into shared memory once) from
+  MIN_STAGED_ROWS rows, the row kernel below that and past MAX_SLOTS;
 * :func:`consensus_gather_plain` is the ascending-k loop of the jnp path of
   ``repro.kernels.dispatch.consensus_gather`` (``dispatch.py:428-434``) in
   torch: ``w[:, 0] * g32[idx[:, 0]]``, then ``out + w[:, k] * g32[idx[:,
@@ -18,7 +21,8 @@ Callers go through :func:`repro_torch.kernels.dispatch.consensus_gather`.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -32,6 +36,83 @@ from repro_torch.kernels.decay_accum import (
 )
 
 launches = 0          # kernel launches made by consensus_gather_cuda
+
+# Mirrors csrc/consensus_gather.cu: the staged kernel gives each of its 512
+# threads at most one (row, k) slot of a group of rows (one row a warp),
+# stages a source
+# row's 512-byte column tile in ROW_BYTES (16 more for the row's phase),
+# holds up to MAX_STAGES tiles in a ring of at most RING_CAP bytes, and its
+# slot tables and HASH_TABLE-entry hash table take STATIC_SMEM bytes;
+# BLOCKS_PER_SM such blocks fit an SM.
+MAX_SLOTS = 186
+GROUP_ROWS = 16
+ROW_BYTES = 528
+MAX_STAGES = 8
+RING_CAP = 98304
+HASH_TABLE = 512
+STATIC_SMEM = 8 * HASH_TABLE + 4 * 2 * MAX_SLOTS + 8 * 2 * MAX_SLOTS + 4 * 16
+BLOCKS_PER_SM = 2
+ROW_KERNEL_COLS = 1024
+# The staged kernel's block loads its slots, de-duplicates them and waits
+# for its first tile before it computes, a fixed cost that its run of tiles
+# must outweigh: on the H100 it lost to the row kernel at m = 64 and 128 and
+# won from 256 (chip_smoke.gather_crossover, PERF.md).
+MIN_STAGED_ROWS = 256
+
+
+class GatherPlan(NamedTuple):
+    """What :func:`consensus_gather_cuda` launches for a shape."""
+    kernel: str           # "staged" or "rows"
+    rows: int             # output rows a block's group (0: the row kernel)
+    tile_cols: int        # columns a tile
+    blocks: int           # grid size
+    ring_bytes: int       # dynamic shared memory (the staged kernel's ring)
+    smem_bytes: int       # all shared memory a block takes
+
+
+def staged_plan(m: int, n: int, k_max: int, itemsize: int,
+                sms: int) -> GatherPlan:
+    """The staged kernel's group, grid and shared memory for a gather over
+    an ``(m, k_max)`` list (``k_max <= MAX_SLOTS``) on ``(m, n)`` elements
+    of ``itemsize`` bytes on a card of ``sms`` SMs: groups of ``R = min(16,
+    MAX_SLOTS // k_max, m)`` rows, a ring that holds ``MAX_STAGES`` stages
+    of the most source rows a group can have, ``U = min(R * k_max, m)`` (at
+    most ``RING_CAP``, one stage of U rows at least), and one wave of
+    ``BLOCKS_PER_SM * sms`` blocks: with fewer groups than that, a whole
+    number of blocks a group (a block's run of tiles then stays in one
+    group), else one run of the (group, tile) sequence a block; never more
+    blocks than tiles."""
+    rows = min(GROUP_ROWS, MAX_SLOTS // k_max, m)
+    u_max = min(rows * k_max, m)
+    ring = min(RING_CAP, MAX_STAGES * u_max * ROW_BYTES)
+    cols = (ROW_BYTES - 16) // itemsize
+    groups = -(-m // rows)
+    wave = BLOCKS_PER_SM * sms
+    blocks = wave if groups >= wave else groups * (wave // groups)
+    return GatherPlan("staged", rows, cols,
+                      min(blocks, groups * -(-n // cols)), ring,
+                      ring + STATIC_SMEM)
+
+
+def gather_plan(m: int, n: int, k_max: int, itemsize: int,
+                sms: int) -> GatherPlan:
+    """What :func:`consensus_gather_cuda` launches for a gather over an
+    ``(m, k_max)`` list on ``(m, n)`` elements of ``itemsize`` bytes on a
+    card of ``sms`` SMs. By shape alone: from ``MIN_STAGED_ROWS`` rows with
+    ``k_max <= MAX_SLOTS`` (the consensus path's lists at m = 1024 and
+    10,000), the staged kernel (:func:`staged_plan`); otherwise (m = 64 on
+    the consensus path; the full-list gather at large m) the row kernel,
+    one block per row and 1,024-column tile, 2 KB of slot tables."""
+    if m < MIN_STAGED_ROWS or k_max > MAX_SLOTS:
+        tiles = -(-n // ROW_KERNEL_COLS)
+        return GatherPlan("rows", 0, ROW_KERNEL_COLS, m * tiles, 0,
+                          2 * 4 * 256)
+    return staged_plan(m, n, k_max, itemsize, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def consensus_gather_plain(g: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
@@ -61,6 +142,10 @@ def consensus_gather_cuda(g: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     neighbour list), not on every launch. ``out`` (allocated when not given)
     must not overlap ``g``.
 
+    The kernel and its grid come from :func:`gather_plan` (by shape alone);
+    both kernels do the same roundings in the same order, so either is
+    bitwise equal to :func:`consensus_gather_plain`.
+
     The same function is one sparse-dense product, ``W @ g`` with ``W`` the
     ``(m, m)`` matrix of ``(idx, w)``: ``chip_smoke.py`` times
     ``torch.sparse.mm`` of its CSR form (cuSPARSE SpMM) as the yardstick.
@@ -89,9 +174,13 @@ def consensus_gather_cuda(g: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
         return out
     if idx.shape[1] == 0:
         raise ValueError(f"{fn}: k_max must be >= 1")
+    k_max = int(idx.shape[1])
+    plan = gather_plan(m, n, k_max, g.element_size(),
+                       _sm_count(device.index))
     lib = _build.load()
     raise_on(fn, lib, lib.repro_consensus_gather(
         g.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(), m, n,
-        int(idx.shape[1]), DTYPE_CODE[g.dtype], stream_of(device)))
+        k_max, DTYPE_CODE[g.dtype], plan.rows, plan.blocks, plan.ring_bytes,
+        device.index, stream_of(device)))
     launches += 1
     return out

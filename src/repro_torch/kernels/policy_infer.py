@@ -88,7 +88,9 @@ def policy_infer_cuda(obs: torch.Tensor, pi: Mapping[str, torch.Tensor],
     is contiguous and on one CUDA device. The actions are written to ``out``
     (``(B, act_dim)`` in ``obs.dtype``), which may be ``noise`` itself: the
     kernel reads each noise element before writing the action to the same
-    element. Without ``out`` the wrapper allocates the result.
+    element. Without ``out`` the wrapper allocates the result. Any fp32 view
+    is taken (the kernel stages a tensor's misaligned head and tail with
+    4-byte copies, its body with 16-byte ones).
 
     No single PyTorch call computes this fused function, so the kernel has no
     library yardstick; its reference is :func:`policy_infer_plain`.
@@ -138,6 +140,7 @@ def policy_infer_cuda(obs: torch.Tensor, pi: Mapping[str, torch.Tensor],
         *(pi[k].data_ptr() for k in PI_KEYS),
         B, obs_dim, hidden, act_dim, int(bool(sample)),
         _DTYPE_CODE[obs.dtype], _DTYPE_CODE[noise.dtype],
+        device.index,
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err:

@@ -219,6 +219,129 @@ def test_full_list_gather_is_the_ascending_l_chain_bitwise(m):
                                   acc.view(np.uint32))
 
 
+# --- the staged gather kernel's host plan and de-duplication -------------------------
+#
+# consensus_gather_cuda picks its kernel, row group, grid and shared memory
+# by shape alone (gather_plan, which mirrors csrc/consensus_gather.cu); the
+# staged kernel de-duplicates each group's slots on the device. Both are
+# held here on the CPU: the plan at the consensus path's shapes and at the
+# switch between the kernels, and a numpy model of the de-duplication, whose
+# gather must be the plain version bit for bit (only where an operand is read
+# from changes, never the arithmetic).
+
+H100_SMS = 132
+H100_SMEM_PER_SM = 228 * 1024     # shared memory an SM holds
+BLOCK_RESERVED_SMEM = 1024        # what the runtime keeps of it per block
+
+
+@pytest.mark.parametrize("m, n, k_max, itemsize, want", [
+    # the consensus path: knn_ring(1024, 8) (64 groups, 4 blocks a group),
+    # the 10k ring (625 groups: one wave of runs), knn_ring(64, 4) (below
+    # MIN_STAGED_ROWS: the row kernel)
+    (1024, 9347, 9, 4, ("staged", 16, 128, 256, 98304)),
+    (1024, 9347, 9, 2, ("staged", 16, 256, 256, 98304)),
+    (10000, 9347, 9, 4, ("staged", 16, 128, 264, 98304)),
+    (64, 9347, 5, 4, ("rows", 0, 1024, 640, 0)),
+    (64, 9347, 5, 2, ("rows", 0, 1024, 640, 0)),
+    # the switch in m: 16 groups of 16 rows, 16 blocks a group
+    (255, 9347, 9, 4, ("rows", 0, 1024, 2550, 0)),
+    (256, 9347, 9, 4, ("staged", 16, 128, 256, 98304)),
+    # the switch in k_max (one row a group, one stage of 186 rows fits)
+    (256, 9347, 186, 4, ("staged", 1, 128, 256, 98304)),
+    (256, 9347, 186, 2, ("staged", 1, 256, 256, 98304)),
+    (256, 9347, 187, 4, ("rows", 0, 1024, 2560, 0)),
+    # the full list at m = 1025
+    (1025, 9347, 1025, 4, ("rows", 0, 1024, 1025 * 10, 0)),
+    # a group of 256 rows only where k_max = 1: a ring of 8 stages of them
+    (300, 9347, 1, 4, ("staged", 16, 128, 19 * 13, 8 * 16 * 528)),
+])
+def test_gather_plan_picks_the_kernel_and_its_shared_memory(m, n, k_max,
+                                                            itemsize, want):
+    plan = tcg.gather_plan(m, n, k_max, itemsize, H100_SMS)
+    assert (plan.kernel, plan.rows, plan.tile_cols, plan.blocks,
+            plan.ring_bytes) == want
+    if plan.kernel == "rows":
+        assert m < tcg.MIN_STAGED_ROWS or k_max > tcg.MAX_SLOTS
+        assert plan.smem_bytes == 2048
+        return
+    assert plan.rows * k_max <= tcg.MAX_SLOTS and plan.tile_cols * itemsize == 512
+    u_max = min(plan.rows * k_max, m)          # source rows a group can need
+    assert u_max * tcg.ROW_BYTES <= plan.ring_bytes <= tcg.RING_CAP
+    assert plan.smem_bytes == plan.ring_bytes + tcg.STATIC_SMEM
+    # BLOCKS_PER_SM blocks of the largest ring fit an SM of the card
+    assert tcg.BLOCKS_PER_SM * (tcg.RING_CAP + tcg.STATIC_SMEM
+                                + BLOCK_RESERVED_SMEM) <= H100_SMEM_PER_SM
+    assert plan.blocks <= tcg.BLOCKS_PER_SM * H100_SMS
+
+
+def _dedup(slots: np.ndarray):
+    """The staged kernel's de-duplication of a group's slots: each slot
+    finds its first occurrence, a prefix sum numbers the first occurrences,
+    and every slot maps to its first occurrence's number. Returns the unique
+    source rows (in the order they first appear) and each slot's place."""
+    first = np.array([int(np.flatnonzero(slots[:s + 1] == v)[0])
+                      for s, v in enumerate(slots)])
+    is_first = first == np.arange(slots.size)
+    pos = np.cumsum(is_first) - 1
+    return slots[is_first], pos[first]
+
+
+def _staged_gather_model(g32: np.ndarray, idx: np.ndarray, w: np.ndarray,
+                         rows: int) -> np.ndarray:
+    """The plain gather read through ``_dedup``: each group of ``rows``
+    output rows stages its unique source rows once and reads every slot's
+    operand from there, in the plain version's fp32 chain."""
+    m, k_max = idx.shape
+    out = np.empty_like(g32)
+    for i0 in range(0, m, rows):
+        grp = idx[i0:i0 + rows]
+        unique, place = _dedup(grp.ravel())
+        staged = g32[unique]
+        place = place.reshape(grp.shape)
+        acc = np.full((grp.shape[0], g32.shape[1]), -0.0, np.float32)
+        for k in range(k_max):
+            acc = acc + w[i0:i0 + rows, k:k + 1] * staged[place[:, k]]
+        out[i0:i0 + rows] = acc
+    return out
+
+
+def _gather_lists():
+    """(neighbour list idx, weights) the staged kernel is held at on the
+    card: a k-NN ring, a random list, a padded one, the full list."""
+    ring = T.neighbor_list(T.knn_ring(64, 4))
+    rand = T.neighbor_list(T.random_regularish(40, 3, 5, 2))
+    pad = T.neighbor_list(T.random_regularish(40, 3, 5, 2),
+                          k_max=rand.k_max + 3)
+    full = np.tile(np.arange(33, dtype=np.int32), (33, 1))
+    p = np.random.default_rng(33).uniform(0, 2 / 33, (33, 33))
+    return {"knn_ring(64,4)": (ring.idx, T.neighbor_weights(ring, 0.1)),
+            "rand3-5(40)": (rand.idx, T.neighbor_weights(rand, 0.08)),
+            "rand3-5(40) padded": (pad.idx, T.neighbor_weights(pad, 0.08)),
+            "full(33)": (full, p.astype(np.float32))}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", list(_gather_lists()))
+def test_staged_gather_model_is_the_plain_gather_bitwise(case, dtype):
+    idx, w = _gather_lists()[case]
+    m, k_max = idx.shape
+    tdt = DTYPES[dtype][1]
+    rows = tcg.staged_plan(m, 37, k_max, tdt.itemsize, H100_SMS).rows
+    g = torch.tensor(_arr((m, 37), m)).to(tdt)
+    want = tcg.consensus_gather_plain(g, torch.tensor(idx), torch.tensor(w))
+    got = _staged_gather_model(g.float().numpy(), idx, w, rows)
+    assert torch.equal(torch.tensor(got).to(tdt), want)
+    # each group stages every source row once: a k-NN ring's interior group
+    # needs rows + k_max - 1 of them, the full list m
+    unique, place = _dedup(idx[rows:2 * rows].ravel())
+    assert np.array_equal(unique[place], idx[rows:2 * rows].ravel())
+    assert len(set(unique.tolist())) == unique.size
+    if case == "knn_ring(64,4)":
+        assert unique.size == rows + k_max - 1
+    if case == "full(33)":
+        assert unique.size == m
+
+
 # --- tables, the power cache, auto-selection ---------------------------------------
 
 @pytest.mark.parametrize("form", ["dense", "unfused", "sparse"])

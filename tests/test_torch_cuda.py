@@ -99,6 +99,59 @@ def test_policy_infer_kernel_refuses_what_it_does_not_take(card):
         pinf.policy_infer_cuda(big[3], big[0], big[1], big[2], big[4])
 
 
+def _at_offset_all(tensors, offset):
+    return {k: _at_offset(v, offset) for k, v in tensors.items()}
+
+
+# Every serving bucket and one row either side: one row a warp, 8 a block.
+@pytest.mark.parametrize("sample", [False, True])
+@pytest.mark.parametrize("batch", [7, 8, 9, 63, 64, 65, 255, 256, 257, 1023,
+                                   1024, 1025])
+def test_policy_infer_kernel_at_the_bucket_edges(card, batch, sample):
+    pi, nm, ns, obs, noise = _case((6, 64, 1), batch, batch, card)
+    want = pinf.policy_infer_plain(obs, pi, nm, ns, noise, sample=sample)
+    got = pinf.policy_infer_cuda(obs, pi, nm, ns, noise, sample=sample)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-6, rtol=0)
+
+
+# The kernel stages each tensor at its own phase (4-byte copies for a
+# misaligned head and tail, 16-byte ones for the body), which changes no
+# arithmetic: views at element offsets 1-3 give the aligned run's bits.
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("dims", [(6, 64, 1), (128, 128, 32), (5, 33, 2)])
+def test_policy_infer_kernel_takes_unaligned_views_bitwise(card, dims, offset):
+    pi, nm, ns, obs, noise = _case(dims, 65, offset, card)
+    want = pinf.policy_infer_cuda(obs, pi, nm, ns, noise, sample=True)
+    got = pinf.policy_infer_cuda(
+        _at_offset(obs, offset), _at_offset_all(pi, offset),
+        _at_offset(nm, offset), _at_offset(ns, offset),
+        _at_offset(noise, offset), sample=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    torch.testing.assert_close(
+        got, pinf.policy_infer_plain(obs, pi, nm, ns, noise, sample=True),
+        atol=2e-6, rtol=0)
+
+
+# At the kernel's limits, bf16 actions written into the bf16 noise buffer:
+# within one bf16 rounding (2^-7 relative) of the plain version.
+@pytest.mark.parametrize("sample", [False, True])
+@pytest.mark.parametrize("batch", [1, 64, 1024])
+def test_policy_infer_kernel_at_its_limits_in_place_bf16(card, batch, sample):
+    dims = (pinf.MAX_OBS_DIM, pinf.MAX_HIDDEN, pinf.MAX_ACT_DIM)
+    pi, nm, ns, obs, noise = _case(dims, batch, 7, card)
+    obs, noise = obs.bfloat16(), noise.bfloat16()
+    want = pinf.policy_infer_plain(obs, pi, nm, ns, noise, sample=sample)
+    got = pinf.policy_infer_cuda(obs, pi, nm, ns, noise, sample=sample,
+                                 out=noise)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == noise.data_ptr() and got.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 2e-6 + 2.0 ** -7 * want.float().abs()).all()), \
+        err.max().item()
+
+
 @pytest.mark.parametrize("mode", ["mean", "sample"])
 def test_engine_on_the_card_matches_the_cpu_engine(card, mode):
     params = init_policy(6, 64, 1, generator=torch.Generator().manual_seed(0),
@@ -400,6 +453,69 @@ def test_consensus_gather_kernel_matches_plain_bitwise(card, case, dtype):
     torch.cuda.synchronize()
     assert cg.launches == before + 1 and got.data_ptr() == out.data_ptr()
     assert torch.equal(got, want)
+
+
+def _gather_edge_list(case):
+    """(idx, w) on the CPU: the staged kernel's row groups (m = 1000 and
+    257, not multiples of 16; every list's ring wraps at agents 0 and m - 1),
+    rows that share almost no neighbour, a padded list, m either side of
+    the switch between the staged and the row kernel (MIN_STAGED_ROWS), and
+    k_max either side of the other (MAX_SLOTS), rows of MAX_SLOTS sources
+    each (the staged kernel's one-stage ring); small lists take the row
+    kernel."""
+    k_sw = cg.MAX_SLOTS
+    if case == "wide":       # 186 sources a row: a one-stage ring
+        m = cg.MIN_STAGED_ROWS
+        gen = torch.Generator().manual_seed(m)
+        idx = (torch.arange(m)[:, None] + torch.arange(k_sw)[None, :]) % m
+        return idx.to(torch.int32), torch.rand(m, k_sw, generator=gen) / k_sw
+    if case.startswith("full"):
+        k = k_sw + (case == "full past k switch")
+        gen = torch.Generator().manual_seed(k)
+        return (torch.arange(k, dtype=torch.int32).repeat(k, 1),
+                torch.rand(k, k, generator=gen) / k)
+    m_sw = cg.MIN_STAGED_ROWS
+    nl = {"knn_ring(1000,8)": lambda: neighbor_list(knn_ring(1000, 8)),
+          "knn_ring(257,4)": lambda: neighbor_list(knn_ring(257, 4)),
+          "knn_ring(m switch - 1,4)": lambda: neighbor_list(knn_ring(m_sw - 1, 4)),
+          "knn_ring(m switch,8)": lambda: neighbor_list(knn_ring(m_sw, 8)),
+          "knn_ring(12,8)": lambda: neighbor_list(knn_ring(12, 8)),
+          "rand3-5(256)": lambda: neighbor_list(random_regularish(256, 3, 5, 1)),
+          "padded rand(300)": lambda: neighbor_list(
+              random_regularish(300, 3, 5, 3), k_max=16),
+          "knn padded to k switch": lambda: neighbor_list(knn_ring(m_sw, 4),
+                                                          k_max=k_sw),
+          "knn padded past k switch": lambda: neighbor_list(knn_ring(m_sw, 4),
+                                                            k_max=k_sw + 1),
+          }[case]()
+    return (torch.tensor(nl.idx),
+            torch.tensor(neighbor_weights(nl, 0.5 / nl.max_degree)))
+
+
+# Bitwise against the plain version with n in every residue mod 8 and g at
+# every element offset of a 16-byte vector, the output at another offset.
+@pytest.mark.parametrize("dtype", _DTYPES, ids=str)
+@pytest.mark.parametrize("case", [
+    "knn_ring(1000,8)", "knn_ring(257,4)", "knn_ring(m switch - 1,4)",
+    "knn_ring(m switch,8)", "knn_ring(12,8)", "rand3-5(256)",
+    "padded rand(300)", "knn padded to k switch", "knn padded past k switch",
+    "full at k switch", "full past k switch", "wide"])
+def test_consensus_gather_kernel_at_its_edges_bitwise(card, case, dtype):
+    idx, w = _gather_edge_list(case)
+    idx, w = idx.to(card), w.to(card)
+    m, k_max = idx.shape
+    kernel = cg.gather_plan(m, 136, k_max, dtype.itemsize, 132).kernel
+    staged = m >= cg.MIN_STAGED_ROWS and k_max <= cg.MAX_SLOTS
+    assert kernel == ("staged" if staged else "rows")
+    for r in range(8):
+        g0 = _buf((m, 129 + r), dtype, 20 + r, card)
+        want = cg.consensus_gather_plain(g0, idx, w)
+        out = _at_offset(torch.full_like(g0, float("nan")), (r + 3) % 8)
+        before = cg.launches
+        got = cg.consensus_gather_cuda(_at_offset(g0, r), idx, w, out=out)
+        torch.cuda.synchronize()
+        assert cg.launches == before + 1 and got.data_ptr() == out.data_ptr()
+        assert torch.equal(got, want), (r, (got.float() - want.float()).abs().max())
 
 
 @pytest.mark.parametrize("dtype", _DTYPES, ids=str)
