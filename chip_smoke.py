@@ -145,7 +145,23 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    CUPTI with the backend it picks, and each of flash, efficient and cuDNN
    that accepts the call); one profiled 1 x 8192 prefill (device idle share,
    the kernel's and the matmuls' device time) and one profiled window of 16
-   decode steps at B = 8 (idle share, matmul share, top device ops).
+   decode steps at B = 8 (idle share, matmul share, top device ops);
+15. sweep — the batched forms of the seven flat and gossip kernels
+   (``sweep_kernels_vs_loop``): every ``(S, m, n)`` call one launch, bitwise
+   equal to S unbatched launches on the runs' slices and to the plain
+   version where phases 6 / 6b pin it (else within their tolerances), at
+   (S, m, n) in {(12, 7, 9347), (16, 64, 9347), (4, 1024, 9347)}, fp32 /
+   bf16 / fp16, scalar / shared / per-run / per-row coefficients, shared /
+   per-run learning rates, mixing matrices and edge weights, and the S == m
+   refusals; then ``repro_torch.sweep.run_sweep(device="cuda")`` on Fig. 5's
+   lambda grid (3 x 4 seeds), Fig. 6's eps grid (3 x 4, dense and sparse),
+   Fig. 4's taus grid (4 x 4), an eta x momentum / Adam grid and a top-k
+   uplink point, m = 7, T 150, P 25, 2 epochs: each against
+   ``run_sweep_loop`` (bitwise or within rtol / atol 1e-4, stated), its
+   first 4 runs against the CPU on the same draws (1e-4), launches S times
+   fewer than the loop's, runs/s of both forms; and each batched kernel's
+   time (events and CUPTI, L2 flushed) against its loop of S launches,
+   beside the bound of the S runs' work.
 
 Its last lines are the kernel summary JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -262,6 +278,10 @@ CUPTI_WINDOWS = 8     # profiler windows tried before a lost trace fails
 # eta), 3 epochs = 18 local updates so that the decay strategy's tau = 15
 # period closes once.
 TRAIN_T, TRAIN_P, TRAIN_ETA, TRAIN_EPOCHS = 150, 25, 5e-3, 3
+# Phases 7 and 7b run their tau = 10 configurations (periodic, consensus,
+# the top-k ones) for 2 epochs (12 updates, one sync): phase 15 took the
+# time they give back, so that the whole script stays in its 642 s.
+CUT_EPOCHS = 2
 TRAIN_FLEETS = (64, 1024, 10000)
 # Card vs CPU on the same draws: per-epoch metrics within rtol 1e-4 (the
 # figure tests/test_flat_loop.py allows between the JAX package's own
@@ -1399,6 +1419,8 @@ def training_plan() -> list:
     for kind in ("periodic", "decay"):
         for opt in ("sgd", "momentum", "adam"):
             base = dict(kind=kind, opt=opt)
+            if kind == "periodic":      # tau = 10: 2 epochs hold a sync
+                base["n_epochs"] = CUT_EPOCHS
             plan.append((f"m=7 shared env {kind} {opt}", True,
                          dict(base, m=7)))
             plan.append((f"m=64 B=1 {kind} {opt}", True,
@@ -1440,19 +1462,22 @@ def consensus_plan() -> list:
                      m == 64, dict(kind="consensus", opt="adam", m=m, B=1,
                                    topo=("knn_ring", m, k), eps=0.5 / 8,
                                    sparse=False)))
+    for _, _, kw in plan:               # tau = 10: 2 epochs hold a sync
+        kw["n_epochs"] = CUT_EPOCHS
     plan += [
         ("m=7 periodic topk584 momentum", True,
-         dict(kind="periodic", opt="momentum", m=7, payload=("topk", 584))),
+         dict(kind="periodic", opt="momentum", m=7, payload=("topk", 584),
+              n_epochs=CUT_EPOCHS)),
         ("m=7 decay(tau=15) int8 adam", True,
          dict(kind="decay", opt="adam", m=7, lam=0.98, payload=("qint8",))),
         ("m=7 consensus topk584-gossip sgd", True,
          dict(kind="consensus", opt="sgd", m=7,
               topo=("random_regularish", 7, 3, 4, 0), eps="0.9/D",
-              payload=("topk", 584))),
+              payload=("topk", 584), n_epochs=CUT_EPOCHS)),
         ("m=64 B=1 consensus knn4 sparse topk584-gossip E=2 adam", True,
          dict(kind="consensus", opt="adam", m=64, B=1,
               topo=("knn_ring", 64, 4), eps=0.5 / 8, rounds=2,
-              payload=("topk", 584))),
+              payload=("topk", 584), n_epochs=CUT_EPOCHS)),
     ]
     return plan
 
@@ -2071,6 +2096,644 @@ def profile_training(rl, core, optim, card) -> dict:
                     for k, v in sorted(phases.items()))
         + f" card=\"{card}\"")
     return out
+
+
+# --- phase 15: the sweep path (slice 10) -------------------------------------------
+
+# The batched forms of the flat and gossip kernels: every (S, m, n) call is one
+# launch, held bitwise against S unbatched launches on the runs' slices (and
+# against the plain version: bitwise where phase 6 / 6b pin it, else their
+# tolerances), at the sweep shapes of the figure grids (S = 12 runs of the
+# paper's m = 7) and at the training path's fleets.
+SWEEP_KERNEL_SHAPES = ((12, 7, 9347), (16, 64, 9347), (4, 1024, 9347))
+SWEEP_TOPK = 584
+
+
+def _bitwise(name, got, want, case):
+    if got.dtype != want.dtype or got.shape != want.shape or \
+            not torch.equal(got, want):
+        err = (got.float() - want.float()).abs().max().item() \
+            if got.shape == want.shape else float("nan")
+        raise AssertionError(f"{name}: {case}: batched {got.dtype}"
+                             f"{tuple(got.shape)} is not bitwise the loop's "
+                             f"{want.dtype}{tuple(want.shape)} (max err "
+                             f"{err:.3e})")
+
+
+def _one_launch(km, name, fn):
+    """Call ``fn`` and require exactly one launch of kernel ``name``."""
+    before = _kernel_counts(km)[name]
+    out = fn()
+    got = _kernel_counts(km)[name] - before
+    if got != 1:
+        raise AssertionError(f"{name}: a batched call made {got} launches")
+    return out
+
+
+def _run_coefs(gen, S, m):
+    """The coefficient forms of an (S, m, n) call, each with the run's own
+    coefficient for the loop: a scalar, a shared (m,), a per-run (S,) and a
+    per-row (S, m)."""
+    shared = torch.rand(m, generator=gen, device="cuda")
+    runs = torch.rand(S, generator=gen, device="cuda")
+    rows = torch.rand(S, m, generator=gen, device="cuda")
+    return [("scalar", 0.37, lambda s: 0.37),
+            ("shared", shared, lambda s: shared),
+            ("per_run", runs, lambda s: runs[s].reshape(())),
+            ("per_row", rows, lambda s: rows[s])]
+
+
+def sweep_kernels_vs_loop(km, core, comm, dispatch) -> dict:
+    """Each batched kernel against S unbatched launches and its plain
+    version, over the coefficient forms and dtypes the dispatch takes; the
+    S == m refusals."""
+    fu, dacc, tks = km.fu, km.dacc, km.tks
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 150)
+    counts = {k: 0 for k in TRAIN_KERNELS}
+    worst = {k: 0.0 for k in TRAIN_KERNELS}
+    bc1, bc2 = dispatch.adam_bias_corrections(2, 0.9, 0.95)
+
+    def vs_plain(name, got, want, case, tol=None):
+        err = (got.float() - want.float()).abs()
+        bad = (not torch.equal(got, want)) if tol is None else \
+            bool((err > tol).any())
+        if bad or not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"{name} batched vs plain: {case}: max err "
+                                 f"{err.max().item():.3e}")
+        worst[name] = max(worst[name], err.max().item())
+
+    for S, m, n in SWEEP_KERNEL_SHAPES:
+        for dt in ALL_DTYPES:
+            case = f"(S, m, n)=({S}, {m}, {n}) {dt}"
+            rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                             device="cuda").to(dt)
+            p, g = rnd(S, m, n), rnd(S, m, n)
+            # row_mean: one launch, the run in the grid
+            got = _one_launch(km, "row_mean", lambda: dispatch.row_mean(g))
+            loop = torch.stack([fu.row_mean_cuda(g[s]) for s in range(S)])
+            _bitwise("row_mean", got, loop, case)
+            plain = fu.row_mean_plain(g)
+            vs_plain("row_mean", got, plain, case,
+                     ROW_MEAN_REL * g.float().abs().mean(1)
+                     + torch.finfo(dt).eps * plain.float().abs())
+            counts["row_mean"] += 1
+            # decay_accum and scale_rows: the runs folded into S * m rows
+            for form, d, d_s in _run_coefs(gen, S, m):
+                got = _one_launch(km, "decay_accum",
+                                  lambda: dispatch.decay_accum(p, g, d))
+                loop = torch.stack([dispatch.decay_accum(p[s], g[s], d_s(s))
+                                    for s in range(S)])
+                _bitwise("decay_accum", got, loop, f"{case} d {form}")
+                d_rows = dispatch._per_row("decay_accum", "d", d, S, m,
+                                           per_run_1d=True)
+                vs_plain("decay_accum", got,
+                         dacc.decay_accum_plain(p, g, d_rows), f"{case} {form}")
+                counts["decay_accum"] += 1
+            for form, w, w_s in _run_coefs(gen, S, m)[1:4:2]:
+                got = _one_launch(km, "decay_accum",
+                                  lambda: dispatch.scale_rows(g, w))
+                loop = torch.stack([dispatch.scale_rows(g[s], w_s(s))
+                                    for s in range(S)])
+                _bitwise("scale_rows", got, loop, f"{case} w {form}")
+            # momentum and Adam: a weight per row, a learning rate per run
+            mu = (0.1 * torch.randn(S, m, n, generator=gen, device="cuda"))
+            nu = mu.abs()
+            lrs = 5e-3 * (1.0 + torch.rand(S, generator=gen, device="cuda"))
+            for form, w, w_s in _run_coefs(gen, S, m):
+                for lr, lr_s, lr_form in ((5e-3, lambda s: 5e-3, "shared"),
+                                          (lrs, lambda s: float(lrs[s]),
+                                           "per_run")):
+                    st = {"mu": mu.clone()}
+                    got_p, got_s = _one_launch(
+                        km, "momentum_update", lambda: dispatch.flat_opt_update(
+                            p, g, w, st, kind="momentum", lr=lr,
+                            nesterov=True))
+                    for s in range(S):
+                        lp, ls = dispatch.flat_opt_update(
+                            p[s], g[s], w_s(s), {"mu": mu[s].clone()},
+                            kind="momentum", lr=lr_s(s), nesterov=True)
+                        _bitwise("momentum_update", got_p[s], lp,
+                                 f"{case} w {form} lr {lr_form} run {s}")
+                        _bitwise("momentum_update", got_s["mu"][s], ls["mu"],
+                                 f"{case} w {form} lr {lr_form} run {s} mu")
+                    w_rows = dispatch._per_row("w", "w", w, S, m,
+                                               per_run_1d=True)
+                    pp, pm = fu.momentum_update_plain(p, g, mu, w_rows, lr,
+                                                      0.9, nesterov=True)
+                    vs_plain("momentum_update", got_p, pp, f"{case} {form}")
+                    vs_plain("momentum_update", got_s["mu"], pm,
+                             f"{case} {form} mu")
+                    counts["momentum_update"] += 1
+                    st = {"mu": mu.clone(), "nu": nu.clone(), "t": 1}
+                    got_p, got_s = _one_launch(
+                        km, "adam_update", lambda: dispatch.flat_opt_update(
+                            p, g, w, st, kind="adam", lr=lr,
+                            weight_decay=0.01))
+                    for s in range(S):
+                        lp, ls = dispatch.flat_opt_update(
+                            p[s], g[s], w_s(s), {"mu": mu[s].clone(),
+                                                 "nu": nu[s].clone(), "t": 1},
+                            kind="adam", lr=lr_s(s), weight_decay=0.01)
+                        _bitwise("adam_update", got_p[s], lp,
+                                 f"{case} w {form} lr {lr_form} run {s}")
+                        _bitwise("adam_update", got_s["nu"][s], ls["nu"],
+                                 f"{case} w {form} lr {lr_form} run {s} nu")
+                    pp, _, _ = fu.adam_update_plain(
+                        p, g, mu, nu, w_rows, lr, bc1, bc2, weight_decay=0.01)
+                    vs_plain("adam_update", got_p, pp, f"{case} {form}")
+                    counts["adam_update"] += 1
+            # dense gossip: a shared and a per-run mixing matrix
+            topo = core.random_regularish(m, 3, 4, seed=0) if m <= 64 else \
+                core.knn_ring(m, 8)
+            P = torch.tensor(core.mixing_matrix(topo, 0.9 / topo.max_degree),
+                             dtype=torch.float32, device="cuda")
+            Ps = P[None] * (0.5 + torch.rand(S, 1, 1, generator=gen,
+                                             device="cuda"))
+            for form, mix, mix_s in (("shared", P, lambda s: P),
+                                     ("per_run", Ps, lambda s: Ps[s])):
+                got = _one_launch(km, "consensus_step",
+                                  lambda: dispatch.consensus_mix(g, mix))
+                loop = torch.stack([dispatch.consensus_mix(g[s], mix_s(s))
+                                    for s in range(S)])
+                _bitwise("consensus_step", got, loop, f"{case} P {form}")
+                plain = km.cs.consensus_step_plain(g, mix)
+                vs_plain("consensus_step", got, plain, f"{case} {form}",
+                         4 * m * torch.finfo(dt).eps
+                         * torch.einsum("sij,sjn->sin",
+                                        mix.abs().expand(S, m, m),
+                                        g.float().abs())
+                         + torch.finfo(dt).eps * plain.float().abs())
+                counts["consensus_step"] += 1
+            # sparse gossip: the runs folded, ids into their own run
+            nl = core.neighbor_list(topo)
+            w0 = torch.tensor(core.neighbor_weights(nl, 0.9 / topo.max_degree),
+                              dtype=torch.float32, device="cuda")
+            ws = w0[None] * (0.5 + torch.rand(S, 1, 1, generator=gen,
+                                              device="cuda"))
+            for form, wt, wt_s in (("shared", w0, lambda s: w0),
+                                   ("per_run", ws, lambda s: ws[s])):
+                got = _one_launch(km, "consensus_gather",
+                                  lambda: dispatch.consensus_gather(
+                                      g, nl.idx, wt))
+                loop = torch.stack([dispatch.consensus_gather(
+                    g[s], nl.idx, wt_s(s)) for s in range(S)])
+                _bitwise("consensus_gather", got, loop, f"{case} w {form}")
+                idx = torch.tensor(nl.idx, device="cuda")
+                plain = torch.stack([km.cg.consensus_gather_plain(
+                    g[s], idx, wt_s(s)) for s in range(S)])
+                vs_plain("consensus_gather", got, plain, f"{case} {form}")
+                counts["consensus_gather"] += 1
+            # top-k: per-run sums, the residual
+            x = g.float() if dt == torch.float32 else g
+            th = comm.topk_threshold(x.float(), SWEEP_TOPK)
+            got = _one_launch(km, "topk_scatter",
+                              lambda: dispatch.topk_scatter(x, th))
+            for s in range(S):
+                ls, lr_ = tks.topk_scatter_cuda(x[s], th[s].contiguous())
+                _bitwise("topk_scatter", got[0][s], ls, f"{case} run {s} sum")
+                _bitwise("topk_scatter", got[1][s], lr_,
+                         f"{case} run {s} residual")
+            ps, pr = tks.topk_scatter_plain(x, th)
+            vs_plain("topk_scatter", got[1], pr, f"{case} residual")
+            sent = (x.float() - got[1].float()).abs().sum(1)
+            vs_plain("topk_scatter", got[0], ps, f"{case} sum",
+                     m * 2.0 ** -24 * sent + torch.finfo(dt).eps
+                     * ps.float().abs())
+            counts["topk_scatter"] += 1
+    # S == m: a 1-D coefficient has two readings; the dispatch refuses it
+    sq = torch.zeros(7, 7, 16, device="cuda")
+    refused = 0
+    for fn in (lambda: dispatch.decay_accum(sq, sq, torch.ones(7,
+                                                               device="cuda")),
+               lambda: dispatch.scale_rows(sq, torch.ones(7, device="cuda")),
+               lambda: dispatch.flat_opt_update(
+                   sq, sq, torch.ones(7, device="cuda"), {}, kind="sgd",
+                   lr=0.1)):
+        try:
+            fn()
+        except ValueError as e:
+            if "ambiguous" not in str(e):
+                raise
+            refused += 1
+    if refused != 3:
+        raise AssertionError(f"S == m: {refused} of 3 calls refused")
+    torch.cuda.synchronize()
+    log(f"phase sweep kernels: {sum(counts.values())} batched calls, one "
+        f"launch each, bitwise equal to S unbatched launches ({counts}) at "
+        f"(S, m, n) {SWEEP_KERNEL_SHAPES} in {[str(d) for d in ALL_DTYPES]}, "
+        f"coefficients scalar / shared / per run / per row, lr shared / per "
+        f"run; max |batched - plain| {worst} (bitwise where phase 6 / 6b pin "
+        f"it); S == m refused {refused} of 3")
+    return {"checks": counts, "max_abs_err": worst, "s_eq_m_refused": refused}
+
+
+def sweep_bound(name, S, m, n, k=None) -> tuple:
+    """The bound of one batched call: S runs' bytes and FLOP (fp32)."""
+    if name in ("consensus_step", "consensus_gather", "topk_scatter"):
+        b = gossip_bound(name, m, n, k)
+    else:
+        b = flat_bound(name, m, n)
+    nbytes, flops = S * b[2], S * b[3]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def sweep_kernel_times(km, core, comm, card) -> dict:
+    """Each batched kernel's device time at SWEEP_KERNEL_SHAPES in fp32 (L2
+    flushed before every call; CUDA events and CUPTI) against the loop of S
+    unbatched launches of the same kernel on the runs' slices, beside the
+    bound of the S runs' work."""
+    fu, dacc, tks = km.fu, km.dacc, km.tks
+    cyc = sleep_cycles_per_ms()
+    flush = l2_flusher()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 151)
+    rows = {}
+    for S, m, n in SWEEP_KERNEL_SHAPES:
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+        p, g, mu = rnd(S, m, n), rnd(S, m, n), 0.1 * rnd(S, m, n)
+        nu = mu.abs()
+        w = torch.rand(S, m, generator=gen, device="cuda")
+        d = -TRAIN_ETA * w
+        lrs = torch.full((S,), TRAIN_ETA, device="cuda")
+        po, mo, vo = (torch.empty_like(t) for t in (p, mu, nu))
+        row = torch.empty(S, n, device="cuda")
+        topo = core.random_regularish(m, 3, 4, seed=0) if m <= 64 else \
+            core.knn_ring(m, 8)
+        P = torch.tensor(core.mixing_matrix(topo, 0.9 / topo.max_degree),
+                         dtype=torch.float32, device="cuda")
+        Ps = P[None].expand(S, m, m).contiguous()
+        nl = core.neighbor_list(topo)
+        idx = torch.tensor(nl.idx, dtype=torch.int64, device="cuda")
+        idx_f = (idx[None] + m * torch.arange(S, device="cuda")[:, None, None]
+                 ).reshape(S * m, -1).to(torch.int32).contiguous()
+        idx32 = idx.to(torch.int32).contiguous()
+        wg = torch.tensor(core.neighbor_weights(nl, 0.9 / topo.max_degree),
+                          dtype=torch.float32, device="cuda")
+        wg_f = wg[None].expand(S, m, -1).reshape(S * m, -1).contiguous()
+        th = comm.topk_threshold(g, SWEEP_TOPK)
+        akw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0)
+        gf, pof = g.view(S * m, n), po.view(S * m, n)
+        fns = {
+            "decay_accum": (
+                lambda: dacc.decay_accum_cuda(p, g, d, out=po),
+                lambda: [dacc.decay_accum_cuda(p[s], g[s], d[s], out=po[s])
+                         for s in range(S)]),
+            "row_mean": (
+                lambda: fu.row_mean_cuda(g, out=row),
+                lambda: [fu.row_mean_cuda(g[s], out=row[s])
+                         for s in range(S)]),
+            "momentum_update": (
+                lambda: fu.momentum_update_cuda(p, g, mu, w, lrs, 0.9,
+                                                p_out=po, mu_out=mo),
+                lambda: [fu.momentum_update_cuda(
+                    p[s], g[s], mu[s], w[s], TRAIN_ETA, 0.9, p_out=po[s],
+                    mu_out=mo[s]) for s in range(S)]),
+            "adam_update": (
+                lambda: fu.adam_update_cuda(p, g, mu, nu, w, lrs, 0.9, 0.95,
+                                            p_out=po, mu_out=mo, nu_out=vo,
+                                            **akw),
+                lambda: [fu.adam_update_cuda(
+                    p[s], g[s], mu[s], nu[s], w[s], TRAIN_ETA, 0.9, 0.95,
+                    p_out=po[s], mu_out=mo[s], nu_out=vo[s], **akw)
+                    for s in range(S)]),
+            "consensus_step": (
+                lambda: km.cs.consensus_step_cuda(g, Ps, out=po),
+                lambda: [km.cs.consensus_step_cuda(g[s], P, out=po[s])
+                         for s in range(S)]),
+            "consensus_gather": (
+                lambda: km.cg.consensus_gather_cuda(gf, idx_f, wg_f, out=pof),
+                lambda: [km.cg.consensus_gather_cuda(g[s], idx32, wg,
+                                                     out=po[s])
+                         for s in range(S)]),
+            "topk_scatter": (
+                lambda: tks.topk_scatter_cuda(g, th),
+                lambda: [tks.topk_scatter_cuda(g[s], th[s]) for s in
+                         range(S)]),
+        }
+        for name, (batched, loop) in fns.items():
+            k = nl.k_max if name == "consensus_gather" else None
+            b_ms, b_by, nbytes, flops = sweep_bound(name, S, m, n, k)
+            kern = f"{name}_kernel"
+            with SmClock() as clock:
+                rec = {"shape": [S, m, n], "dtype": "float32",
+                       "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                       "flops": flops,
+                       "ms": device_ms(batched, cyc, flush, 50)[0],
+                       "loop_ms": device_ms(loop, cyc, flush, 50)[0],
+                       "cupti_ms": cupti_ms(batched, flush, kern),
+                       "loop_cupti_ms": cupti_ms(loop, flush, None)}
+            rec["sm_clock_mhz"] = clock.summary()
+            rows[f"{name}/{S}x{m}x{n}"] = rec
+            log(f"time {name} batched (S, m, n)=({S}, {m}, {n}) fp32 L2 "
+                f"flushed: one launch {rec['ms']!r} ms (cupti "
+                f"{rec['cupti_ms']!r}), loop of {S} launches "
+                f"{rec['loop_ms']!r} ms (cupti {rec['loop_cupti_ms']!r}); "
+                f"bound_ms={b_ms!r} ({b_by}) sm_clock_mhz="
+                f"{rec['sm_clock_mhz']} card=\"{card}\"")
+        del p, g, mu, nu, po, mo, vo
+        torch.cuda.empty_cache()
+    return rows
+
+
+# The figure sweeps through repro_torch.sweep.run_sweep on the card, each at
+# m = 7 and the Table II run geometry (T 150, P 25, eta 5e-3) for
+# SWEEP_EPOCHS epochs, seeds 0-3: Fig. 5's lambda grid, Fig. 6's eps grid on
+# the sparse E=1 topology (dense path, and the sparse path forced), Fig. 4's
+# taus grid at tau = 15, a short eta x momentum / Adam grid (a static axis of
+# the two optimizers) and a top-k uplink static point (a compression_axis).
+SWEEP_EPOCHS = 2
+SWEEP_SEEDS = (0, 1, 2, 3)
+SWEEP_CPU_RUNS = 4           # runs of each sweep held against the CPU
+
+
+def sweep_specs(rl, core, optim, comm, sweep) -> list:
+    """``(label, spec)`` of phase 15's sweeps."""
+    import dataclasses as dc
+
+    m = 7
+    def cfg(strat, **kw):
+        return rl.FedRLConfig(env=rl.FIGURE_EIGHT, strategy=strat,
+                              eta=TRAIN_ETA, n_epochs=SWEEP_EPOCHS,
+                              epoch_len=TRAIN_T, minibatch=TRAIN_P, **kw)
+
+    taus15 = core.uniform_taus(1, 15, m, seed=0)
+    sp = core.random_regularish(m, 3, 4, seed=0)
+    eps = tuple(f / sp.max_degree for f in (0.3, 0.6, 0.9))
+    scheds = ((15.0,) * m,) + tuple(
+        tuple(map(float, core.uniform_taus(lo, 15, m, seed=0)))
+        for lo in (10, 5, 1))
+    opt_axis = sweep.StaticAxis("optimizer", tuple(
+        (name, lambda c, o=o: dc.replace(c, optimizer=o))
+        for name, o in (("momentum", optim.flat_momentum(0.9)),
+                        ("adam", optim.flat_adam()))))
+    consensus = lambda sparse: core.make_strategy(
+        "consensus", tau=10, topo=sp, eps=eps[0], rounds=1, m=m,
+        sparse=sparse)
+    return [
+        ("fig5 lambda", sweep.SweepSpec(
+            name="chip_fig5", seeds=SWEEP_SEEDS,
+            base=cfg(core.make_strategy(
+                "decay", tau=15, taus=taus15,
+                decay=core.exponential_decay(0.98))),
+            vmapped=(sweep.SweepAxis("lam", (0.98, 0.95, 0.92)),))),
+        ("fig6 eps dense", sweep.SweepSpec(
+            name="chip_fig6_dense", seeds=SWEEP_SEEDS,
+            base=cfg(consensus(False)),
+            vmapped=(sweep.SweepAxis("eps", eps),))),
+        ("fig6 eps sparse", sweep.SweepSpec(
+            name="chip_fig6_sparse", seeds=SWEEP_SEEDS,
+            base=cfg(consensus(True)),
+            vmapped=(sweep.SweepAxis("eps", eps),))),
+        ("fig4 taus", sweep.SweepSpec(
+            name="chip_fig4", seeds=SWEEP_SEEDS,
+            base=cfg(core.make_strategy("periodic", tau=15, m=m)),
+            vmapped=(sweep.SweepAxis("taus", scheds),))),
+        ("eta x optimizer", sweep.SweepSpec(
+            name="chip_eta_opt", seeds=SWEEP_SEEDS[:2],
+            base=cfg(core.make_strategy("periodic", tau=10, m=m)),
+            vmapped=(sweep.SweepAxis("eta", (2e-3, 5e-3)),),
+            static=(opt_axis,))),
+        ("top-k uplink", sweep.SweepSpec(
+            name="chip_topk", seeds=SWEEP_SEEDS,
+            base=cfg(core.make_strategy("periodic", tau=10, m=m)),
+            static=(sweep.compression_axis([comm.topk(584)]),))),
+    ]
+
+
+def _sweep_vs_cpu(rl, sweep, spec, label, card_metrics) -> float:
+    """The first SWEEP_CPU_RUNS runs of the static point ``label`` again on
+    the CPU, on the card runs' own draws (recorded from their TorchDraws on
+    the card): the largest relative difference of their metrics."""
+    from repro_torch.sweep.runner import _grid_arrays, _run_configs
+
+    transform = dict(sweep.static_points(spec))[label]
+    axis_vals, seeds = _grid_arrays(spec)
+    rows = range(min(SWEEP_CPU_RUNS, spec.n_runs))
+    cfgs = _run_configs(spec, transform(spec.base), axis_vals, rows)
+    draws = [rl.replay_of(c, rl.TorchDraws(int(seeds[i]), "cuda",
+                                           c.eval_seed))
+             for c, i in zip(cfgs, rows)]
+    _, cpu, _ = rl.fedrl.run_fedrl_batch(cfgs, draws, device="cpu")
+    worst = 0.0
+    for k, v in cpu.items():
+        card = card_metrics[k].reshape((spec.n_runs,) + v.shape[1:])[
+            :len(rows)]
+        worst = max(worst, _max_rel(card, v))
+        if not np.allclose(card, v, rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
+            raise AssertionError(f"sweep {spec.name}/{label}: card {k} {card}"
+                                 f" vs CPU {v} (rtol {TRAIN_RTOL})")
+    return worst
+
+
+def sweep_path(km, rl, core, optim, comm, sweep, card) -> dict:
+    """Phase 15's sweeps: each batched through ``run_sweep`` on the card
+    (kernel counts set to 0 just before, read just after), held against the
+    loop of one-run calls (``run_sweep_loop``) and, on its first runs,
+    against the CPU on the same draws; runs/s of both forms."""
+    out, launches = {}, {k: 0 for k in TRAIN_KERNELS}
+    for name, spec in sweep_specs(rl, core, optim, comm, sweep):
+        _reset_counts(km)
+        res = sweep.run_sweep(spec, device="cuda", warmup=False)
+        torch.cuda.synchronize()
+        got = _kernel_counts(km)
+        for k, v in got.items():
+            launches[k] += v
+        _reset_counts(km)
+        loop = sweep.run_sweep_loop(spec, device="cuda", warmup=False)
+        torch.cuda.synchronize()
+        loop_launches = _kernel_counts(km)
+        if any(loop_launches[k] != spec.n_runs * got[k] for k in got):
+            raise AssertionError(f"sweep {name}: batched launches {got}, "
+                                 f"loop {loop_launches} (expected "
+                                 f"{spec.n_runs} x batched)")
+        dev, rel, bitwise = 0.0, 0.0, True
+        for label in res.labels:
+            for k, v in res.metrics[label].items():
+                w = loop.metrics[label][k]
+                if not np.all(np.isfinite(v)) or v.shape != w.shape:
+                    raise AssertionError(f"sweep {name}/{label}: bad {k}")
+                bitwise &= bool(np.array_equal(v, w))
+                dev = max(dev, float(np.max(np.abs(v - w))))
+                rel = max(rel, _max_rel(v, w))
+                if not np.allclose(v, w, rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
+                    raise AssertionError(
+                        f"sweep {name}/{label}: batched {k} {v} vs loop {w}")
+        cpu_rel = max(_sweep_vs_cpu(rl, sweep, spec, label,
+                                    {k: v for k, v in
+                                     res.metrics[label].items()})
+                      for label in res.labels)
+        wall, loop_wall = sum(res.wall_s.values()), sum(loop.wall_s.values())
+        runs = spec.n_runs * len(res.labels)
+        rec = {"runs": runs, "S": spec.n_runs, "labels": res.labels,
+               "wall_s": wall, "loop_wall_s": loop_wall,
+               "runs_per_s": runs / wall, "loop_runs_per_s": runs / loop_wall,
+               "launches": got, "bitwise_vs_loop": bitwise,
+               "max_abs_dev_vs_loop": dev, "max_rel_dev_vs_loop": rel,
+               "max_rel_vs_cpu": cpu_rel}
+        out[name] = rec
+        log(f"sweep {name}: {runs} runs (S = {spec.n_runs} per point, "
+            f"{len(res.labels)} point(s)) batched in {wall!r} s = "
+            f"{rec['runs_per_s']!r} runs/s, loop {loop_wall!r} s = "
+            f"{rec['loop_runs_per_s']!r} runs/s; vs loop bitwise={bitwise} "
+            f"(max abs {dev!r}, rel {rel!r}); first {SWEEP_CPU_RUNS} runs vs "
+            f"CPU on the same draws max rel {cpu_rel!r}; launches "
+            f"{ {k: v for k, v in got.items() if v} } card=\"{card}\"")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"sweep path: kernels never launched: {missing}")
+    return {"sweeps": out, "launches": launches}
+
+
+def sweep_divergence(S: int = 12, m: int = 7, K: int = 25) -> dict:
+    """Where a batched run parts from its loop on the card: the policy's
+    forward, its value, the PPO loss and its gradient on S * m agent rows
+    against the same calls on each run's m rows (same inputs), and the
+    batched products behind them (``torch.bmm`` / ``matmul`` with batch
+    S * m against batch m), each as the largest absolute difference
+    (``python3 -c 'import chip_smoke as c; c.sweep_divergence()'``)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import dispatch
+    from repro_torch.rl import policy as pol
+    from repro_torch.rl import ppo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 160)
+    A = S * m
+    rnd = lambda *shape, scale=1.0: scale * torch.randn(
+        shape, generator=gen, device="cuda")
+    tree = {"pi": {"w1": rnd(A, OBS_DIM, HIDDEN, scale=0.4),
+                   "b1": rnd(A, HIDDEN, scale=0.1),
+                   "w2": rnd(A, HIDDEN, HIDDEN, scale=0.15),
+                   "b2": rnd(A, HIDDEN, scale=0.1),
+                   "w3": rnd(A, HIDDEN, ACT_DIM, scale=0.01),
+                   "b3": rnd(A, ACT_DIM, scale=0.1),
+                   "log_std": rnd(A, ACT_DIM, scale=0.1) - 0.5},
+            "vf": {"w1": rnd(A, OBS_DIM, HIDDEN, scale=0.4),
+                   "b1": rnd(A, HIDDEN, scale=0.1),
+                   "w2": rnd(A, HIDDEN, HIDDEN, scale=0.15),
+                   "b2": rnd(A, HIDDEN, scale=0.1),
+                   "w3": rnd(A, HIDDEN, 1, scale=0.15),
+                   "b3": rnd(A, 1, scale=0.1)}}
+    flat, spec = dispatch.stacked_ravel_spec(tree)
+    data = {"obs": rnd(A, K, OBS_DIM), "act": rnd(A, K, ACT_DIM),
+            "logp_old": rnd(A, K), "adv": rnd(A, K), "ret": rnd(A, K)}
+    runs = [slice(s * m, (s + 1) * m) for s in range(S)]
+
+    def per_run(fn):
+        return torch.cat([fn(r) for r in runs])
+
+    def dev(a, b):
+        return float((a - b).abs().max())
+
+    out = {}
+    with torch.no_grad():
+        p = spec.unravel(flat)
+        out["policy_mean"] = dev(
+            pol.policy_apply(p, data["obs"])[0],
+            per_run(lambda r: pol.policy_apply(spec.unravel(flat[r]),
+                                               data["obs"][r])[0]))
+        out["policy_value"] = dev(
+            pol.policy_value(p, data["obs"]),
+            per_run(lambda r: pol.policy_value(spec.unravel(flat[r]),
+                                               data["obs"][r])))
+        x, w = data["obs"], tree["pi"]["w1"]
+        out["bmm_layer1"] = dev(x @ w, per_run(lambda r: x[r] @ w[r]))
+        h = torch.tanh(x @ w)
+        w2 = tree["pi"]["w2"]
+        out["bmm_layer2"] = dev(h @ w2, per_run(lambda r: h[r] @ w2[r]))
+        # the rollout's shape: one observation an agent, the weights as
+        # views of the flat carry
+        x1 = data["obs"][:, :1]
+        out["policy_mean_k1"] = dev(
+            pol.policy_apply(p, x1)[0],
+            per_run(lambda r: pol.policy_apply(spec.unravel(flat[r]),
+                                               x1[r])[0]))
+        pw = p["pi"]["w1"]
+        out["bmm_k1_views"] = dev(x1 @ pw, per_run(lambda r: x1[r] @ pw[r]))
+        hk = torch.tanh(x1 @ pw)
+        pw2 = p["pi"]["w2"]
+        out["bmm_k1_layer2_views"] = dev(
+            hk @ pw2, per_run(lambda r: hk[r] @ pw2[r]))
+        # the gradient's shapes: x^T @ dy for the weights, the row means
+        gy = rnd(A, K, HIDDEN)
+        xt = x.transpose(1, 2)
+        out["bmm_grad_w"] = dev(xt @ gy, per_run(lambda r: xt[r] @ gy[r]))
+        adv = data["adv"]
+        out["row_reduce"] = dev(adv.mean(-1), per_run(lambda r: adv[r]
+                                                      .mean(-1)))
+    g, loss = ppo.stacked_grad(ppo.ppo_loss, flat, spec, data)
+    parts = [ppo.stacked_grad(ppo.ppo_loss, flat[r], spec,
+                              {k: v[r] for k, v in data.items()})
+             for r in runs]
+    out["ppo_loss"] = dev(loss, torch.cat([l for _, l in parts]))
+    out["ppo_grad"] = dev(g, torch.cat([gi for gi, _ in parts]))
+    # one local update of the shared env (m = n_rl) on the same draws: the
+    # rollout (env steps, policy) and then the gradient, batched vs per run
+    from repro_torch.rl import FIGURE_EIGHT, FedRLConfig, TorchDraws
+    from repro_torch.rl import fedrl as F
+    from repro_torch.rl.env import get_obs
+
+    if m == FIGURE_EIGHT.n_rl:
+        from repro_torch.core import make_strategy
+
+        cfg = FedRLConfig(env=FIGURE_EIGHT, strategy=make_strategy(
+            "periodic", tau=10, m=m), eta=TRAIN_ETA, n_epochs=1,
+            epoch_len=TRAIN_P, minibatch=TRAIN_P)
+        ep = cfg.env.default_params("cuda")
+        draws = [F.replay_of(cfg, TorchDraws(s, "cuda")) for s in range(S)]
+
+        def update(idx):
+            src = F._RunDraws([draws[i].to("cuda") for i in idx], False)
+            f = flat[torch.cat([torch.arange(i * m, (i + 1) * m)
+                                for i in idx]).cuda()].contiguous()
+            state = F._reset(cfg, ep, src)
+            with torch.no_grad():
+                noise = src.action_noise(F.noise_shape(cfg))
+                state, traj = F._rollout(cfg, ep, spec.unravel(f), state,
+                                         noise)
+            gr, ls = F._agent_grads(cfg, f, spec, ep, traj, state)
+            return traj, state, gr
+
+        traj_b, state_b, g_b = update(range(S))
+        loop = [update([i]) for i in range(S)]
+        for k in traj_b:
+            out[f"rollout_{k}"] = dev(traj_b[k],
+                                      torch.cat([t[k] for t, _, _ in loop]))
+        out["rollout_env_x"] = dev(state_b.x, torch.cat([st.x for _, st, _
+                                                         in loop]))
+        out["update_grad"] = dev(g_b, torch.cat([gr for _, _, gr in loop]))
+    log(f"sweep divergence, batch {A} vs {m} agent rows: {out} card=\""
+        f"{card_line()}\"")
+    return out
+
+
+def _sweep_modules():
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import comm, core
+    from repro_torch.kernels import consensus_gather as cg
+    from repro_torch.kernels import consensus_step as cs
+    from repro_torch.kernels import decay_accum as dacc
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import flat_update as fu
+    from repro_torch.kernels import topk_scatter as tks
+    km = types.SimpleNamespace(dacc=dacc, fu=fu, cs=cs, cg=cg, tks=tks)
+    return km, core, comm, dispatch
+
+
+def sweep_kernels_alone() -> dict:
+    """Phase 15's kernel checks and times without the rest of the script
+    (``python3 -c 'import chip_smoke as c; c.sweep_kernels_alone()'``)."""
+    if not torch.cuda.is_available():
+        raise SystemExit("sweep_kernels_alone: no CUDA card")
+    km, core, comm, dispatch = _sweep_modules()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    log(f"card {card}")
+    parity = sweep_kernels_vs_loop(km, core, comm, dispatch)
+    rows = sweep_kernel_times(km, core, comm, card)
+    return {"parity": parity, "times": rows}
 
 
 # --- phases 9-11: the language-model serving path (slice 4) ------------------------
@@ -3709,6 +4372,13 @@ def main() -> int:
     swa_prof = profile_swa(TC, TM, launch, card)
     lap('14 swa_times')
 
+    # 15. the sweep path (slice 10): batched kernels, run_sweep on the card
+    from repro_torch import sweep
+    sweep_parity = sweep_kernels_vs_loop(km, core, comm, dispatch)
+    sweeps = sweep_path(km, rl, core, optim, comm, sweep, card)
+    sweep_rows = sweep_kernel_times(km, core, comm, card)
+    lap('15 sweep')
+
     top = rows["mean/1024"]
     kernels = [{
         "name": "policy_infer",
@@ -3807,6 +4477,18 @@ def main() -> int:
         "mean_abs_err": {k: timed[k] for k in (
             "mean_err", "plain_mean_err", "one_bf16_p_mean_err")},
     })
+    s0, m0_, n0_ = SWEEP_KERNEL_SHAPES[0]
+    for k in kernels:
+        if k["name"] not in TRAIN_KERNELS:
+            continue
+        r = sweep_rows[f"{k['name']}/{s0}x{m0_}x{n0_}"]
+        k["batched"] = {
+            "form": "(S, m, n), one launch", "shape": [s0, m0_, n0_],
+            "dtype": "float32", "ms": r["ms"], "loop_ms": r["loop_ms"],
+            "cupti_ms": r["cupti_ms"], "loop_cupti_ms": r["loop_cupti_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "sweep_launches": sweeps["launches"][k["name"]],
+            "max_abs_err_vs_plain": sweep_parity["max_abs_err"][k["name"]]}
     if len(kernels) != 10 or any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"kernels line: {len(kernels)} kernels, "
                              f"launches {[k['launches'] for k in kernels]}")
@@ -3826,6 +4508,8 @@ def main() -> int:
                    "swa_parity": swa_parity, "swa_serving": swa,
                    "swa_times": swa_rows, "swa_profile": swa_prof,
                    "swa_hgmma": n_hgmma,
+                   "sweep_parity": sweep_parity, "sweeps": sweeps,
+                   "sweep_times": sweep_rows,
                    "kernels": kernels, "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

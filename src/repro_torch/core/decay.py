@@ -12,6 +12,7 @@ import dataclasses
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 
 DecayFn = Callable[[torch.Tensor], torch.Tensor]
@@ -70,6 +71,18 @@ def step_decay(drop_at: int, low: float = 0.5) -> DecayFn:
 def no_decay() -> DecayFn:
     """Identity weight (reduces the decay-based method to plain periodic avg)."""
     return _Named(lambda j: torch.ones_like(j), "none")
+
+
+def exponential_decay_table(lam, tau: int) -> np.ndarray:
+    """Eq. (21) tabulated for many decay constants at once: ``lam^(j/2)``
+    for j in 0..tau-1 in fp32, shaped ``lam.shape + (tau,)`` — ``(tau,)``
+    for one constant, ``(m, tau)`` for one per agent, ``(S, tau)`` /
+    ``(S, m, tau)`` for one (or one per agent) per run. Each entry is the
+    fp32 ``torch.pow`` of :func:`exponential_decay`, so a table row equals
+    that function's weights bitwise."""
+    lam = torch.as_tensor(np.asarray(lam, np.float32))
+    offs = torch.arange(tau, dtype=torch.float32) / 2.0
+    return torch.pow(lam[..., None], offs).numpy()
 
 
 def decay_sq_prefix_sum(decay: DecayFn, j: int) -> float:

@@ -19,9 +19,17 @@ picks the path: the hand-written kernels on the card, the plain PyTorch
 versions on the CPU. Every table a step reads (weights, mixing matrices,
 neighbour lists) is copied to a device once and kept there.
 
-Not ported yet: ``AsyncStrategy``, ``with_mask`` (the sweeps' traced masks)
-and the tree-space transforms; ``make_strategy`` names the slice that
-brings async.
+Runs. :func:`stack_runs` makes one strategy of S strategies that differ
+only in their values (the sweep's runs: masks, decay tables, mixing
+matrices, edge weights): every hot-path table gains a run axis (the weight
+table ``(tau, S, m)``, ``P`` ``(S, m, m)``, the folded tables ``(tau, S, m,
+m)``, the edge weights ``(S, m, k_max)``), and the same methods step an
+``(S, m, n)`` carry, one dispatch call (one launch) per primitive for all
+runs. The learning rate may then be one number or an ``(S,)`` tensor, one
+per run.
+
+Not ported yet: ``AsyncStrategy`` and the tree-space transforms;
+``make_strategy`` names the slice that brings async.
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ import collections
 import copy
 import dataclasses
 import hashlib
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -122,10 +130,38 @@ class AggregationStrategy:
     mask: np.ndarray
     comm: PayloadTransform = IDENTITY
 
+    # runs of a stacked strategy (stack_runs); None for one run (a class
+    # attribute, not a field)
+    runs = None
+
     @staticmethod
     def _build_mask(taus: np.ndarray, tau: int) -> np.ndarray:
         offs = np.arange(tau)[None, :]
         return (np.asarray(taus)[:, None] > offs).astype(np.float32)
+
+    def _copy(self, **fields) -> "AggregationStrategy":
+        """A copy with ``fields`` replaced; device tables and scratch
+        buffers are not shared with the original."""
+        new = copy.copy(self)
+        for k, v in fields.items():
+            object.__setattr__(new, k, v)
+        new.__dict__.pop("_scratch", None)
+        new.__dict__.pop("_on_device", None)
+        return new
+
+    def with_mask(self, mask, taus=None) -> "AggregationStrategy":
+        """Copy with a replacement ``(m, tau)`` variation mask (the sweep's
+        ``taus`` axis); ``tau`` and the topology stay. ``taus`` refreshes the
+        per-agent schedule the host-side accounting reads; without it the
+        accounting keeps the previous one."""
+        mask = np.asarray(mask, np.float32)
+        if mask.shape != (self.m, self.tau):
+            raise ValueError(f"with_mask: mask must be ({self.m}, {self.tau}),"
+                             f" got {mask.shape}")
+        fields = {"mask": mask}
+        if taus is not None:
+            fields["taus"] = np.asarray(taus, int)
+        return self._copy(**fields)
 
     def with_comm(self, comm: PayloadTransform) -> "AggregationStrategy":
         """Copy with a replacement payload transform."""
@@ -133,14 +169,26 @@ class AggregationStrategy:
             raise TypeError(
                 f"with_comm expects a PayloadTransform, got {type(comm).__name__}"
             )
-        new = copy.copy(self)
-        object.__setattr__(new, "comm", comm)
-        new.__dict__.pop("_scratch", None)      # buffers are not shared
-        return new
+        return self._copy(comm=comm)
 
     @property
     def m(self) -> int:
         return len(self.taus)
+
+    def _scaled(self, c, w):
+        """``c * w``: a coefficient (a number, or one per run ``(S,)``) times
+        the weights (``(m,)``, or ``(S, m)`` stacked), in fp32."""
+        if isinstance(c, torch.Tensor) and c.ndim == 1:
+            return c[:, None] * w
+        return c * w
+
+    def _per_run(self, c, like: torch.Tensor):
+        """A coefficient of the stacked carry ``like`` (S, m, n) as the
+        dispatch takes it unambiguously: a per-run ``(S,)`` tensor becomes
+        ``(S, m)``; a number stays as it is."""
+        if isinstance(c, torch.Tensor) and c.ndim == 1:
+            return c[:, None].expand(like.shape[0], like.shape[1]).contiguous()
+        return c
 
     # --- tables on the device, scratch buffers -----------------------------------
     def _on(self, name: str, table, device) -> torch.Tensor:
@@ -166,16 +214,19 @@ class AggregationStrategy:
     # --- per-step weights ---------------------------------------------------------
     def weight_table(self) -> np.ndarray:
         """``(tau, m)`` fp32: row j is the per-agent weight at offset j (the
-        mask column by default)."""
+        mask column by default); ``(tau, S, m)`` when stacked."""
+        if self.runs is not None:
+            return self.run_weights
         return np.ascontiguousarray(self.mask.T)
 
     def weights_on(self, device) -> torch.Tensor:
         """:meth:`weight_table` on ``device``, made once per device; row j
-        is a contiguous ``(m,)`` view."""
+        is a contiguous ``(m,)`` (stacked: ``(S, m)``) view."""
         return self._on("weights", self.weight_table, device)
 
     def weight(self, offset: int, device="cpu") -> torch.Tensor:
-        """Per-agent weight vector ``(m,)`` at period offset ``offset``."""
+        """Per-agent weight vector ``(m,)`` (stacked: ``(S, m)``) at period
+        offset ``offset``."""
         return self.weights_on(device)[offset]
 
     # --- flat (m, n) hot path -----------------------------------------------------
@@ -189,7 +240,8 @@ class AggregationStrategy:
         one ``decay_accum`` pass. ``out`` may be ``params``.
         """
         return dispatch.decay_accum(
-            params, g, -eta * self.weight(offset, params.device), out=out)
+            params, g, self._scaled(-eta, self.weight(offset, params.device)),
+            out=out)
 
     def flat_opt_step(self, params, g, offset: int, eta: float, opt,
                       opt_state: dict, *, inplace: bool = False):
@@ -204,6 +256,12 @@ class AggregationStrategy:
         (fp32 accumulation, in ``flat.dtype``)."""
         return dispatch.row_mean(flat)
 
+    @staticmethod
+    def _broadcast_rows(flat: torch.Tensor, row: torch.Tensor) -> None:
+        """Copy the server row (``(n,)``; stacked ``(S, n)``) into every
+        agent row of ``flat``."""
+        flat.copy_(row.unsqueeze(-2).expand_as(flat))
+
     # --- comm layer (payload transforms + error feedback) -------------------------
     def init_comm_state(self, flat: torch.Tensor) -> dict:
         """Comm-layer state for a flat ``(m, n)`` run: ``{}`` when dense.
@@ -215,7 +273,7 @@ class AggregationStrategy:
         """
         if not self.comm.enabled:
             return {}
-        state = {"ref": flat[0].to(torch.float32, copy=True)}
+        state = {"ref": flat[..., 0, :].to(torch.float32, copy=True)}
         if self.comm.error_feedback:
             state["err_up"] = torch.zeros(flat.shape, dtype=torch.float32,
                                           device=flat.device)
@@ -252,11 +310,10 @@ class AggregationStrategy:
         """
         del period
         if not self.comm.enabled:
-            row = self.flat_server_average(flat)
-            flat.copy_(row[None, :].expand_as(flat))
+            self._broadcast_rows(flat, self.flat_server_average(flat))
             return flat, comm_state
         ref = comm_state["ref"]
-        delta = flat.float() - ref[None, :]
+        delta = flat.float() - ref.unsqueeze(-2)
         if self.comm.error_feedback:
             delta = delta + comm_state["err_up"]
         mean_sent, residual = self.comm.reduce_mean(delta)
@@ -264,14 +321,14 @@ class AggregationStrategy:
         new_state = dict(comm_state, ref=row)
         if self.comm.error_feedback:
             new_state["err_up"] = residual
-        flat.copy_(row.to(flat.dtype)[None, :].expand_as(flat))
+        self._broadcast_rows(flat, row.to(flat.dtype))
         return flat, new_state
 
     def server_row(self, flat: torch.Tensor, comm_state: dict) -> torch.Tensor:
         """The server's parameter row after a ``flat_sync``: every row is the
         server row on the synchronous path, ``flat[0]`` by convention."""
         del comm_state
-        return flat[0]
+        return flat[..., 0, :]
 
     # --- accounting ---------------------------------------------------------------
     def comm_bytes_per_event(self, payload_elems: int) -> dict:
@@ -356,8 +413,13 @@ class DecayStrategy(AggregationStrategy):
 
     def weight_table(self) -> np.ndarray:
         # mask[:, j] * D(j) for every offset j: the fp32 product the JAX
-        # strategy takes per step (strategies.py:474-479)
-        return np.ascontiguousarray(self.mask.T * self.decay_weights[:, None])
+        # strategy takes per step (strategies.py:474-479); decay_weights is
+        # (tau,) shared or (m, tau) per agent (the sweep's vector lam)
+        if self.runs is not None:
+            return self.run_weights
+        dw = np.asarray(self.decay_weights, np.float32)
+        dw = dw[:, None] if dw.ndim == 1 else dw.T
+        return np.ascontiguousarray(self.mask.T * dw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -469,9 +531,23 @@ class ConsensusStrategy(AggregationStrategy):
             out = dispatch.consensus_mix(out, p, out=bufs[(r + 1) % 2])
         return out
 
+    def with_mask(self, mask, taus=None) -> "ConsensusStrategy":
+        """Mask copy that also refolds the per-offset masked mixing tables
+        (fp32 products, as ``src/repro/core/strategies.py:577-595``); the
+        sparse path folds the mask at transform time, so its copy only
+        swaps the mask."""
+        new = AggregationStrategy.with_mask(self, mask, taus)
+        if self.sparse:
+            return new
+        mask_t = new.mask.T[:, None, :]                      # (tau, 1, m)
+        object.__setattr__(new, "p_masked", self.p[None] * mask_t)
+        object.__setattr__(new, "p_e_masked", self.p_e[None] * mask_t)
+        return new
+
     def flat_update(self, params, g, offset, eta, *, out=None):
         mixed = self._transform(g, offset, self._buffers(g))
-        return dispatch.decay_accum(params, mixed, -eta, out=out)
+        return dispatch.decay_accum(params, mixed, self._per_run(-eta, params),
+                                    out=out)
 
     def flat_opt_step(self, params, g, offset, eta, opt, opt_state, *,
                       inplace: bool = False):
@@ -517,7 +593,8 @@ class ConsensusStrategy(AggregationStrategy):
             comm_state = dict(comm_state, err_gossip=residual)
         mixed = mixed.to(flat.dtype)
         if opt is None:
-            dispatch.decay_accum(flat, mixed, -eta, out=flat)
+            dispatch.decay_accum(flat, mixed, self._per_run(-eta, flat),
+                                 out=flat)
         else:
             flat, opt_state = opt.update(flat, mixed, 1.0, opt_state, eta,
                                          inplace=True)
@@ -539,6 +616,64 @@ class ConsensusStrategy(AggregationStrategy):
         base["w1"] = gossip
         base["w2"] = gossip
         return base
+
+
+# --- runs ---------------------------------------------------------------------------
+
+# The hot-path tables of each strategy kind, by how they gain the run axis:
+# tables indexed by the period offset first keep it first, (tau, S, ...), so
+# that ``table[offset]`` is one contiguous per-run operand.
+_OFFSET_TABLES = ("p_masked", "p_e_masked")
+_RUN_TABLES = ("p", "p_e", "nl_w")
+
+
+def _same_structure(a: AggregationStrategy, b: AggregationStrategy) -> bool:
+    if type(a) is not type(b) or a.tau != b.tau or a.m != b.m or \
+            a.comm != b.comm:
+        return False
+    if isinstance(a, ConsensusStrategy):
+        if (a.rounds, a.fused, a.sparse) != (b.rounds, b.fused, b.sparse) or \
+                not np.array_equal(a.topo.adj, b.topo.adj):
+            return False
+        if a.sparse and not np.array_equal(a.nl.idx, b.nl.idx):
+            return False
+    return True
+
+
+def stack_runs(strats: Sequence[AggregationStrategy]) -> AggregationStrategy:
+    """One strategy for S runs that differ only in their values.
+
+    Every run must have the first one's kind, tau, m, payload transform
+    and (consensus) topology, rounds and path; each may have its own mask,
+    decay table, mixing matrices and edge weights. The result steps an
+    ``(S, m, n)`` carry with per-run tables: the weights ``(tau, S, m)``
+    (each run's own :meth:`weight_table`), ``P`` / ``P^E`` ``(S, m, m)``,
+    the mask-folded tables ``(tau, S, m, m)`` and the edge weights ``(S, m,
+    k_max)``. Its host-side accounting (ledger, events) is the first run's.
+    """
+    strats = list(strats)
+    if not strats:
+        raise ValueError("stack_runs: need at least one strategy")
+    first = strats[0]
+    for i, st in enumerate(strats):
+        if st.runs is not None:
+            raise ValueError(f"stack_runs: strategy {i} is already stacked")
+        if not _same_structure(first, st):
+            raise ValueError(
+                f"stack_runs: run {i} ({st.name}) differs from run 0 "
+                f"({first.name}) in more than values (kind, tau, m, comm, "
+                f"topology, rounds or path)")
+    fields = {"runs": len(strats),
+              "run_weights": np.ascontiguousarray(
+                  np.stack([st.weight_table() for st in strats], axis=1))}
+    for name in _OFFSET_TABLES + _RUN_TABLES:
+        tabs = [getattr(st, name, None) for st in strats]
+        if any(t is None for t in tabs):
+            continue
+        axis = 1 if name in _OFFSET_TABLES else 0
+        fields[name] = np.ascontiguousarray(
+            np.stack([np.asarray(t, np.float32) for t in tabs], axis=axis))
+    return first._copy(**fields)
 
 
 def make_strategy(kind: str, *, m: Optional[int] = None,

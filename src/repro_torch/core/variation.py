@@ -44,14 +44,18 @@ def tau_stats(taus: np.ndarray) -> tuple[float, float]:
 
 
 def indicator_mask(taus, period_offsets) -> np.ndarray:
-    """I(tau_i > s - t0) as an (m, len(offsets)) float32 mask."""
-    taus = np.asarray(taus)[:, None]
-    offs = np.asarray(period_offsets)[None, :]
+    """I(tau_i > s - t0) as an (m, len(offsets)) float32 mask; a batch of
+    schedules ``(S, m)`` gives ``(S, m, len(offsets))``."""
+    taus = np.asarray(taus)[..., None]
+    offs = np.asarray(period_offsets)
     return (taus > offs).astype(np.float32)
 
 
 def mask_from_taus(taus, tau: int) -> np.ndarray:
-    """The strategy-shaped (m, tau) variation mask from a tau_i vector."""
+    """The strategy-shaped (m, tau) variation mask from a tau_i vector, or
+    the ``(S, m, tau)`` masks of S schedules ``(S, m)`` (one per run of a
+    sweep). Integer schedules given as float32 (the sweep's axis points)
+    compare exactly, so the mask is the static constructor's."""
     return indicator_mask(taus, np.arange(tau))
 
 

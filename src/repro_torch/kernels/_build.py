@@ -61,12 +61,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         _P,                              # stream
     ]
     lib.repro_decay_accum.restype = _I
-    lib.repro_row_mean.argtypes = [_P, _P, _L, _L, _I, _P]
+    lib.repro_row_mean.argtypes = [_P, _P, _L, _L, _L, _I, _P]  # runs, m, n
     lib.repro_row_mean.restype = _I
     lib.repro_momentum_update.argtypes = [
         _P, _P, _P,                      # p, g, mu
         _P, _P,                          # p_out, mu_out
         _P, _L, _F,                      # w, w_stride, w_value
+        _P, _L,                          # lr_runs, run_rows
         _F, _F, _I,                      # lr, beta, nesterov
         _L, _L, _I, _I,                  # m, n, dtype, device
         _P,                              # stream
@@ -76,6 +77,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         _P, _P, _P, _P,                  # p, g, mu, nu
         _P, _P, _P,                      # p_out, mu_out, nu_out
         _P, _L, _F,                      # w, w_stride, w_value
+        _P, _L,                          # lr_runs, run_rows
         _F, _F, _F, _F, _F,              # lr, b1, 1 - b1, b2, 1 - b2
         _F, _F, _F, _F,                  # eps, wd, bc1, bc2
         _L, _L, _I, _I,                  # m, n, dtype, device
@@ -84,7 +86,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_adam_update.restype = _I
     lib.repro_consensus_step.argtypes = [
         _P, _P, _P,                      # P, G, out
-        _L, _L, _I,                      # m, n, dtype
+        _L, _L, _L, _L, _I,              # runs, m, n, p_stride, dtype
         _P,                              # stream
     ]
     lib.repro_consensus_step.restype = _I
@@ -97,7 +99,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_consensus_gather.restype = _I
     lib.repro_topk_scatter.argtypes = [
         _P, _P, _P, _P,                  # x, t, ssum, residual
-        _L, _L, _I,                      # m, n, dtype
+        _L, _L, _L, _I,                  # runs, m, n, dtype
         _P,                              # stream
     ]
     lib.repro_topk_scatter.restype = _I

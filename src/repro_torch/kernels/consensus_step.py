@@ -35,8 +35,16 @@ launches = 0          # kernel launches made by consensus_step_cuda
 def consensus_step_plain(g: torch.Tensor, mixing: torch.Tensor, *,
                          out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version: ``(mixing32 @ g32).to(g.dtype)``; with ``out`` given
-    the result is copied into it."""
-    res = torch.matmul(mixing.float(), g.float()).to(g.dtype)
+    the result is copied into it. An ``(S, m, n)`` sweep buffer mixes one
+    run at a time, by a shared ``(m, m)`` or its own ``(S, m, m)`` matrix."""
+    if g.ndim == 3:
+        res = torch.stack([
+            torch.matmul((mixing[s] if mixing.ndim == 3 else mixing).float(),
+                         g[s].float())
+            for s in range(g.shape[0])
+        ]).to(g.dtype)
+    else:
+        res = torch.matmul(mixing.float(), g.float()).to(g.dtype)
     return res if out is None else out.copy_(res)
 
 
@@ -57,7 +65,10 @@ def consensus_step_cuda(g: torch.Tensor, mixing: torch.Tensor, *,
     ``g`` is a contiguous ``(m, n)`` CUDA buffer (fp32, bf16 or fp16),
     ``mixing`` a contiguous ``(m, m)`` fp32 matrix on the same device, and
     ``out`` (allocated when not given) a ``g``-shaped buffer of ``g``'s dtype
-    that does not overlap ``g``: gossip cannot run in place.
+    that does not overlap ``g``: gossip cannot run in place. A sweep's
+    ``(S, m, n)`` buffer is mixed run by run in the same one launch, by a
+    shared ``(m, m)`` or a per-run ``(S, m, m)`` matrix; each run's result
+    is bitwise what a launch on its slice gives.
 
     Library yardstick: ``torch.matmul(mixing, g)`` (timed beside the kernel,
     never called here).
@@ -67,11 +78,15 @@ def consensus_step_cuda(g: torch.Tensor, mixing: torch.Tensor, *,
     device = g.device
     if device.type != "cuda":
         raise ValueError(f"{fn}: tensors must be on a CUDA device, got {device}")
-    if g.ndim != 2:
-        raise ValueError(f"{fn}: g must be (m, n), got {tuple(g.shape)}")
-    m, n = g.shape
+    if g.ndim not in (2, 3):
+        raise ValueError(f"{fn}: g must be (m, n) or (S, m, n), got "
+                         f"{tuple(g.shape)}")
+    runs = int(g.shape[0]) if g.ndim == 3 else 1
+    m, n = int(g.shape[-2]), int(g.shape[-1])
     check_buffer(fn, "g", g, g.shape, tuple(DTYPE_CODE), device)
-    check_buffer(fn, "mixing", mixing, (m, m), (torch.float32,), device)
+    per_run = g.ndim == 3 and mixing.ndim == 3
+    check_buffer(fn, "mixing", mixing, ((runs, m, m) if per_run else (m, m)),
+                 (torch.float32,), device)
     if out is None:
         out = torch.empty_like(g)
     else:
@@ -83,7 +98,7 @@ def consensus_step_cuda(g: torch.Tensor, mixing: torch.Tensor, *,
         return out
     lib = _build.load()
     raise_on(fn, lib, lib.repro_consensus_step(
-        mixing.data_ptr(), g.data_ptr(), out.data_ptr(), m, n,
-        DTYPE_CODE[g.dtype], stream_of(device)))
+        mixing.data_ptr(), g.data_ptr(), out.data_ptr(), runs, m, n,
+        m * m if per_run else 0, DTYPE_CODE[g.dtype], stream_of(device)))
     launches += 1
     return out

@@ -60,6 +60,12 @@
 // loads its m values G[0..m-1, j] at once (coalesced across the warp; G is
 // read exactly once) and keeps its m accumulators in registers. 64 threads
 // a block, so (7, 9347) runs 147 blocks.
+//
+// Runs. A sweep stacks S independent runs: G and out (S, m, n), P one
+// shared (m, m) matrix (p_stride 0) or one per run (p_stride m * m). The
+// run is the grid's last axis (blockIdx.z tiled, blockIdx.y small); each
+// run's blocks are the blocks of a launch on its slice alone, so every
+// output keeps its chain and its bits. One launch for all runs.
 
 #include "flat_common.cuh"
 
@@ -114,7 +120,10 @@ template <typename T, int kTR>
 __global__ void __launch_bounds__(kThreads, 2)
 consensus_step_kernel_tiled(const float* __restrict__ P,
                             const T* __restrict__ G, T* __restrict__ out,
-                            int64_t m, int64_t n) {
+                            int64_t m, int64_t n, int64_t p_stride) {
+  P += (int64_t)blockIdx.z * p_stride;
+  G += (int64_t)blockIdx.z * m * n;
+  out += (int64_t)blockIdx.z * m * n;
   constexpr bool kF32 = sizeof(T) == 4;
   constexpr int kBM = 16 * kTR;
   constexpr int kPS = kBM + 4;                // p_s row stride
@@ -271,8 +280,11 @@ template <typename T, int kM>
 __global__ void __launch_bounds__(kSmallThreads)
 consensus_step_kernel_small(const float* __restrict__ P,
                             const T* __restrict__ G, T* __restrict__ out,
-                            int m, int64_t n) {
+                            int m, int64_t n, int64_t p_stride) {
   __shared__ __align__(16) float p_s[kM][kM];     // p_s[l][i] = P[i, l]
+  P += (int64_t)blockIdx.y * p_stride;
+  G += (int64_t)blockIdx.y * m * n;
+  out += (int64_t)blockIdx.y * m * n;
   const int64_t j = (int64_t)blockIdx.x * kSmallThreads + threadIdx.x;
   float g[kM];
 #pragma unroll
@@ -305,50 +317,56 @@ consensus_step_kernel_small(const float* __restrict__ P,
 }
 
 template <typename T>
-int launch(const float* P, const void* G, void* out, int64_t m, int64_t n,
-           cudaStream_t stream) {
+int launch(const float* P, const void* G, void* out, int64_t runs,
+           int64_t m, int64_t n, int64_t p_stride, cudaStream_t stream) {
   const T* g = static_cast<const T*>(G);
   T* o = static_cast<T*>(out);
+  if (runs > 65535) return (int)cudaErrorInvalidValue;
   if (m <= kSmallM) {
     const int64_t blocks = (n + kSmallThreads - 1) / kSmallThreads;
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
     const int mi = (int)m;
+    const dim3 grid((unsigned)blocks, (unsigned)runs);
     if (m <= 8)      // the paper's m = 7: 8 accumulators, not 32
       consensus_step_kernel_small<T, 8>
-          <<<(unsigned)blocks, kSmallThreads, 0, stream>>>(P, g, o, mi, n);
+          <<<grid, kSmallThreads, 0, stream>>>(P, g, o, mi, n, p_stride);
     else
       consensus_step_kernel_small<T, 32>
-          <<<(unsigned)blocks, kSmallThreads, 0, stream>>>(P, g, o, mi, n);
+          <<<grid, kSmallThreads, 0, stream>>>(P, g, o, mi, n, p_stride);
     return (int)cudaGetLastError();
   }
   const int bm = m <= 64 ? 64 : 128;
   const int64_t bx = (n + kBN - 1) / kBN;
   const int64_t by = (m + bm - 1) / bm;
   if (bx > 0x7fffffff || by > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)bx, (unsigned)by);
+  const dim3 grid((unsigned)bx, (unsigned)by, (unsigned)runs);
   if (bm == 64)
-    consensus_step_kernel_tiled<T, 4><<<grid, kThreads, 0, stream>>>(P, g, o,
-                                                                      m, n);
+    consensus_step_kernel_tiled<T, 4><<<grid, kThreads, 0, stream>>>(
+        P, g, o, m, n, p_stride);
   else
-    consensus_step_kernel_tiled<T, 8><<<grid, kThreads, 0, stream>>>(P, g, o,
-                                                                      m, n);
+    consensus_step_kernel_tiled<T, 8><<<grid, kThreads, 0, stream>>>(
+        P, g, o, m, n, p_stride);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// out = P @ G for a row-major fp32 (m, m) P and row-major (m, n) G and out
-// (dtype: 0 float32, 1 bfloat16, 2 float16); out must not overlap G. The
-// kernel is picked from m: m <= 32 the small-m kernel, else the tiled one
-// (64-row tiles up to m = 64, 128-row tiles above). Returns 0 or a
-// cudaError_t.
+// out[s] = P[s] @ G[s] for `runs` row-major (m, n) slices of G and out
+// (dtype: 0 float32, 1 bfloat16, 2 float16) and row-major fp32 (m, m)
+// matrices P + s * p_stride (p_stride 0: one P shared by every run, or
+// m * m); out must not overlap G. The kernel is picked from m: m <= 32 the
+// small-m kernel, else the tiled one (64-row tiles up to m = 64, 128-row
+// tiles above). Returns 0 or a cudaError_t.
 extern "C" int repro_consensus_step(const float* P, const void* G, void* out,
-                                    int64_t m, int64_t n, int dtype,
+                                    int64_t runs, int64_t m, int64_t n,
+                                    int64_t p_stride, int dtype,
                                     void* stream) {
-  if (m <= 0 || n <= 0 || dtype < 0 || dtype > 2)
+  if (runs <= 0 || m <= 0 || n <= 0 || dtype < 0 || dtype > 2 ||
+      p_stride < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(P, G, out, m, n, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(P, G, out, m, n, s);
-  return launch<__half>(P, G, out, m, n, s);
+  if (dtype == 0) return launch<float>(P, G, out, runs, m, n, p_stride, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(P, G, out, runs, m, n, p_stride, s);
+  return launch<__half>(P, G, out, runs, m, n, p_stride, s);
 }

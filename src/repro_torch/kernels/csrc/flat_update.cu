@@ -55,6 +55,14 @@
 // Both are deterministic: the same shape gives the same bits on every call.
 // Neither is torch's or XLA's order of summation, so they match those to
 // rounding, not bitwise.
+//
+// Runs. A sweep stacks S independent runs as an (S, m, n) carry. row_mean
+// takes the run as blockIdx.y (one launch, S rows out); each run's slice is
+// summed by the same blocks in the same order as a launch on that slice
+// alone, so each run's row is bitwise the unbatched kernel's. The optimizer
+// steps see the S * m rows as one (S * m, n) buffer with a weight per row
+// and, when given, a learning rate per run (lr_runs[row / m]); arithmetic
+// unchanged.
 
 #include <type_traits>
 
@@ -93,7 +101,11 @@ __device__ __forceinline__ void add16(float* acc, const uint4& q) {
   }
 }
 
-// One block per tile of W columns (a multiple of V) over all m rows.
+// One block per tile of W columns (a multiple of V) over all m rows of one
+// run: blockIdx.y is the run, whose (m, n) slice starts at g + run * m * n
+// and whose row goes to out + run * n; each run is summed exactly as a
+// launch on its slice alone would sum it (the phase is taken from the
+// slice's own start).
 // Thread t is vector slot t % slots (slots = W / V + 1, the last one for
 // the phase) of row group t / slots; the block has `groups` row groups (a
 // multiple of 8; threads past them idle), and row group q reads rows q,
@@ -104,6 +116,8 @@ row_mean_kernel(const T* __restrict__ g, T* __restrict__ out, int64_t m,
                 int64_t n, int W, int slots, int groups) {
   constexpr int kV = 16 / sizeof(T);          // elements per vector
   extern __shared__ float part[];
+  g += (int64_t)blockIdx.y * m * n;
+  out += (int64_t)blockIdx.y * n;
   const int t = threadIdx.x;
   const int li = t % slots, rg = t / slots;
   const int64_t c0 = (int64_t)blockIdx.x * W;
@@ -175,13 +189,16 @@ row_mean_kernel(const T* __restrict__ g, T* __restrict__ out, int64_t m,
   }
 }
 
-// Few rows: one block per 32 columns, warp r sums rows r, r + 8, ... of its
-// columns (4-byte loads), the 8 sums added in order 0..7.
+// Few rows: one block per 32 columns of one run (blockIdx.y), warp r sums
+// rows r, r + 8, ... of its columns (4-byte loads), the 8 sums added in
+// order 0..7.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 row_mean_kernel_rows(const T* __restrict__ g, T* __restrict__ out,
                      int64_t m, int64_t n) {
   __shared__ float part[kMeanGroups][kMeanCols];
+  g += (int64_t)blockIdx.y * m * n;
+  out += (int64_t)blockIdx.y * n;
   const int lane = threadIdx.x % kMeanCols;
   const int group = threadIdx.x / kMeanCols;
   const int64_t col = (int64_t)blockIdx.x * kMeanCols + lane;
@@ -200,14 +217,29 @@ row_mean_kernel_rows(const T* __restrict__ g, T* __restrict__ out,
   }
 }
 
+struct AdamScalars {
+  float w_value, lr, b1, one_minus_b1, b2, one_minus_b2, eps, wd, bc1, bc2;
+};
+
+// The learning rate of a row: lr_runs[row / run_rows] when a per-run vector
+// is given (rows run_rows * s .. run_rows * (s + 1) - 1 are run s's
+// agents), else the by-value lr. The same fp32 value either way, so a run's
+// rows get the bits of an unbatched launch at that run's lr.
+__device__ __forceinline__ float run_lr(const float* lr_runs, int64_t run_rows,
+                                        float lr_value, int64_t row) {
+  return lr_runs != nullptr ? lr_runs[row / run_rows] : lr_value;
+}
+
 template <typename T, bool kNesterov>
 __global__ void __launch_bounds__(kThreads)
 momentum_update_kernel(const T* p, const T* __restrict__ g, const float* mu,
                        T* p_out, float* mu_out, const float* __restrict__ w,
-                       int64_t w_stride, float w_value, float lr, float beta,
-                       int64_t m, int64_t n) {
+                       int64_t w_stride, float w_value,
+                       const float* __restrict__ lr_runs, int64_t run_rows,
+                       float lr_value, float beta, int64_t m, int64_t n) {
   for (int64_t row = blockIdx.y; row < m; row += gridDim.y) {
     const float wr = row_coef(w, w_stride, w_value, row);
+    const float lr = run_lr(lr_runs, run_rows, lr_value, row);
     const int64_t base = row * n;
     for (int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; col < n;
          col += (int64_t)gridDim.x * blockDim.x) {
@@ -223,18 +255,17 @@ momentum_update_kernel(const T* p, const T* __restrict__ g, const float* mu,
   }
 }
 
-struct AdamScalars {
-  float w_value, lr, b1, one_minus_b1, b2, one_minus_b2, eps, wd, bc1, bc2;
-};
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 adam_update_kernel(const T* p, const T* __restrict__ g, const float* mu,
                    const float* nu, T* p_out, float* mu_out, float* nu_out,
                    const float* __restrict__ w, int64_t w_stride, AdamScalars s,
+                   const float* __restrict__ lr_runs, int64_t run_rows,
                    int64_t m, int64_t n) {
   for (int64_t row = blockIdx.y; row < m; row += gridDim.y) {
     const float wr = row_coef(w, w_stride, s.w_value, row);
+    const float lr = run_lr(lr_runs, run_rows, s.lr, row);
     const int64_t base = row * n;
     for (int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; col < n;
          col += (int64_t)gridDim.x * blockDim.x) {
@@ -251,7 +282,7 @@ adam_update_kernel(const T* p, const T* __restrict__ g, const float* mu,
       step = __fadd_rn(step, __fmul_rn(s.wd, p32));
       mu_out[i] = mu_new;
       nu_out[i] = nu_new;
-      store_f32(p_out + i, __fsub_rn(p32, __fmul_rn(s.lr, step)));
+      store_f32(p_out + i, __fsub_rn(p32, __fmul_rn(lr, step)));
     }
   }
 }
@@ -263,13 +294,15 @@ adam_update_kernel(const T* p, const T* __restrict__ g, const float* mu,
 // multiple of 8, so that each group's rows share a phase) as leave each
 // lane one batch of rows, up to what kMeanThreads threads hold.
 template <typename T>
-int launch_row_mean(const void* g, void* out, int64_t m, int64_t n,
-                    cudaStream_t stream) {
+int launch_row_mean(const void* g, void* out, int64_t runs, int64_t m,
+                    int64_t n, cudaStream_t stream) {
   constexpr int kV = 16 / sizeof(T);
+  if (runs > 65535) return (int)cudaErrorInvalidValue;
   if (m <= kMeanFewRows) {
     const int64_t blocks = (n + kMeanCols - 1) / kMeanCols;
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    row_mean_kernel_rows<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+    row_mean_kernel_rows<T>
+        <<<dim3((unsigned)blocks, (unsigned)runs), kThreads, 0, stream>>>(
         static_cast<const T*>(g), static_cast<T*>(out), m, n);
     return (int)cudaGetLastError();
   }
@@ -287,7 +320,8 @@ int launch_row_mean(const void* g, void* out, int64_t m, int64_t n,
   const int64_t tiles = (n + W - 1) / W;
   if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)groups * W * sizeof(float);
-  row_mean_kernel<T><<<(unsigned)tiles, threads, smem, stream>>>(
+  row_mean_kernel<T>
+      <<<dim3((unsigned)tiles, (unsigned)runs), threads, smem, stream>>>(
       static_cast<const T*>(g), static_cast<T*>(out), m, n, W, slots, groups);
   return (int)cudaGetLastError();
 }
@@ -295,24 +329,28 @@ int launch_row_mean(const void* g, void* out, int64_t m, int64_t n,
 template <typename T>
 int launch_momentum(const void* p, const void* g, const float* mu, void* p_out,
                     float* mu_out, const float* w, int64_t w_stride,
-                    float w_value, float lr, float beta, int nesterov,
-                    int64_t m, int64_t n, int device, cudaStream_t stream) {
+                    float w_value, const float* lr_runs, int64_t run_rows,
+                    float lr, float beta, int nesterov, int64_t m, int64_t n,
+                    int device, cudaStream_t stream) {
   auto kernel = nesterov ? momentum_update_kernel<T, true>
                          : momentum_update_kernel<T, false>;
   kernel<<<rows_grid(m, n, device), kThreads, 0, stream>>>(
       static_cast<const T*>(p), static_cast<const T*>(g), mu,
-      static_cast<T*>(p_out), mu_out, w, w_stride, w_value, lr, beta, m, n);
+      static_cast<T*>(p_out), mu_out, w, w_stride, w_value, lr_runs, run_rows,
+      lr, beta, m, n);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_adam(const void* p, const void* g, const float* mu, const float* nu,
                 void* p_out, float* mu_out, float* nu_out, const float* w,
-                int64_t w_stride, const AdamScalars& s, int64_t m, int64_t n,
-                int device, cudaStream_t stream) {
+                int64_t w_stride, const AdamScalars& s, const float* lr_runs,
+                int64_t run_rows, int64_t m, int64_t n, int device,
+                cudaStream_t stream) {
   adam_update_kernel<T><<<rows_grid(m, n, device), kThreads, 0, stream>>>(
       static_cast<const T*>(p), static_cast<const T*>(g), mu, nu,
-      static_cast<T*>(p_out), mu_out, nu_out, w, w_stride, s, m, n);
+      static_cast<T*>(p_out), mu_out, nu_out, w, w_stride, s, lr_runs,
+      run_rows, m, n);
   return (int)cudaGetLastError();
 }
 
@@ -321,33 +359,39 @@ int launch_adam(const void* p, const void* g, const float* mu, const float* nu,
 // dtype codes: 0 float32, 1 bfloat16, 2 float16; device (momentum, Adam): the
 // buffers' CUDA device ordinal. Each returns 0 or a cudaError_t. An (n,)
 // buffer is m = 1. The per-row weight is w[row * w_stride] when w is given,
-// else w_value.
+// else w_value; the per-row lr is lr_runs[row / run_rows] when lr_runs is
+// given, else lr.
 
-// out[j] = (sum_i g[i, j]) / m, summed in fp32.
-extern "C" int repro_row_mean(const void* g, void* out, int64_t m, int64_t n,
-                              int dtype, void* stream) {
-  if (m <= 0 || n <= 0 || dtype < 0 || dtype > 2)
+// out[s, j] = (sum_i g[s, i, j]) / m for each of `runs` row-major (m, n)
+// slices g[s] (one launch for all), summed in fp32.
+extern "C" int repro_row_mean(const void* g, void* out, int64_t runs,
+                              int64_t m, int64_t n, int dtype, void* stream) {
+  if (runs <= 0 || m <= 0 || n <= 0 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_row_mean<float>(g, out, m, n, s);
-  if (dtype == 1) return launch_row_mean<__nv_bfloat16>(g, out, m, n, s);
-  return launch_row_mean<__half>(g, out, m, n, s);
+  if (dtype == 0) return launch_row_mean<float>(g, out, runs, m, n, s);
+  if (dtype == 1)
+    return launch_row_mean<__nv_bfloat16>(g, out, runs, m, n, s);
+  return launch_row_mean<__half>(g, out, runs, m, n, s);
 }
 
 // mu <- beta * mu + w * g; p <- p - lr * (nesterov ? beta * mu + w * g : mu).
 extern "C" int repro_momentum_update(const void* p, const void* g,
                                      const float* mu, void* p_out,
                                      float* mu_out, const float* w,
-                                     int64_t w_stride, float w_value, float lr,
-                                     float beta, int nesterov, int64_t m,
-                                     int64_t n, int dtype, int device,
-                                     void* stream) {
-  if (m <= 0 || n <= 0 || dtype < 0 || dtype > 2 || w_stride < 0)
+                                     int64_t w_stride, float w_value,
+                                     const float* lr_runs, int64_t run_rows,
+                                     float lr, float beta, int nesterov,
+                                     int64_t m, int64_t n, int dtype,
+                                     int device, void* stream) {
+  if (m <= 0 || n <= 0 || dtype < 0 || dtype > 2 || w_stride < 0 ||
+      (lr_runs != nullptr && run_rows <= 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_MOMENTUM(T)                                                    \
   return launch_momentum<T>(p, g, mu, p_out, mu_out, w, w_stride, w_value,   \
-                            lr, beta, nesterov, m, n, device, s)
+                            lr_runs, run_rows, lr, beta, nesterov, m, n,     \
+                            device, s)
   if (dtype == 0) REPRO_MOMENTUM(float);
   if (dtype == 1) REPRO_MOMENTUM(__nv_bfloat16);
   REPRO_MOMENTUM(__half);
@@ -359,19 +403,22 @@ extern "C" int repro_momentum_update(const void* p, const void* g,
 extern "C" int repro_adam_update(const void* p, const void* g, const float* mu,
                                  const float* nu, void* p_out, float* mu_out,
                                  float* nu_out, const float* w,
-                                 int64_t w_stride, float w_value, float lr,
-                                 float b1, float one_minus_b1, float b2,
-                                 float one_minus_b2, float eps, float wd,
-                                 float bc1, float bc2, int64_t m, int64_t n,
-                                 int dtype, int device, void* stream) {
-  if (m <= 0 || n <= 0 || dtype < 0 || dtype > 2 || w_stride < 0)
+                                 int64_t w_stride, float w_value,
+                                 const float* lr_runs, int64_t run_rows,
+                                 float lr, float b1, float one_minus_b1,
+                                 float b2, float one_minus_b2, float eps,
+                                 float wd, float bc1, float bc2, int64_t m,
+                                 int64_t n, int dtype, int device,
+                                 void* stream) {
+  if (m <= 0 || n <= 0 || dtype < 0 || dtype > 2 || w_stride < 0 ||
+      (lr_runs != nullptr && run_rows <= 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const AdamScalars s{w_value, lr, b1, one_minus_b1, b2, one_minus_b2,
                       eps, wd, bc1, bc2};
 #define REPRO_ADAM(T)                                                         \
   return launch_adam<T>(p, g, mu, nu, p_out, mu_out, nu_out, w, w_stride, s, \
-                        m, n, device, st)
+                        lr_runs, run_rows, m, n, device, st)
   if (dtype == 0) REPRO_ADAM(float);
   if (dtype == 1) REPRO_ADAM(__nv_bfloat16);
   REPRO_ADAM(__half);

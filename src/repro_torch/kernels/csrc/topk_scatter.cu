@@ -29,6 +29,11 @@
 // over all m rows would be a dependent chain of m loads per thread (the
 // latency-bound shape PERF.md found for row_mean at m = 1024); eight
 // independent chains per column keep eight times as many loads in flight.
+//
+// Runs. A sweep stacks S independent runs as an (S, m, n) x with (S, m)
+// thresholds; blockIdx.y is the run, whose slice is reduced exactly as a
+// launch on that slice alone would reduce it (the same blocks, the same
+// order), into ssum[run] (n,) and residual[run] (m, n). One launch for all.
 
 #include "flat_common.cuh"
 
@@ -45,6 +50,10 @@ topk_scatter_kernel(const T* __restrict__ x, const float* __restrict__ t,
                     T* __restrict__ ssum, T* __restrict__ residual, int64_t m,
                     int64_t n) {
   __shared__ float part[kGroups][kCols];
+  x += (int64_t)blockIdx.y * m * n;
+  residual += (int64_t)blockIdx.y * m * n;
+  t += (int64_t)blockIdx.y * m;
+  ssum += (int64_t)blockIdx.y * n;
   const int lane = threadIdx.x % kCols;
   const int group = threadIdx.x / kCols;
   const int64_t col = (int64_t)blockIdx.x * kCols + lane;
@@ -70,10 +79,11 @@ topk_scatter_kernel(const T* __restrict__ x, const float* __restrict__ t,
 
 template <typename T>
 int launch(const void* x, const float* t, void* ssum, void* residual,
-           int64_t m, int64_t n, cudaStream_t stream) {
+           int64_t runs, int64_t m, int64_t n, cudaStream_t stream) {
   const int64_t blocks = (n + kCols - 1) / kCols;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  topk_scatter_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  if (blocks > 0x7fffffff || runs > 65535) return (int)cudaErrorInvalidValue;
+  topk_scatter_kernel<T>
+      <<<dim3((unsigned)blocks, (unsigned)runs), kThreads, 0, stream>>>(
       static_cast<const T*>(x), t, static_cast<T*>(ssum),
       static_cast<T*>(residual), m, n);
   return (int)cudaGetLastError();
@@ -81,17 +91,18 @@ int launch(const void* x, const float* t, void* ssum, void* residual,
 
 }  // namespace
 
-// Top-k select by per-row threshold t (m,) fp32 on a row-major (m, n) x:
-// ssum (n,) and residual (m, n) in x's dtype (0 float32, 1 bfloat16,
-// 2 float16). residual may not overlap x. Returns 0 or a cudaError_t.
+// Top-k select by per-row threshold t (runs, m) fp32 on a row-major
+// (runs, m, n) x: ssum (runs, n) and residual (runs, m, n) in x's dtype
+// (0 float32, 1 bfloat16, 2 float16). residual may not overlap x. Returns 0
+// or a cudaError_t.
 extern "C" int repro_topk_scatter(const void* x, const float* t, void* ssum,
-                                  void* residual, int64_t m, int64_t n,
-                                  int dtype, void* stream) {
-  if (m <= 0 || n <= 0 || dtype < 0 || dtype > 2)
+                                  void* residual, int64_t runs, int64_t m,
+                                  int64_t n, int dtype, void* stream) {
+  if (runs <= 0 || m <= 0 || n <= 0 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, t, ssum, residual, m, n, s);
+  if (dtype == 0) return launch<float>(x, t, ssum, residual, runs, m, n, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, t, ssum, residual, m, n, s);
-  return launch<__half>(x, t, ssum, residual, m, n, s);
+    return launch<__nv_bfloat16>(x, t, ssum, residual, runs, m, n, s);
+  return launch<__half>(x, t, ssum, residual, runs, m, n, s);
 }

@@ -18,9 +18,18 @@ parameters; ``decay_accum``, ``scale_rows``, ``row_mean``,
 ``consensus_gather`` and the compressed reduction ``topk_scatter``) raise
 the validation errors of the JAX dispatch. Every one computes in fp32 and
 casts back to the buffer's dtype, as ``repro.kernels.dispatch`` does (its
-lines 32-35). The ``(S, m, n)`` sweep
-shapes of the JAX dispatch are not ported yet and raise
-``NotImplementedError``.
+lines 32-35).
+
+Sweep shapes: every flat primitive also takes a leading run axis S,
+``(S, m, n)`` buffers for S independent runs, with JAX's coefficient forms
+(a scalar, a shared ``(m,)``, a per-run ``(S,)`` or ``(S, m)``, shared or
+per-run ``(S, m, m)`` mixing, shared or per-run ``(S, m, k_max)`` edge
+weights) and JAX's refusal of a 1-D coefficient when S == m. One call is one
+launch on the card whatever S: the elementwise primitives and the gather
+fold the runs into S * m rows, and ``row_mean``, ``consensus_mix`` and
+``topk_scatter`` launch their kernels with the run in the grid. Each run's
+result is bitwise what the same primitive gives on that run's ``(m, n)``
+slice; the plain versions on the CPU compute run by run.
 
 The language models' recurrence ``wkv6`` and their full-sequence attention
 ``swa_attention`` route the same way: the plain version on CPU tensors, the
@@ -224,14 +233,6 @@ def compute_view(buf: torch.Tensor, storage_dtype) -> torch.Tensor:
 
 # --- flat (m, n) primitives -------------------------------------------------------
 
-def _no_sweep(fn: str, t: torch.Tensor) -> None:
-    if t.ndim == 3:
-        raise NotImplementedError(
-            f"{fn}: the (S, m, n) sweep shapes are not ported yet (they come "
-            f"with the sweep slice)"
-        )
-
-
 def _f32(c, device):
     """A coefficient as the dispatch takes it: numbers stay numbers; arrays
     and tensors become fp32 tensors on ``device``."""
@@ -252,16 +253,74 @@ def _ndim(c) -> int:
     return c.ndim if isinstance(c, torch.Tensor) else 0
 
 
+def _shape(c) -> tuple:
+    return tuple(np.shape(c)) if not isinstance(c, torch.Tensor) else \
+        tuple(c.shape)
+
+
+def _per_row(fn: str, what: str, c, S: int, m: int, *, per_run_1d: bool):
+    """A coefficient of an ``(S, m, n)`` call as one value per row: a number
+    or 0-d tensor stays as it is; a shared ``(m,)`` vector is tiled over the
+    runs, a per-run ``(S,)`` one (where ``per_run_1d``) repeated over each
+    run's agents, and ``(S, m)`` taken as it is — a contiguous ``(S, m)``
+    tensor. A 1-D coefficient when S == m is refused, as the JAX dispatch
+    refuses it (the two readings disagree)."""
+    nd = _ndim(c)
+    if nd == 0:
+        return c
+    if nd == 1 and S == m and c.shape[0] == S:
+        if per_run_1d:
+            raise ValueError(
+                f"{fn}: 1-D {what} of length {S} is ambiguous on a sweep "
+                f"path with S == m == {S}; pass (S, m) coefficients (tile "
+                f"the shared/per-run vector) or a scalar")
+        raise ValueError(
+            f"{fn}: 1-D {what} of length {m} is ambiguous on a sweep path "
+            f"with S == m == {S}; pass (S, m) weights")
+    if nd == 1 and per_run_1d and c.shape[0] == S:
+        return c[:, None].expand(S, m).contiguous()
+    if nd == 1 and c.shape[0] == m:
+        return c[None, :].expand(S, m).contiguous()
+    if nd == 2 and tuple(c.shape) == (S, m):
+        return c.contiguous()
+    raise ValueError(
+        f"{fn}: {what} must be a scalar, ({m},) shared"
+        + (f", ({S},) per run" if per_run_1d else "")
+        + f" or ({S}, {m}) per row on a sweep path with buffers "
+        f"({S}, {m}, n), got {what} shape {tuple(c.shape)}")
+
+
+def _fold(t: torch.Tensor) -> torch.Tensor:
+    """An ``(S, m, n)`` buffer as its ``(S * m, n)`` rows (a view)."""
+    return t.reshape(t.shape[0] * t.shape[1], t.shape[2])
+
+
 def decay_accum(acc: torch.Tensor, g: torch.Tensor, d, *,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``acc + d * g`` — the fused FMA at the heart of the decay/SGD step.
 
-    ``acc``/``g``: matching ``(n,)`` or ``(m, n)`` buffers of one dtype;
-    ``d``: a scalar, or ``(m,)`` per-agent coefficients with ``(m, n)``
-    buffers. Accumulates in fp32; the result has ``acc.dtype``. ``out`` (may
-    be ``acc``) receives the result.
+    ``acc``/``g``: matching ``(n,)`` or ``(m, n)`` buffers of one dtype, or
+    ``(S, m, n)`` for S runs; ``d``: a scalar, or ``(m,)`` per-agent
+    coefficients with ``(m, n)`` buffers; on ``(S, m, n)`` also ``(m,)``
+    shared, ``(S,)`` per run or ``(S, m)`` per row. Accumulates in fp32;
+    the result has ``acc.dtype``. ``out`` (may be ``acc``) receives the
+    result.
     """
-    _no_sweep("decay_accum", acc)
+    if acc.ndim == 3:
+        if acc.shape != g.shape:
+            raise ValueError(
+                f"decay_accum: acc/g must match on the sweep path, got "
+                f"{tuple(acc.shape)} vs {tuple(g.shape)}")
+        if acc.dtype != g.dtype:
+            raise ValueError(
+                f"decay_accum: acc/g dtypes must match, got {acc.dtype} vs "
+                f"{g.dtype}")
+        S, m = acc.shape[0], acc.shape[1]
+        d = _per_row("decay_accum", "d", _f32(d, acc.device), S, m,
+                     per_run_1d=True)
+        if _is_cuda(acc):
+            return decay_accum_cuda(acc, g, d, out=out)
+        return decay_accum_plain(acc, g, d, out=out)
     if acc.ndim not in (1, 2) or acc.shape != g.shape:
         raise ValueError(
             f"decay_accum: acc/g must be matching (n,) or (m, n) buffers, "
@@ -277,7 +336,7 @@ def decay_accum(acc: torch.Tensor, g: torch.Tensor, d, *,
             acc.ndim != 2 or d.shape[0] != acc.shape[0])):
         raise ValueError(
             f"decay_accum: d must be scalar or (m,) with (m, n) inputs, "
-            f"got d shape {tuple(np.shape(d))} for input shape "
+            f"got d shape {_shape(d)} for input shape "
             f"{tuple(acc.shape)}"
         )
     if _is_cuda(acc):
@@ -291,9 +350,21 @@ def scale_rows(g: torch.Tensor, w, *,
 
     On the card this is ``decay_accum(g, g, w - 1)`` = ``g + (w - 1) * g``,
     as on the JAX kernel path; the CPU path computes ``w * g`` as the jnp
-    path does.
+    path does. ``(S, m, n)`` grads take shared ``(m,)`` or per-run
+    ``(S, m)`` weights.
     """
-    _no_sweep("scale_rows", g)
+    if g.ndim == 3:
+        S, m = g.shape[0], g.shape[1]
+        w = torch.as_tensor(w, dtype=torch.float32, device=g.device)
+        if w.ndim not in (1, 2):
+            raise ValueError(
+                f"scale_rows: w must be ({m},) shared or ({S}, {m}) per run, "
+                f"got {tuple(w.shape)}")
+        w = _per_row("scale_rows", "w", w, S, m, per_run_1d=False)
+        if _is_cuda(g):
+            return decay_accum_cuda(g, g, w - 1.0, out=out)
+        res = (g.float() * w[..., None]).to(g.dtype)
+        return res if out is None else out.copy_(res)
     if g.ndim != 2:
         raise ValueError(f"scale_rows: g must be (m, n), got {tuple(g.shape)}")
     w = torch.as_tensor(w, dtype=torch.float32, device=g.device)
@@ -311,9 +382,9 @@ def scale_rows(g: torch.Tensor, w, *,
 def row_mean(g: torch.Tensor, *,
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Server averaging (eq. 11) on the flat carry: the ``(n,)`` mean over the
-    agent axis of ``(m, n)`` buffers, accumulated in fp32, in ``g.dtype``."""
-    _no_sweep("row_mean", g)
-    if g.ndim != 2:
+    agent axis of ``(m, n)`` buffers (``(S, n)`` for ``(S, m, n)``),
+    accumulated in fp32, in ``g.dtype``."""
+    if g.ndim not in (2, 3):
         raise ValueError(f"row_mean: g must be (m, n), got {tuple(g.shape)}")
     if _is_cuda(g):
         return row_mean_cuda(g, out=out)
@@ -324,20 +395,25 @@ def consensus_mix(g: torch.Tensor, mixing, *,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One (possibly fused-E, possibly mask-folded) gossip mix: ``mixing @ g``.
 
-    ``g``: ``(m, n)`` flat grads; ``mixing``: ``(m, m)``, cast to fp32 on
-    ``g``'s device. Accumulates in fp32 (no TF32) and casts back to
-    ``g.dtype``. ``out`` receives the result and must not be ``g``.
+    ``g``: ``(m, n)`` flat grads, or ``(S, m, n)``; ``mixing``: ``(m, m)``
+    (shared by the runs), or ``(S, m, m)`` per run; cast to fp32 on ``g``'s
+    device. Accumulates in fp32 (no TF32) and casts back to ``g.dtype``.
+    ``out`` receives the result and must not be ``g``.
     """
-    _no_sweep("consensus_mix", g)
-    if g.ndim != 2:
+    if g.ndim not in (2, 3):
         raise ValueError(f"consensus_mix: g must be (m, n), got "
                          f"{tuple(g.shape)}")
-    m = g.shape[0]
+    m = g.shape[-2]
     mixing = torch.as_tensor(mixing, device=g.device)
-    if tuple(mixing.shape) != (m, m):
+    if g.ndim == 3 and mixing.ndim == 3:
+        if tuple(mixing.shape) != (g.shape[0], m, m):
+            raise ValueError(
+                f"consensus_mix: per-run mixing must be ({g.shape[0]}, {m}, "
+                f"{m}) for g {tuple(g.shape)}, got {tuple(mixing.shape)}")
+    elif tuple(mixing.shape) != (m, m):
         raise ValueError(
-            f"consensus_mix: mixing must be ({m}, {m}) for g {tuple(g.shape)}, "
-            f"got {tuple(mixing.shape)}"
+            f"consensus_mix: mixing must be ({m}, {m}) for g "
+            f"{tuple(g.shape[-2:])}, got {tuple(mixing.shape)}"
         )
     mixing = mixing.to(torch.float32).contiguous()
     if _is_cuda(g):
@@ -350,16 +426,17 @@ def consensus_gather(g: torch.Tensor, idx, w, *,
     """One sparse neighbor-list gossip round: ``out[i] = sum_k w[i,k] *
     g[idx[i,k]]``.
 
-    ``g``: ``(m, n)`` flat grads; ``idx``: ``(m, k_max)`` integer neighbor
-    ids in the ``NeighborList`` layout (ascending valid prefix, self
-    included, padding = own row); ``w``: ``(m, k_max)`` edge weights, 0.0 on
-    padding. The sum is the sequential fp32 chain in ascending k on both
-    paths, cast back to ``g.dtype``. An ``idx`` handed over on the host
-    (numpy or a CPU tensor) is range-checked before it moves to the card; a
-    CUDA ``idx`` is taken as it is (checked once, when it was built). ``out``
+    ``g``: ``(m, n)`` flat grads (or ``(S, m, n)``); ``idx``: ``(m, k_max)``
+    integer neighbor ids in the ``NeighborList`` layout (ascending valid
+    prefix, self included, padding = own row), shared by the runs; ``w``:
+    ``(m, k_max)`` edge weights, 0.0 on padding (or ``(S, m, k_max)`` per
+    run). The sum is the sequential fp32 chain in ascending k on both
+    paths, cast back to ``g.dtype``; the runs fold into S * m rows whose
+    ids point into their own run. An ``idx`` handed over on the host (numpy
+    or a CPU tensor) is range-checked before it moves to the card; a CUDA
+    ``idx`` is taken as it is (checked once, when it was built). ``out``
     receives the result and must not be ``g``.
     """
-    _no_sweep("consensus_gather", g)
     on_host = not (isinstance(idx, torch.Tensor) and idx.device.type == "cuda")
     idx = torch.as_tensor(idx)
     if idx.ndim != 2 or idx.dtype.is_floating_point or idx.dtype == torch.bool:
@@ -367,23 +444,34 @@ def consensus_gather(g: torch.Tensor, idx, w, *,
             f"consensus_gather: idx must be an (m, k_max) integer array, got "
             f"shape {tuple(idx.shape)} dtype {idx.dtype}"
         )
-    if g.ndim != 2:
+    if g.ndim not in (2, 3):
         raise ValueError(f"consensus_gather: g must be (m, n), got "
                          f"{tuple(g.shape)}")
-    m = g.shape[0]
+    m = g.shape[-2]
     if idx.shape[0] != m:
         raise ValueError(
             f"consensus_gather: idx must be ({m}, k_max) for g "
-            f"{tuple(g.shape)}, got {tuple(idx.shape)}"
+            f"{tuple(g.shape[-2:])}, got {tuple(idx.shape)}"
         )
     w = torch.as_tensor(w, dtype=torch.float32, device=g.device)
-    if w.shape != idx.shape:
+    per_run = g.ndim == 3 and w.ndim == 3
+    want = (g.shape[0],) + tuple(idx.shape) if per_run else tuple(idx.shape)
+    if tuple(w.shape) != want:
         raise ValueError(
             f"consensus_gather: w must match idx {tuple(idx.shape)}, got "
             f"{tuple(w.shape)}"
         )
     if on_host and idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= m):
         raise ValueError(f"consensus_gather: idx rows must lie in [0, {m})")
+    if g.ndim == 3:
+        S, k = g.shape[0], idx.shape[1]
+        idx = (idx.to(g.device, torch.int64)[None]
+               + m * torch.arange(S, device=g.device)[:, None, None])
+        idx = idx.reshape(S * m, k)
+        w = (w if per_run else w[None].expand(S, m, k)).reshape(S * m, k)
+        res = consensus_gather(_fold(g), idx, w,
+                               out=None if out is None else _fold(out))
+        return res.view(g.shape) if out is None else out
     if _is_cuda(g):
         idx = idx.to(device=g.device, dtype=torch.int32).contiguous()
         return consensus_gather_cuda(g, idx, w.contiguous(), out=out)
@@ -396,23 +484,30 @@ def topk_scatter(x: torch.Tensor, thresh
     reduction.
 
     ``x``: ``(m, n)`` payload rows; ``thresh``: ``(m,)`` per-agent magnitude
-    thresholds (normally ``repro_torch.comm.topk_threshold(x, k)``).
-    Selection keeps ``|x| >= thresh`` with ties included. Returns
-    ``(sent_sum, residual)``: the ``(n,)`` fp32 sum of the selected entries
-    over agents, cast to ``x.dtype``, and the ``(m, n)`` unselected remainder
-    (``sent + residual == x`` exactly).
+    thresholds (normally ``repro_torch.comm.topk_threshold(x, k)``); on a
+    sweep ``(S, m, n)`` with ``(S, m)``. Selection keeps ``|x| >= thresh``
+    with ties included. Returns ``(sent_sum, residual)``: the ``(n,)``
+    (``(S, n)``) fp32 sum of the selected entries over agents, cast to
+    ``x.dtype``, and the unselected remainder (``sent + residual == x``
+    exactly).
     """
-    _no_sweep("topk_scatter", x)
-    if x.ndim != 2:
+    if x.ndim == 3:
+        thresh = torch.as_tensor(thresh, dtype=torch.float32, device=x.device)
+        if tuple(thresh.shape) != tuple(x.shape[:2]):
+            raise ValueError(
+                f"topk_scatter: thresh must be {tuple(x.shape[:2])} on the "
+                f"sweep path, got {tuple(thresh.shape)}")
+    elif x.ndim != 2:
         raise ValueError(f"topk_scatter: x must be (m, n), got "
                          f"{tuple(x.shape)}")
-    m = x.shape[0]
-    thresh = torch.as_tensor(thresh, dtype=torch.float32, device=x.device)
-    if tuple(thresh.shape) != (m,):
-        raise ValueError(
-            f"topk_scatter: thresh must be ({m},) for x {tuple(x.shape)}, "
-            f"got {tuple(thresh.shape)}"
-        )
+    else:
+        m = x.shape[0]
+        thresh = torch.as_tensor(thresh, dtype=torch.float32, device=x.device)
+        if tuple(thresh.shape) != (m,):
+            raise ValueError(
+                f"topk_scatter: thresh must be ({m},) for x {tuple(x.shape)}, "
+                f"got {tuple(thresh.shape)}"
+            )
     if _is_cuda(x):
         return topk_scatter_cuda(x, thresh.contiguous())
     return topk_scatter_plain(x, thresh)
@@ -446,23 +541,26 @@ def adam_bias_corrections(t: int, b1: float, b2: float) -> Tuple[float, float]:
 
 
 def flat_opt_update(params: torch.Tensor, g: torch.Tensor, w, state: dict, *,
-                    kind: str, lr: float, beta: float = 0.9,
+                    kind: str, lr, beta: float = 0.9,
                     nesterov: bool = False, b1: float = 0.9, b2: float = 0.95,
                     eps: float = 1e-8, weight_decay: float = 0.0,
                     inplace: bool = False):
     """Fused within-period-weighted optimizer update on flat buffers.
 
-    ``params``/``g``: matching ``(n,)`` or ``(m, n)`` buffers. ``w`` is the
-    strategy's per-step weight (variation mask x decay; scalar or ``(m,)``),
-    folded into the gradient before any moment accumulation. ``state`` holds
-    the fp32 accumulators (see ``repro_torch.optim.flat``):
+    ``params``/``g``: matching ``(n,)`` or ``(m, n)`` buffers, or
+    ``(S, m, n)`` for S runs. ``w`` is the strategy's per-step weight
+    (variation mask x decay; scalar or ``(m,)``, and on ``(S, m, n)`` also
+    ``(S,)`` per run or ``(S, m)`` per row, with ``decay_accum``'s S == m
+    refusal), folded into the gradient before any moment accumulation.
+    ``lr`` is a number, or on ``(S, m, n)`` one rate per run ``(S,)``.
+    ``state`` holds the fp32 accumulators (see ``repro_torch.optim.flat``):
 
       * ``sgd``      — ``{}``; the fused :func:`decay_accum` pass with
                        ``d = -lr * w``;
       * ``momentum`` — ``{"mu"}``; mu <- beta*mu + w*g, params -= lr*mu
                        (nesterov: params -= lr*(beta*mu_new + w*g));
       * ``adam``     — ``{"mu", "nu", "t"}``; bias-corrected Adam(W), ``t`` a
-                       host integer.
+                       host integer shared by the runs.
 
     Returns ``(new_params, new_state)``. With ``inplace=True`` the parameter
     buffer and the moment buffers are overwritten and returned (the training
@@ -470,25 +568,39 @@ def flat_opt_update(params: torch.Tensor, g: torch.Tensor, w, state: dict, *,
     """
     if kind not in OPT_KINDS:
         raise ValueError(f"unknown optimizer kind {kind!r}; expected {OPT_KINDS}")
-    _no_sweep("flat_opt_update", params)
-    if params.ndim not in (1, 2) or params.shape != g.shape:
+    sweep = params.ndim == 3
+    if (params.ndim not in (1, 2) and not sweep) or params.shape != g.shape:
         raise ValueError(
             f"flat_opt_update: params/g must be matching (n,) or (m, n) "
             f"buffers, got {tuple(params.shape)} vs {tuple(g.shape)}"
         )
     w = _f32(w, params.device)
-    if _ndim(w) not in (0, 1) or (_ndim(w) == 1 and (
+    if sweep:
+        S, m = params.shape[0], params.shape[1]
+        w = _per_row("flat_opt_update", "w", w, S, m, per_run_1d=True)
+        if not isinstance(lr, (int, float)):
+            lr = torch.as_tensor(lr, dtype=torch.float32,
+                                 device=params.device)
+            if lr.ndim == 0:
+                lr = float(lr)
+            elif tuple(lr.shape) != (S,):
+                raise ValueError(
+                    f"flat_opt_update: lr must be a scalar or ({S},) per run "
+                    f"on a sweep path, got {tuple(lr.shape)}")
+    elif _ndim(w) not in (0, 1) or (_ndim(w) == 1 and (
             params.ndim != 2 or w.shape[0] != params.shape[0])):
         raise ValueError(
             f"flat_opt_update: w must be scalar or (m,) with (m, n) inputs, "
-            f"got w shape {tuple(np.shape(w))} for input shape "
+            f"got w shape {_shape(w)} for input shape "
             f"{tuple(params.shape)}"
         )
     cuda = _is_cuda(params)
     p_out = params if inplace else None
 
     if kind == "sgd":
-        if isinstance(w, float):
+        if isinstance(lr, torch.Tensor):          # per run: (S, 1) * w
+            d = (-lr[:, None] * w).expand(params.shape[:2]).contiguous()
+        elif isinstance(w, float):
             d = float(np.float32(-lr) * np.float32(w))
         else:
             d = -lr * w

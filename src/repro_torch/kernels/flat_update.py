@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -35,6 +36,7 @@ from repro_torch.kernels.decay_accum import (
     raise_on,
     rows_of,
     rows_view,
+    run_lr_args,
     stream_of,
 )
 
@@ -48,8 +50,14 @@ _F32 = (torch.float32,)
 
 def row_mean_plain(g: torch.Tensor, *,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version: the fp32 mean over axis 0, cast to ``g.dtype``."""
-    res = g.float().mean(0).to(g.dtype)
+    """Plain version: the fp32 mean over the agent axis, cast to
+    ``g.dtype``; an ``(S, m, n)`` sweep buffer gives ``(S, n)``, one run at
+    a time (each run's row is the unbatched version's on its slice)."""
+    if g.ndim == 3:
+        res = torch.stack([g[s].float().mean(0) for s in range(g.shape[0])])
+        res = res.to(g.dtype)
+    else:
+        res = g.float().mean(0).to(g.dtype)
     if out is None:
         return res
     return out.copy_(res)
@@ -58,35 +66,40 @@ def row_mean_plain(g: torch.Tensor, *,
 def row_mean_cuda(g: torch.Tensor, *,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch ``row_mean_kernel``: the ``(n,)`` fp32 mean of an ``(m, n)``
-    buffer over its rows, cast to ``g.dtype`` (fp32, bf16 or fp16).
+    buffer over its rows, cast to ``g.dtype`` (fp32, bf16 or fp16); an
+    ``(S, m, n)`` sweep buffer gives the ``(S, n)`` rows of its S runs.
 
-    One launch a call (``row_mean_kernel_rows`` for up to 64 rows); ``g``
-    may start at any element. The sum's order is fixed by the shape, so a
-    call repeats bitwise; it is not torch's order, so it matches
-    :func:`row_mean_plain` to rounding.
+    One launch a call whatever S (``row_mean_kernel_rows`` for up to 64
+    rows, the run in the grid's y); ``g`` may start at any element. The
+    sum's order is fixed by (m, n), so a call repeats bitwise and each run's
+    row is bitwise what a launch on that run's slice gives; it is not
+    torch's order, so it matches :func:`row_mean_plain` to rounding.
 
-    Library yardstick: ``g.float().mean(0)`` (timed beside the kernel, never
+    Library yardstick: ``g.float().mean(-2)`` (timed beside the kernel, never
     called here).
     """
     fn = "row_mean_cuda"
     device = g.device
     if device.type != "cuda":
         raise ValueError(f"{fn}: tensors must be on a CUDA device, got {device}")
-    if g.ndim != 2:
-        raise ValueError(f"{fn}: g must be (m, n), got {tuple(g.shape)}")
-    m, n = g.shape
+    if g.ndim not in (2, 3):
+        raise ValueError(f"{fn}: g must be (m, n) or (S, m, n), got "
+                         f"{tuple(g.shape)}")
+    runs = int(g.shape[0]) if g.ndim == 3 else 1
+    m, n = int(g.shape[-2]), int(g.shape[-1])
+    out_shape = g.shape[:-2] + (n,)
     check_buffer(fn, "g", g, g.shape, tuple(DTYPE_CODE), device)
     if out is None:
-        out = torch.empty(n, dtype=g.dtype, device=device)
+        out = torch.empty(out_shape, dtype=g.dtype, device=device)
     else:
-        check_buffer(fn, "out", out, (n,), (g.dtype,), device)
-    if n == 0:
+        check_buffer(fn, "out", out, out_shape, (g.dtype,), device)
+    if n == 0 or runs == 0:
         return out
     if m == 0:
         return out.fill_(float("nan"))       # the mean of nothing, as torch
     lib = _build.load()
-    raise_on(fn, lib, lib.repro_row_mean(g.data_ptr(), out.data_ptr(), m, n,
-                                         DTYPE_CODE[g.dtype],
+    raise_on(fn, lib, lib.repro_row_mean(g.data_ptr(), out.data_ptr(), runs,
+                                         m, n, DTYPE_CODE[g.dtype],
                                          stream_of(device)))
     launches["row_mean"] += 1
     return out
@@ -102,9 +115,12 @@ def momentum_update_plain(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the fused heavy-ball step; returns ``(p, mu)``.
 
-    With ``p_out`` / ``mu_out`` given (they may be ``p`` / ``mu``) the results
-    are copied into them.
+    ``lr`` is a number, or one fp32 value per run ``(S,)`` with ``(S, m, n)``
+    buffers (the same fp32 product as a number, run by run). With ``p_out``
+    / ``mu_out`` given (they may be ``p`` / ``mu``) the results are copied
+    into them.
     """
+    lr = run_lr_view(lr, p.ndim)
     wg = rows_view(w, p.ndim) * g.float()
     new_mu = beta * mu + wg
     upd = beta * new_mu + wg if nesterov else new_mu
@@ -116,11 +132,19 @@ def momentum_update_plain(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
     return new_p, new_mu
 
 
+def run_lr_view(lr, ndim: int):
+    """A per-run ``(S,)`` learning rate broadcast against ``(S, m, n)``
+    buffers as ``(S, 1, 1)``; a number stays as it is."""
+    if isinstance(lr, torch.Tensor) and lr.ndim == 1 and ndim == 3:
+        return lr[:, None, None]
+    return lr
+
+
 def _check_step(fn, p, g, moments, outs):
     device = p.device
     if device.type != "cuda":
         raise ValueError(f"{fn}: tensors must be on a CUDA device, got {device}")
-    m, n = rows_of(fn, p)
+    row_shape, n = rows_of(fn, p)
     check_buffer(fn, "p", p, p.shape, tuple(DTYPE_CODE), device)
     check_buffer(fn, "g", g, p.shape, (p.dtype,), device)
     for name, t in moments:
@@ -128,7 +152,7 @@ def _check_step(fn, p, g, moments, outs):
     for name, t, dtypes in outs:
         if t is not None:
             check_buffer(fn, name, t, p.shape, dtypes, device)
-    return device, m, n
+    return device, row_shape, n
 
 
 def momentum_update_cuda(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
@@ -139,21 +163,25 @@ def momentum_update_cuda(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``momentum_update_kernel``; returns ``(p_out, mu_out)``.
 
-    ``p``, ``g`` are contiguous ``(n,)`` or ``(m, n)`` CUDA buffers of one
-    dtype (fp32, bf16 or fp16), ``mu`` the fp32 momentum of the same shape;
-    ``w`` is a number, a 0-d fp32 device tensor or an ``(m,)`` fp32 tensor
-    of per-row weights; ``lr`` and ``beta`` are numbers. ``p_out`` /
-    ``mu_out`` may be ``p`` / ``mu`` (the in-place step); the wrapper
-    allocates whichever is not given.
+    ``p``, ``g`` are contiguous ``(n,)``, ``(m, n)`` or ``(S, m, n)`` CUDA
+    buffers of one dtype (fp32, bf16 or fp16), ``mu`` the fp32 momentum of
+    the same shape; ``w`` is a number, a 0-d fp32 device tensor or an fp32
+    tensor of per-row weights (``(m,)`` / ``(S, m)``); ``lr`` is a number or,
+    with ``(S, m, n)`` buffers, an ``(S,)`` fp32 device tensor of per-run
+    rates; ``beta`` is a number. ``p_out`` / ``mu_out`` may be ``p`` /
+    ``mu`` (the in-place step); the wrapper allocates whichever is not
+    given.
 
     No single PyTorch call computes this w-folded per-row step, so the kernel
     has no library yardstick.
     """
     fn = "momentum_update_cuda"
-    device, m, n = _check_step(fn, p, g, [("mu", mu)],
-                               [("p_out", p_out, (p.dtype,)),
-                                ("mu_out", mu_out, _F32)])
-    ptr, stride, value = coef_args(fn, "w", w, m, p.ndim, device)
+    device, row_shape, n = _check_step(fn, p, g, [("mu", mu)],
+                                       [("p_out", p_out, (p.dtype,)),
+                                        ("mu_out", mu_out, _F32)])
+    ptr, stride, value = coef_args(fn, "w", w, row_shape, device)
+    lr_ptr, run_rows, lr_value = run_lr_args(fn, lr, row_shape, device)
+    m = int(np.prod(row_shape, dtype=np.int64))
     p_out = torch.empty_like(p) if p_out is None else p_out
     mu_out = torch.empty_like(mu) if mu_out is None else mu_out
     if p.numel() == 0:
@@ -161,9 +189,9 @@ def momentum_update_cuda(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
     lib = _build.load()
     raise_on(fn, lib, lib.repro_momentum_update(
         p.data_ptr(), g.data_ptr(), mu.data_ptr(), p_out.data_ptr(),
-        mu_out.data_ptr(), ptr, stride, value, float(lr), float(beta),
-        int(bool(nesterov)), m, n, DTYPE_CODE[p.dtype], device.index,
-        stream_of(device)))
+        mu_out.data_ptr(), ptr, stride, value, lr_ptr, run_rows, lr_value,
+        float(beta), int(bool(nesterov)), m, n, DTYPE_CODE[p.dtype],
+        device.index, stream_of(device)))
     launches["momentum_update"] += 1
     return p_out, mu_out
 
@@ -182,8 +210,10 @@ def adam_update_plain(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
 
     ``bc1`` / ``bc2`` divide as 0-d tensors on the buffers' device, so the
     division is the IEEE one on the card too (torch turns a division by a
-    Python number into a multiplication by its reciprocal there).
+    Python number into a multiplication by its reciprocal there). ``lr`` as
+    for :func:`momentum_update_plain`.
     """
+    lr = run_lr_view(lr, p.ndim)
     wg = rows_view(w, p.ndim) * g.float()
     new_mu = b1 * mu + (1.0 - b1) * wg
     new_nu = b2 * nu + (1.0 - b2) * (wg * wg)
@@ -212,20 +242,23 @@ def adam_update_cuda(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch ``adam_update_kernel``; returns ``(p_out, mu_out, nu_out)``.
 
-    Buffers and ``w`` as for :func:`momentum_update_cuda`, with fp32 ``nu``
-    beside ``mu``; ``lr``, ``bc1 = 1 - b1**t``, ``bc2 = 1 - b2**t``, ``b1``,
+    Buffers, ``w`` and ``lr`` as for :func:`momentum_update_cuda`, with fp32
+    ``nu`` beside ``mu``; ``bc1 = 1 - b1**t``, ``bc2 = 1 - b2**t``, ``b1``,
     ``b2``, ``eps`` and ``weight_decay`` are numbers passed by value (the
-    step counter lives outside the kernel). The outputs may be the inputs.
+    step counter lives outside the kernel and is shared by every run). The
+    outputs may be the inputs.
 
     No single PyTorch call computes this w-folded per-row step, so the kernel
     has no library yardstick.
     """
     fn = "adam_update_cuda"
-    device, m, n = _check_step(fn, p, g, [("mu", mu), ("nu", nu)],
-                               [("p_out", p_out, (p.dtype,)),
-                                ("mu_out", mu_out, _F32),
-                                ("nu_out", nu_out, _F32)])
-    ptr, stride, value = coef_args(fn, "w", w, m, p.ndim, device)
+    device, row_shape, n = _check_step(fn, p, g, [("mu", mu), ("nu", nu)],
+                                       [("p_out", p_out, (p.dtype,)),
+                                        ("mu_out", mu_out, _F32),
+                                        ("nu_out", nu_out, _F32)])
+    ptr, stride, value = coef_args(fn, "w", w, row_shape, device)
+    lr_ptr, run_rows, lr_value = run_lr_args(fn, lr, row_shape, device)
+    m = int(np.prod(row_shape, dtype=np.int64))
     p_out = torch.empty_like(p) if p_out is None else p_out
     mu_out = torch.empty_like(mu) if mu_out is None else mu_out
     nu_out = torch.empty_like(nu) if nu_out is None else nu_out
@@ -235,7 +268,8 @@ def adam_update_cuda(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
     raise_on(fn, lib, lib.repro_adam_update(
         p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(),
         p_out.data_ptr(), mu_out.data_ptr(), nu_out.data_ptr(),
-        ptr, stride, value, float(lr), float(b1), float(1.0 - b1), float(b2),
+        ptr, stride, value, lr_ptr, run_rows, lr_value, float(b1),
+        float(1.0 - b1), float(b2),
         float(1.0 - b2), float(eps), float(weight_decay), float(bc1),
         float(bc2), m, n, DTYPE_CODE[p.dtype], device.index,
         stream_of(device)))

@@ -38,7 +38,13 @@ launches = 0          # kernel launches made by topk_scatter_cuda
 
 def topk_scatter_plain(x: torch.Tensor, t: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: ``(sum_i sent, x - sent)`` in ``x.dtype``, fp32 inside."""
+    """Plain version: ``(sum_i sent, x - sent)`` in ``x.dtype``, fp32 inside;
+    an ``(S, m, n)`` sweep buffer with ``(S, m)`` thresholds one run at a
+    time, giving ``(S, n)`` sums and the ``(S, m, n)`` residual."""
+    if x.ndim == 3:
+        parts = [topk_scatter_plain(x[s], t[s]) for s in range(x.shape[0])]
+        return (torch.stack([a for a, _ in parts]),
+                torch.stack([b for _, b in parts]))
     x32 = x.float()
     sent = torch.where(x32.abs() >= t[:, None], x32, 0.0)
     return sent.sum(0).to(x.dtype), (x32 - sent).to(x.dtype)
@@ -51,7 +57,9 @@ def topk_scatter_cuda(x: torch.Tensor, t: torch.Tensor
     ``x`` is a contiguous ``(m, n)`` CUDA buffer (fp32, bf16 or fp16) and
     ``t`` a contiguous ``(m,)`` fp32 threshold vector on the same device;
     the outputs are a new ``(n,)`` and a new ``(m, n)`` buffer of ``x``'s
-    dtype.
+    dtype. A sweep's ``(S, m, n)`` buffer with ``(S, m)`` thresholds gives
+    ``(S, n)`` and ``(S, m, n)`` in the same one launch, each run bitwise
+    what a launch on its slice gives.
 
     No single PyTorch call computes this select + sum + residual, so the
     kernel has no library yardstick.
@@ -61,20 +69,23 @@ def topk_scatter_cuda(x: torch.Tensor, t: torch.Tensor
     device = x.device
     if device.type != "cuda":
         raise ValueError(f"{fn}: tensors must be on a CUDA device, got {device}")
-    if x.ndim != 2:
-        raise ValueError(f"{fn}: x must be (m, n), got {tuple(x.shape)}")
-    m, n = x.shape
+    if x.ndim not in (2, 3):
+        raise ValueError(f"{fn}: x must be (m, n) or (S, m, n), got "
+                         f"{tuple(x.shape)}")
+    runs = int(x.shape[0]) if x.ndim == 3 else 1
+    m, n = int(x.shape[-2]), int(x.shape[-1])
     check_buffer(fn, "x", x, x.shape, tuple(DTYPE_CODE), device)
-    check_buffer(fn, "t", t, (m,), (torch.float32,), device)
-    out_sum = torch.empty(n, dtype=x.dtype, device=device)
+    check_buffer(fn, "t", t, x.shape[:-1], (torch.float32,), device)
+    out_sum = torch.empty(x.shape[:-2] + (n,), dtype=x.dtype, device=device)
     out_residual = torch.empty_like(x)
-    if n == 0:
+    if n == 0 or runs == 0:
         return out_sum, out_residual
     if m == 0:
         return out_sum.zero_(), out_residual
     lib = _build.load()
     raise_on(fn, lib, lib.repro_topk_scatter(
         x.data_ptr(), t.data_ptr(), out_sum.data_ptr(),
-        out_residual.data_ptr(), m, n, DTYPE_CODE[x.dtype], stream_of(device)))
+        out_residual.data_ptr(), runs, m, n, DTYPE_CODE[x.dtype],
+        stream_of(device)))
     launches += 1
     return out_sum, out_residual

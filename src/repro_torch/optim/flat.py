@@ -69,11 +69,13 @@ class FlatOptimizer:
 def server_average_state(strat, opt_state: dict) -> dict:
     """Server-sync the fp32 accumulators alongside the params (FedAvg-style):
     every (m, n) moment matrix is overwritten, row by row, with its row mean
-    (a copy into a contiguous buffer, never a stride-0 view); shared scalars
-    (Adam's ``t``) pass through. Returns ``opt_state``."""
+    (a copy into a contiguous buffer, never a stride-0 view), and every
+    (S, m, n) one run by run with its run's mean; shared scalars (Adam's
+    ``t``) pass through. Returns ``opt_state``."""
     for leaf in opt_state.values():
-        if isinstance(leaf, torch.Tensor) and leaf.ndim == 2:
-            leaf.copy_(strat.flat_server_average(leaf)[None, :].expand_as(leaf))
+        if isinstance(leaf, torch.Tensor) and leaf.ndim in (2, 3):
+            row = strat.flat_server_average(leaf)
+            leaf.copy_(row.unsqueeze(-2).expand_as(leaf))
     return opt_state
 
 

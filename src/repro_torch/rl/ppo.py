@@ -115,7 +115,9 @@ def minibatch_epoch_grad(loss_fn, flat: torch.Tensor, spec, data,
     (leaves lead with ``(m, D)``). Runs ``epochs`` shuffled passes of SGD
     over ``n_minibatches`` minibatches from ``flat``, each agent on its own
     data, and reports the displacement as a gradient,
-    ``g = (flat - flat_new) / lr``. ``perms`` is the ``(m, epochs, D)``
+    ``g = (flat - flat_new) / lr`` (``lr`` a number, or one fp32 rate per
+    agent row ``(m,)``: a sweep's runs each at their own rate). ``perms`` is
+    the ``(m, epochs, D)``
     integer permutation draw (agent i, epoch e shuffles its batch by
     ``perms[i, e]``). With ``epochs == n_minibatches == 1`` this is the
     plain gradient and ``perms`` is not read. Returns ``(grads, losses)``
@@ -136,6 +138,10 @@ def minibatch_epoch_grad(loss_fn, flat: torch.Tensor, spec, data,
                          f"{None if perms is None else tuple(perms.shape)}")
     mb = d // n_minibatches
     rows = torch.arange(m, device=flat.device)[:, None]
+    if isinstance(lr, torch.Tensor):
+        lr = lr_t = lr.to(torch.float32)[:, None]
+    else:
+        lr_t = torch.full((), lr, dtype=torch.float32, device=flat.device)
     p = flat
     losses = []
     for e in range(epochs):
@@ -146,5 +152,4 @@ def minibatch_epoch_grad(loss_fn, flat: torch.Tensor, spec, data,
             g, loss = stacked_grad(loss_fn, p, spec, batch)
             p = p - lr * g
             losses.append(loss)
-    lr_t = torch.full((), lr, dtype=torch.float32, device=flat.device)
     return (flat - p) / lr_t, torch.stack(losses).mean(0)

@@ -149,10 +149,11 @@ def test_same_validation_errors():
                  lambda: td.consensus_gather(tg, nl.idx, w[:, :4]))
     with pytest.raises(ValueError, match=r"rows must lie in \[0, 5\)"):
         td.consensus_gather(tg, nl.idx + 1, w)
-    for fn in (lambda: td.consensus_mix(tg[None], torch.tensor(p)),
-               lambda: td.consensus_gather(tg[None], nl.idx, w)):
-        with pytest.raises(NotImplementedError, match="sweep"):
-            fn()
+    # a one-run sweep buffer is the (m, n) call with a leading axis
+    assert torch.equal(td.consensus_mix(tg[None], torch.tensor(p))[0],
+                       td.consensus_mix(tg, torch.tensor(p)))
+    assert torch.equal(td.consensus_gather(tg[None], nl.idx, w)[0],
+                       td.consensus_gather(tg, nl.idx, w))
 
 
 # --- bitwise contracts inside the port ---------------------------------------------

@@ -931,3 +931,97 @@ def test_swa_serving_loop_on_the_card_matches_single_request_greedy(card):
             tok = lg[:, -1:].argmax(-1)
             want.append(int(tok))
         assert got[i] == want, i
+
+
+# --- the sweep slice: batched kernels and a batched run -----------------------------
+
+def _sweep_inputs(S, m, n, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    return (rnd(S, m, n).to(dtype), rnd(S, m, n).to(dtype),
+            torch.rand(S, m, generator=gen, device="cuda"),
+            torch.rand(S, generator=gen, device="cuda") * 1e-2 + 1e-3)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=str)
+@pytest.mark.parametrize("S, m, n", [(3, 7, 9347), (2, 65, 129), (5, 1, 33)])
+def test_batched_flat_kernels_are_bitwise_s_launches(card, S, m, n, dtype):
+    """One (S, m, n) launch of row_mean, decay_accum, momentum and Adam (a
+    weight per row, a learning rate per run) is bitwise the S unbatched
+    launches on the runs' slices."""
+    p, g, w, lr = _sweep_inputs(S, m, n, dtype, 20)
+    mu = torch.randn(S, m, n, device="cuda") * 0.1
+    nu = mu.abs()
+    row = fu.row_mean_cuda(g)
+    assert torch.equal(row, torch.stack([fu.row_mean_cuda(g[s])
+                                         for s in range(S)]))
+    out = dacc.decay_accum_cuda(p, g, w)
+    assert torch.equal(out, torch.stack([dacc.decay_accum_cuda(p[s], g[s], w[s])
+                                         for s in range(S)]))
+    bp, bm = fu.momentum_update_cuda(p, g, mu, w, lr, 0.9, nesterov=True)
+    for s in range(S):
+        lp, lm = fu.momentum_update_cuda(p[s], g[s], mu[s], w[s], float(lr[s]),
+                                         0.9, nesterov=True)
+        assert torch.equal(bp[s], lp) and torch.equal(bm[s], lm)
+    bp, bm, bv = fu.adam_update_cuda(p, g, mu, nu, w, lr, 0.19, 0.0975,
+                                     weight_decay=0.01)
+    for s in range(S):
+        lp, lm, lv = fu.adam_update_cuda(p[s], g[s], mu[s], nu[s], w[s],
+                                         float(lr[s]), 0.19, 0.0975,
+                                         weight_decay=0.01)
+        assert torch.equal(bp[s], lp) and torch.equal(bv[s], lv)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=str)
+@pytest.mark.parametrize("per_run", [False, True])
+@pytest.mark.parametrize("S, m, n", [(3, 7, 9347), (2, 65, 129), (4, 33, 97)])
+def test_batched_gossip_kernels_are_bitwise_s_launches(card, S, m, n, dtype,
+                                                       per_run):
+    """consensus_step with a shared or per-run P, consensus_gather folded
+    through the dispatch, topk_scatter with per-run thresholds: one launch,
+    bitwise the S unbatched launches."""
+    _, g, _, _ = _sweep_inputs(S, m, n, dtype, 21)
+    topo = knn_ring(m, 2)
+    P = torch.tensor(mixing_matrix(topo, 0.2), dtype=torch.float32,
+                     device="cuda")
+    mix = P[None] * torch.linspace(0.5, 1.5, S, device="cuda")[:, None, None] \
+        if per_run else P
+    before = cs.launches
+    got = cs.consensus_step_cuda(g, mix.contiguous())
+    assert cs.launches == before + 1
+    for s in range(S):
+        assert torch.equal(got[s], cs.consensus_step_cuda(
+            g[s], (mix[s] if per_run else mix).contiguous()))
+    nl = neighbor_list(topo)
+    wt = torch.tensor(neighbor_weights(nl, 0.2), device="cuda")
+    wts = wt[None] * torch.linspace(0.5, 1.5, S, device="cuda")[:, None, None] \
+        if per_run else wt
+    got = dispatch.consensus_gather(g, nl.idx, wts)
+    for s in range(S):
+        assert torch.equal(got[s], dispatch.consensus_gather(
+            g[s], nl.idx, wts[s] if per_run else wts))
+    th = comm.topk_threshold(g.float(), max(1, n // 16))
+    ssum, res = tks.topk_scatter_cuda(g, th)
+    for s in range(S):
+        ls, lr_ = tks.topk_scatter_cuda(g[s], th[s].contiguous())
+        assert torch.equal(ssum[s], ls) and torch.equal(res[s], lr_)
+
+
+def test_a_batched_sweep_on_the_card_matches_the_cpu_runs(card):
+    """A 2-run lambda sweep batched on the card against the same runs (the
+    card runs' own draws) batched on the CPU, at rtol / atol 1e-4."""
+    from repro_torch.rl.fedrl import run_fedrl_batch
+    from repro_torch.sweep.overrides import override_lam
+
+    base = FedRLConfig(env=FIGURE_EIGHT, strategy=make_strategy(
+        "decay", tau=3, taus=uniform_taus(1, 3, 7),
+        decay=exponential_decay(0.95)), eta=5e-3, n_epochs=2, epoch_len=40,
+        minibatch=10, optimizer=flat_momentum(0.9))
+    cfgs = [override_lam(base, lam) for lam in (0.98, 0.9)]
+    _, got, _ = run_fedrl_batch(cfgs, [0, 1], device="cuda")
+    draws = [replay_of(c, TorchDraws(s, "cuda")) for c, s in zip(cfgs, (0, 1))]
+    _, want, _ = run_fedrl_batch(cfgs, draws, device="cpu")
+    for k in want:
+        assert got[k].shape == (2, 2)
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-4,
+                                   err_msg=k)

@@ -208,11 +208,15 @@ def test_same_validation_errors():
 
 
 def test_sweep_shapes_wait_for_their_slice():
-    x = torch.zeros(2, 3, 4)
-    with pytest.raises(NotImplementedError, match="sweep"):
-        td.row_mean(x)
-    with pytest.raises(NotImplementedError, match="sweep"):
-        td.decay_accum(x, x, 1.0)
+    """The sweep slice has come: (S, m, n) buffers give, run by run, what
+    the (m, n) primitive gives on each run's slice."""
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.standard_normal((2, 3, 4)), dtype=torch.float32)
+    row = td.row_mean(x)
+    acc = td.decay_accum(x, x, 1.0)
+    for s in range(2):
+        assert torch.equal(row[s], td.row_mean(x[s]))
+        assert torch.equal(acc[s], td.decay_accum(x[s], x[s], 1.0))
 
 
 def test_flat_rows_follow_ravel_pytree():
