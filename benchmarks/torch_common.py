@@ -118,8 +118,50 @@ def sweep_config_rows(config, metrics, n_seeds, *, idx=None, include_grad=True):
     return entry, rows
 
 
+# --eval-streams per-run: run s evaluates on its own stream, eval_seed
+# EVAL_STREAM_BASE + s (benchmarks/ref_fig_streams.py runs JAX the same way)
+EVAL_STREAM_BASE = 5000
+
+
+def stream_draws(eval_streams: str, seed: int, device):
+    """The draw source of seed ``seed``'s run: the seed itself (its config's
+    shared ``eval_seed`` stream) for ``shared``, or a ``TorchDraws`` whose
+    evaluation stream is ``EVAL_STREAM_BASE + seed`` for ``per-run``."""
+    if eval_streams == "shared":
+        return int(seed)
+    if eval_streams != "per-run":
+        raise ValueError(f"eval streams {eval_streams!r}: shared or per-run")
+    from repro_torch.kernels.dispatch import resolve_device
+    from repro_torch.rl.draws import TorchDraws
+
+    return TorchDraws(int(seed), resolve_device(device),
+                      eval_seed=EVAL_STREAM_BASE + int(seed))
+
+
+def stream_run_fn(eval_streams: str, device):
+    """A ``SweepSpec.run_fn`` giving each run :func:`stream_draws` (None,
+    the runner's default, for ``shared``)."""
+    if eval_streams == "shared":
+        return None
+
+    def run(cfgs, seeds):
+        from repro_torch.rl.fedrl import run_fedrl_batch
+
+        return run_fedrl_batch(
+            cfgs, [stream_draws(eval_streams, s, device) for s in seeds],
+            device=device)[1]
+
+    return run
+
+
+def stream_suffix(eval_streams: str) -> str:
+    """The artifacts' suffix: none for ``shared``, ``.streams`` else."""
+    return "" if eval_streams == "shared" else ".streams"
+
+
 def bench_args(description: str):
-    """``--quick``, ``--seeds`` and ``--device`` (default cuda)."""
+    """``--quick``, ``--seeds``, ``--device`` (default cuda) and
+    ``--eval-streams`` (default shared)."""
     import argparse
 
     ap = argparse.ArgumentParser(description=description)
@@ -129,6 +171,11 @@ def bench_args(description: str):
                     help="seed count (default 4)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--eval-streams", default="shared",
+                    choices=("shared", "per-run"),
+                    help="shared: every run evaluates on its config's "
+                         "eval_seed stream; per-run: run s on eval_seed "
+                         f"{EVAL_STREAM_BASE} + s, artifacts *.streams.*")
     return ap.parse_args()
 
 

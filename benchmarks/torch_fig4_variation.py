@@ -2,7 +2,7 @@
 averaging (``benchmarks/fig4_variation.py`` on ``repro_torch``).
 
   PYTHONPATH=src:. python benchmarks/torch_fig4_variation.py [--quick]
-      [--seeds N] [--device cpu]
+      [--seeds N] [--device cpu] [--eval-streams per-run]
 
 The same configs, axes and ``--quick`` geometry as the JAX bench: at fixed
 period length tau=15 the per-agent tau_i schedules are a batched ``taus``
@@ -13,7 +13,9 @@ change the period length and stay static points. Seeds 0.. through
 (JAX's columns), ``torch_fig4_sweep.json`` (curves, summary, the batched run
 against the loop of one-run calls, the taus axis against static-mask runs,
 the card's name and power limit) and ``experiments/sweeps/
-torch_fig4_variation.v<N>``.
+torch_fig4_variation.v<N>``. ``--eval-streams per-run`` evaluates run s on
+its own stream (``eval_seed`` 5000 + s) and writes the same artifacts as
+``*.streams.*``.
 """
 from __future__ import annotations
 
@@ -32,6 +34,9 @@ from benchmarks.torch_common import (  # noqa: E402
     emit,
     seed_tuple,
     strategy_axis,
+    stream_draws,
+    stream_run_fn,
+    stream_suffix,
     sweep_config_rows,
     write_bench_json,
     write_csv,
@@ -65,13 +70,15 @@ def _summarize(out, label, metrics, idx=None):
     return rows
 
 
-def _static_parity(res_loop, schedules, seeds, epochs, device):
+def _static_parity(res_loop, schedules, seeds, epochs, device,
+                   eval_streams):
     """The taus axis's runs (the loop) against runs of a strategy built with
     each schedule statically (seed 0): the largest deviation."""
     max_dev = 0.0
     for i, (_, sched) in enumerate(schedules):
         strat = make_strategy("periodic", tau=TAU, taus=np.asarray(sched, int))
-        _, ref, _ = run_fedrl(make_cfg(strat, epochs=epochs), seeds[0],
+        _, ref, _ = run_fedrl(make_cfg(strat, epochs=epochs),
+                              stream_draws(eval_streams, seeds[0], device),
                               device=device)
         for k, arr in ref.items():
             dev = float(np.max(np.abs(res_loop.metrics["base"][k][i, 0]
@@ -80,8 +87,11 @@ def _static_parity(res_loop, schedules, seeds, epochs, device):
     return max_dev
 
 
-def run(quick: bool = False, seeds=None, device: str = "cuda") -> list:
+def run(quick: bool = False, seeds=None, device: str = "cuda",
+        eval_streams: str = "shared") -> list:
     m = 7
+    sfx, run_fn = stream_suffix(eval_streams), stream_run_fn(eval_streams,
+                                                               device)
     seeds = seed_tuple(seeds)
     epochs = 8 if quick else None
 
@@ -106,12 +116,14 @@ def run(quick: bool = False, seeds=None, device: str = "cuda") -> list:
         base=make_cfg(statics[0][1], epochs=epochs),
         seeds=seeds,
         static=(strategy_axis("tau", statics),),
+        run_fn=run_fn,
     )
     sched_spec = SweepSpec(
-        name="fig4_variation",
+        name=f"fig4_variation{sfx}",
         base=make_cfg(make_strategy("periodic", tau=TAU, m=m), epochs=epochs),
         seeds=seeds,
         vmapped=(SweepAxis("taus", tuple(s for _, s in schedules)),),
+        run_fn=run_fn,
     )
 
     res_static = run_sweep(static_spec, device=device)
@@ -122,6 +134,7 @@ def run(quick: bool = False, seeds=None, device: str = "cuda") -> list:
         "schema_version": 2,
         "quick": bool(quick),
         "device": device_line(device),
+        "eval_streams": eval_streams,
         "seeds": list(seeds),
         "n_seeds": len(seeds),
         "tau": TAU,
@@ -162,16 +175,16 @@ def run(quick: bool = False, seeds=None, device: str = "cuda") -> list:
          f"x{out['timings']['vmapped_speedup']:.2f} "
          f"max_dev={max_dev_loop:.3g}")
     out["variation"] = {"max_abs_dev_vs_static": _static_parity(
-        res_loop, schedules, seeds, epochs, device)}
+        res_loop, schedules, seeds, epochs, device, eval_streams)}
     emit("torch_fig4/taus_axis_vs_static", 0.0,
          f"dev={out['variation']['max_abs_dev_vs_static']:.3g}")
 
-    write_bench_json("fig4_sweep", out)
+    write_bench_json(f"fig4_sweep{sfx}", out)
     res_sched.save(SWEEP_DIR)
-    write_csv("fig4_variation", rows)
+    write_csv(f"fig4_variation{sfx}", rows)
     return rows
 
 
 if __name__ == "__main__":
     args = bench_args(__doc__.splitlines()[0])
-    run(args.quick, args.seeds, args.device)
+    run(args.quick, args.seeds, args.device, args.eval_streams)

@@ -2,7 +2,7 @@
 tau=1~15 (``benchmarks/fig5_decay.py`` on ``repro_torch``).
 
   PYTHONPATH=src:. python benchmarks/torch_fig5_decay.py [--quick]
-      [--seeds N] [--device cpu]
+      [--seeds N] [--device cpu] [--eval-streams per-run]
 
 The same configs, axes and ``--quick`` geometry as the JAX bench: the decay
 constant lambda and the seeds batch into ONE run (each run's ``(tau,)``
@@ -12,7 +12,9 @@ cumulative wire bytes (``fedrl_bytes_curve``). Seeds 0.. through
 ``TorchDraws``. Artifacts: ``experiments/bench/torch_fig5_decay.csv`` (JAX's
 columns), ``torch_fig5_sweep.json`` (also the loop of one-run calls over the
 same grid: wall clock, runs/s, deviation; the card's name and power limit)
-and ``experiments/sweeps/torch_fig5_decay.v<N>``.
+and ``experiments/sweeps/torch_fig5_decay.v<N>``. ``--eval-streams
+per-run`` evaluates run s on its own stream (``eval_seed`` 5000 + s) and
+writes the same artifacts as ``*.streams.*``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from benchmarks.torch_common import (  # noqa: E402
     device_line,
     emit,
     seed_tuple,
+    stream_run_fn,
+    stream_suffix,
     sweep_config_rows,
     write_bench_json,
     write_csv,
@@ -68,8 +72,11 @@ def _curves(out, metrics, config, cfg, lam_idx=None):
     return rows
 
 
-def run(quick: bool = False, seeds=None, device: str = "cuda") -> list:
+def run(quick: bool = False, seeds=None, device: str = "cuda",
+        eval_streams: str = "shared") -> list:
     m, tau = 7, 15
+    sfx, run_fn = stream_suffix(eval_streams), stream_run_fn(eval_streams,
+                                                               device)
     seeds = seed_tuple(seeds)
     taus = uniform_taus(1, tau, m, seed=0)
     epochs = 8 if quick else None
@@ -80,9 +87,10 @@ def run(quick: bool = False, seeds=None, device: str = "cuda") -> list:
         base=make_cfg(make_strategy("periodic", tau=tau, taus=taus),
                       epochs=epochs),
         seeds=seeds,
+        run_fn=run_fn,
     )
     decay_spec = SweepSpec(
-        name="fig5_decay",
+        name=f"fig5_decay{sfx}",
         base=make_cfg(
             make_strategy("decay", tau=tau, taus=taus,
                           decay=exponential_decay(lams[0])),
@@ -90,6 +98,7 @@ def run(quick: bool = False, seeds=None, device: str = "cuda") -> list:
         ),
         seeds=seeds,
         vmapped=(SweepAxis("lam", lams),),
+        run_fn=run_fn,
     )
 
     res_base = run_sweep(base_spec, device=device)
@@ -100,6 +109,7 @@ def run(quick: bool = False, seeds=None, device: str = "cuda") -> list:
         "schema_version": 1,
         "quick": bool(quick),
         "device": device_line(device),
+        "eval_streams": eval_streams,
         "seeds": list(seeds),
         "n_seeds": len(seeds),
         "lams": list(lams),
@@ -140,12 +150,12 @@ def run(quick: bool = False, seeds=None, device: str = "cuda") -> list:
          f"loop={res_loop.wall_s['base'] * 1e6:.0f}us "
          f"x{out['timings']['vmapped_speedup']:.2f} max_dev={max_dev:.3g}")
 
-    write_bench_json("fig5_sweep", out)
+    write_bench_json(f"fig5_sweep{sfx}", out)
     res_decay.save(SWEEP_DIR)
-    write_csv("fig5_decay", rows)
+    write_csv(f"fig5_decay{sfx}", rows)
     return rows
 
 
 if __name__ == "__main__":
     args = bench_args(__doc__.splitlines()[0])
-    run(args.quick, args.seeds, args.device)
+    run(args.quick, args.seeds, args.device, args.eval_streams)

@@ -3,7 +3,7 @@ topology / round / eps sweep (``benchmarks/fig6_consensus.py`` on
 ``repro_torch``).
 
   PYTHONPATH=src:. python benchmarks/torch_fig6_consensus.py [--quick]
-      [--seeds N] [--device cpu]
+      [--seeds N] [--device cpu] [--eval-streams per-run]
 
 The same configs, axes and ``--quick`` geometry as the JAX bench:
 topologies and gossip round counts are static points, the seeds batch into
@@ -12,7 +12,8 @@ eps is a batched axis too (each run's ``P = I - eps * La`` and its
 mask-folded tables in fp32, stacked ``(S, ...)``). Seeds 0.. through
 ``TorchDraws``. Artifacts: ``experiments/bench/torch_fig6_consensus.csv``
 (JAX's columns) and ``torch_fig6_sweep.json`` (curves, wall clock, the
-card's name and power limit).
+card's name and power limit). ``--eval-streams per-run`` evaluates run s on
+its own stream (``eval_seed`` 5000 + s) and writes ``*.streams.*``.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ from benchmarks.torch_common import (  # noqa: E402
     emit,
     seed_tuple,
     strategy_axis,
+    stream_run_fn,
+    stream_suffix,
     sweep_config_rows,
     write_bench_json,
     write_csv,
@@ -59,8 +62,11 @@ def _config_rows(rows, curves, name, metrics, n_seeds, cfg, lam_idx=None):
     return float(gn_m.mean()), float(gn_h.mean())
 
 
-def run(quick: bool = False, seeds=None, device: str = "cuda") -> list:
+def run(quick: bool = False, seeds=None, device: str = "cuda",
+        eval_streams: str = "shared") -> list:
     m, tau = 7, 10
+    sfx, run_fn = stream_suffix(eval_streams), stream_run_fn(eval_streams,
+                                                               device)
     seeds = seed_tuple(seeds)
     epochs = 8 if quick else None
     sp, dn = topo_sparse(m), topo_dense(m)
@@ -84,6 +90,7 @@ def run(quick: bool = False, seeds=None, device: str = "cuda") -> list:
         base=make_cfg(configs[0][1], epochs=epochs),
         seeds=seeds,
         static=(strategy_axis("topology", configs),),
+        run_fn=run_fn,
     )
     res = run_sweep(spec, device=device)
 
@@ -106,6 +113,7 @@ def run(quick: bool = False, seeds=None, device: str = "cuda") -> list:
         ),
         seeds=seeds,
         vmapped=(SweepAxis("eps", eps_vals),),
+        run_fn=run_fn,
     )
     eps_res = run_sweep(eps_spec, device=device)
     per_run_us = eps_res.wall_s["base"] / eps_spec.n_runs * 1e6
@@ -115,19 +123,19 @@ def run(quick: bool = False, seeds=None, device: str = "cuda") -> list:
                               len(seeds), eps_spec.base, lam_idx=i)
         emit(f"torch_fig6/{name}", per_run_us, f"grad_norm={gm:.4f}+-{gh:.4f}")
 
-    write_bench_json("fig6_sweep", {
+    write_bench_json(f"fig6_sweep{sfx}", {
         "schema_version": 1, "quick": bool(quick),
-        "device": device_line(device),
+        "device": device_line(device), "eval_streams": eval_streams,
         "seeds": list(seeds), "n_seeds": len(seeds),
         "eps_values": list(eps_vals), "eps_fracs": list(fracs),
         "curves": curves,
         "wall_s": {**res.wall_s, "eps_axis": eps_res.wall_s["base"]},
         "runs_per_s": {"eps_axis": eps_spec.n_runs / eps_res.wall_s["base"]},
     })
-    write_csv("fig6_consensus", rows)
+    write_csv(f"fig6_consensus{sfx}", rows)
     return rows
 
 
 if __name__ == "__main__":
     args = bench_args(__doc__.splitlines()[0])
-    run(args.quick, args.seeds, args.device)
+    run(args.quick, args.seeds, args.device, args.eval_streams)

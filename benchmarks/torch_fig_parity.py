@@ -2,6 +2,7 @@
 the JAX package's committed ones.
 
   python benchmarks/torch_fig_parity.py [--bench-dir experiments/bench]
+      [--streams]
 
 For each figure (``fig4_variation``, ``fig5_decay``, ``fig6_consensus``),
 each (config, epoch) row and each of ``nas`` and ``grad_norm``, the rule
@@ -14,6 +15,12 @@ and at least 95% of these comparisons must hold; every ``bytes`` entry must
 equal JAX's. Prints the share that held, every failing row with its values,
 and a last JSON line ``{"share": ..., "holds": ..., "bytes_equal": ...}``;
 exits 1 when the rule does not hold.
+
+``--streams`` applies the same rule to the runs that evaluate run s on its
+own stream (``eval_seed`` 5000 + s): ``ref_<fig>.streams.csv`` of
+``benchmarks/ref_fig_streams.py`` (JAX) against ``torch_<fig>.streams.csv``
+of the benches' ``--eval-streams per-run``, over the three figures and the
+async figure (``fig_async``).
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import os
 import sys
 
 FIGS = ("fig4_variation", "fig5_decay", "fig6_consensus")
+STREAM_FIGS = FIGS + ("fig_async",)
 METRICS = ("nas", "grad_norm")
 SHARE = 0.95
 
@@ -33,12 +41,19 @@ def _rows(path):
         return {(r["config"], int(r["epoch"])): r for r in csv.DictReader(f)}
 
 
-def compare(bench_dir: str = "experiments/bench") -> dict:
-    """The rule's comparisons over the three figures."""
+def compare(bench_dir: str = "experiments/bench",
+            streams: bool = False) -> dict:
+    """The rule's comparisons over the three figures (``streams``: the
+    per-run-stream CSVs of the four)."""
     checks, failing, bytes_equal = 0, [], True
-    for fig in FIGS:
-        jax_rows = _rows(os.path.join(bench_dir, f"{fig}.csv"))
-        port_rows = _rows(os.path.join(bench_dir, f"torch_{fig}.csv"))
+    for fig in STREAM_FIGS if streams else FIGS:
+        if streams:
+            jax_path = os.path.join(bench_dir, f"ref_{fig}.streams.csv")
+            port_path = os.path.join(bench_dir, f"torch_{fig}.streams.csv")
+        else:
+            jax_path = os.path.join(bench_dir, f"{fig}.csv")
+            port_path = os.path.join(bench_dir, f"torch_{fig}.csv")
+        jax_rows, port_rows = _rows(jax_path), _rows(port_path)
         if set(jax_rows) != set(port_rows):
             raise SystemExit(f"{fig}: the (config, epoch) rows differ")
         for key in sorted(jax_rows):
@@ -69,7 +84,10 @@ def compare(bench_dir: str = "experiments/bench") -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bench-dir", default="experiments/bench")
-    out = compare(ap.parse_args().bench_dir)
+    ap.add_argument("--streams", action="store_true",
+                    help="the per-run evaluation streams' CSVs")
+    args = ap.parse_args()
+    out = compare(args.bench_dir, args.streams)
     for f in out["failing"]:
         print(json.dumps(f))
     print(f"{out['held']} of {out['comparisons']} comparisons hold "

@@ -161,7 +161,20 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    first 4 runs against the CPU on the same draws (1e-4), launches S times
    fewer than the loop's, runs/s of both forms; and each batched kernel's
    time (events and CUPTI, L2 flushed) against its loop of S launches,
-   beside the bound of the S runs' work.
+   beside the bound of the S runs' work;
+16. async (slice 11) — ``repro_torch.core.async_fed``: the masked server
+   step (``scale_rows`` = ``decay_accum``, then ``row_mean``) on the card at
+   (7, 9347), (1024, 9347) and (12, 7, 9347) with all, none, part of the
+   rows arriving and fractional staleness weights, against the plain
+   scaling with the card's row_mean (bitwise) and the CPU (row_mean's rule
+   plus the scaling's rounding); a zero-delay async run against the
+   periodic run on the card, bitwise; a geometric(0.5) run with staleness
+   weights on the card against the CPU on the same draws (rtol / atol 1e-4,
+   ledger and bytes exact); the ``delay`` axis (4 points x 3 seeds) and the
+   ``k`` axis (3 buffer sizes x 4 seeds; 1 epoch, tau = 2) through
+   ``run_sweep`` on the card,
+   bitwise against ``run_sweep_loop``, their first 4 runs against the CPU,
+   launches S times fewer than the loop's, runs/s of both forms.
 
 Its last lines are the kernel summary JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -2586,6 +2599,251 @@ def sweep_path(km, rl, core, optim, comm, sweep, card) -> dict:
     return {"sweeps": out, "launches": launches}
 
 
+# --- phase 16: the async path (slice 11) ---------------------------------------
+
+# masked_server_step's shapes: the Table II carry, the m = 1024 fleet and a
+# stack of 12 runs at m = 7 (the batched sweeps' form), with all, none and
+# part of the rows arriving ({0, 1} weights) and fractional staleness
+# weights. With {0, 1} weights the card's scale_rows (g + (w - 1) * g) is
+# w * g exactly, so the card equals the plain scaling followed by the card's
+# own row_mean bitwise, and the CPU's plain version within row_mean's rule
+# (ROW_MEAN_REL of the column's mean |g|, phase 6); fractional weights add
+# the scaling's second rounding: 2^-21 of the column's max |g|.
+ASYNC_STEP_SHAPES = ((7, 9347), (1024, 9347), (12, 7, 9347))
+ASYNC_WEIGHTS = ("all", "none", "part", "frac")
+ASYNC_FRAC_ULPS = 2.0 ** -21
+# The async runs: the Table II geometry (T 150, P 25, eta 5e-3) at tau = 3
+# for 2 epochs, so that 4 boundaries fire; the delay axis's 4 points x 3
+# seeds and the k axis's 3 buffer sizes x 4 seeds are S = 12 runs of m = 7
+# (84 agent rows, where phase 15 found batched == loop bitwise), cut to 1
+# epoch at tau = 2 (3 boundaries) to keep the script in its 642 s.
+ASYNC_TAU, ASYNC_EPOCHS = 3, 2
+ASYNC_SWEEP_TAU, ASYNC_SWEEP_EPOCHS = 2, 1
+ASYNC_DELAY_POINTS = ((0.0, 0.0), (0.0, 1.0), (1.0, 0.5), (2.0, 1.5))
+ASYNC_K_POINTS = (2.0, 4.0, 7.0)
+
+
+def _async_weights(kind, shape, gen):
+    if kind == "all":
+        return torch.ones(shape)
+    if kind == "none":
+        return torch.zeros(shape)
+    if kind == "part":
+        w = (torch.rand(shape, generator=gen) < 0.5).float()
+        w[..., 0] = 1.0
+        return w
+    w = torch.rand(shape, generator=gen)
+    return torch.where(torch.rand(shape, generator=gen) < 0.3,
+                       torch.zeros(()), w)
+
+
+def masked_step_vs_plain(fu, async_fed) -> dict:
+    """Phase 16's masked server step: the card (decay_accum's scale_rows,
+    then row_mean) against the plain composition and the CPU."""
+    gen = torch.Generator().manual_seed(SEED + 161)
+    cases, worst, bitwise_cpu = [], 0.0, True
+    for shape in ASYNC_STEP_SHAPES:
+        g = torch.randn(shape, generator=gen)
+        gc = g.cuda()
+        m = shape[-2]
+        for kind in ASYNC_WEIGHTS:
+            w = _async_weights(kind, shape[:-1], gen)
+            wc = w.cuda()
+            row, denom = async_fed.masked_server_step(gc, wc)
+            torch.cuda.synchronize()
+            if row.device.type != "cuda" or denom.device.type != "cuda":
+                raise AssertionError("masked_server_step left the card")
+            cpu_row, cpu_denom = async_fed.masked_server_step(g, w)
+            case = f"masked_server_step {tuple(shape)} weights={kind}"
+            got, want = row.cpu(), cpu_row
+            if kind == "none":
+                if bool(torch.isfinite(got).any()) or \
+                        bool(torch.isfinite(want).any()) or \
+                        bool((denom != 0).any()):
+                    raise AssertionError(f"{case}: expected no finite row")
+                cases.append({"case": case, "bitwise_vs_cpu": True})
+                continue
+            if kind != "frac":
+                scaled = (gc * wc.unsqueeze(-1)).contiguous()
+                mine = (fu.row_mean_cuda(scaled).float()
+                        * (m / wc.sum(-1)).unsqueeze(-1))
+                if not torch.equal(row, mine):
+                    raise AssertionError(f"{case}: not bitwise the plain "
+                                         f"scaling + row_mean on the card")
+                if not torch.equal(denom.cpu(), cpu_denom):
+                    raise AssertionError(f"{case}: denom {denom} vs CPU "
+                                         f"{cpu_denom}")
+            scale = (m / cpu_denom).unsqueeze(-1)
+            tol = (ROW_MEAN_REL * g.abs().mean(-2) * scale
+                   + ASYNC_FRAC_ULPS * g.abs().amax(-2) * scale)
+            err = (got - want).abs()
+            if bool((err > tol).any()) or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{case}: max err {float(err.max())} "
+                                     f"past its tolerance")
+            same = bool(torch.equal(got, want))
+            bitwise_cpu &= same
+            worst = max(worst, float(err.max()))
+            cases.append({"case": case, "max_abs_err": float(err.max()),
+                          "bitwise_vs_cpu": same})
+    log(f"phase async: masked_server_step at {len(cases)} cases "
+        f"({ASYNC_STEP_SHAPES} x {ASYNC_WEIGHTS}): {{0, 1}} weights bitwise "
+        f"the plain scaling + the card's row_mean; vs the CPU max abs "
+        f"{worst!r} (bitwise everywhere: {bitwise_cpu}); no arrival gives "
+        f"no finite row and denom 0 on the card")
+    return {"cases": cases, "max_abs_err": worst,
+            "bitwise_vs_cpu": bitwise_cpu}
+
+
+def _async_cfg(rl, strat, epochs=ASYNC_EPOCHS):
+    return rl.FedRLConfig(env=rl.FIGURE_EIGHT, strategy=strat, eta=TRAIN_ETA,
+                          n_epochs=epochs, epoch_len=TRAIN_T,
+                          minibatch=TRAIN_P)
+
+
+def async_specs(rl, core, sweep) -> list:
+    """``(label, spec)`` of phase 16's two batched async sweeps."""
+    from repro_torch.core import async_fed
+
+    n_periods = ASYNC_SWEEP_EPOCHS * (TRAIN_T // TRAIN_P) // ASYNC_SWEEP_TAU
+    m = rl.FIGURE_EIGHT.n_rl
+    cfg = lambda strat: _async_cfg(rl, strat, ASYNC_SWEEP_EPOCHS)
+    base = async_fed.make_schedule("deterministic", 0.0, m, n_periods,
+                                   seed=1234)
+    kofm = async_fed.kofm_schedule(m, n_periods, 3, dist="geometric",
+                                   param=0.5, seed=1234)
+    return [
+        ("delay", sweep.SweepSpec(
+            name="chip_async_delay", seeds=SWEEP_SEEDS[:3],
+            base=cfg(core.make_strategy(
+                "async", tau=ASYNC_SWEEP_TAU, schedule=base,
+                stale_decay=core.exponential_decay(0.8))),
+            vmapped=(sweep.SweepAxis("delay", ASYNC_DELAY_POINTS),))),
+        ("k", sweep.SweepSpec(
+            name="chip_async_k", seeds=SWEEP_SEEDS,
+            base=cfg(core.make_strategy(
+                "async", tau=ASYNC_SWEEP_TAU, schedule=kofm)),
+            vmapped=(sweep.SweepAxis("k", ASYNC_K_POINTS),))),
+    ]
+
+
+def async_path(km, rl, core, sweep, card) -> dict:
+    """Phase 16 (slice 11): the masked server step; zero delay against
+    periodic on the card, bitwise; a geometric(0.5) run with staleness
+    weights on the card against the CPU on the same draws; the ``delay``
+    and ``k`` axes batched through ``run_sweep`` on the card (kernel counts
+    set to 0 just before, read just after) against their loops and, on
+    their first runs, the CPU; runs/s of both forms."""
+    from repro_torch.core import async_fed
+
+    t0 = time.perf_counter()
+    step = masked_step_vs_plain(km.fu, async_fed)
+    m = rl.FIGURE_EIGHT.n_rl
+    n_periods = ASYNC_EPOCHS * (TRAIN_T // TRAIN_P) // ASYNC_TAU
+
+    # zero delay == periodic, bitwise, on the card
+    per = _async_cfg(rl, core.make_strategy("periodic", tau=ASYNC_TAU, m=m))
+    zero = _async_cfg(rl, core.make_strategy(
+        "async", tau=ASYNC_TAU, schedule=async_fed.make_schedule(
+            "deterministic", 0.0, m, n_periods, seed=1234)))
+    sp, mp, _ = rl.run_fedrl(per, SEED, device="cuda")
+    sa, ma, _ = rl.run_fedrl(zero, SEED, device="cuda")
+    zero_dev = max(float(np.max(np.abs(ma[k] - mp[k]))) for k in mp)
+    for h in ("pi", "vf"):
+        for k in sp[h]:
+            zero_dev = max(zero_dev, float((sa[h][k] - sp[h][k]).detach()
+                                           .abs().max()))
+    if zero_dev != 0.0:
+        raise AssertionError(f"async: zero delay vs periodic on the card "
+                             f"deviates by {zero_dev!r}")
+
+    # a delayed run, card vs CPU on the same draws
+    sched = async_fed.make_schedule("geometric", 0.5, m, n_periods,
+                                    seed=1234)
+    geo = _async_cfg(rl, core.make_strategy(
+        "async", tau=ASYNC_TAU, schedule=sched,
+        stale_decay=core.exponential_decay(0.8)))
+    draws = rl.replay_of(geo, rl.TorchDraws(SEED, "cuda", geo.eval_seed))
+    card_run = rl.run_fedrl(geo, draws.to("cuda"), device="cuda")
+    cpu_run = rl.run_fedrl(geo, draws, device="cpu")
+    geo_cmp = _compare_runs("async geometric(0.5)", geo, card_run[:2],
+                            cpu_run[:2])
+    ledger = card_run[2]
+    if ledger.table_row() != cpu_run[2].table_row() or \
+            ledger.c1_events != sched.total_arrivals() or \
+            ledger.total_bytes() != sched.total_arrivals() * \
+            rl.fedrl.policy_payload_elems() * 4:
+        raise AssertionError(f"async geometric(0.5): ledger {ledger} vs "
+                             f"{sched.total_arrivals()} arrivals")
+    log(f"phase async: zero delay vs periodic on the card bitwise (dev "
+        f"{zero_dev!r}); geometric(0.5) card vs CPU on the same draws "
+        f"{geo_cmp}, {ledger.c1_events} of {m * n_periods} arrivals billed")
+
+    sweeps, launches = {}, {k: 0 for k in TRAIN_KERNELS}
+    for name, spec in async_specs(rl, core, sweep):
+        _reset_counts(km)
+        res = sweep.run_sweep(spec, device="cuda", warmup=False)
+        torch.cuda.synchronize()
+        got = _kernel_counts(km)
+        for k, v in got.items():
+            launches[k] += v
+        _reset_counts(km)
+        loop = sweep.run_sweep_loop(spec, device="cuda", warmup=False)
+        torch.cuda.synchronize()
+        loop_launches = _kernel_counts(km)
+        if any(loop_launches[k] != spec.n_runs * got[k] for k in got):
+            raise AssertionError(f"async {name}: batched launches {got}, "
+                                 f"loop {loop_launches}")
+        bitwise, dev = True, 0.0
+        for k, v in res.metrics["base"].items():
+            w = loop.metrics["base"][k]
+            if not np.all(np.isfinite(v)) or v.shape != w.shape:
+                raise AssertionError(f"async {name}: bad {k}")
+            bitwise &= bool(np.array_equal(v, w))
+            dev = max(dev, float(np.max(np.abs(v - w))))
+        if not bitwise:
+            raise AssertionError(f"async {name}: batched vs loop not "
+                                 f"bitwise at {spec.n_runs} x {m} rows "
+                                 f"(max abs {dev!r})")
+        cpu_rel = _sweep_vs_cpu(rl, sweep, spec, "base", res.metrics["base"])
+        wall, loop_wall = res.wall_s["base"], loop.wall_s["base"]
+        rec = {"S": spec.n_runs, "wall_s": wall, "loop_wall_s": loop_wall,
+               "runs_per_s": spec.n_runs / wall,
+               "loop_runs_per_s": spec.n_runs / loop_wall,
+               "launches": got, "bitwise_vs_loop": bitwise,
+               "max_rel_vs_cpu": cpu_rel}
+        sweeps[name] = rec
+        log(f"phase async: {name} axis, {spec.n_runs} runs batched in "
+            f"{wall!r} s = {rec['runs_per_s']!r} runs/s, loop {loop_wall!r} "
+            f"s = {rec['loop_runs_per_s']!r} runs/s; bitwise vs loop; first "
+            f"{SWEEP_CPU_RUNS} runs vs CPU max rel {cpu_rel!r}; launches "
+            f"{ {k: v for k, v in got.items() if v} } card=\"{card}\"")
+    for k in ("decay_accum", "row_mean"):
+        if launches[k] == 0:
+            raise AssertionError(f"async path: {k} never launched")
+    seconds = time.perf_counter() - t0
+    log(f"phase async: {seconds!r} s")
+    return {"masked_step": step, "zero_delay_dev": zero_dev,
+            "geometric_vs_cpu": geo_cmp, "arrivals": ledger.c1_events,
+            "sweeps": sweeps, "launches": launches, "seconds": seconds}
+
+
+def async_alone() -> dict:
+    """Phase 16 without the rest of the script (``python3 -c 'import
+    chip_smoke as c; c.async_alone()'``): builds the kernels, then the async
+    path."""
+    if not torch.cuda.is_available():
+        raise SystemExit("async_alone: no CUDA card")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import repro_torch.rl as rl
+    from repro_torch import core, sweep
+
+    km = _sweep_modules()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    log(f"card {card}")
+    return async_path(km, rl, core, sweep, card)
+
+
 def sweep_divergence(S: int = 12, m: int = 7, K: int = 25) -> dict:
     """Where a batched run parts from its loop on the card: the policy's
     forward, its value, the PPO loss and its gradient on S * m agent rows
@@ -4379,6 +4637,11 @@ def main() -> int:
     sweep_rows = sweep_kernel_times(km, core, comm, card)
     lap('15 sweep')
 
+    # 16. the async path (slice 11): the masked server step, async runs and
+    # the delay / k axes on the card
+    async_run = async_path(km, rl, core, sweep, card)
+    lap('16 async')
+
     top = rows["mean/1024"]
     kernels = [{
         "name": "policy_infer",
@@ -4489,6 +4752,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "sweep_launches": sweeps["launches"][k["name"]],
             "max_abs_err_vs_plain": sweep_parity["max_abs_err"][k["name"]]}
+        if k["name"] in ("decay_accum", "row_mean"):
+            k["async"] = {"launches": async_run["launches"][k["name"]]}
     if len(kernels) != 10 or any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"kernels line: {len(kernels)} kernels, "
                              f"launches {[k['launches'] for k in kernels]}")
@@ -4509,7 +4774,7 @@ def main() -> int:
                    "swa_times": swa_rows, "swa_profile": swa_prof,
                    "swa_hgmma": n_hgmma,
                    "sweep_parity": sweep_parity, "sweeps": sweeps,
-                   "sweep_times": sweep_rows,
+                   "sweep_times": sweep_rows, "async": async_run,
                    "kernels": kernels, "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

@@ -1,7 +1,6 @@
 """Resource-cost ledger in units of C1/C2/W1/W2 (paper eqs. 7, 27; Table II).
 
-The counterpart of ``repro.core.accounting`` for the synchronous strategies
-(the async arrival billing is not ported yet).
+The counterpart of ``repro.core.accounting``.
 
 C1: one agent->server upload.                C2: one local update.
 W1: one neighbor->agent gossip receive.      W2: one gossip combine.
@@ -26,6 +25,8 @@ class CostLedger:
     w2_events: int = 0
     c1_bytes: int = 0
     w1_bytes: int = 0
+    # period boundaries billed so far: a non-uniform (async) schedule is
+    # billed over the concrete span each call covers
     periods_billed: int = 0
 
     def _add_events(self, per: dict, strategy,
@@ -41,18 +42,28 @@ class CostLedger:
 
     def add_periods(self, strategy, n_periods: int,
                     payload_elems: int | None = None) -> None:
-        """Bill ``n_periods`` further full periods (closed-form per-period
-        counts: every agent syncs at every boundary)."""
-        per = strategy.comm_events_per_period()
-        per = {k: v * n_periods for k, v in per.items()}
+        """Bill ``n_periods`` further full periods.
+
+        Uniform strategies (every agent syncs at every boundary) bill the
+        closed-form per-period counts; a strategy with non-uniform arrivals
+        (``uniform_sync`` false: the async path) is billed over the span
+        ``[periods_billed, periods_billed + n_periods)`` of its schedule, so
+        successive calls cover disjoint spans and sum to its arrivals."""
+        if getattr(strategy, "uniform_sync", True):
+            per = strategy.comm_events_per_period()
+            per = {k: v * n_periods for k, v in per.items()}
+        else:
+            per = strategy.comm_events_span(self.periods_billed, n_periods)
         self._add_events(per, strategy, payload_elems)
         self.periods_billed += n_periods
 
     def add_partial_period(self, strategy, n_offsets: int,
                            payload_elems: int | None = None) -> None:
-        """Bill a trailing partial period of ``n_offsets`` local steps: its
-        local updates plus the final every-replica aggregation read. A no-op
-        when ``n_offsets`` is 0."""
+        """Bill a trailing partial period of ``n_offsets`` local steps: the
+        strategy's counts (uniform strategies: its local updates plus the
+        final every-replica aggregation read; a buffered async schedule
+        reaches no boundary mid-period, so no uplinks). A no-op when
+        ``n_offsets`` is 0."""
         if n_offsets == 0:
             return
         per = strategy.comm_events_partial_period(n_offsets)

@@ -28,8 +28,10 @@ m)``, the edge weights ``(S, m, k_max)``), and the same methods step an
 runs. The learning rate may then be one number or an ``(S,)`` tensor, one
 per run.
 
-Not ported yet: ``AsyncStrategy`` and the tree-space transforms;
-``make_strategy`` names the slice that brings async.
+``AsyncStrategy`` (FedBuff-style buffered averaging over a delay
+schedule) lives in ``repro_torch.core.async_fed``; ``make_strategy("async",
+...)`` builds it and :func:`stack_runs` stacks its schedules. Not ported
+yet: the tree-space transforms.
 """
 from __future__ import annotations
 
@@ -133,6 +135,10 @@ class AggregationStrategy:
     # runs of a stacked strategy (stack_runs); None for one run (a class
     # attribute, not a field)
     runs = None
+    # the async strategy (core/async_fed.py) syncs only the replicas that
+    # arrive, at non-uniform boundaries; the ledger and the driver ask
+    is_async = False
+    uniform_sync = True
 
     @staticmethod
     def _build_mask(taus: np.ndarray, tau: int) -> np.ndarray:
@@ -631,6 +637,8 @@ def _same_structure(a: AggregationStrategy, b: AggregationStrategy) -> bool:
     if type(a) is not type(b) or a.tau != b.tau or a.m != b.m or \
             a.comm != b.comm:
         return False
+    if a.is_async and a.schedule.n_periods != b.schedule.n_periods:
+        return False
     if isinstance(a, ConsensusStrategy):
         if (a.rounds, a.fused, a.sparse) != (b.rounds, b.fused, b.sparse) or \
                 not np.array_equal(a.topo.adj, b.topo.adj):
@@ -662,10 +670,15 @@ def stack_runs(strats: Sequence[AggregationStrategy]) -> AggregationStrategy:
             raise ValueError(
                 f"stack_runs: run {i} ({st.name}) differs from run 0 "
                 f"({first.name}) in more than values (kind, tau, m, comm, "
-                f"topology, rounds or path)")
+                f"topology, rounds, path or schedule horizon)")
     fields = {"runs": len(strats),
               "run_weights": np.ascontiguousarray(
                   np.stack([st.weight_table() for st in strats], axis=1))}
+    if first.is_async:
+        fields["sync_weights"] = np.stack(
+            [np.asarray(st.sync_weights, np.float32) for st in strats])
+        fields["run_arrive"] = np.stack(
+            [np.asarray(st.schedule.arrive, np.float32) for st in strats])
     for name in _OFFSET_TABLES + _RUN_TABLES:
         tabs = [getattr(st, name, None) for st in strats]
         if any(t is None for t in tabs):
@@ -676,28 +689,36 @@ def stack_runs(strats: Sequence[AggregationStrategy]) -> AggregationStrategy:
     return first._copy(**fields)
 
 
+_UNSET = object()   # a make_strategy keyword that was not given
+
+
 def make_strategy(kind: str, *, m: Optional[int] = None,
                   tau: Optional[int] = None, taus=None,
                   decay: Optional[DecayFn] = None,
                   topo: Optional[Topology] = None, eps: Optional[float] = None,
                   rounds: Optional[int] = None, fused: Optional[bool] = None,
                   sparse: Optional[bool] = None,
-                  comm: Optional[PayloadTransform] = None
+                  comm: Optional[PayloadTransform] = None,
+                  schedule=_UNSET, stale_decay=_UNSET,
                   ) -> AggregationStrategy:
     """``sync`` (``m``), ``periodic`` (``tau`` and ``taus`` or ``m``),
-    ``decay`` (the same, plus ``decay``) or ``consensus`` (``tau``, ``topo``,
+    ``decay`` (the same, plus ``decay``), ``consensus`` (``tau``, ``topo``,
     ``eps``; ``rounds`` = 1, ``fused`` = True and ``sparse`` = auto by
-    default; ``taus`` / ``m`` as for periodic), with the JAX package's
-    keyword names; ``comm`` sets the payload transform of any kind. A
-    keyword the kind does not take raises ``TypeError``."""
-    if kind == "async":
-        raise NotImplementedError(
-            "make_strategy: 'async' is not ported yet; it comes with the "
-            "async-federation slice (core/async_fed.py)")
-    if kind not in ("sync", "periodic", "decay", "consensus"):
+    default; ``taus`` / ``m`` as for periodic) or ``async`` (``tau`` and a
+    ``schedule``, a :class:`~repro_torch.core.async_fed.DelaySchedule`;
+    ``taus``, ``m`` and ``stale_decay`` optional), with the JAX package's
+    keyword names; ``comm`` sets the payload transform of any kind (async
+    takes none but the identity). A keyword the kind does not take raises
+    ``TypeError`` (``schedule`` and ``stale_decay`` even when given as
+    None)."""
+    if kind not in ("sync", "periodic", "decay", "consensus", "async"):
         raise ValueError(f"unknown strategy kind: {kind}")
     if decay is not None and kind != "decay":
         raise TypeError(f"make_strategy: {kind!r} takes no decay")
+    if kind != "async":
+        for name, v in (("schedule", schedule), ("stale_decay", stale_decay)):
+            if v is not _UNSET:
+                raise TypeError(f"make_strategy: {kind!r} takes no {name}")
     if kind != "consensus":
         for name, v in (("topo", topo), ("eps", eps), ("rounds", rounds),
                         ("fused", fused), ("sparse", sparse)):
@@ -713,6 +734,15 @@ def make_strategy(kind: str, *, m: Optional[int] = None,
         strat = PeriodicStrategy(tau=tau, taus=taus, m=m)
     elif kind == "decay":
         strat = DecayStrategy(tau=tau, taus=taus, m=m, decay=decay)
+    elif kind == "async":
+        if schedule is _UNSET or schedule is None:
+            raise TypeError("make_strategy: 'async' needs a schedule")
+        # core.async_fed imports this module
+        from repro_torch.core.async_fed import AsyncStrategy
+
+        strat = AsyncStrategy(
+            tau=tau, schedule=schedule, taus=taus, m=m,
+            stale_decay=None if stale_decay is _UNSET else stale_decay)
     else:
         if topo is None or eps is None:
             raise TypeError("make_strategy: 'consensus' needs topo and eps")

@@ -52,8 +52,11 @@ one dispatch call (one launch on the card) per primitive for all runs. The
 sweep engine (``repro_torch.sweep``) runs a static point through it;
 :func:`run_fedrl` is the one-run case, S = 1.
 
-Not ported yet: the tree-space carry (the port keeps the flat one only) and
-the async strategy.
+The async strategy (``repro_torch.core.async_fed``) syncs, at a boundary,
+only the replicas its schedule lets arrive, and the optimizer moments stay
+local there; the epoch evaluations and the final readout still poll every
+replica. Not ported yet: the tree-space carry (the port keeps the flat one
+only).
 """
 from __future__ import annotations
 
@@ -358,7 +361,8 @@ def _finish_ledger(strat, n_updates: int,
 
 
 def fedrl_ledger(cfg: FedRLConfig) -> CostLedger:
-    """The run's communication-cost ledger (host-side, config-only)."""
+    """The run's communication-cost ledger (host-side, config-only; an
+    async strategy is billed its schedule's arrivals)."""
     return _finish_ledger(cfg.strategy, cfg.n_epochs * cfg.updates_per_epoch,
                           policy_payload_elems())
 
@@ -452,6 +456,8 @@ def run_fedrl_batch(cfgs: Sequence[FedRLConfig], draws: Sequence, *,
                     cfg.fleet)
     strat, opt = stack_runs([c.strategy for c in cfgs]), cfg.optimizer
     m, tau = strat.m, strat.tau
+    if strat.is_async:
+        strat.validate_horizon(cfg.n_epochs * cfg.updates_per_epoch // tau)
     dtype = storage_dtype(cfg)
     etas = [float(np.float32(c.eta)) for c in cfgs]
     if len(set(etas)) == 1:
@@ -503,7 +509,11 @@ def run_fedrl_batch(cfgs: Sequence[FedRLConfig], draws: Sequence, *,
                 with record_function("fedrl.sync"):
                     flat, comm_state = strat.flat_sync(
                         flat, comm_state, period=k // tau - 1)
-                    server_average_state(strat, opt_state)
+                    if not strat.is_async:
+                        # an async boundary syncs only the arrived
+                        # replicas; the moments stay local (FedBuff keeps
+                        # no server momentum)
+                        server_average_state(strat, opt_state)
             nas.append(r)
             loss.append(_run_means(losses.reshape(S, m)))
         # epoch evals land mid-period too: the metric polls every replica

@@ -18,10 +18,11 @@ concrete ``taus`` point is checked against A2.
 
 Built-in axes: ``eta``, ``lam`` (scalar or ``(m,)`` points), ``eps`` (dense
 and sparse), ``taus`` (``(m,)`` schedules at fixed tau), ``hetero_scale``
-(scalar or ``(scale, dir_seed)`` points); ``delay`` and ``k`` belong to the
-async slice and raise. Payload compression changes the program, not its
-values, so :func:`compression_axis` builds it as a *static* axis; so does
-:func:`algebraic_connectivity_axis` for graph families.
+(scalar or ``(scale, dir_seed)`` points), ``delay`` (``(dist_id, param)``
+points) and ``k`` (buffer sizes) on an async base. Payload compression
+changes the program, not its values, so :func:`compression_axis` builds it
+as a *static* axis; so does :func:`algebraic_connectivity_axis` for graph
+families.
 """
 from __future__ import annotations
 
@@ -148,21 +149,83 @@ def override_hetero_scale(cfg, point, uniforms=None):
     return dataclasses.replace(cfg, env_params=params)
 
 
-def _async_axis(name: str) -> Callable:
-    def fn(cfg, point):
-        raise NotImplementedError(
-            f"the {name!r} sweep axis needs the async strategy, which is not "
-            f"ported yet; it comes with the async-federation slice "
-            f"(core/async_fed.py)")
+def _async_base(cfg, axis: str):
+    from repro_torch.core.async_fed import AsyncStrategy
 
-    fn.__name__ = f"override_{name}"
-    fn.__doc__ = (f"The async ``{name}`` axis: not ported yet (the "
-                  f"async-federation slice); raises ``NotImplementedError``.")
-    return fn
+    strat = cfg.strategy
+    if not isinstance(strat, AsyncStrategy):
+        raise TypeError(f"'{axis}' axis needs an AsyncStrategy base, got "
+                        f"{type(strat).__name__}")
+    return strat
 
 
-override_delay = _async_axis("delay")
-override_k = _async_axis("k")
+def _axis_uniforms(cfg, sched, uniforms):
+    """The delay process's draws of a sweep point: ``uniforms`` when given,
+    else those the base schedule was made from, else
+    ``delay_uniforms(cfg.eval_seed, ...)`` (the JAX package's
+    ``delay_axis_key(cfg.eval_seed)`` stream)."""
+    from repro_torch.core.async_fed import delay_uniforms
+
+    if uniforms is None:
+        uniforms = sched.uniforms
+    if uniforms is None:
+        return delay_uniforms(cfg.eval_seed, sched.m, sched.n_periods)
+    u = np.asarray(uniforms, np.float32)
+    if u.shape != (sched.m, sched.n_periods):
+        raise ValueError(f"uniforms must be ({sched.m}, {sched.n_periods}), "
+                         f"got {u.shape}")
+    return u
+
+
+def override_delay(cfg, point, uniforms=None):
+    """Asynchronous-arrival axis: a ``(dist_id, param)`` point redraws the
+    run's schedule (:func:`repro_torch.core.async_fed.make_schedule`: its
+    delays, renewal arrivals and staleness weights) on the base schedule's
+    shape, from :func:`_axis_uniforms`.
+
+    The run's schedule is concrete, so its own ledger bills its arrivals; a
+    stacked run's accounting is the first run's (``stack_runs``), so
+    benches rebuild each point's ledger from ``make_schedule`` on the same
+    draws, as in JAX.
+    """
+    from repro_torch.core.async_fed import DELAY_DISTRIBUTIONS, make_schedule
+
+    strat = _async_base(cfg, "delay")
+    point = np.asarray(point, np.float32)
+    if point.shape != (2,):
+        raise ValueError("'delay' axis points must be (dist_id, param) "
+                         f"2-vectors, got shape {point.shape}")
+    names = {v: k for k, v in DELAY_DISTRIBUTIONS.items()}
+    if int(point[0]) not in names:
+        raise ValueError(f"'delay' axis: unknown distribution id {point[0]}")
+    sched = strat.schedule
+    return dataclasses.replace(cfg, strategy=strat.with_schedule(
+        make_schedule(names[int(point[0])], float(point[1]), sched.m,
+                      sched.n_periods,
+                      uniforms=_axis_uniforms(cfg, sched, uniforms))))
+
+
+def override_k(cfg, k, uniforms=None):
+    """FedBuff buffer-size axis: a scalar point ``k`` re-selects the K
+    freshest arrivals (:func:`repro_torch.core.async_fed.kofm_schedule`) on
+    the lag process recorded on the K-of-m base schedule, drawn from
+    :func:`_axis_uniforms`. Points must lie in ``1 <= k <= m``."""
+    from repro_torch.core.async_fed import kofm_schedule
+
+    strat = _async_base(cfg, "k")
+    sched = strat.schedule
+    if sched.k is None or sched.dist is None:
+        raise ValueError(
+            "'k' axis needs a K-of-m base schedule that records its lag "
+            "process — build it with kofm_schedule(...)")
+    k = np.asarray(k, np.float32)
+    if k.ndim != 0:
+        raise ValueError(f"'k' axis points must be scalars, got shape "
+                         f"{k.shape}")
+    return dataclasses.replace(cfg, strategy=strat.with_schedule(
+        kofm_schedule(sched.m, sched.n_periods, int(k), dist=sched.dist,
+                      param=sched.param,
+                      uniforms=_axis_uniforms(cfg, sched, uniforms))))
 
 
 OVERRIDES: Dict[str, Callable] = {

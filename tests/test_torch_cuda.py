@@ -1025,3 +1025,94 @@ def test_a_batched_sweep_on_the_card_matches_the_cpu_runs(card):
         assert got[k].shape == (2, 2)
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-4,
                                    err_msg=k)
+
+
+# --- the async slice (repro_torch.core.async_fed) ----------------------------------
+
+@pytest.mark.parametrize("kind", ["all", "none", "part", "frac"])
+@pytest.mark.parametrize("shape", [(7, 9347), (65, 129), (12, 7, 9347),
+                                   (4, 4, 33)])
+def test_masked_server_step_on_the_card_matches_the_cpu(card, shape, kind):
+    """The card's scale_rows (decay_accum: g + (w - 1) g) then row_mean,
+    against the plain scaling with the card's row_mean (bitwise, weights in
+    {0, 1}) and the CPU (row_mean's 1e-6 of the column's mean |g| plus
+    2^-21 of its max |g|); ``denom`` stays on the card; a run with no
+    arrival has no finite row."""
+    from repro_torch.core import async_fed
+
+    gen = torch.Generator().manual_seed(sum(shape) + len(kind))
+    g = torch.randn(shape, generator=gen)
+    w = {"all": torch.ones(shape[:-1]), "none": torch.zeros(shape[:-1]),
+         "part": (torch.rand(shape[:-1], generator=gen) < 0.5).float(),
+         "frac": torch.rand(shape[:-1], generator=gen)}[kind]
+    if kind == "part":
+        w[..., 0] = 1.0
+    row, denom = async_fed.masked_server_step(g.cuda(), w.cuda())
+    assert row.is_cuda and denom.is_cuda
+    cpu_row, cpu_denom = async_fed.masked_server_step(g, w)
+    if kind == "none":
+        assert not torch.isfinite(row).any() and not (denom != 0).any()
+        return
+    m = shape[-2]
+    if kind != "frac":
+        mine = fu.row_mean_cuda((g.cuda() * w.cuda()[..., None]).contiguous())
+        assert torch.equal(row, mine * (m / w.cuda().sum(-1))[..., None])
+        assert torch.equal(denom.cpu(), cpu_denom)
+    scale = (m / cpu_denom)[..., None]
+    tol = 1e-6 * g.abs().mean(-2) * scale + 2.0 ** -21 * g.abs().amax(-2) * scale
+    assert ((row.cpu() - cpu_row).abs() <= tol).all()
+
+
+def _async_cfg(strategy, **kw):
+    return FedRLConfig(env=FIGURE_EIGHT, strategy=strategy, eta=5e-3,
+                       n_epochs=2, epoch_len=40, minibatch=10, **kw)
+
+
+def test_zero_delay_async_on_the_card_is_bitwise_periodic(card):
+    from repro_torch.core import make_schedule
+
+    per = _async_cfg(make_strategy("periodic", tau=3, m=7))
+    zero = _async_cfg(make_strategy("async", tau=3, schedule=make_schedule(
+        "deterministic", 0.0, 7, 2, seed=1234)))
+    sp, mp, _ = run_fedrl(per, 0, device="cuda")
+    sa, ma, _ = run_fedrl(zero, 0, device="cuda")
+    for k in mp:
+        np.testing.assert_array_equal(ma[k], mp[k], err_msg=k)
+    for h in ("pi", "vf"):
+        for k in sp[h]:
+            assert torch.equal(sa[h][k], sp[h][k]), f"{h}/{k}"
+
+
+@pytest.mark.parametrize("axis", ["delay", "k"])
+def test_async_sweep_on_the_card_matches_its_loop_and_the_cpu(card, axis):
+    """A delay (or k) axis batched on the card: bitwise its loop of one-run
+    calls, and the card runs' own draws on the CPU within rtol / atol
+    1e-4."""
+    from repro_torch import sweep
+    from repro_torch.core import kofm_schedule, make_schedule
+    from repro_torch.rl.fedrl import run_fedrl_batch
+    from repro_torch.sweep.runner import _grid_arrays, _run_configs
+
+    if axis == "delay":
+        base = make_strategy("async", tau=3, schedule=make_schedule(
+            "deterministic", 0.0, 7, 2, seed=1234),
+            stale_decay=exponential_decay(0.8))
+        points = ((0.0, 1.0), (1.0, 0.5), (2.0, 1.5))
+    else:
+        base = make_strategy("async", tau=3, schedule=kofm_schedule(
+            7, 2, 3, seed=1234))
+        points = (1.0, 4.0, 7.0)
+    spec = sweep.SweepSpec(name=axis, base=_async_cfg(base), seeds=(0, 1),
+                           vmapped=(sweep.SweepAxis(axis, points),))
+    res = sweep.run_sweep(spec, device="cuda", warmup=False)
+    loop = sweep.run_sweep_loop(spec, device="cuda", warmup=False)
+    for k, v in res.metrics["base"].items():
+        np.testing.assert_array_equal(v, loop.metrics["base"][k], err_msg=k)
+    axis_vals, seeds = _grid_arrays(spec)
+    cfgs = _run_configs(spec, spec.base, axis_vals, range(spec.n_runs))
+    draws = [replay_of(c, TorchDraws(int(s), "cuda")) for c, s in
+             zip(cfgs, seeds)]
+    _, want, _ = run_fedrl_batch(cfgs, draws, device="cpu")
+    for k, v in want.items():
+        np.testing.assert_allclose(res.metrics["base"][k].reshape(v.shape), v,
+                                   rtol=1e-4, atol=1e-4, err_msg=k)

@@ -190,8 +190,11 @@ def test_make_strategy_names_the_slices_still_to_come():
     s = tstrat.make_strategy("consensus", tau=2, topo=topo, eps=0.1,
                              comm=tcomm.qint8())
     assert isinstance(s, tstrat.ConsensusStrategy) and s.comm.kind == "int8"
-    with pytest.raises(NotImplementedError, match="async"):
+    # async is ported too: it needs its delay schedule
+    with pytest.raises(TypeError, match="'async' needs a schedule"):
         tstrat.make_strategy("async", tau=2, m=4)
+    with pytest.raises(TypeError, match="'periodic' takes no schedule"):
+        tstrat.make_strategy("periodic", tau=2, m=4, schedule=object())
     with pytest.raises(ValueError, match="unknown strategy"):
         tstrat.make_strategy("gossip")
     with pytest.raises(ValueError, match="need taus or m"):

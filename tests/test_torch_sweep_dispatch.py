@@ -401,9 +401,11 @@ def test_override_errors_match_jax():
     _raises_both("'hetero_scale' axis points must be scalars",
                  lambda: jov.override_hetero_scale(jc, jnp.ones(3)),
                  lambda: tov.override_hetero_scale(tc, np.ones(3)))
-    for name in ("delay", "k"):
-        with pytest.raises(NotImplementedError, match="async"):
-            tov.OVERRIDES[name](tc, np.ones(2))
+    for fn, point in (("override_delay", np.ones(2)), ("override_k", 3.0)):
+        with pytest.raises(TypeError, match="axis needs an AsyncStrategy"):
+            getattr(jov, fn)(jc, jnp.asarray(point))
+        with pytest.raises(TypeError, match="axis needs an AsyncStrategy"):
+            tov.OVERRIDES[fn[len("override_"):]](tc, point)
     with pytest.raises(KeyError, match="no override registered"):
         tov.apply_overrides(tc, ["nope"], [1.0])
     assert set(tov.OVERRIDES) == set(jov.OVERRIDES)
