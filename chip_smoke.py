@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, consensus and language-model
-serving paths (RWKV6 and sliding-window attention) on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training, consensus, sweep, async,
+task-generic FMARL and language-model serving paths (RWKV6 and
+sliding-window attention) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -154,9 +155,9 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    bf16 / fp16, scalar / shared / per-run / per-row coefficients, shared /
    per-run learning rates, mixing matrices and edge weights, and the S == m
    refusals; then ``repro_torch.sweep.run_sweep(device="cuda")`` on Fig. 5's
-   lambda grid (3 x 4 seeds), Fig. 6's eps grid (3 x 4, dense and sparse),
-   Fig. 4's taus grid (4 x 4), an eta x momentum / Adam grid and a top-k
-   uplink point, m = 7, T 150, P 25, 2 epochs: each against
+   lambda grid (3 x 2 seeds), Fig. 6's eps grid (3 x 2, dense and sparse),
+   Fig. 4's taus grid (4 x 2), an eta x momentum / Adam grid (2 x 1) and a
+   top-k uplink point (2 seeds), m = 7, T 150, P 25, 2 epochs: each against
    ``run_sweep_loop`` (bitwise or within rtol / atol 1e-4, stated), its
    first 4 runs against the CPU on the same draws (1e-4), launches S times
    fewer than the loop's, runs/s of both forms; and each batched kernel's
@@ -174,7 +175,23 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    ``k`` axis (3 buffer sizes x 4 seeds; 1 epoch, tau = 2) through
    ``run_sweep`` on the card,
    bitwise against ``run_sweep_loop``, their first 4 runs against the CPU,
-   launches S times fewer than the loop's, runs/s of both forms.
+   launches S times fewer than the loop's, runs/s of both forms;
+17. fmarl (slice 12) — ``repro_torch.core.run_fmarl(device="cuda")``, the
+   task-generic Algorithm 1 / 2 driver: ``examples/torch_quickstart.py``'s
+   five strategies (m = 7, tau = 8, 320 steps on the noisy quadratic of a
+   16 x 16 leaf) on one host-drawn noise table, card against CPU (per-period
+   metrics rtol 1e-4, server parameters atol 1e-4, ledgers equal), and the
+   example itself on the card; the full-width run, every agent a tree laid
+   out like the 6-64-64 actor-critic (n = 9,347) at m = 1024, tau = 2, 3
+   periods: periodic, decay, dense and sparse consensus (E = 2, k-NN ring),
+   momentum, Adam and a top-k uplink, each timed on the card (steps/s) and
+   held against the CPU on the same draws; launches held to the count the
+   loop implies (rows 1-7 of the kernel table); one profiled window at
+   m = 1024 (momentum; device idle share, time by ``fmarl.*`` range); and
+   ``HierarchicalStrategy.server_average`` at (1024, 9347): the cluster mean
+   one ``consensus_step`` launch and the global mean one ``row_mean``
+   launch, each against the plain version and float64. Alone:
+   ``python3 -c 'import chip_smoke as c; c.fmarl_alone()'``.
 
 Its last lines are the kernel summary JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -2452,12 +2469,16 @@ def sweep_kernel_times(km, core, comm, card) -> dict:
 
 # The figure sweeps through repro_torch.sweep.run_sweep on the card, each at
 # m = 7 and the Table II run geometry (T 150, P 25, eta 5e-3) for
-# SWEEP_EPOCHS epochs, seeds 0-3: Fig. 5's lambda grid, Fig. 6's eps grid on
+# SWEEP_EPOCHS epochs, seeds 0-1: Fig. 5's lambda grid, Fig. 6's eps grid on
 # the sparse E=1 topology (dense path, and the sparse path forced), Fig. 4's
 # taus grid at tau = 15, a short eta x momentum / Adam grid (a static axis of
-# the two optimizers) and a top-k uplink static point (a compression_axis).
+# the two optimizers; seed 0) and a top-k uplink static point (a
+# compression_axis). Seeds 0-3 until phase 17 came: the loop of one-run calls
+# that each sweep is held against took 64 s of the phase's 103 s; 2 seeds
+# halve it and keep every path, and 2 epochs keep each tau = 10 sweep's sync
+# (the top-k one's topk_scatter).
 SWEEP_EPOCHS = 2
-SWEEP_SEEDS = (0, 1, 2, 3)
+SWEEP_SEEDS = (0, 1)
 SWEEP_CPU_RUNS = 4           # runs of each sweep held against the CPU
 
 
@@ -2504,7 +2525,7 @@ def sweep_specs(rl, core, optim, comm, sweep) -> list:
             base=cfg(core.make_strategy("periodic", tau=15, m=m)),
             vmapped=(sweep.SweepAxis("taus", scheds),))),
         ("eta x optimizer", sweep.SweepSpec(
-            name="chip_eta_opt", seeds=SWEEP_SEEDS[:2],
+            name="chip_eta_opt", seeds=SWEEP_SEEDS[:1],
             base=cfg(core.make_strategy("periodic", tau=10, m=m)),
             vmapped=(sweep.SweepAxis("eta", (2e-3, 5e-3)),),
             static=(opt_axis,))),
@@ -2619,6 +2640,7 @@ ASYNC_FRAC_ULPS = 2.0 ** -21
 # epoch at tau = 2 (3 boundaries) to keep the script in its 642 s.
 ASYNC_TAU, ASYNC_EPOCHS = 3, 2
 ASYNC_SWEEP_TAU, ASYNC_SWEEP_EPOCHS = 2, 1
+ASYNC_SEEDS = (0, 1, 2, 3)
 ASYNC_DELAY_POINTS = ((0.0, 0.0), (0.0, 1.0), (1.0, 0.5), (2.0, 1.5))
 ASYNC_K_POINTS = (2.0, 4.0, 7.0)
 
@@ -2713,13 +2735,13 @@ def async_specs(rl, core, sweep) -> list:
                                    param=0.5, seed=1234)
     return [
         ("delay", sweep.SweepSpec(
-            name="chip_async_delay", seeds=SWEEP_SEEDS[:3],
+            name="chip_async_delay", seeds=ASYNC_SEEDS[:3],
             base=cfg(core.make_strategy(
                 "async", tau=ASYNC_SWEEP_TAU, schedule=base,
                 stale_decay=core.exponential_decay(0.8))),
             vmapped=(sweep.SweepAxis("delay", ASYNC_DELAY_POINTS),))),
         ("k", sweep.SweepSpec(
-            name="chip_async_k", seeds=SWEEP_SEEDS,
+            name="chip_async_k", seeds=ASYNC_SEEDS,
             base=cfg(core.make_strategy(
                 "async", tau=ASYNC_SWEEP_TAU, schedule=kofm)),
             vmapped=(sweep.SweepAxis("k", ASYNC_K_POINTS),))),
@@ -2992,6 +3014,353 @@ def sweep_kernels_alone() -> dict:
     parity = sweep_kernels_vs_loop(km, core, comm, dispatch)
     rows = sweep_kernel_times(km, core, comm, card)
     return {"parity": parity, "times": rows}
+
+
+# --- phase 17: the task-generic FMARL driver (slice 12) ----------------------------
+
+# (a) examples/torch_quickstart.py's five strategies (m = 7, tau = 8, 320
+# local steps each) on one table of host-drawn noise, card against CPU, and
+# the example itself on the card; (b) the full-width run: every agent a tree
+# laid out like the 6-64-64 actor-critic (n = 9,347), m = 1024, tau = 2, 3
+# periods, under the noisy quadratic, for periodic, decay (tau_i ~ U{1, 2}),
+# dense and sparse consensus (E = 2 on a k-NN ring), momentum, Adam and a
+# top-k uplink, card against CPU. Its noise cycles through FMARL_POOL
+# host-drawn (m, n) draws (77 MB of fp32, where 6 distinct steps would copy
+# 230 MB); (c) HierarchicalStrategy.server_average at (1024, 9347), the
+# cluster mean by consensus_step and the global mean by row_mean, against
+# their plain versions and float64.
+FMARL_M, FMARL_TAU, FMARL_PERIODS = 1024, 2, 3
+FMARL_POOL = 2
+FMARL_SIGMA = 0.05
+FMARL_ETA = 0.05
+FMARL_TOPK = 584
+FMARL_CLUSTER = 32           # agents per cluster in (c)
+HIER_REL = 1e-6              # (c): |got - float64| <= HIER_REL * max |x|
+
+
+def _tmap(fn, *trees):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: _tmap(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _tleaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tleaves(tree[k])]
+    return [tree]
+
+
+def replayed_quadratic(pool, sigma):
+    """A batched ``local_grad_fn`` on replayed draws: the noisy quadratic's
+    gradient ``p + sigma * pool[step % K]`` per leaf (``pool``: a tree of
+    ``(K, m, ...)`` leaves on the run's device) and the per-agent loss
+    ``sum |p|^2`` as its aux."""
+    k = _tleaves(pool)[0].shape[0]
+
+    def grad_fn(params_m, agent_ids, step, gen):
+        g = _tmap(lambda p, z: p + sigma * z[step % k], params_m, pool)
+        loss = sum(torch.sum(p * p, dim=tuple(range(1, p.ndim)))
+                   for p in _tleaves(params_m))
+        return g, {"loss": loss}
+
+    return grad_fn
+
+
+def _server_eval(params, gen):
+    return params                 # the quadratic's gradient at the server
+
+
+def _fmarl_expected(cfg) -> dict:
+    """Launches one ``run_fmarl`` of ``cfg`` implies. Per local step: the
+    SGD ``decay_accum`` or the optimizer's launch; a dense fused gossip adds
+    one ``consensus_step``, a sparse one a ``scale_rows`` (``decay_accum``)
+    and E ``consensus_gather``. Per period: one ``row_mean`` (a
+    ``topk_scatter`` for a top-k uplink) and one per moment matrix."""
+    strat, opt = cfg.strategy, cfg.optimizer
+    steps, periods = cfg.n_periods * strat.tau, cfg.n_periods
+    out = {k: 0 for k in TRAIN_KERNELS}
+    out["decay_accum" if opt is None else f"{opt.kind}_update"] += steps
+    out["topk_scatter" if strat.comm.kind == "topk" else "row_mean"] += periods
+    out["row_mean"] += periods * (0 if opt is None else opt.n_moments)
+    if hasattr(strat, "rounds"):                     # consensus
+        if strat.sparse:
+            out["decay_accum"] += steps
+            out["consensus_gather"] += strat.rounds * steps
+        else:
+            out["consensus_step"] += (1 if strat.fused else strat.rounds) * steps
+    return out
+
+
+def fmarl_plan(core, optim, comm) -> list:
+    """``(label, FmarlConfig)`` of (b)."""
+    m, tau = FMARL_M, FMARL_TAU
+    ring = core.knn_ring(m, 4)
+    eps = 0.9 / ring.max_degree
+    mk = core.make_strategy
+    periodic = mk("periodic", tau=tau, m=m)
+    decay = mk("decay", tau=tau, taus=core.uniform_taus(1, tau, m),
+               decay=core.exponential_decay(0.9))
+    cfg = lambda strat, **kw: core.FmarlConfig(
+        strategy=strat, eta=FMARL_ETA, n_periods=FMARL_PERIODS, **kw)
+    return [
+        ("periodic", cfg(periodic)),
+        ("decay", cfg(decay)),
+        ("dense consensus E=2", cfg(mk("consensus", tau=tau, topo=ring,
+                                       eps=eps, rounds=2, sparse=False))),
+        ("sparse consensus E=2", cfg(mk("consensus", tau=tau, topo=ring,
+                                        eps=eps, rounds=2))),
+        ("momentum", cfg(periodic, optimizer=optim.flat_momentum(0.9))),
+        ("adam", cfg(decay, optimizer=optim.flat_adam())),
+        ("top-k uplink", cfg(periodic.with_comm(comm.topk(FMARL_TOPK)))),
+    ]
+
+
+def _fmarl_compare(label, cfg, card_run, cpu_run, params: bool) -> dict:
+    """Card against CPU on the same draws: per-period metrics within
+    TRAIN_RTOL, the ledgers equal and, where ``params``, the server
+    parameters within TRAIN_ATOL (a top-k uplink's selection may differ in
+    an entry whose magnitude ties its row's threshold to an ulp, which moves
+    that entry by ~|x| / m: its metrics are held, its parameters reported)."""
+    (gs, gm, gl), (cs_, cm, cl) = card_run, cpu_run
+    rel = 0.0
+    for k, want in (("server_grad_sq_norm", cm["server_grad_sq_norm"]),
+                    ("loss", cm["mean_aux"]["loss"])):
+        got = gm["server_grad_sq_norm"] if k != "loss" else \
+            gm["mean_aux"]["loss"]
+        if got.shape != (cfg.n_periods,) or not np.all(np.isfinite(got)):
+            raise AssertionError(f"fmarl {label}: bad {k} {got}")
+        rel = max(rel, _max_rel(got, want))
+        if not np.allclose(got, want, rtol=TRAIN_RTOL, atol=0):
+            raise AssertionError(f"fmarl {label}: card {k} {got} vs CPU "
+                                 f"{want} (rtol {TRAIN_RTOL})")
+    if gl.table_row() != cl.table_row():
+        raise AssertionError(f"fmarl {label}: ledgers {gl} vs {cl}")
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        _tleaves(gs.server_params), _tleaves(cs_.server_params)))
+    if params and err > TRAIN_ATOL:
+        raise AssertionError(f"fmarl {label}: server params card vs CPU max "
+                             f"err {err:.3e} > {TRAIN_ATOL}")
+    return {"metrics_max_rel": rel, "params_max_abs": err,
+            "params_held": params}
+
+
+def _profile_window(fn) -> dict:
+    """One ``torch.profiler`` window around ``fn()``: wall, device busy
+    time and idle share, and each ``fmarl.*`` range's host and device ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ev = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in ev
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0
+                  and not e.key.startswith("fmarl."))
+    phases = {e.key: {"count": e.count, "host_ms": e.cpu_time_total / 1e3,
+                      "device_ms": e.device_time_total / 1e3}
+              for e in ev if e.key.startswith("fmarl.")
+              and e.device_type == DeviceType.CPU}
+    if busy_us <= 0:
+        raise AssertionError("fmarl profile: no device time in the window")
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / wall_us, "phases": phases}
+
+
+def _actor_critic_tree(rl) -> dict:
+    """The 6-64-64 actor-critic's parameters (n = 9,347), seeded."""
+    from repro_torch.rl.env import OBS_DIM
+
+    pol = rl.policy.init_policy(OBS_DIM, generator=torch.Generator()
+                                .manual_seed(SEED), device="cpu")
+    return {h: {k: v.detach().clone() for k, v in pol[h].items()}
+            for h in ("pi", "vf")}
+
+
+def hierarchical_vs_plain(km, core, dispatch, tree_shapes) -> dict:
+    """(c): ``HierarchicalStrategy.server_average`` on an (m, n) = (1024,
+    9347) tree: a cluster period (one ``consensus_step`` launch, clusters of
+    FMARL_CLUSTER agents) and a global one (one ``row_mean``), each against
+    the plain version on the same inputs and float64."""
+    m = FMARL_M
+    clusters = tuple(tuple(range(c, c + FMARL_CLUSTER))
+                     for c in range(0, m, FMARL_CLUSTER))
+    hs = core.HierarchicalStrategy(tau=FMARL_TAU, clusters=clusters,
+                                   global_every=2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    tree = _tmap(lambda shape: torch.randn((m,) + shape, generator=gen,
+                                           device="cuda"), tree_shapes)
+    flat, spec = dispatch.stacked_ravel_spec(tree)
+    scale = float(flat.abs().max())
+    p_local = torch.tensor(hs.cluster_mean_matrix(), device="cuda")
+    out = {}
+    for period, kernel in ((0, "consensus_step"), (1, "row_mean")):
+        _reset_counts(km)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = spec.ravel(hs.server_average(tree, period_idx=period))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in _kernel_counts(km).items() if v}
+        if launches != {kernel: 1}:
+            raise AssertionError(f"hierarchical period {period}: launches "
+                                 f"{launches}, expected {kernel} once")
+        if kernel == "consensus_step":
+            plain = km.cs.consensus_step_plain(flat, p_local)
+            want = (p_local.double() @ flat.double())
+            tol = HIER_REL * scale
+        else:
+            plain = km.fu.row_mean_plain(flat).expand_as(flat)
+            want = flat.double().mean(0).expand_as(flat)
+            tol = (ROW_MEAN_REL * flat.abs().mean(0)
+                   + torch.finfo(torch.float32).eps * want[0].abs()).double()
+            if not torch.equal(got, got[:1].expand_as(got)):
+                raise AssertionError("hierarchical global period: rows differ")
+        for name, x in (("kernel", got), ("plain", plain)):
+            if bool(((x.double() - want).abs() > tol).any()):
+                raise AssertionError(
+                    f"hierarchical period {period}: {name} vs float64 max err "
+                    f"{float((x.double() - want).abs().max()):.3e}")
+        out[kernel] = {
+            "period": period, "wall_ms": wall_ms,
+            "max_abs_err": float((got.double() - want).abs().max()),
+            "plain_max_abs_err": float((plain.double() - want).abs().max()),
+            "max_abs_vs_plain": float((got - plain).abs().max())}
+    log(f"phase fmarl: hierarchical server_average at ({m}, {spec.n}), "
+        f"clusters of {FMARL_CLUSTER}: cluster period one consensus_step "
+        f"{out['consensus_step']}; global period one row_mean "
+        f"{out['row_mean']}")
+    return out
+
+
+def fmarl_path(km, rl, core, optim, comm, dispatch, card) -> dict:
+    """Phase 17 (slice 12): (a) the quickstart's strategies, card against
+    CPU, and the example on the card; (b) the full-width runs, card (timed:
+    steps/s) against CPU; counts set to 0 just before the card runs of (a)
+    and (b) and read just after, held to ``_fmarl_expected``; one profiled
+    window at m = 1024; (c) the hierarchical server average."""
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    from examples import torch_quickstart as qs
+
+    t0 = time.perf_counter()
+    # (a): one noise table (320 steps, m = 7, the 16 x 16 leaf)
+    qcfgs = qs.configs()
+    steps = max(c.n_periods * c.strategy.tau for c in qcfgs.values())
+    table = torch.randn((steps, qs.M) + tuple(qs.initial_params()["w"].shape),
+                        generator=torch.Generator().manual_seed(SEED))
+    q_pool = {"cpu": {"w": table}, "cuda": {"w": table.to("cuda")}}
+    tree = _actor_critic_tree(rl)
+    shapes = _tmap(lambda v: tuple(v.shape), tree)
+    pool = _tmap(lambda shape: torch.randn(
+        (FMARL_POOL, FMARL_M) + shape,
+        generator=torch.Generator().manual_seed(SEED + 1)), shapes)
+    b_pool = {"cpu": pool, "cuda": _tmap(lambda z: z.to("cuda"), pool)}
+    plan = fmarl_plan(core, optim, comm)
+    parts = {"setup": time.perf_counter() - t0}
+
+    def run(cfg, init, pool_, sigma, device):
+        return core.run_fmarl(cfg, init, replayed_quadratic(pool_, sigma),
+                              SEED, _server_eval, device=device)
+
+    expected = {k: 0 for k in TRAIN_KERNELS}
+    _reset_counts(km)
+    card_q, card_b, rates = {}, {}, {}
+    for name, cfg in qcfgs.items():
+        card_q[name] = run(cfg, qs.initial_params(), q_pool["cuda"],
+                           qs.SIGMA, "cuda")
+        for k, v in _fmarl_expected(cfg).items():
+            expected[k] += 2 * v             # and once in the example below
+    qs.main("cuda")
+    for label, cfg in plan:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        card_b[label] = run(cfg, tree, b_pool["cuda"], FMARL_SIGMA, "cuda")
+        torch.cuda.synchronize()
+        rates[label] = cfg.n_periods * cfg.strategy.tau / (
+            time.perf_counter() - t1)
+        for k, v in _fmarl_expected(cfg).items():
+            expected[k] += v
+    torch.cuda.synchronize()
+    launches = _kernel_counts(km)
+    if launches != expected:
+        raise AssertionError(f"fmarl launches {launches} != {expected}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"fmarl path: kernels never launched: {missing}")
+    parts["card_runs"] = time.perf_counter() - t0 - sum(parts.values())
+
+    cmp_ = {}
+    for name, cfg in qcfgs.items():
+        cmp_[name] = _fmarl_compare(
+            name, cfg, card_q[name],
+            run(cfg, qs.initial_params(), q_pool["cpu"], qs.SIGMA, "cpu"),
+            True)
+    for label, cfg in plan:
+        t1 = time.perf_counter()
+        cpu_run = run(cfg, tree, b_pool["cpu"], FMARL_SIGMA, "cpu")
+        cmp_[label] = dict(_fmarl_compare(
+            label, cfg, card_b[label], cpu_run,
+            cfg.strategy.comm.kind != "topk"),
+            cpu_s=time.perf_counter() - t1)
+    parts["cpu_runs"] = time.perf_counter() - t0 - sum(parts.values())
+
+    momentum = dict(plan)["momentum"]
+    prof = _profile_window(lambda: run(momentum, tree, b_pool["cuda"],
+                                       FMARL_SIGMA, "cuda"))
+    prof["steps_per_s"] = FMARL_PERIODS * FMARL_TAU / prof["wall_ms"] * 1e3
+    parts["profile"] = time.perf_counter() - t0 - sum(parts.values())
+    hier = hierarchical_vs_plain(km, core, dispatch, shapes)
+    seconds = time.perf_counter() - t0
+    parts["hierarchical"] = seconds - sum(parts.values())
+    for label, _ in plan:
+        log(f"phase fmarl: m={FMARL_M} n=9347 {label}: "
+            f"{rates[label]!r} steps/s (tau {FMARL_TAU}, "
+            f"{FMARL_PERIODS} periods, first call); card vs CPU "
+            f"{cmp_[label]} card=\"{card}\"")
+    log(f"phase fmarl: quickstart (m = {qs.M}, tau = {qs.TAU}, 320 steps) "
+        f"card vs CPU on the same draws: "
+        + "; ".join(f"{n} {v['metrics_max_rel']:.3e} / "
+                    f"{v['params_max_abs']:.3e}" for n, v in cmp_.items()
+                    if n in qcfgs))
+    log(f"profile fmarl m={FMARL_M} momentum, {FMARL_PERIODS * FMARL_TAU} "
+        f"steps + {FMARL_PERIODS} syncs + evals: wall_ms="
+        f"{prof['wall_ms']!r} ({prof['steps_per_s']!r} steps/s, warm) "
+        f"device_busy_ms={prof['device_busy_ms']!r} "
+        f"device_idle_share={prof['device_idle_share']!r}; phases (host ms / "
+        f"device ms): " + ", ".join(
+            f"{k} x{v['count']} {v['host_ms']:.3f}/{v['device_ms']:.3f}"
+            for k, v in sorted(prof["phases"].items())) + f" card=\"{card}\"")
+    log(f"phase fmarl: launches on the main path "
+        f"{ {k: v for k, v in launches.items() if v} }; seconds by part "
+        f"{parts}, {seconds!r} s in all")
+    return {"launches": launches, "steps_per_s": rates, "vs_cpu": cmp_,
+            "profile": prof, "hierarchical": hier, "seconds": seconds,
+            "parts_s": parts}
+
+
+def fmarl_alone() -> dict:
+    """Phase 17 without the rest of the script (``python3 -c 'import
+    chip_smoke as c; c.fmarl_alone()'``): builds the kernels, then the FMARL
+    path."""
+    if not torch.cuda.is_available():
+        raise SystemExit("fmarl_alone: no CUDA card")
+    km, core, comm, dispatch = _sweep_modules()
+    import repro_torch.rl as rl
+    from repro_torch import optim
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    log(f"card {card}")
+    _build.load()
+    return fmarl_path(km, rl, core, optim, comm, dispatch, card)
 
 
 # --- phases 9-11: the language-model serving path (slice 4) ------------------------
@@ -4642,6 +5011,11 @@ def main() -> int:
     async_run = async_path(km, rl, core, sweep, card)
     lap('16 async')
 
+    # 17. the task-generic FMARL driver (slice 12): the quickstart's
+    # strategies and the full-width runs card vs CPU, the hierarchical step
+    fmarl = fmarl_path(km, rl, core, optim, comm, dispatch, card)
+    lap('17 fmarl')
+
     top = rows["mean/1024"]
     kernels = [{
         "name": "policy_infer",
@@ -4754,6 +5128,9 @@ def main() -> int:
             "max_abs_err_vs_plain": sweep_parity["max_abs_err"][k["name"]]}
         if k["name"] in ("decay_accum", "row_mean"):
             k["async"] = {"launches": async_run["launches"][k["name"]]}
+        # the main path's launches: the training path's and phase 17's
+        k["fmarl"] = {"launches": fmarl["launches"][k["name"]]}
+        k["launches"] += fmarl["launches"][k["name"]]
     if len(kernels) != 10 or any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"kernels line: {len(kernels)} kernels, "
                              f"launches {[k['launches'] for k in kernels]}")
@@ -4775,6 +5152,7 @@ def main() -> int:
                    "swa_hgmma": n_hgmma,
                    "sweep_parity": sweep_parity, "sweeps": sweeps,
                    "sweep_times": sweep_rows, "async": async_run,
+                   "fmarl": fmarl,
                    "kernels": kernels, "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

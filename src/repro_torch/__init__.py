@@ -16,7 +16,14 @@ names and imports neither ``jax`` nor ``repro``. Ported so far:
   ``consensus_gather`` and ``topk_scatter`` kernels;
 * language-model serving: ``rwkv6-1.6b`` (``repro_torch.configs``,
   ``repro_torch.models``) through ``repro_torch.launch`` (prefill and serve
-  steps, the ``ServingLoop``), with the recurrence in the ``wkv6`` kernel.
+  steps, the ``ServingLoop``), with the recurrence in the ``wkv6`` kernel;
+  ``h2o-danube-3-4b`` with the ``swa_attention`` kernel;
+* batched sweeps (``repro_torch.sweep``) and asynchronous federation
+  (``repro_torch.core.async_fed``);
+* the paper's task-generic driver ``repro_torch.core.run_fmarl``
+  (Algorithms 1 and 2), its closed-form bounds (``repro_torch.core.bounds``)
+  and the hierarchical, quantised-sync and elastic strategies
+  (``repro_torch.core.extensions``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

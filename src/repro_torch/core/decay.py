@@ -86,6 +86,9 @@ def exponential_decay_table(lam, tau: int) -> np.ndarray:
 
 
 def decay_sq_prefix_sum(decay: DecayFn, j: int) -> float:
-    """Z(j) = sum_{s=0}^{j-1} D^2(s) in fp32 (T4's closed form)."""
+    """Z(j) = sum_{s=0}^{j-1} D^2(s) (T3, T4): the fp32 squares added left
+    to right in fp32, the order XLA's CPU reduction takes for up to 32
+    terms, so that Z and T3 are the JAX package's bits there."""
     w = decay(torch.arange(j))
-    return float(torch.sum(w * w))
+    sq = (w * w).numpy()
+    return float(np.cumsum(sq, dtype=np.float32)[-1]) if j > 0 else 0.0

@@ -28,10 +28,20 @@ m)``, the edge weights ``(S, m, k_max)``), and the same methods step an
 runs. The learning rate may then be one number or an ``(S,)`` tensor, one
 per run.
 
+Trees. :meth:`AggregationStrategy.transform`, ``local_update`` and
+``server_average`` take nested dicts of ``(m, ...)`` tensors, as the JAX
+package's tree-space methods do. Like its kernel backends
+(``src/repro/core/strategies.py:216-218``, ``:257-259``) they ravel the tree
+once (``dispatch.stacked_ravel_spec``), run the flat method and unravel, so
+there is no second, tree-shaped arithmetic: on the card they launch
+``scale_rows`` / ``decay_accum``, ``consensus_step`` or
+``consensus_gather``, and ``row_mean``. Where the JAX package's jnp tree
+path rounds otherwise (``p - eta * (w * g)`` against the fused ``p + (-eta *
+w) * g``) the port computes the flat form.
+
 ``AsyncStrategy`` (FedBuff-style buffered averaging over a delay
 schedule) lives in ``repro_torch.core.async_fed``; ``make_strategy("async",
-...)`` builds it and :func:`stack_runs` stacks its schedules. Not ported
-yet: the tree-space transforms.
+...)`` builds it and :func:`stack_runs` stacks its schedules.
 """
 from __future__ import annotations
 
@@ -236,6 +246,11 @@ class AggregationStrategy:
         return self.weights_on(device)[offset]
 
     # --- flat (m, n) hot path -----------------------------------------------------
+    def flat_transform(self, g: torch.Tensor, offset: int) -> torch.Tensor:
+        """The within-period transform on flat ``(m, n)`` grads, into a new
+        tensor: each row times its weight at ``offset`` (``scale_rows``)."""
+        return dispatch.scale_rows(g, self.weight(offset, g.device))
+
     def flat_update(self, params: torch.Tensor, g: torch.Tensor, offset: int,
                     eta: float, *, out: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
@@ -261,6 +276,27 @@ class AggregationStrategy:
         """Eq. (11) on the flat carry: the ``(n,)`` mean over the agent axis
         (fp32 accumulation, in ``flat.dtype``)."""
         return dispatch.row_mean(flat)
+
+    # --- tree space ---------------------------------------------------------------
+    def transform(self, grads_m, offset: int):
+        """:meth:`flat_transform` on a tree of ``(m, ...)`` grads: a new tree
+        of the same layout."""
+        flat, spec = dispatch.stacked_ravel_spec(grads_m)
+        return spec.unravel(self.flat_transform(flat, offset))
+
+    def local_update(self, params_m, grads_m, offset: int, eta: float):
+        """One local step on trees of ``(m, ...)`` replicas: the transform
+        and the SGD step of :meth:`flat_update`, into a new tree. The grads
+        must have the params' layout."""
+        p, spec = dispatch.stacked_ravel_spec(params_m)
+        g = spec.ravel(grads_m, out=torch.empty_like(p))
+        return spec.unravel(self.flat_update(p, g, offset, eta, out=p))
+
+    def server_average(self, params_m):
+        """Eq. (11) on a tree of ``(m, ...)`` replicas: the tree of the
+        replica means (leaves without the agent axis), by ``row_mean``."""
+        flat, spec = dispatch.stacked_ravel_spec(params_m)
+        return spec.unravel_one(self.flat_server_average(flat))
 
     @staticmethod
     def _broadcast_rows(flat: torch.Tensor, row: torch.Tensor) -> None:
@@ -536,6 +572,12 @@ class ConsensusStrategy(AggregationStrategy):
         for r in range(self.rounds - 1):
             out = dispatch.consensus_mix(out, p, out=bufs[(r + 1) % 2])
         return out
+
+    def flat_transform(self, g: torch.Tensor, offset: int) -> torch.Tensor:
+        """The masked gossip mix of flat ``(m, n)`` grads, into new buffers
+        (the tree-space methods hand the result out)."""
+        return self._transform(g, offset, (torch.empty_like(g),
+                                           torch.empty_like(g)))
 
     def with_mask(self, mask, taus=None) -> "ConsensusStrategy":
         """Mask copy that also refolds the per-offset masked mixing tables

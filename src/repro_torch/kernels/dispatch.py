@@ -166,6 +166,29 @@ def _leaves(tree, prefix=()) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
     return out
 
 
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The leaves of a nested dict of tensors in ``jax.tree.leaves``' order
+    (mapping keys sorted at every level)."""
+    return [leaf for _, leaf in _leaves(tree)]
+
+
+def tree_paths(tree) -> List[Tuple[str, ...]]:
+    """The key paths of :func:`tree_leaves`' leaves, in the same order."""
+    return [path for path, _ in _leaves(tree)]
+
+
+def tree_from_leaves(paths, leaves) -> Dict:
+    """The nested dict with ``leaves`` at ``paths`` (the inverse of
+    :func:`tree_paths` / :func:`tree_leaves`)."""
+    tree: Dict = {}
+    for path, v in zip(paths, leaves):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
+
+
 class FlatSpec:
     """Where each leaf of one replica's parameter tree lies in a flat row.
 
@@ -174,7 +197,7 @@ class FlatSpec:
     :meth:`unravel` maps an ``(m, n)`` matrix to the stacked tree and
     :meth:`unravel_one` an ``(n,)`` row to one replica's tree; both return
     views of the buffer, not copies. :meth:`ravel_one` is the inverse of
-    :meth:`unravel_one`.
+    :meth:`unravel_one`; :meth:`ravel` the inverse of :meth:`unravel`.
     """
 
     def __init__(self, paths, shapes):
@@ -184,26 +207,43 @@ class FlatSpec:
         self.offsets = tuple(int(o) for o in np.cumsum((0,) + self.sizes)[:-1])
         self.n = int(sum(self.sizes))
 
-    def _nest(self, views) -> Dict:
-        tree: Dict = {}
-        for path, v in zip(self.paths, views):
-            node = tree
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = v
-        return tree
-
     def unravel(self, flat: torch.Tensor) -> Dict:
         m = flat.shape[0]
-        return self._nest(flat[:, o:o + s].view(m, *shape) for o, s, shape
-                          in zip(self.offsets, self.sizes, self.shapes))
+        return tree_from_leaves(self.paths, [
+            flat[:, o:o + s].view(m, *shape)
+            for o, s, shape in zip(self.offsets, self.sizes, self.shapes)])
 
     def unravel_one(self, row: torch.Tensor) -> Dict:
-        return self._nest(row[o:o + s].view(shape) for o, s, shape
-                          in zip(self.offsets, self.sizes, self.shapes))
+        return tree_from_leaves(self.paths, [
+            row[o:o + s].view(shape)
+            for o, s, shape in zip(self.offsets, self.sizes, self.shapes)])
 
     def ravel_one(self, tree) -> torch.Tensor:
         return torch.cat([leaf.reshape(-1) for _, leaf in _leaves(tree)])
+
+    def ravel(self, tree_m, out: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+        """An ``(m, ...)``-leaved tree of this layout as its ``(m, n)``
+        matrix, written into ``out`` when given (leaves cast to its dtype).
+        Raises when the tree's paths or per-replica shapes differ from the
+        spec's."""
+        leaves = _leaves(tree_m)
+        paths = tuple(p for p, _ in leaves)
+        shapes = tuple(tuple(leaf.shape[1:]) for _, leaf in leaves)
+        if paths != self.paths or shapes != self.shapes:
+            raise ValueError(
+                f"ravel: tree {list(zip(paths, shapes))} does not match the "
+                f"layout {list(zip(self.paths, self.shapes))}")
+        m = leaves[0][1].shape[0]
+        if out is None:
+            return torch.cat([leaf.reshape(m, -1) for _, leaf in leaves],
+                             dim=1)
+        if tuple(out.shape) != (m, self.n):
+            raise ValueError(f"ravel: out must be ({m}, {self.n}), got "
+                             f"{tuple(out.shape)}")
+        for (_, leaf), o, sz in zip(leaves, self.offsets, self.sizes):
+            out[:, o:o + sz].copy_(leaf.reshape(m, sz))
+        return out
 
 
 def stacked_ravel_spec(tree_m) -> Tuple[torch.Tensor, FlatSpec]:
@@ -221,8 +261,20 @@ def stacked_ravel_spec(tree_m) -> Tuple[torch.Tensor, FlatSpec]:
             )
     spec = FlatSpec([p for p, _ in leaves],
                     [tuple(leaf.shape[1:]) for _, leaf in leaves])
-    flat = torch.cat([leaf.reshape(m, -1) for _, leaf in leaves], dim=1)
-    return flat.contiguous(), spec
+    return spec.ravel(tree_m), spec
+
+
+def storage_dtype(name) -> Optional[torch.dtype]:
+    """A flat carry's storage dtype by name (``"bfloat16"``), or ``None``
+    (fp32) for ``None``; raises on a name that is not a torch floating
+    dtype."""
+    if name is None:
+        return None
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f"buffer_dtype {name!r} is not a torch floating "
+                         f"dtype")
+    return dt
 
 
 def compute_view(buf: torch.Tensor, storage_dtype) -> torch.Tensor:

@@ -55,8 +55,9 @@ sweep engine (``repro_torch.sweep``) runs a static point through it;
 The async strategy (``repro_torch.core.async_fed``) syncs, at a boundary,
 only the replicas its schedule lets arrive, and the optimizer moments stay
 local there; the epoch evaluations and the final readout still poll every
-replica. Not ported yet: the tree-space carry (the port keeps the flat one
-only).
+replica. The port keeps the flat carry only: the JAX package's tree-space
+carry (``_run_fedrl_tree``) is its jnp reference, and the tests hold the
+flat carry against both of its paths.
 """
 from __future__ import annotations
 
@@ -157,13 +158,7 @@ class FedRLConfig:
 
 def storage_dtype(cfg: FedRLConfig) -> Optional[torch.dtype]:
     """The flat carry's storage dtype (``None`` = fp32)."""
-    if cfg.buffer_dtype is None:
-        return None
-    dt = getattr(torch, str(cfg.buffer_dtype), None)
-    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
-        raise ValueError(f"buffer_dtype {cfg.buffer_dtype!r} is not a torch "
-                         f"floating dtype")
-    return dt
+    return dispatch.storage_dtype(cfg.buffer_dtype)
 
 
 # --- shapes of the draws ------------------------------------------------------------

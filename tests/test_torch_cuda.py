@@ -1116,3 +1116,96 @@ def test_async_sweep_on_the_card_matches_its_loop_and_the_cpu(card, axis):
     for k, v in want.items():
         np.testing.assert_allclose(res.metrics["base"][k].reshape(v.shape), v,
                                    rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+# --- slice 12: the task-generic FMARL driver and the hierarchical step -------------
+
+def _ac_tree(m=None, gen=None, device="cpu"):
+    """The 6-64-64 actor-critic's layout (n = 9,347): its seeded parameters,
+    or with ``m`` an ``(m, ...)`` tree of normal draws from ``gen``."""
+    from repro_torch.rl.env import OBS_DIM
+
+    pol = init_policy(OBS_DIM, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    tree = {h: {k: v.detach().clone() for k, v in pol[h].items()}
+            for h in ("pi", "vf")}
+    if m is None:
+        return tree
+    return {h: {k: torch.randn((m,) + tuple(v.shape), generator=gen,
+                               device=device) for k, v in tree[h].items()}
+            for h in tree}
+
+
+@pytest.mark.parametrize("period", [0, 1])
+def test_hierarchical_server_average_on_the_card(card, period):
+    """(1024, 9347): the cluster mean (clusters of 32) is one
+    consensus_step launch, the global mean one row_mean launch, each within
+    rtol 1e-6 of float64 (of max |x|; row_mean: of the column's mean |x|)
+    and of the same call on the CPU."""
+    from repro_torch.core import HierarchicalStrategy
+
+    m = 1024
+    hs = HierarchicalStrategy(tau=2, clusters=[range(c, c + 32) for c in
+                                               range(0, m, 32)],
+                              global_every=2)
+    tree = _ac_tree(m, torch.Generator(device="cuda").manual_seed(5), "cuda")
+    flat, spec = dispatch.stacked_ravel_spec(tree)
+    before = (cs.launches, fu.launches["row_mean"])
+    got = spec.ravel(hs.server_average(tree, period_idx=period))
+    after = (cs.launches, fu.launches["row_mean"])
+    assert (after[0] - before[0], after[1] - before[1]) == \
+        ((1, 0) if period == 0 else (0, 1))
+    cpu_tree = {h: {k: v.cpu() for k, v in tree[h].items()} for h in tree}
+    cpu = spec.ravel(hs.server_average(cpu_tree, period_idx=period))
+    if period == 0:
+        p = torch.tensor(hs.cluster_mean_matrix(), dtype=torch.float64)
+        want = p @ flat.cpu().double()
+        tol = 1e-6 * float(flat.abs().max())
+    else:
+        want = flat.cpu().double().mean(0).expand(m, -1)
+        tol = (1e-6 * flat.abs().mean(0).cpu().double()
+               + 2.0 ** -23 * want[0].abs())
+    for x in (got.cpu(), cpu):
+        assert ((x.double() - want).abs() <= tol).all()
+
+
+def test_full_width_run_fmarl_card_matches_cpu(card):
+    """run_fmarl at m = 1024 on the actor-critic's layout, decay (tau_i in
+    {1, 2}) with momentum, 2 periods of tau = 2, on replayed host draws: the
+    card's per-period metrics within rtol 1e-4 of the CPU's, the server
+    parameters within atol 1e-4, the ledgers equal."""
+    from repro_torch.core import FmarlConfig, run_fmarl
+
+    m = 1024
+    tree = _ac_tree()
+    pool = {"cpu": _ac_tree(m, torch.Generator().manual_seed(7))}
+    pool["cuda"] = {h: {k: v.cuda() for k, v in pool["cpu"][h].items()}
+                    for h in pool["cpu"]}
+
+    def grad_fn_on(dev):
+        def grad_fn(params_m, agent_ids, step, gen):
+            z = pool[dev]
+            g = {h: {k: v + 0.05 * (1.0 + step) * z[h][k]
+                     for k, v in params_m[h].items()} for h in params_m}
+            loss = sum(torch.sum(v * v, dim=tuple(range(1, v.ndim)))
+                       for h in params_m for v in params_m[h].values())
+            return g, {"loss": loss}
+        return grad_fn
+
+    cfg = FmarlConfig(strategy=make_strategy(
+        "decay", tau=2, taus=uniform_taus(1, 2, m),
+        decay=exponential_decay(0.9)), eta=0.05, n_periods=2,
+        optimizer=flat_momentum(0.9))
+    runs = {dev: run_fmarl(cfg, tree, grad_fn_on(dev), 0, lambda p, g: p,
+                           device=dev) for dev in ("cuda", "cpu")}
+    (gs, gm, gl), (cs_, cm, cl) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(gm["server_grad_sq_norm"],
+                               cm["server_grad_sq_norm"], rtol=1e-4)
+    np.testing.assert_allclose(gm["mean_aux"]["loss"], cm["mean_aux"]["loss"],
+                               rtol=1e-4)
+    for h in ("pi", "vf"):
+        for k in cs_.server_params[h]:
+            np.testing.assert_allclose(gs.server_params[h][k].cpu().numpy(),
+                                       cs_.server_params[h][k].numpy(),
+                                       rtol=0, atol=1e-4)
+    assert gl.table_row() == cl.table_row()

@@ -1,12 +1,14 @@
 """The port stands alone: no JAX and nothing of the JAX package.
 
 The machine with the card has no JAX, so ``src/repro_torch/``,
-``chip_smoke.py`` and the port's benches (``benchmarks/torch_*.py``) must
-import neither ``jax`` nor ``repro`` (``repro_torch`` is fine), and the
-benches not the JAX benches' ``benchmarks.common`` (whose ``time_us``
-imports JAX). Checked twice: by importing every module of the port and
-every port bench in a fresh interpreter and inspecting ``sys.modules``, and
-by scanning the sources.
+``chip_smoke.py``, the port's benches (``benchmarks/torch_*.py``) and its
+examples (``examples/torch_*.py``) must import neither ``jax`` nor
+``repro`` (``repro_torch`` is fine), and the benches not the JAX benches'
+``benchmarks.common`` (whose ``time_us`` imports JAX). Checked twice: by
+importing every module of the port, every port bench and every port example
+in a fresh interpreter and inspecting ``sys.modules``, and by scanning the
+sources. The port's quickstart also runs here, on the CPU, and its table
+keeps the orderings the paper's theory predicts.
 """
 import os
 import re
@@ -19,7 +21,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 BENCHES = sorted((ROOT / "benchmarks").glob("torch_*.py"))
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + BENCHES
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + BENCHES
+           + EXAMPLES)
 
 _FORBIDDEN = re.compile(
     r"^\s*(?:import\s+(?:jax|repro)\b(?!_)|from\s+(?:jax|repro)\b(?!_))"
@@ -51,16 +55,19 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                 "kernels.swa_attention", "configs.h2o_danube3_4b",
                 "configs.phi4_mini_3_8b", "models.attention", "sweep",
                 "sweep.results", "sweep.spec", "sweep.overrides",
-                "sweep.runner", "rl.scenarios"):
+                "sweep.runner", "rl.scenarios", "core.fmarl", "core.bounds",
+                "core.extensions", "kernels.ops", "utils", "utils.pytree"):
         assert f"repro_torch.{mod}" in names, mod
     benches = [f"benchmarks.{p.stem}" for p in BENCHES]
     for stem in ("torch_common", "torch_fmarl_bench", "torch_table2",
                  "torch_fig4_variation", "torch_fig5_decay",
-                 "torch_fig6_consensus"):
+                 "torch_fig6_consensus", "torch_bounds_bench"):
         assert f"benchmarks.{stem}" in benches, stem
+    examples = [f"examples.{p.stem}" for p in EXAMPLES]
+    assert "examples.torch_quickstart" in examples
     code = (
         "import importlib, sys\n"
-        f"for name in {names + benches!r}:\n"
+        f"for name in {names + benches + examples!r}:\n"
         "    importlib.import_module(name)\n"
         "assert 'benchmarks.common' not in sys.modules\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -105,3 +112,39 @@ def test_the_scan_catches_what_it_should():
     assert not any(_BENCH_COMMON.search(s) for s in (
         "from benchmarks.torch_common import emit",
         "from benchmarks import torch_common"))
+
+
+def test_quickstart_runs_on_the_cpu_with_the_papers_orderings():
+    """``examples/torch_quickstart.py --device cpu``: every strategy's row,
+    the ledger's events (config-only: JAX's quickstart prints the same) and
+    the orderings of ``tests/test_system.py`` and the bounds. Decay ends
+    below periodic; consensus at most at periodic's value (a doubly
+    stochastic gossip keeps the agents' mean, so on this quadratic the
+    server follows periodic's path up to rounding: JAX's quickstart prints
+    one value for both); variation-aware above it (its agents take fewer
+    steps); T5 < T2 < T1."""
+    env = {**os.environ, "PYTHONPATH": f"{ROOT / 'src'}{os.pathsep}{ROOT}"}
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_quickstart.py"),
+         "--device", "cpu"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    rows = {}
+    for line in res.stdout.splitlines():
+        m = re.match(r"^(\S.*?)\s+([0-9.]+)\s+(\d+)\s+(\d+)$", line)
+        if m:
+            rows[m.group(1)] = (float(m.group(2)), int(m.group(3)),
+                                int(m.group(4)))
+    assert set(rows) == {"sync (tau=1)", "periodic", "variation-aware",
+                         "decay (lam=0.9)", "consensus (E=2)"}, res.stdout
+    final = {k: v[0] for k, v in rows.items()}
+    assert all(0.0 < v < 1.0 for v in final.values())
+    assert final["decay (lam=0.9)"] < final["periodic"]
+    assert final["consensus (E=2)"] <= final["periodic"] * (1 + 1e-3)
+    assert final["variation-aware"] > final["periodic"]
+    assert rows["sync (tau=1)"][1:] == (2240, 0)
+    assert rows["periodic"][1:] == (280, 0)
+    assert rows["consensus (E=2)"][1:] == (280, 16640)
+    bounds = [float(x) for x in re.findall(r"T\d [^:]*: ([0-9.]+)",
+                                            res.stdout)]
+    assert len(bounds) == 3 and bounds[2] < bounds[1] < bounds[0]
