@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, consensus, sweep, async,
-task-generic FMARL and language-model serving paths (RWKV6 and
-sliding-window attention) on one NVIDIA GPU.
+task-generic FMARL, language-model serving (RWKV6 and sliding-window
+attention) and federated LM training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -44,9 +44,9 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    (shared FIGURE_EIGHT env, m = 7, T = 150, P = 25, eta = 5e-3), fleets of
    m in {64, 1024, 10000} agents with B = 1 (m = 64 also with B = 4 and 2 PPO
    epochs of 2 minibatches) and one run with bf16 buffers, each seeded and
-   drawing on the card (these give updates/sec per m). The m = 7 and m = 64
-   configurations run again on draws made on the host, on the card and on
-   the CPU, which must agree; every kernel's launches must equal the count
+   drawing on the card (these give updates/sec per m). The m = 7
+   configurations, the m = 64 ones with SGD and the bf16 run run again on
+   draws made on the host, on the card and on the CPU, which must agree; every kernel's launches must equal the count
    the loop implies, with no build on the hot path; the final server
    parameters go through ``save_for_serving`` ->
    ``ServeEngine.from_checkpoint(device="cuda")`` -> one ``decide``;
@@ -65,8 +65,9 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    at m = 7 on the Fig. 6 topologies (E in {1, 2}, SGD / momentum / Adam),
    sparse (auto-selected) and dense (forced) on k-NN rings at m = 64 and
    1024, a top-k uplink, an int8 uplink and top-k gossip; seeded runs on the
-   card, the m = 7 and m = 64 ones again on host-made draws on the card and
-   on the CPU, launches held to the loop's count (consensus_step once per
+   card, the m = 7 ones (the 3-4 topology) and the m = 64 ones again on
+   host-made draws on the card and on the CPU, launches held to the loop's
+   count (consensus_step once per
    dense update, consensus_gather E times per sparse update, topk_scatter
    once per top-k sync);
 8. times — per kernel at (1024, 9347) and a second shape of its path
@@ -94,8 +95,8 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    slots over 16 requests (prompts of 16-512 tokens, 32-64 new tokens):
    prefill / decode / loop tokens per second; wkv6 launched exactly 24
    times per prefill call and per decode step, no build. Checks: every
-   completion token by token against single-request greedy decoding on the
-   card (bf16: prefill and decode_step at B = 1 fed the loop's tokens, each
+   other completion token by token against single-request greedy decoding
+   on the card (bf16: prefill and decode_step at B = 1 fed the loop's tokens, each
    token the argmax, or at a near-tie a logit within 2 bf16 ulp of the max,
    counted; the same requests in fp32: equal outright, each request's logits
    by one B = 1 prefill over its prompt and the loop's tokens); an admission
@@ -129,8 +130,9 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    (max_seq 4736; request 0's 4600-token prompt wraps its ring):
    prefill / decode / loop tokens per second; swa_attention launched
    exactly 24 times per prefill call and per admission, never in a decode
-   step, no build. Checks: every completion against single-request greedy
-   decoding on the card (bf16 with counted near-ties; fp32 outright); an
+   step, no build. Checks: every other completion (bf16, request 0
+   included) and every fp32 one against single-request greedy decoding on
+   the card (bf16 with counted near-ties; fp32 outright); an
    admission leaves the other slots' cache rows bitwise unchanged; a bf16
    prefill at 8 x 512 and 1 x 8192 whose every layer's kernel output is
    held against the plain version on that layer's q, k, v by phase 12's
@@ -192,6 +194,27 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    one ``consensus_step`` launch and the global mean one ``row_mean``
    launch, each against the plain version and float64. Alone:
    ``python3 -c 'import chip_smoke as c; c.fmarl_alone()'``.
+
+18. lm train (slice 13) — federated LM training,
+   ``repro_torch.launch.train.train(device="cuda")``: first the forward's
+   log-sum-exp and the hand-written ``swa_attention_bwd`` kernel against
+   their plain versions (S in {1, 127, 1024, 4608} x W in {None, 1, 64,
+   4096} x 32 / 8 heads of 120 and 24 / 8 of 128, fp32 and bf16, and the
+   main path's (2, 1024); fp32 within 1e-5 of the largest |gradient|, bf16
+   against the float64 gradient within 2x / 1.1x the plain version's
+   largest / mean error, a second launch bitwise); then the main path,
+   h2o-danube-3-4b at its published width cut to 2 of 24 layers
+   (555,436,800 bf16 parameters an agent), 2 agents x 2 x 1024 tokens,
+   6 steps of sync (tau 1), periodic, decay (lambda 0.98), consensus (eps
+   0.4) and periodic with outer momentum 0.9 (tau 2): losses finite and
+   falling, agent rows bitwise equal after each sync, launches of
+   swa_attention, swa_attention_bwd, adam_update, row_mean and
+   consensus_step exactly ``_lmtrain_expected``, tokens/s of a local
+   step; one windowed step at 1 x 4608 (W 4096 binds) with the kernels
+   against the plain attention; a mid-size fp32 config card vs CPU on
+   every strategy (one period each); the backward's time beside its bound, the plain
+   version's and SDPA's backward, and one profiled window of a period.
+   Alone: ``python3 -c 'import chip_smoke as c; c.lm_train_alone()'``.
 
 Its last lines are the kernel summary JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -1444,7 +1467,11 @@ def run_plan(phase, plan, km, _build, rl, core, optim, comm, card) -> dict:
 
 def training_plan() -> list:
     """Slice 2's path: periodic and decay with SGD, momentum and Adam, at
-    m = 7 on the shared env and on fleets, and one bf16 run."""
+    m = 7 on the shared env and on fleets, and one bf16 run. Held against
+    the CPU on replayed draws: every m = 7 run, the m = 64 runs with SGD
+    and the bf16 run (the m = 64 momentum and Adam replays went when phase
+    18 came: their kernels are held card vs CPU at m = 7, in phases 6 and
+    15)."""
     plan = []
     for kind in ("periodic", "decay"):
         for opt in ("sgd", "momentum", "adam"):
@@ -1453,9 +1480,9 @@ def training_plan() -> list:
                 base["n_epochs"] = CUT_EPOCHS
             plan.append((f"m=7 shared env {kind} {opt}", True,
                          dict(base, m=7)))
-            plan.append((f"m=64 B=1 {kind} {opt}", True,
+            plan.append((f"m=64 B=1 {kind} {opt}", opt == "sgd",
                          dict(base, m=64, B=1)))
-            plan.append((f"m=64 B=4 ppo2x2 {kind} {opt}", True,
+            plan.append((f"m=64 B=4 ppo2x2 {kind} {opt}", opt == "sgd",
                          dict(base, m=64, B=4, ppo_epochs=2, n_minibatches=2)))
             for m in TRAIN_FLEETS[1:]:
                 plan.append((f"m={m} B=1 {kind} {opt}", False,
@@ -1472,7 +1499,9 @@ def consensus_plan() -> list:
     and Adam; sparse by auto-selection and dense forced on k-NN rings at
     m = 64 and 1024; compressed uplinks (top-k 584 = n // 16, int8 on decay
     tau = 15 as ``benchmarks/compression_bench.py:59-69``) and top-k
-    gossip."""
+    gossip. The m = 7 runs on the 3-4 topology are held against the CPU on
+    replayed draws, those on the 5-6 one run seeded only (their replays
+    went when phase 18 came)."""
     plan = []
     for topo in (("random_regularish", 7, 3, 4, 0),
                  ("random_regularish", 7, 5, 6, 0)):
@@ -1480,8 +1509,8 @@ def consensus_plan() -> list:
             for opt in ("sgd", "momentum", "adam"):
                 plan.append((
                     f"m=7 consensus rand{topo[2]}-{topo[3]} E={rounds} {opt}",
-                    True, dict(kind="consensus", opt=opt, m=7, topo=topo,
-                               eps="0.9/D", rounds=rounds)))
+                    topo[2] == 3, dict(kind="consensus", opt=opt, m=7,
+                                       topo=topo, eps="0.9/D", rounds=rounds)))
     for m, k in ((64, 4), (1024, 8)):
         for opt in ("sgd", "momentum", "adam"):
             plan.append((f"m={m} B=1 consensus knn{k} sparse(auto) E=2 {opt}",
@@ -3371,6 +3400,7 @@ LM_SLOTS = 8
 LM_PREFILL = ((8, 512), (1, 4096))    # (B, T) of the prefill step
 LM_DECODE_TOKENS = 32
 LM_REQUESTS = 16
+LM_CHECKED = 2                        # every LM_CHECKED-th completion checked
 LM_PROMPT = (16, 512)                 # prompt lengths, inclusive
 LM_NEW = (32, 64)                     # new tokens, inclusive
 LM_MAX_SEQ = 1024
@@ -3706,8 +3736,12 @@ def admission_control(TM, launch, cfg, params, reqs) -> dict:
 
 def loop_vs_single_request(TM, cfg, params, reqs, got, near_tie,
                            cache_len=None) -> dict:
+    """The completions of every other request (``LM_CHECKED``: the even
+    ids, request 0 included) against single-request greedy decoding
+    (``lm_greedy_check``). All 16 were checked until phase 18 came; at B =
+    1 a token's decode step is host-bound, so the check took 51-62 s."""
     checks = [lm_greedy_check(TM, cfg, params, r, got[r.rid], near_tie,
-                              cache_len) for r in reqs]
+                              cache_len) for r in reqs[::LM_CHECKED]]
     ties = [t for c in checks for t in c["ties"]]
     return {"requests": len(checks),
             "positions": sum(c["positions"] for c in checks),
@@ -3895,8 +3929,9 @@ def lm_serving_path(wk, _build, TC, TM, launch, card) -> dict:
     near_tie = lambda best: LM_BF16_ULPS * bf16_ulp(best)
     chk = loop_vs_single_request(TM, cfg, params, reqs, got, near_tie)
     out["loop_vs_single_request"] = chk
-    log(f"check lm ServingLoop bf16: every token of the {LM_REQUESTS} "
-        f"completions ({chk['positions']}) is single-request greedy on the "
+    log(f"check lm ServingLoop bf16: every token of {chk['requests']} of the "
+        f"{LM_REQUESTS} completions ({chk['positions']}) is single-request "
+        f"greedy on the "
         f"card or a near-tie; {chk['equal_requests']} completions equal "
         f"outright; {len(chk['near_ties'])} near-ties (loop token's logit "
         f"within {LM_BF16_ULPS} bf16 ulp of the max), below the max by "
@@ -4503,8 +4538,9 @@ def swa_serving_path(sw, _build, TC, TM, launch, card) -> dict:
     chk = loop_vs_single_request(TM, cfg, params, reqs, got, near_tie,
                                  cache_len=SWA_MAX_SEQ)
     out["loop_vs_single_request"] = chk
-    log(f"check swa ServingLoop bf16: every token of the {LM_REQUESTS} "
-        f"completions ({chk['positions']}) is single-request greedy on the "
+    log(f"check swa ServingLoop bf16: every token of {chk['requests']} of the "
+        f"{LM_REQUESTS} completions ({chk['positions']}) is single-request "
+        f"greedy on the "
         f"card or a near-tie; {chk['equal_requests']} completions equal "
         f"outright; {len(chk['near_ties'])} near-ties (loop token's logit "
         f"within {LM_BF16_ULPS} bf16 ulp of the max), below the max by "
@@ -4873,6 +4909,556 @@ def hgmma_count(_build) -> int:
     return count
 
 
+# --- phase 18: federated LM training (slice 13) -------------------------------------
+
+LMT_BASE = "h2o-danube-3-4b"
+LMT_ARCH = "h2o-danube-3-4b-2l"       # the published width, 2 of its 24 layers
+LMT_LAYERS = 2
+LMT_PARAMS = 555_436_800              # 2 x 122,880,000 embed / unembed + 3,840
+                                      # final norm + 2 x 154,836,480 blocks
+LMT_AGENTS, LMT_BATCH, LMT_SEQ, LMT_TAU, LMT_STEPS = 2, 2, 1024, 2, 6
+LMT_LONG = (1, 4608)                  # the windowed step: W = 4096 binds
+LMT_MID_ARCH = "h2o-danube-3-4b-mid"
+LMT_MID = dict(n_layers=2, d_model=960, n_heads=8, n_kv_heads=2,
+               head_dim=120, d_ff=2560, vocab_size=4096, sliding_window=64,
+               param_dtype="float32", compute_dtype="float32")
+# 2 steps (one period at tau 2): the plain Adam over 2 x 27.2 M fp32 rows
+# takes ~1.1 s a step on the CPU, so 4 steps of 5 strategies took 31 s
+LMT_MID_RUN = dict(n_agents=2, batch=1, seq=128, steps=2, tau=2)
+LMT_MID_LOSS_ATOL = 1e-4              # fp32 card vs CPU: summation order
+LMT_MID_PARAM_ATOL = 1e-4             # ... through 2 Adam steps at lr 3e-4
+LMT_LONG_LOSS_REL = 2e-3              # bf16: kernel vs plain attention
+LMT_LONG_GRAD_REL = 3e-2              # (relative L2 of the gradient row)
+LSE_REL = 1e-5                        # |lse - plain| <= LSE_REL * max(1, |lse|)
+BWD_REL = 1e-5                        # fp32: |dx - plain| <= BWD_REL * G
+BWD_MAX_RATIO, BWD_MEAN_RATIO = 2.0, 1.1   # bf16: against float64, x plain's
+BWD_FLOOR = 1e-6                      # ... + BWD_FLOOR * G (W = 1: grads ~ 0)
+BWD_KERNELS = ("swa_bwd_dq_kernel", "swa_bwd_dkdv_kernel")
+LMT_KERNELS = ("swa_attention", "swa_attention_bwd", "adam_update",
+               "row_mean", "consensus_step")
+
+
+def lmt_configs(TC):
+    """The phase's two configurations, registered once (``dataclasses
+    .replace`` of ``h2o-danube-3-4b`` and ``register_arch``, as
+    ``examples/train_lm_federated.py`` registers its own): the published
+    width cut to 2 layers, and the mid-size fp32 one held card vs CPU."""
+    base = TC.get_arch(LMT_BASE)
+    for name, kw in ((LMT_ARCH, {"n_layers": LMT_LAYERS}),
+                     (LMT_MID_ARCH, LMT_MID)):
+        if name not in TC.ARCH_REGISTRY:
+            TC.register_arch(dataclasses.replace(base, name=name, **kw))
+    return TC.get_arch(LMT_ARCH), TC.get_arch(LMT_MID_ARCH)
+
+
+def lmt_strategies(FT, tau=LMT_TAU) -> list:
+    """``(label, FedTrainConfig)`` of the main path: sync (every step),
+    periodic, decay (lambda 0.98), consensus (eps 0.4, one round) and
+    periodic with outer momentum 0.9."""
+    return [("sync", FT(strategy="sync", tau=1)),
+            ("periodic", FT(strategy="periodic", tau=tau)),
+            ("decay", FT(strategy="decay", tau=tau, decay_lambda=0.98)),
+            ("consensus", FT(strategy="consensus", tau=tau,
+                             consensus_eps=0.4, consensus_rounds=1)),
+            ("periodic+outer", FT(strategy="periodic", tau=tau,
+                                  outer_momentum=0.9))]
+
+
+def _lmtrain_expected(cfg, fed, n_agents, steps) -> dict:
+    """Launches one ``train`` run implies, by kernel. Per local step and
+    agent: one ``swa_attention`` forward per attention layer (two under
+    ``cfg.remat``: the backward recomputes each layer) and one
+    ``swa_attention_bwd``; per local step one ``adam_update`` over all
+    rows. Per sync (every tau steps): one ``consensus_step`` for
+    consensus, else one ``row_mean``; the outer momentum adds none."""
+    from repro_torch.models.transformer import remat_layers
+    attn = sum(1 for i in range(cfg.n_layers)
+               if cfg.block_kind(i) in ("attn", "local"))
+    recomputed = sum(1 for i in remat_layers(cfg)
+                     if cfg.block_kind(i) in ("attn", "local")) \
+        if cfg.remat else 0
+    syncs = steps // fed.tau
+    out = {k: 0 for k in LMT_KERNELS}
+    out["swa_attention"] = steps * n_agents * (attn + recomputed)
+    out["swa_attention_bwd"] = steps * n_agents * attn
+    out["adam_update"] = steps
+    out["consensus_step" if fed.strategy == "consensus" else "row_mean"] = \
+        syncs
+    return out
+
+
+def _lmt_counts(km, sw, swb) -> dict:
+    c = _kernel_counts(km)
+    return {"swa_attention": sw.launches, "swa_attention_bwd": swb.launches,
+            **{k: c[k] for k in LMT_KERNELS[2:]},
+            "others": {k: v for k, v in c.items() if k not in LMT_KERNELS}}
+
+
+def _lmt_reset(km, sw, swb) -> None:
+    _reset_counts(km)
+    sw.launches = swb.launches = 0
+
+
+def bwd_inputs(b, s, h, kv, d, dtype, seed):
+    """q, k, v, do ~ N(0, 1) on the card (scores of unit scale)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(dtype)
+    return rnd(b, s, h, d), rnd(b, s, kv, d), rnd(b, s, kv, d), \
+        rnd(b, s, h, d)
+
+
+def bwd_check(sw, swb, q, k, v, do, window, what) -> dict:
+    """The forward's lse and the backward kernel against their plain
+    versions on the card; raises on a break of the rules.
+
+    lse: within LSE_REL * max(1, |lse|) of the plain version's. Backward,
+    given the kernel forward's o and lse: fp32 within BWD_REL * G of the
+    plain backward (G the largest |gradient| of the three); bf16 against
+    the float64 gradient (float64 forward and backward on the same bf16
+    values): each of dq, dk, dv within BWD_MAX_RATIO x the plain bf16
+    version's largest error and BWD_MEAN_RATIO x its mean error, plus
+    BWD_FLOOR * G (with W = 1, dq and dk are 0 up to rounding). A second
+    launch must give the same bits."""
+    kw = dict(window=window, causal=True)
+    o, lse = sw.swa_attention_cuda(q, k, v, with_lse=True, **kw)
+    _, plse = sw.swa_attention_plain(q, k, v, with_lse=True, **kw)
+    lse_err = float(((lse - plse).abs() / plse.abs().clamp(min=1.0)).max())
+    if not lse_err <= LSE_REL:
+        raise AssertionError(f"{what}: lse rel err {lse_err!r} > {LSE_REL}")
+    got = swb.swa_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    again = swb.swa_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: a second launch gave other bits")
+    plain = swb.swa_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    row = {"lse_rel_err": lse_err}
+    if q.dtype == torch.float32:
+        G = max(float(p.abs().max()) for p in plain)
+        err = max(float((a - p).abs().max()) for a, p in zip(got, plain))
+        if not err <= BWD_REL * G:
+            raise AssertionError(f"{what}: fp32 grad err {err!r} > "
+                                 f"{BWD_REL} x {G!r}")
+        row.update(err=err, G=G, rel_err=err / G)
+        return row
+    x64 = [t.double() for t in (q, k, v, do)]
+    o64, lse64 = sw.swa_attention_plain(*x64[:3], with_lse=True, **kw)
+    want = swb.swa_attention_bwd_plain(*x64[:3], o64, x64[3], lse64, **kw)
+    G = max(float(w.abs().max()) for w in want)
+    for name, a, p, w in zip(("dq", "dk", "dv"), got, plain, want):
+        ea, ep = (a.double() - w).abs(), (p.double() - w).abs()
+        lim_max = BWD_MAX_RATIO * float(ep.max()) + BWD_FLOOR * G
+        lim_mean = BWD_MEAN_RATIO * float(ep.mean()) + BWD_FLOOR * G
+        if not (float(ea.max()) <= lim_max and float(ea.mean()) <= lim_mean):
+            raise AssertionError(
+                f"{what} {name}: bf16 err max {float(ea.max())!r} / mean "
+                f"{float(ea.mean())!r} beyond {lim_max!r} / {lim_mean!r} "
+                f"(plain's {float(ep.max())!r} / {float(ep.mean())!r})")
+        row[name] = {"err": float(ea.max()), "plain_err": float(ep.max()),
+                     "mean_err": float(ea.mean()),
+                     "plain_mean_err": float(ep.mean())}
+    row.update(G=G, err=max(row[n]["err"] for n in ("dq", "dk", "dv")))
+    return row
+
+
+def bwd_vs_plain(sw, swb) -> dict:
+    """Phase 18 (1, 2): lse and the backward kernel on the grid S in {1,
+    127, 1024, 4608} x W in {None, 1, 64, 4096} x (32 / 8 heads of 120, 24
+    / 8 of 128) x {fp32, bf16}, B = 1, and the main path's (2, 1024)."""
+    cases = [(1, s, h, kv, d, w) for s in (1, 127, 1024, 4608)
+             for w in (None, 1, 64, 4096)
+             for (h, kv, d) in ((32, 8, 120), (24, 8, 128))]
+    cases.append((LMT_BATCH, LMT_SEQ, 32, 8, 120, 4096))
+    rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (b, s, h, kv, d, w) in enumerate(cases):
+            q, k, v, do = bwd_inputs(b, s, h, kv, d, dtype, SEED + 180 + i)
+            what = f"swa_attention_bwd ({b}, {s}, {h}/{kv}, {d}) W={w} {dtype}"
+            row = bwd_check(sw, swb, q, k, v, do, w, what)
+            row.update(shape=[b, s, h, kv, d], window=w,
+                       dtype=str(dtype).split(".")[1])
+            rows.append(row)
+            worst[row["dtype"]] = max(worst[row["dtype"]], row["err"])
+            del q, k, v, do
+    torch.cuda.empty_cache()
+    log(f"phase lm train: lse and swa_attention_bwd vs plain at {len(rows)} "
+        f"cases ok (fp32 within {BWD_REL} x max |grad|; bf16 within "
+        f"{BWD_MAX_RATIO} / {BWD_MEAN_RATIO} x the plain version's max / "
+        f"mean error against float64 + {BWD_FLOOR} x max |grad|; lse within "
+        f"{LSE_REL} relative; a second launch bitwise); largest |kernel - "
+        f"reference| {worst}")
+    return {"cases": rows, "worst": worst}
+
+
+def _state_to(state, device):
+    """A copy of a train state on ``device``."""
+    mv = lambda t: None if t is None else t.to(device, copy=True)
+    return dataclasses.replace(
+        state, params=mv(state.params), grads=mv(state.grads),
+        opt={k: mv(v) if isinstance(v, torch.Tensor) else v
+             for k, v in state.opt.items()},
+        anchor=mv(state.anchor), outer_m=mv(state.outer_m))
+
+
+def lm_train_path(km, sw, swb, TC, TM, launch, card) -> dict:
+    """Phase 18 (3): the main path. ``repro_torch.launch.train.train(...,
+    device="cuda")`` on the 2-layer full-width h2o-danube-3-4b (555,436,800
+    bf16 parameters an agent, A 2, B 2, S 1024) for 6 steps of each
+    strategy; the counts are set to 0 before these runs and read after
+    them. Checks: losses finite and lower at the end than at the start, the
+    agent rows bitwise equal after the last sync (every strategy but
+    consensus), launches exactly ``_lmtrain_expected`` per run, no build.
+    Then, per strategy, one more period on the returned state through
+    ``make_local_step`` / ``make_sync_step``, timed (tokens/s of a local
+    step, sync ms); its launches count too, by the same formula for tau
+    steps."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as T
+    FT = launch.FedTrainConfig
+    cfg, _ = lmt_configs(TC)
+    builds = _build.n_builds
+    runs, expected = [], {k: 0 for k in LMT_KERNELS}
+    _lmt_reset(km, sw, swb)
+    for label, fed in lmt_strategies(FT):
+        before = _lmt_counts(km, sw, swb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, losses = T.train(LMT_ARCH, reduced=False, steps=LMT_STEPS,
+                                fed=fed, n_agents=LMT_AGENTS,
+                                batch=LMT_BATCH, seq=LMT_SEQ,
+                                log_every=LMT_STEPS + 1, seed=SEED,
+                                device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = _lmt_counts(km, sw, swb)
+        got = {k: after[k] - before[k] for k in LMT_KERNELS}
+        want = _lmtrain_expected(cfg, fed, LMT_AGENTS, LMT_STEPS)
+        if got != want or after["others"] != before["others"]:
+            raise AssertionError(f"lm train {label}: launches {got}, expected "
+                                 f"{want} (others {after['others']})")
+        period = _lmtrain_expected(cfg, fed, LMT_AGENTS, fed.tau)
+        for k in LMT_KERNELS:
+            expected[k] += want[k] + period[k]
+        if state.layout.n != LMT_PARAMS:
+            raise AssertionError(f"{LMT_ARCH}: {state.layout.n} parameters an "
+                                 f"agent, expected {LMT_PARAMS}")
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"lm train {label}: losses {losses}")
+        equal = bool(torch.equal(state.params[0], state.params[1]))
+        if fed.strategy != "consensus" and not equal:
+            raise AssertionError(f"lm train {label}: agent rows differ after "
+                                 f"the sync")
+        if not bool(torch.isfinite(state.params).all()):
+            raise AssertionError(f"lm train {label}: non-finite parameters")
+        timing = lmt_period_times(launch, cfg, fed, state)
+        runs.append({"label": label, "strategy": fed.strategy,
+                     "tau": fed.tau, "outer_momentum": fed.outer_momentum,
+                     "losses": losses, "wall_s": wall, "launches": got,
+                     "rows_equal_after_sync": equal, **timing})
+        log(f"phase lm train: {label} (tau {fed.tau}): losses {losses[0]!r} "
+            f"-> {losses[-1]!r}; train() {wall!r} s for {LMT_STEPS} steps "
+            f"(init included); local step {timing['local_step_ms']!r} ms = "
+            f"{timing['tokens_per_s']!r} tokens/s ({LMT_AGENTS} agents x "
+            f"{LMT_BATCH} x {LMT_SEQ}), sync {timing['sync_ms']!r} ms; rows "
+            f"equal {equal}; launches {got} card=\"{card}\"")
+        del state
+        torch.cuda.empty_cache()
+    counts = _lmt_counts(km, sw, swb)
+    launches = {k: counts[k] for k in LMT_KERNELS}
+    if launches != expected:
+        raise AssertionError(f"lm train: launches {launches} != {expected}")
+    if _build.n_builds != builds:
+        raise AssertionError("a build on the lm training hot path")
+    log(f"phase lm train: main path launches {launches} (the formula's)")
+    return {"arch": LMT_ARCH, "params_per_agent": LMT_PARAMS,
+            "agents": LMT_AGENTS, "batch": LMT_BATCH, "seq": LMT_SEQ,
+            "steps": LMT_STEPS, "runs": runs, "launches": launches}
+
+
+def lmt_period_times(launch, cfg, fed, state) -> dict:
+    """One more period on ``state``: each local step and the sync timed by
+    the host clock around work that ends in a synchronise."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import adamw
+    local = launch.make_local_step(cfg, adamw(weight_decay=0.01), fed,
+                                   n_agents=LMT_AGENTS)
+    sync = launch.make_sync_step(cfg, fed, n_agents=LMT_AGENTS)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seed=SEED)
+    times = []
+    for j in range(fed.tau):
+        toks = torch.from_numpy(np.stack([
+            data.batch(LMT_STEPS + j, LMT_BATCH, LMT_SEQ + 1, agent=a)
+            for a in range(LMT_AGENTS)])).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local(state, {"tokens": toks})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    sync(state)
+    torch.cuda.synchronize()
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    ms = statistics.median(times) * 1e3
+    return {"local_step_ms": ms, "sync_ms": sync_ms,
+            "tokens_per_s": LMT_AGENTS * LMT_BATCH * LMT_SEQ / ms * 1e3,
+            "tokens_per_s_per_agent": LMT_BATCH * LMT_SEQ / ms * 1e3}
+
+
+def lmt_windowed_step(sw, TC, launch) -> dict:
+    """Phase 18 (4): one local step of one agent at B 1 x S 4608 (W 4096
+    binds) with the kernels, against the same step with the plain
+    attention (``swa_impl``, differentiated by autograd): losses within
+    LMT_LONG_LOSS_REL and the gradient rows within LMT_LONG_GRAD_REL in
+    relative L2 (bf16: the two attentions round at other places)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import adamw
+    FT = launch.FedTrainConfig
+    cfg, _ = lmt_configs(TC)
+    fed = FT(strategy="periodic", tau=LMT_TAU)
+    opt = adamw(weight_decay=0.01)
+    b, s = LMT_LONG
+    toks = torch.from_numpy(SyntheticLM(vocab_size=cfg.vocab_size, seed=SEED)
+                            .batch(0, b, s + 1)[None]).cuda()
+    out = {}
+    for name, impl in (("kernel", None), ("plain", sw.swa_attention_plain)):
+        state = launch.init_train_state(cfg, SEED, 1, opt, fed, device="cuda")
+        step = launch.make_local_step(cfg, opt, fed, n_agents=1,
+                                      swa_impl=impl)
+        _, m = step(state, {"tokens": toks})
+        out[name] = (float(m["loss"]), state.grads[0].float().clone())
+        del state
+        torch.cuda.empty_cache()
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    grad_rel = float(torch.linalg.vector_norm(gk - gp)
+                     / torch.linalg.vector_norm(gp))
+    if not (loss_rel <= LMT_LONG_LOSS_REL and grad_rel <= LMT_LONG_GRAD_REL):
+        raise AssertionError(f"lm train windowed step: loss {lk!r} vs {lp!r} "
+                             f"(rel {loss_rel!r}), gradient rel L2 "
+                             f"{grad_rel!r}")
+    log(f"phase lm train: windowed step B {b} x S {s} (W 4096): loss kernel "
+        f"{lk!r} vs plain {lp!r} (rel {loss_rel!r} <= {LMT_LONG_LOSS_REL}); "
+        f"gradient row rel L2 {grad_rel!r} <= {LMT_LONG_GRAD_REL}")
+    return {"shape": [b, s], "loss_kernel": lk, "loss_plain": lp,
+            "loss_rel": loss_rel, "grad_rel_l2": grad_rel}
+
+
+def lmt_mid_vs_cpu(TC, launch) -> dict:
+    """Phase 18 (5): the mid-size fp32 config (d 960, 8 / 2 heads of 120,
+    d_ff 2560, vocab 4096, W 64, 2 layers) through ``train`` on the card
+    and on the CPU from one CPU-made state, A 2, B 1, S 128, tau 2, 2
+    steps, every strategy: losses within LMT_MID_LOSS_ATOL, parameters
+    within LMT_MID_PARAM_ATOL."""
+    from repro_torch.launch import train as T
+    from repro_torch.optim import adamw
+    _, cfg = lmt_configs(TC)
+    r = LMT_MID_RUN
+    rows, cpu_s = [], 0.0
+    for label, fed in lmt_strategies(launch.FedTrainConfig, tau=r["tau"]):
+        init = launch.init_train_state(cfg, SEED, r["n_agents"],
+                                       adamw(weight_decay=0.01), fed,
+                                       device="cpu")
+        res = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            st, losses = T.train(LMT_MID_ARCH, reduced=False,
+                                 steps=r["steps"], fed=fed,
+                                 n_agents=r["n_agents"], batch=r["batch"],
+                                 seq=r["seq"], log_every=r["steps"] + 1,
+                                 seed=SEED, device=dev,
+                                 state=_state_to(init, dev))
+            if dev == "cpu":
+                cpu_s += time.perf_counter() - t0
+            res[dev] = (losses, st.params.cpu())
+        dl = max(abs(a - b) for a, b in zip(res["cuda"][0], res["cpu"][0]))
+        dp = float((res["cuda"][1] - res["cpu"][1]).abs().max())
+        if not (dl <= LMT_MID_LOSS_ATOL and dp <= LMT_MID_PARAM_ATOL):
+            raise AssertionError(f"lm train mid {label}: card vs CPU losses "
+                                 f"{dl!r}, parameters {dp!r}")
+        rows.append({"label": label, "loss_diff": dl, "param_diff": dp,
+                     "losses": res["cuda"][0]})
+    log(f"phase lm train: mid config card vs CPU, {len(rows)} strategies: "
+        f"largest loss diff {max(x['loss_diff'] for x in rows)!r} <= "
+        f"{LMT_MID_LOSS_ATOL}, parameter diff "
+        f"{max(x['param_diff'] for x in rows)!r} <= {LMT_MID_PARAM_ATOL}; "
+        f"CPU side {cpu_s!r} s")
+    return {"runs": rows, "cpu_seconds": cpu_s}
+
+
+def bwd_bound(b, s, h, kv, d, window) -> dict:
+    """The least time of the backward on bf16 inputs: the larger of its
+    bytes (q, o, do, k, v and the fp32 lse read once, dq, dk, dv written
+    once) over the HBM rate and the FLOP of its five products (s, dp, dv,
+    dq, dk: 2 * D each per unmasked pair) over the bf16 tensor cores'
+    peak."""
+    pairs = swa_pairs(b, s, s, h, window, True)
+    nbytes = 2 * d * (4 * b * s * h + 4 * b * s * kv) + 4 * b * h * s
+    flops = 10 * d * pairs
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / BF16_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bytes": nbytes, "flops": flops, "pairs": pairs}
+
+
+def sdpa_bwd_fn(q, k, v, do, window):
+    """The library yardstick: the autograd backward of one
+    ``scaled_dot_product_attention`` call on K/V repeated to the query
+    heads (``_sdpa_args``), timed alone (the forward runs once, here)."""
+    import torch.nn.functional as F
+    qt, kt, vt, kw = _sdpa_args(q, k, v, window)
+    leaves = [t.detach().contiguous().requires_grad_() for t in (qt, kt, vt)]
+    o = F.scaled_dot_product_attention(*leaves, **kw)
+    g = do.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(o, leaves, g, retain_graph=True)
+
+
+def lmt_times(sw, swb, TC, launch, card) -> dict:
+    """Phase 18 (6): swa_attention_bwd in bf16 at the main path's (2, 1024)
+    and at (1, 4608), W 4096: CUDA events, L2 flushed and warm, beside its
+    bound, the plain backward's time (one call) and SDPA's backward; then
+    one profiled window of 2 local steps and a sync (periodic, tau 2) at
+    full width: the device idle share and the busy time split between the
+    matrix products, swa_attention, swa_attention_bwd, adam_update and the
+    sync."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import adamw
+    from torch.profiler import ProfilerActivity, profile
+    cyc = sleep_cycles_per_ms()
+    flush = l2_flusher()
+    rows = {}
+    for b, s in ((LMT_BATCH, LMT_SEQ), LMT_LONG):
+        q, k, v, do = bwd_inputs(b, s, 32, 8, 120, torch.bfloat16, SEED + 18)
+        o, lse = sw.swa_attention_cuda(q, k, v, window=4096, with_lse=True)
+        kern = lambda: swb.swa_attention_bwd_cuda(q, k, v, o, do, lse,
+                                                  window=4096)
+        plain = lambda: swb.swa_attention_bwd_plain(q, k, v, o, do, lse,
+                                                    window=4096)
+        lib = sdpa_bwd_fn(q, k, v, do, 4096)
+        n_ev = CHUNK * (2 if s <= LMT_SEQ else 1)
+        rec = {"shape": [b, s, 32, 8, 120], "window": 4096,
+               "dtype": "bfloat16",
+               "ms": device_ms(kern, cyc, flush, n_ev)[0],
+               "warm_l2_ms": device_ms(kern, cyc, None, n_ev)[0],
+               "plain_ms": events_ms(plain, 1),
+               "library_ms": device_ms(lib, cyc, flush, n_ev)[0],
+               "library_backend": sdpa_backend_of(q, k, v, 4096),
+               **bwd_bound(b, s, 32, 8, 120, 4096)}
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rows[f"swa_attention_bwd/{b}x{s}"] = rec
+        log(f"time swa_attention_bwd shape=({b}, {s}, 32/8, 120) bf16 W=4096 "
+            f"L2 flushed: kernel_ms={rec['ms']!r} (L2-warm "
+            f"{rec['warm_l2_ms']!r}) plain_ms={rec['plain_ms']!r} "
+            f"bound_ms={rec['bound_ms']!r} ({rec['bound_by']}; "
+            f"{rec['flops']} FLOP at {BF16_FLOP_PER_S / 1e12:g} TFLOP/s, "
+            f"{rec['bytes']} B at {HBM_BYTES_PER_S / 1e12:g} TB/s; share "
+            f"{rec['share_of_bound']!r}) library_ms={rec['library_ms']!r} "
+            f"(SDPA backward, {rec['library_backend']} forward choice) "
+            f"card=\"{card}\"")
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+
+    cfg, _ = lmt_configs(TC)
+    fed = launch.FedTrainConfig(strategy="periodic", tau=LMT_TAU)
+    opt = adamw(weight_decay=0.01)
+    state = launch.init_train_state(cfg, SEED, LMT_AGENTS, opt, fed,
+                                    device="cuda")
+    local = launch.make_local_step(cfg, opt, fed, n_agents=LMT_AGENTS)
+    sync = launch.make_sync_step(cfg, fed, n_agents=LMT_AGENTS)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seed=SEED)
+    toks = [torch.from_numpy(np.stack([data.batch(j, LMT_BATCH, LMT_SEQ + 1,
+                                                  agent=a)
+                                       for a in range(LMT_AGENTS)])).cuda()
+            for j in range(LMT_TAU)]
+    local(state, {"tokens": toks[0]})              # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for j in range(LMT_TAU):
+            local(state, {"tokens": toks[j]})
+        sync(state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = _device_ops(prof)
+    busy = sum(t for _, t in dev.values())
+    if busy <= 0:
+        raise AssertionError("lm train profile: no device time")
+    pick = lambda *names: sum(t for k, (_, t) in dev.items()
+                              if any(n in k for n in names))
+    split = {"matmul": _matmul_us(dev) / 1e3,
+             "swa_attention": pick("swa_attention_hopper_kernel",
+                                   "swa_attention_kernel") / 1e3,
+             "swa_attention_bwd": pick(*BWD_KERNELS) / 1e3,
+             "adam_update": pick("adam_update_kernel") / 1e3,
+             "sync": pick("row_mean_kernel") / 1e3}
+    split["other"] = busy / 1e3 - sum(split.values())
+    top = sorted(dev.items(), key=lambda kv_: -kv_[1][1])[:8]
+    prof_row = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+                "device_idle_share": 1.0 - busy / wall_us,
+                "device_ms": split,
+                "top_ops": [[k[:80], c, t / 1e3] for k, (c, t) in top]}
+    log(f"profile lm train: {LMT_TAU} local steps + sync (periodic, A "
+        f"{LMT_AGENTS} x {LMT_BATCH} x {LMT_SEQ}): wall "
+        f"{prof_row['wall_ms']!r} ms, device busy "
+        f"{prof_row['device_busy_ms']!r} ms, idle share "
+        f"{prof_row['device_idle_share']!r}; device ms by part {split}; top "
+        f"{prof_row['top_ops']} card=\"{card}\"")
+    del state
+    torch.cuda.empty_cache()
+    rows["profile"] = prof_row
+    return rows
+
+
+def lm_train_phase(km, sw, swb, TC, TM, launch, card) -> dict:
+    """Phase 18: (1, 2) lse and the backward kernel vs plain, (3) the main
+    path, (4) the windowed step, (5) the mid config card vs CPU, (6)
+    times."""
+    t0 = time.perf_counter()
+    parts, lap = {}, [t0]
+
+    def done(name):
+        parts[name] = time.perf_counter() - lap[0]
+        lap[0] = time.perf_counter()
+
+    out = {"bwd_parity": bwd_vs_plain(sw, swb)}
+    done("bwd_parity")
+    out["main"] = lm_train_path(km, sw, swb, TC, TM, launch, card)
+    done("main")
+    out["windowed"] = lmt_windowed_step(sw, TC, launch)
+    done("windowed")
+    out["mid_vs_cpu"] = lmt_mid_vs_cpu(TC, launch)
+    done("mid_vs_cpu")
+    out["times"] = lmt_times(sw, swb, TC, launch, card)
+    done("times")
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    log(f"phase lm train: {out['seconds']!r} s; by part {parts}")
+    return out
+
+
+def lm_train_alone() -> dict:
+    """Phase 18 without the rest of the script (``python3 -c 'import
+    chip_smoke as c; c.lm_train_alone()'``): builds the kernels, then the
+    LM training phase."""
+    if not torch.cuda.is_available():
+        raise SystemExit("lm_train_alone: no CUDA card")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import configs as TC
+    from repro_torch import launch
+    from repro_torch import models as TM
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.kernels import swa_attention_bwd as swb
+    km, _, _, _ = _sweep_modules()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"card {card}")
+    _build.load()
+    return lm_train_phase(km, sw, swb, TC, TM, launch, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4888,6 +5474,7 @@ def main() -> int:
     from repro_torch.kernels import flat_update as fu
     from repro_torch.kernels import policy_infer as pinf
     from repro_torch.kernels import swa_attention as sw
+    from repro_torch.kernels import swa_attention_bwd as swb
     from repro_torch.kernels import topk_scatter as tks
     from repro_torch.kernels import wkv6 as wk
     from repro_torch import configs as TC
@@ -5016,6 +5603,12 @@ def main() -> int:
     fmarl = fmarl_path(km, rl, core, optim, comm, dispatch, card)
     lap('17 fmarl')
 
+    # 18. federated LM training (slice 13): the backward kernel and lse vs
+    # plain, the full-width trainer on every strategy, the windowed step,
+    # the mid config card vs CPU, times and a profiled window
+    lmt = lm_train_phase(km, sw, swb, TC, TM, launch, card)
+    lap('18 lm_train')
+
     top = rows["mean/1024"]
     kernels = [{
         "name": "policy_infer",
@@ -5114,6 +5707,30 @@ def main() -> int:
         "mean_abs_err": {k: timed[k] for k in (
             "mean_err", "plain_mean_err", "one_bf16_p_mean_err")},
     })
+    r = lmt["times"][f"swa_attention_bwd/{LMT_BATCH}x{LMT_SEQ}"]
+    timed = [c for c in lmt["bwd_parity"]["cases"]
+             if c["shape"] == [LMT_BATCH, LMT_SEQ, 32, 8, 120]
+             and c["dtype"] == "bfloat16"][0]
+    kernels.append({
+        "name": "swa_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/swa_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:224",
+        "launches": lmt["main"]["launches"]["swa_attention_bwd"],
+        "max_abs_err": timed["err"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
+        "library": "autograd backward of scaled_dot_product_attention "
+                   "(repeated K/V)",
+        "shape": {"B": LMT_BATCH, "S": LMT_SEQ, "H": 32, "KV": 8, "D": 120,
+                  "window": 4096, "dtype": "bfloat16"},
+        "replaces_note": "_flash_bwd, the jnp backward of the JAX model's "
+                         "flash_attention (no Pallas kernel)",
+        "max_abs_err_all_cases": lmt["bwd_parity"]["worst"],
+    })
     s0, m0_, n0_ = SWEEP_KERNEL_SHAPES[0]
     for k in kernels:
         if k["name"] not in TRAIN_KERNELS:
@@ -5131,7 +5748,11 @@ def main() -> int:
         # the main path's launches: the training path's and phase 17's
         k["fmarl"] = {"launches": fmarl["launches"][k["name"]]}
         k["launches"] += fmarl["launches"][k["name"]]
-    if len(kernels) != 10 or any(k["launches"] < 1 for k in kernels):
+    for k in kernels:                  # and phase 18's (LM training)
+        if k["name"] in LMT_KERNELS and k["name"] != "swa_attention_bwd":
+            k["lm_train"] = {"launches": lmt["main"]["launches"][k["name"]]}
+            k["launches"] += lmt["main"]["launches"][k["name"]]
+    if len(kernels) != 11 or any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"kernels line: {len(kernels)} kernels, "
                              f"launches {[k['launches'] for k in kernels]}")
     with open(os.path.join(ROOT, "build", "chip_smoke", "result.json"),
@@ -5152,7 +5773,7 @@ def main() -> int:
                    "swa_hgmma": n_hgmma,
                    "sweep_parity": sweep_parity, "sweeps": sweeps,
                    "sweep_times": sweep_rows, "async": async_run,
-                   "fmarl": fmarl,
+                   "fmarl": fmarl, "lm_train": lmt,
                    "kernels": kernels, "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

@@ -6,7 +6,8 @@ flat keys and values: ``step_XXXXXXXXXX.npz`` holds one array per leaf under
 a ``/``-joined key (``d:<key>`` for a dict entry, ``l:<i>``/``t:<i>`` plus a
 ``#l``/``#t`` length for a list/tuple, ``a`` for the leaf), dict keys
 percent-escaped; ``step_XXXXXXXXXX.json`` holds the metadata. Tensors are
-saved as ``.detach().cpu().numpy()``; restore returns numpy arrays.
+saved as ``.detach().cpu().numpy()`` (bf16 ones as raw 2-byte records, as
+the JAX package's save writes them); restore returns numpy arrays.
 """
 from __future__ import annotations
 
@@ -49,7 +50,12 @@ def _to_host(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_host(v) for v in tree)
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        t = tree.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            # numpy has no bfloat16: the JAX package's save writes its
+            # ml_dtypes arrays as raw 2-byte records ("V2"); so does this
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
     return np.asarray(tree)
 
 

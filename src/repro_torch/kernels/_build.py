@@ -111,13 +111,23 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ]
     lib.repro_wkv6.restype = _I
     lib.repro_swa_attention.argtypes = [
-        _P, _P, _P, _P,                  # q, k, v, o
+        _P, _P, _P, _P, _P,              # q, k, v, o, lse (may be null)
         _L, _L, _L, _L, _L, _L,          # B, Sq, Sk, H, KV, D
         _L, _I, _F,                      # window, causal, scale
         _I,                              # dtype
         _P,                              # stream
     ]
     lib.repro_swa_attention.restype = _I
+    lib.repro_swa_attention_bwd.argtypes = [
+        _P, _P, _P, _P, _P,              # q, k, v, o, do
+        _P, _P,                          # lse, delta (scratch)
+        _P, _P, _P,                      # dq, dk, dv
+        _L, _L, _L, _L, _L, _L,          # B, Sq, Sk, H, KV, D
+        _L, _I, _F,                      # window, causal, scale
+        _I,                              # dtype
+        _P,                              # stream
+    ]
+    lib.repro_swa_attention_bwd.restype = _I
     lib.repro_cuda_error_string.argtypes = [_I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -24,7 +24,12 @@
 // are taken: rows past Sq are computed on zeros and not stored, keys past
 // Sk get weight 0. The caller refuses shapes with a query row that has no
 // key in its window (Sq >= Sk + W): its softmax is over no key at all.
-// repro_swa_attention picks the kernel by dtype, a static choice.
+// repro_swa_attention picks the kernel by dtype, a static choice. Both
+// kernels also write, where the caller passes an lse buffer (training),
+// each row's log-sum-exp m + ln l in fp32: the residual of JAX's
+// _flash_fwd (src/repro/models/attention.py:219-221) that the backward
+// (swa_attention_bwd.cu) reads. Serving passes null and the write is
+// skipped.
 //
 // bf16: swa_attention_hopper_kernel. Bound: 2*D FLOP per unmasked (i, j)
 // pair for q.k and 2 * 2*D for p*v, which runs twice (below), against q, k,
@@ -87,6 +92,7 @@
 namespace {
 
 constexpr float kMasked = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // --- fp32: CUDA cores ----------------------------------------------------
 
@@ -121,8 +127,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 swa_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int Sq, int Sk, int H, int KV, int window, int causal,
-                     float scale) {
+                     float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                     int window, int causal, float scale) {
   constexpr int DP = D + 4;
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;               // kBQ x DP
@@ -261,6 +267,8 @@ swa_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = q0 + 4 * ty + i;
     if (r >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((int64_t)b * H + h) * Sq + r] = m[i] + logf(den);
     float* out = o + ((int64_t)b * Sq + r) * q_stride + (int64_t)h * D;
     store4(out + 4 * tx, make_float4(acc[i][0] / den, acc[i][1] / den,
                                      acc[i][2] / den, acc[i][3] / den));
@@ -271,9 +279,9 @@ swa_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Sk, int H, int KV, int window, int causal,
-               float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Sk, int H, int KV, int window,
+               int causal, float scale, cudaStream_t stream) {
   constexpr int kSmem = (3 * 64 * (D + 4) + kBQ * kPS) * (int)sizeof(float);
   static bool opted_in = false;
   if (!opted_in) {
@@ -286,8 +294,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((unsigned)((Sq + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
   swa_attention_kernel<D><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV,
-      window, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, H,
+      KV, window, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -538,6 +546,7 @@ __device__ __forceinline__ void split_p(const float (&p)[64],
 // the row sums (the four threads of a row add their parts first), bf16.
 template <int D, int kBoxes>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ o,
+                                          float* __restrict__ lse,
                                           const float (&acc)[64],
                                           const Rows& st, int b, int h,
                                           int r_a, int col0, int Sq, int H) {
@@ -549,6 +558,15 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ o,
   }
   const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+  // lse = m + ln l in the natural domain: the running max is kept in the
+  // log2 domain, so lse = ln 2 * (m2 + log2 l).
+  if (lse != nullptr && col0 == 0) {
+    float* row = lse + ((int64_t)b * H + h) * Sq;
+    if (r_a < Sq)
+      row[r_a] = kLn2 * (st.m_a + log2f(fmaxf(l_a, 1e-30f)));
+    if (r_a + 8 < Sq)
+      row[r_a + 8] = kLn2 * (st.m_b + log2f(fmaxf(l_b, 1e-30f)));
+  }
   const int64_t q_stride = (int64_t)H * D;
   __nv_bfloat16* out_a = o + ((int64_t)b * Sq + r_a) * q_stride +
                          (int64_t)h * D + col0;
@@ -597,7 +615,8 @@ __global__ void __launch_bounds__(kHThreads, 1)
 swa_attention_hopper_kernel(__grid_constant__ const CUtensorMap tq,
                             __grid_constant__ const CUtensorMap tk,
                             __grid_constant__ const CUtensorMap tv,
-                            __nv_bfloat16* __restrict__ o, int B, int Sq,
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int B, int Sq,
                             int Sk, int H, int KV, int window, int causal,
                             float scale_log2) {
   constexpr int kBoxes = 2;
@@ -718,7 +737,7 @@ swa_attention_hopper_kernel(__grid_constant__ const CUtensorMap tq,
     issue_pv(acc, p_hi, p_lo, v_addr + sl * kTile);
     wgmma_wait<0>();
     fence_regs(acc);
-    store_rows<D, kBoxes>(o, acc, st, w.b, w.h, r_a, col0, Sq, H);
+    store_rows<D, kBoxes>(o, lse, acc, st, w.b, w.h, r_a, col0, Sq, H);
   }
 }
 
@@ -760,9 +779,9 @@ bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Sk, int H, int KV, int window, int causal,
-                float scale, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Sq, int Sk, int H, int KV, int window,
+                int causal, float scale, cudaStream_t stream) {
   constexpr int kSmem = 1024 + (1 + 2 * kStages) * 2 * kBoxBytes;
   const int64_t n_units = (int64_t)((Sq + kRows - 1) / kRows) * B * H;
   if (n_units > 0x7fffffff) return (int)cudaErrorInvalidValue;
@@ -783,19 +802,20 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   }
   swa_attention_hopper_kernel<D><<<(unsigned)n_units, kHThreads, kSmem,
                                    stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, Sq, Sk, H, KV, window,
-      causal, scale * 1.4426950408889634f);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, B, Sq, Sk, H, KV,
+      window, causal, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Attention over contiguous q (B, Sq, H, D) and k, v (B, Sk, KV, D), all of
-// one dtype (0 = fp32, 1 = bf16), into o (B, Sq, H, D) of that dtype.
+// one dtype (0 = fp32, 1 = bf16), into o (B, Sq, H, D) of that dtype and,
+// unless lse is null, each row's fp32 log-sum-exp into lse (B, H, Sq).
 // window <= 0 means no window; causal is 0 or 1; D is 120 or 128; H a
 // multiple of KV; the pointers 16-byte aligned. Returns 0 or a cudaError_t.
 extern "C" int repro_swa_attention(const void* q, const void* k, const void* v,
-                                   void* o, int64_t B, int64_t Sq, int64_t Sk,
+                                   void* o, void* lse_out, int64_t B, int64_t Sq, int64_t Sk,
                                    int64_t H, int64_t KV, int64_t D,
                                    int64_t window, int causal, float scale,
                                    int dtype, void* stream) {
@@ -806,13 +826,18 @@ extern "C" int repro_swa_attention(const void* q, const void* k, const void* v,
   const int w = window > 0 ? (int)window : 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int b = (int)B, sq = (int)Sq, sk = (int)Sk, h = (int)H, kv = (int)KV;
+  float* lse = static_cast<float*>(lse_out);
   if (D == 120)
     return dtype == 0
-        ? launch_f32<120>(q, k, v, o, b, sq, sk, h, kv, w, causal, scale, s)
-        : launch_bf16<120>(q, k, v, o, b, sq, sk, h, kv, w, causal, scale, s);
+        ? launch_f32<120>(q, k, v, o, lse, b, sq, sk, h, kv, w, causal, scale,
+                          s)
+        : launch_bf16<120>(q, k, v, o, lse, b, sq, sk, h, kv, w, causal,
+                           scale, s);
   if (D == 128)
     return dtype == 0
-        ? launch_f32<128>(q, k, v, o, b, sq, sk, h, kv, w, causal, scale, s)
-        : launch_bf16<128>(q, k, v, o, b, sq, sk, h, kv, w, causal, scale, s);
+        ? launch_f32<128>(q, k, v, o, lse, b, sq, sk, h, kv, w, causal, scale,
+                          s)
+        : launch_bf16<128>(q, k, v, o, lse, b, sq, sk, h, kv, w, causal,
+                           scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -33,7 +33,9 @@ slice; the plain versions on the CPU compute run by run.
 
 The language models' recurrence ``wkv6`` and their full-sequence attention
 ``swa_attention`` route the same way: the plain version on CPU tensors, the
-hand-written kernel on CUDA tensors.
+hand-written kernel on CUDA tensors. ``swa_attention`` is differentiable
+(:class:`SwaAttention`): its backward is the hand-written
+``swa_attention_bwd`` kernel on the card, the plain backward on the CPU.
 """
 from __future__ import annotations
 
@@ -67,6 +69,10 @@ from repro_torch.kernels.policy_infer import (
 from repro_torch.kernels.swa_attention import (
     swa_attention_cuda,
     swa_attention_plain,
+)
+from repro_torch.kernels.swa_attention_bwd import (
+    swa_attention_bwd_cuda,
+    swa_attention_bwd_plain,
 )
 from repro_torch.kernels.topk_scatter import (
     topk_scatter_cuda,
@@ -156,9 +162,12 @@ def policy_infer(obs: torch.Tensor, pi: Mapping[str, torch.Tensor],
 
 def _leaves(tree, prefix=()) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
     """``(path, leaf)`` pairs in ``jax.flatten_util.ravel_pytree``'s order:
-    mapping keys sorted at every level."""
-    if isinstance(tree, torch.Tensor):
+    mapping keys sorted at every level, list and tuple entries in order
+    (their indices in the path). A leaf is a tensor or a numpy array."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
         return [(prefix, tree)]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _leaves(v, prefix + (i,))]
     keys = sorted(tree.keys()) if hasattr(tree, "keys") else sorted(tree)
     out = []
     for k in keys:
@@ -167,8 +176,8 @@ def _leaves(tree, prefix=()) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
-    """The leaves of a nested dict of tensors in ``jax.tree.leaves``' order
-    (mapping keys sorted at every level)."""
+    """The leaves of nested dicts / lists of tensors in ``jax.tree.leaves``'
+    order (mapping keys sorted at every level, sequences in order)."""
     return [leaf for _, leaf in _leaves(tree)]
 
 
@@ -703,6 +712,39 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     return y, state_out.copy_(s)
 
 
+class SwaAttention(torch.autograd.Function):
+    """Differentiable :func:`swa_attention`, the counterpart of the JAX
+    package's ``flash_attention.defvjp(_flash_fwd, _flash_bwd)``.
+
+    The forward runs the attention with its log-sum-exp and saves ``(q, k,
+    v, o, lse)``, ``_flash_fwd``'s residuals; the backward computes ``(dq,
+    dk, dv)`` from them and ``do``: the ``swa_attention_bwd`` kernel on CUDA
+    tensors, ``swa_attention_bwd_plain`` on CPU tensors. ``k`` and ``v``
+    stay un-repeated; the sum over a KV group's query heads happens inside
+    the backward.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal):
+        if _is_cuda(q):
+            o, lse = swa_attention_cuda(q, k, v, window=window, causal=causal,
+                                        with_lse=True)
+        else:
+            o, lse = swa_attention_plain(q, k, v, window=window, causal=causal,
+                                         with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window, ctx.causal = window, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = swa_attention_bwd_cuda if _is_cuda(q) else swa_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, o, do.contiguous(), lse, window=ctx.window,
+                         causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   window: Optional[int] = None, causal: bool = True
                   ) -> torch.Tensor:
@@ -712,8 +754,14 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (head h reads KV head ``h // (H // KV)``); positions of q and k both
     start at 0. CPU tensors run the plain version (any float dtype and head
     size); CUDA tensors launch the kernel, which takes fp32 or bf16 and head
-    sizes 120 and 128 and raises on anything else.
+    sizes 120 and 128 and raises on anything else. Where autograd records
+    (grad mode on and an input that requires grad) the call goes through
+    :class:`SwaAttention`, whose forward also writes the log-sum-exp;
+    otherwise (serving) it does not.
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return SwaAttention.apply(q, k, v, window, causal)
     if _is_cuda(q):
         return swa_attention_cuda(q, k, v, window=window, causal=causal)
     return swa_attention_plain(q, k, v, window=window, causal=causal)

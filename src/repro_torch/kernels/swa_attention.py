@@ -20,6 +20,11 @@ with query and key positions both counted from 0:
   p @ v, cast to ``q``'s dtype. The CPU path runs it; on the card it is
   only the reference the kernel is held against.
 
+Both return, when asked (``with_lse``), the fp32 log-sum-exp of each
+query row's masked scores, ``(B, H, Sq)``: the residual of the JAX
+package's ``_flash_fwd`` (``models/attention.py:219-221``) that the
+backward (``kernels/swa_attention_bwd.py``) reads.
+
 Unlike the TPU kernel, ``k`` and ``v`` come un-repeated, ``(B, Sk, KV, D)``:
 head h reads KV head ``h // (H // KV)``, the JAX package's ``_repeat_kv``
 mapping. That is the TPU kernel's function on the repeated K/V, without a
@@ -76,50 +81,71 @@ def check_shapes(fn: str, q, k, v, window, causal
     return B, Sq, Sk, H, KV, D
 
 
-def swa_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        window: Optional[int] = None, causal: bool = True
-                        ) -> torch.Tensor:
-    """Plain version: per batch row and KV group, the masked scores
-    materialised in fp32 (float64 for float64 inputs), softmax, p @ v, cast
-    to ``q.dtype``. Looping over KV groups (the ``H // KV`` query heads that
-    share one KV head) is ``_repeat_kv`` without the copy, and keeps the
-    score tensor at ``H // KV`` heads."""
-    B, Sq, Sk, H, KV, D = check_shapes("swa_attention_plain", q, k, v, window,
-                                       causal)
-    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
-    rep = H // KV
-    qp = torch.arange(Sq, device=q.device)[:, None]
-    kp = torch.arange(Sk, device=q.device)[None, :]
-    ok = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+def swa_mask(Sq: int, Sk: int, window, causal, device) -> torch.Tensor:
+    """``(Sq, Sk)`` bool: key j is seen by query i (positions from 0)."""
+    qp = torch.arange(Sq, device=device)[:, None]
+    kp = torch.arange(Sk, device=device)[None, :]
+    ok = torch.ones(Sq, Sk, dtype=torch.bool, device=device)
     if causal:
         ok &= kp <= qp
     if window is not None:
         ok &= kp > qp - window
+    return ok
+
+
+def swa_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        window: Optional[int] = None, causal: bool = True,
+                        with_lse: bool = False):
+    """Plain version: per batch row and KV group, the masked scores
+    materialised in fp32 (float64 for float64 inputs), softmax, p @ v, cast
+    to ``q.dtype``. Looping over KV groups (the ``H // KV`` query heads that
+    share one KV head) is ``_repeat_kv`` without the copy, and keeps the
+    score tensor at ``H // KV`` heads. Writes nothing in place (autograd
+    differentiates it as it is).
+
+    With ``with_lse`` also returns the log-sum-exp of each row's masked
+    scores, ``(B, H, Sq)`` in the score dtype: the residual of JAX's
+    ``_flash_fwd`` (``m + log(l)``) that the backward reads.
+    """
+    B, Sq, Sk, H, KV, D = check_shapes("swa_attention_plain", q, k, v, window,
+                                       causal)
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    rep = H // KV
+    ok = swa_mask(Sq, Sk, window, causal, q.device)
+    neg = torch.full((), NEG_INF, dtype=ct, device=q.device)
     scale = D ** -0.5
-    out = torch.empty_like(q)
+    outs, lses = [], []
     for b in range(B):
+        o_b, l_b = [], []
         for g in range(KV):
             qg = q[b, :, g * rep:(g + 1) * rep].to(ct)          # (Sq, rep, D)
             kg, vg = k[b, :, g].to(ct), v[b, :, g].to(ct)       # (Sk, D)
-            s = torch.einsum("shd,td->hst", qg, kg) * scale
-            s = torch.where(ok, s, torch.full((), NEG_INF, dtype=ct,
-                                              device=q.device))
-            p = torch.softmax(s, dim=-1)
-            out[b, :, g * rep:(g + 1) * rep] = torch.einsum(
-                "hst,td->shd", p, vg).to(q.dtype)
-    return out
+            s = torch.where(ok, torch.einsum("shd,td->hst", qg, kg) * scale,
+                            neg)
+            o_b.append(torch.einsum("hst,td->shd", torch.softmax(s, dim=-1),
+                                    vg).to(q.dtype))
+            if with_lse:
+                l_b.append(torch.logsumexp(s, dim=-1))          # (rep, Sq)
+        outs.append(torch.cat(o_b, dim=1))
+        if with_lse:
+            lses.append(torch.cat(l_b, dim=0))
+    out = torch.stack(outs)
+    return (out, torch.stack(lses)) if with_lse else out
 
 
 def swa_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                       window: Optional[int] = None, causal: bool = True
-                       ) -> torch.Tensor:
+                       window: Optional[int] = None, causal: bool = True,
+                       with_lse: bool = False):
     """Launch ``swa_attention_hopper_kernel`` (bf16) or
     ``swa_attention_kernel`` (fp32): returns ``o (B, Sq, H, D)`` in ``q``'s
-    dtype.
+    dtype, and with ``with_lse`` also ``lse (B, H, Sq)`` fp32, each row's
+    log-sum-exp of its masked scores (the training forward saves it for
+    the backward; serving passes a null pointer and the kernels skip the
+    write).
 
     ``q`` is a contiguous ``(B, Sq, H, D)`` CUDA tensor, ``k`` and ``v``
     contiguous ``(B, Sk, KV, D)``, all fp32 or all bf16 on one device, D in
-    :data:`HEAD_DIMS`, Sq >= 1; ``o`` is allocated here.
+    :data:`HEAD_DIMS`, Sq >= 1; ``o`` and ``lse`` are allocated here.
     """
     global launches
     fn = "swa_attention_cuda"
@@ -140,10 +166,13 @@ def swa_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.data_ptr() % 16:
             raise ValueError(f"{fn}: {name} must start on a 16-byte boundary")
     o = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=device)
+           if with_lse else None)
     lib = _build.load()
     raise_on(fn, lib, lib.repro_swa_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Sk, H,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, Sq, Sk, H,
         KV, D, 0 if window is None else int(window), int(causal),
         float(D ** -0.5), DTYPE_CODE[q.dtype], stream_of(device)))
     launches += 1
-    return o
+    return (o, lse) if with_lse else o

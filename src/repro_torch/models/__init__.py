@@ -1,6 +1,8 @@
 """Language models of the port (``repro.models``): the decoder LM with
-RWKV6 ``wkv`` blocks (slice 4)."""
+RWKV6 ``wkv`` blocks (slice 4), sliding-window attention (slice 5) and its
+training loss (slice 13)."""
 from repro_torch.models.transformer import (
+    chunked_cross_entropy,
     count_params,
     decode_step,
     forward,
@@ -8,13 +10,16 @@ from repro_torch.models.transformer import (
     init_params,
     layer_plan,
     lm_head,
+    lm_loss,
     padded_vocab,
     param_shapes,
     params_from_jax,
     prefill,
+    sharded_cross_entropy,
 )
 
 __all__ = [
+    "chunked_cross_entropy",
     "count_params",
     "decode_step",
     "forward",
@@ -22,8 +27,10 @@ __all__ = [
     "init_params",
     "layer_plan",
     "lm_head",
+    "lm_loss",
     "padded_vocab",
     "param_shapes",
     "params_from_jax",
     "prefill",
+    "sharded_cross_entropy",
 ]

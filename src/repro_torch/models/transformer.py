@@ -19,7 +19,17 @@ brings them.
 Modes: ``train`` and ``prefill`` run a whole sequence from an initial state
 (train discards nothing here: both return the final states; attention
 layers keep a cache only where a state is given or the mode is not
-``train``); ``decode`` runs one token against the states.
+``train``); ``decode`` runs one token against the states. A ``train``
+forward under autograd recomputes each scanned layer in the backward when
+``cfg.remat`` (``torch.utils.checkpoint``, as the JAX package wraps its
+cycle body in ``jax.checkpoint``) and writes nothing in place.
+
+The loss (slice 13): :func:`lm_loss` is next-token cross-entropy over the
+hidden states, through :func:`chunked_cross_entropy` (per-chunk recompute,
+or the logits materialised when ``n_chunks`` is 0 or does not divide B).
+Attention models train through the differentiable ``swa_attention``
+(the forward and backward kernels on the card). ``wkv`` blocks, MoE,
+encoder-decoder and VLM models raise ``NotImplementedError`` there.
 
 The decode state is one dict for all layers, each leaf stacked over them
 (the JAX package's ``state["cycles"][0]`` for a one-kind pattern):
@@ -44,6 +54,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as at
@@ -188,7 +199,10 @@ def init_params(cfg, seed: int = 0, device="cuda") -> dict:
 
 def _as_tensor(a, dtype, device) -> torch.Tensor:
     a = np.array(a)                          # a writable copy
-    if a.dtype.name == "bfloat16":           # ml_dtypes' bfloat16
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                      and a.dtype.itemsize == 2):
+        # ml_dtypes' bfloat16, or the raw 2-byte records a checkpoint holds
+        # for it (numpy has no bfloat16 of its own)
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
@@ -324,15 +338,27 @@ def _apply_block(p, x, cfg, kind, st, *, positions, pos, wkv_impl,
     return x + apply_mlp(p["mlp"], xb, cfg.activation)
 
 
+def remat_layers(cfg) -> range:
+    """The layers the JAX package scans (``cycles``): those it recomputes in
+    the backward when ``cfg.remat``."""
+    plan = layer_plan(cfg)
+    start = len(plan.head)
+    return range(start, start + plan.n_cycles * len(plan.cycle_kinds))
+
+
 def _run_layers(cfg, params, x, states, *, positions=None, pos=None,
-                wkv_impl=None, swa_impl=None):
+                wkv_impl=None, swa_impl=None, remat=False):
     if len(params["blocks"]) != cfg.n_layers:
         raise ValueError(f"params hold {len(params['blocks'])} blocks, the "
                          f"config {cfg.n_layers} layers")
+    recompute = remat_layers(cfg) if remat else ()
     for i, p in enumerate(params["blocks"]):
-        x = _apply_block(p, x, cfg, cfg.block_kind(i), layer_state(states, i),
-                         positions=positions, pos=pos, wkv_impl=wkv_impl,
-                         swa_impl=swa_impl)
+        st = layer_state(states, i)
+        run = lambda x_, p=p, i=i, st=st: _apply_block(
+            p, x_, cfg, cfg.block_kind(i), st, positions=positions, pos=pos,
+            wkv_impl=wkv_impl, swa_impl=swa_impl)
+        x = checkpoint(run, x, use_reentrant=False) if i in recompute \
+            else run(x)
     return x
 
 
@@ -362,7 +388,9 @@ def forward(cfg, params, tokens: torch.Tensor, *, embeds=None,
 
     ``states`` (default: :func:`init_decode_state` for ``mode`` with
     ``max_seq`` = S) are updated in place and returned: the WKV states
-    advance, the KV caches are filled from the sequence. ``aux`` is the 0-d
+    advance, the KV caches are filled from the sequence. In ``train`` mode
+    under autograd with ``cfg.remat`` the scanned layers are recomputed in
+    the backward (:func:`remat_layers`). ``aux`` is the 0-d
     fp32 zero of a model without MoE. ``wkv_impl`` replaces the dispatched
     recurrence in every ``wkv`` block (see ``rwkv6.time_mix``), ``swa_impl``
     the dispatched attention in every attention block (see
@@ -384,8 +412,9 @@ def forward(cfg, params, tokens: torch.Tensor, *, embeds=None,
         states = init_decode_state(cfg, b, max_seq=s, mode=mode,
                                    device=x.device)
     positions = torch.arange(s, device=x.device).expand(b, s)
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     x = _run_layers(cfg, params, x, states, positions=positions,
-                    wkv_impl=wkv_impl, swa_impl=swa_impl)
+                    wkv_impl=wkv_impl, swa_impl=swa_impl, remat=remat)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     aux = torch.zeros((), device=x.device)
     if not unembed_out:
@@ -428,3 +457,93 @@ def decode_step(cfg, params, token: torch.Tensor, states: dict,
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return lm_head(cfg, params, x), states
 
+
+
+# ----------------------------------------------------------------------------
+# Loss
+# ----------------------------------------------------------------------------
+
+_NO_TRAINING = {
+    "wkv": "training wkv blocks needs the wkv6 backward kernel, which comes "
+           "with a later slice (RWKV training)",
+}
+
+
+def check_trainable(cfg) -> None:
+    """Raise ``NotImplementedError`` for models :func:`lm_loss` cannot train
+    yet (on every device: no plain-recurrence autograd stands in for a
+    missing kernel)."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError("encdec_loss (whisper-small) comes with a "
+                                  "later slice")
+    if cfg.family == "moe":
+        raise NotImplementedError("the MoE router's auxiliary loss comes with "
+                                  "a later slice (kimi-k2, arctic)")
+    if cfg.frontend is not None:
+        raise NotImplementedError(f"the {cfg.frontend} prefix of a training "
+                                  f"batch comes with a later slice")
+    for kind in cfg.layer_pattern:
+        if kind in _NO_TRAINING:
+            raise NotImplementedError(_NO_TRAINING[kind])
+    check_supported(cfg)
+
+
+def lm_loss(cfg, params, batch, *, ce_chunks: Optional[int] = None,
+            swa_impl: Optional[Callable] = None) -> torch.Tensor:
+    """Next-token cross-entropy (0-d fp32). ``batch``: ``{'tokens': (B, S)}``
+    integer; the model reads ``tokens[:, :-1]`` and predicts
+    ``tokens[:, 1:]``. ``ce_chunks`` (default ``cfg.ce_chunks``, as JAX's
+    ``ce_chunks or cfg.ce_chunks``) picks :func:`chunked_cross_entropy`'s
+    branch; ``swa_impl`` replaces the dispatched attention (see
+    :func:`forward`)."""
+    check_trainable(cfg)
+    if batch.get("patch_embeds") is not None or batch.get("frames") is not None:
+        raise NotImplementedError("VLM / audio batches come with a later "
+                                  "slice")
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    hidden, _, _ = forward(cfg, params, inputs, mode="train",
+                           unembed_out=False, swa_impl=swa_impl)
+    w = (params["embed"]["table"].T if cfg.tie_embeddings
+         else params["unembed"]["w"])
+    return chunked_cross_entropy(hidden, w, targets,
+                                 n_chunks=ce_chunks or cfg.ce_chunks)
+
+
+def _ce_sum(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-position ``logsumexp - target logit`` of fp32 logits."""
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return lse - tgt
+
+
+def sharded_cross_entropy(logits: torch.Tensor, targets: torch.Tensor
+                          ) -> torch.Tensor:
+    """Mean CE of ``(B, S, V)`` logits, in fp32. The JAX package contracts
+    a one-hot so that a model-parallel vocab axis stays sharded; the
+    gathered target logit is the same number."""
+    return _ce_sum(logits.float(), targets).mean()
+
+
+def _chunk_ce(h_c, w, t_c):
+    return torch.sum(_ce_sum((h_c @ w).float(), t_c))
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, w_unembed: torch.Tensor,
+                          targets: torch.Tensor, n_chunks: int = 0
+                          ) -> torch.Tensor:
+    """CE without the full ``(B, S, V)`` logits: B split into ``n_chunks``
+    chunks whose logits are recomputed in the backward
+    (``torch.utils.checkpoint``), their fp32 sums added in order and divided
+    by the target count. ``n_chunks`` 0, or one that does not divide B,
+    materialises the logits (:func:`sharded_cross_entropy`)."""
+    if not n_chunks or hidden.shape[0] % n_chunks:
+        return sharded_cross_entropy(hidden @ w_unembed, targets)
+    b = hidden.shape[0]
+    hb = hidden.reshape(n_chunks, b // n_chunks, *hidden.shape[1:])
+    tb = targets.reshape(n_chunks, b // n_chunks, *targets.shape[1:])
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        total = total + checkpoint(_chunk_ce, hb[c], w_unembed, tb[c],
+                                   use_reentrant=False)
+    return total / targets.numel()

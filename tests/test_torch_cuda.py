@@ -9,7 +9,8 @@ Each kernel is held against its plain PyTorch version on the card, the
 serving engine on the card against the engine on the CPU, a short training
 run on the card against the same run (same draws) on the CPU, and the
 reduced RWKV6 and sliding-window attention language models on the card
-against the port on the CPU.
+against the port on the CPU, and the attention backward kernel against its
+plain version and one full-width federated LM step.
 """
 import numpy as np
 import pytest
@@ -36,6 +37,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels import flat_update as fu
 from repro_torch.kernels import policy_infer as pinf
 from repro_torch.kernels import swa_attention as sw
+from repro_torch.kernels import swa_attention_bwd as swb
 from repro_torch.kernels import topk_scatter as tks
 from repro_torch.kernels import wkv6 as wk
 from repro_torch.launch import Request, ServingLoop
@@ -1209,3 +1211,103 @@ def test_full_width_run_fmarl_card_matches_cpu(card):
                                        cs_.server_params[h][k].numpy(),
                                        rtol=0, atol=1e-4)
     assert gl.table_row() == cl.table_row()
+
+
+# --- the attention backward (slice 13) -------------------------------------------
+
+BWD_REL = 1e-5                 # fp32: within BWD_REL x the largest |grad|
+BWD_MAX_RATIO, BWD_MEAN_RATIO, BWD_FLOOR = 2.0, 1.1, 1e-6
+
+
+def _bwd_case(b, s, h, kv, d, dtype, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device=device).to(dtype)
+    return rnd(b, s, h, d), rnd(b, s, kv, d), rnd(b, s, kv, d), \
+        rnd(b, s, h, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("window", [None, 1, 64, 4096])
+@pytest.mark.parametrize("b,s,h,kv,d", [
+    (1, 1, 32, 8, 120), (1, 127, 32, 8, 120), (1, 1024, 24, 8, 128),
+    (2, 300, 24, 8, 128), (2, 1024, 32, 8, 120)])
+def test_swa_attention_bwd_kernel_matches_plain(card, b, s, h, kv, d, window,
+                                                dtype):
+    """The forward's lse within 1e-5 (relative, at least 1) of the plain
+    version's; the backward on the kernel forward's o and lse: fp32 within
+    1e-5 of the largest |gradient| of the plain backward, bf16 against the
+    float64 gradient within 2x / 1.1x the plain bf16 backward's largest /
+    mean error (+ 1e-6 of the largest |gradient|: with W = 1, dq and dk are
+    0 up to rounding); one launch a call, and a second call the same bits."""
+    q, k, v, do = _bwd_case(b, s, h, kv, d, dtype, s + h + (window or 0), card)
+    kw = dict(window=window, causal=True)
+    o, lse = sw.swa_attention_cuda(q, k, v, with_lse=True, **kw)
+    assert torch.equal(o, sw.swa_attention_cuda(q, k, v, **kw))
+    _, plse = sw.swa_attention_plain(q, k, v, with_lse=True, **kw)
+    assert float(((lse - plse).abs() / plse.abs().clamp(min=1.0)).max()) <= 1e-5
+    before = swb.launches
+    got = swb.swa_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    again = swb.swa_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert swb.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert [t.dtype for t in got] == [dtype] * 3
+    plain = swb.swa_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    if dtype == torch.float32:
+        G = max(float(p.abs().max()) for p in plain)
+        for x, p in zip(got, plain):
+            assert float((x - p).abs().max()) <= BWD_REL * G
+        return
+    x64 = [t.double() for t in (q, k, v, do)]
+    o64, lse64 = sw.swa_attention_plain(*x64[:3], with_lse=True, **kw)
+    want = swb.swa_attention_bwd_plain(*x64[:3], o64, x64[3], lse64, **kw)
+    G = max(float(w.abs().max()) for w in want)
+    for x, p, w in zip(got, plain, want):
+        ex, ep = (x.double() - w).abs(), (p.double() - w).abs()
+        assert float(ex.max()) <= BWD_MAX_RATIO * float(ep.max()) + BWD_FLOOR * G
+        assert float(ex.mean()) <= BWD_MEAN_RATIO * float(ep.mean()) + \
+            BWD_FLOOR * G
+
+
+def test_swa_attention_bwd_kernel_refuses_what_it_does_not_take(card):
+    q, k, v, do = _bwd_case(1, 8, 4, 2, 120, torch.float32, 0, card)
+    o, lse = sw.swa_attention_cuda(q, k, v, with_lse=True)
+    with pytest.raises(ValueError, match=r"head sizes \(120, 128\)"):
+        swb.swa_attention_bwd_cuda(*(t[..., :64].contiguous()
+                                     for t in (q, k, v, o, do)), lse)
+    with pytest.raises(TypeError):
+        swb.swa_attention_bwd_cuda(q, k, v, o, do, lse.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        swb.swa_attention_bwd_cuda(q, k, v, o, do.transpose(1, 2).contiguous()
+                                   .transpose(1, 2), lse)
+    with pytest.raises(ValueError, match="lse must be"):
+        swb.swa_attention_bwd_cuda(q, k, v, o, do, lse[:, :, :4])
+
+
+def test_full_width_lm_step_leaves_the_agent_rows_equal_after_sync(card):
+    """h2o-danube-3-4b at its published width cut to 2 layers, 2 agents
+    (their data differ), bf16: one local step and a periodic sync through
+    the kernels (2 agents x 2 layers x 2 forwards under remat, x 1
+    backward; one adam_update, one row_mean), then the rows bitwise
+    equal."""
+    import dataclasses
+    from repro_torch.launch import (FedTrainConfig, init_train_state,
+                                    make_local_step, make_sync_step)
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(TC.get_arch("h2o-danube-3-4b"), n_layers=2)
+    fed = FedTrainConfig(strategy="periodic", tau=1)
+    opt = adamw(weight_decay=0.01)
+    st = init_train_state(cfg, 0, 2, opt, fed, device=card)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 1, 129)), device=card)
+    f0, b0, a0, r0 = sw.launches, swb.launches, fu.launches["adam_update"], \
+        fu.launches["row_mean"]
+    st, m = make_local_step(cfg, opt, fed, n_agents=2)(st, {"tokens": toks})
+    assert not torch.equal(st.params[0], st.params[1])
+    st = make_sync_step(cfg, fed, n_agents=2)(st)
+    torch.cuda.synchronize()
+    assert (sw.launches - f0, swb.launches - b0) == (8, 4)
+    assert (fu.launches["adam_update"] - a0, fu.launches["row_mean"] - r0) \
+        == (1, 1)
+    assert bool(torch.isfinite(m["loss"])) and torch.equal(st.params[0],
+                                                           st.params[1])

@@ -56,7 +56,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                 "configs.phi4_mini_3_8b", "models.attention", "sweep",
                 "sweep.results", "sweep.spec", "sweep.overrides",
                 "sweep.runner", "rl.scenarios", "core.fmarl", "core.bounds",
-                "core.extensions", "kernels.ops", "utils", "utils.pytree"):
+                "core.extensions", "kernels.ops", "utils", "utils.pytree",
+                "data", "data.pipeline", "optim.optimizers",
+                "optim.schedules", "launch.fedtrain", "launch.train",
+                "kernels.swa_attention_bwd"):
         assert f"repro_torch.{mod}" in names, mod
     benches = [f"benchmarks.{p.stem}" for p in BENCHES]
     for stem in ("torch_common", "torch_fmarl_bench", "torch_table2",

@@ -13,11 +13,19 @@ JAX ``_repeat_kv``) and through the port's ``swa_attention_plain`` /
   the output once, so they may land one bf16 ulp apart (``rtol 2^-7``);
 * bf16 against ``swa_attention_ref``: the oracle rounds the softmax
   weights to bf16 before ``p @ v``, the port (like the Pallas kernel) does
-  not: ``atol 2e-2``, the JAX test's own bf16 figure.
+  not: ``atol 2e-2``, the JAX test's own bf16 figure;
+* the backward (``swa_attention_bwd_plain``) and the forward's log-sum-exp
+  against ``jax.vjp`` of the JAX model's ``flash_attention`` (its
+  ``_flash_bwd``) and ``_flash_fwd``'s lse, on K/V repeated by
+  ``_repeat_kv`` (the port's dk / dv are the sums over each KV group's
+  query heads): fp32 ``atol 1e-5`` (summation order, gradients of size
+  ~1); ``SwaAttention`` against finite differences in float64
+  (``torch.autograd.gradcheck``).
 
 Lengths that do not divide the Pallas block sizes are held against the
 oracle only (the Pallas kernel refuses them).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,9 +33,11 @@ import torch
 
 import repro.kernels.ref as ref
 from repro.kernels.swa_attention import swa_attention_pallas
+from repro.models.attention import _flash_fwd_impl, flash_attention
 from repro.models.attention import _repeat_kv as jax_repeat_kv
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import swa_attention as sw
+from repro_torch.kernels import swa_attention_bwd as swb
 
 ATOL = 2e-6
 BF16_REL = 2.0 ** -7
@@ -263,6 +273,74 @@ def test_mean_error_rule_passes_the_split_and_fails_one_bf16_p(
         REACHED.get("one bf16 p mean err / limit (smallest)", np.inf),
         one / lim)
     assert split <= lim < one
+
+
+# (b, s, h, kv, d, window, chunk of the JAX scan): GQA with a window; an
+# odd length that pads the last chunk, 3 query heads a KV head, no window;
+# W = 1 at another odd length.
+BWD_CASES = [
+    (2, 32, 4, 2, 32, 8, 8),
+    (1, 37, 6, 2, 16, None, 8),
+    (1, 29, 2, 2, 24, 1, 16),
+]
+BWD_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,window,chunk", BWD_CASES)
+def test_plain_backward_and_lse_match_jax_flash_vjp(b, s, h, kv, d, window,
+                                                    chunk):
+    q, k, v = _inputs(b, s, s, h, kv, d, seed=s * h + d)
+    do = np.random.default_rng(s).standard_normal((b, s, h, d),
+                                                  dtype=np.float32)
+    jq, jk, jv = _jax(q, k, v, h, jnp.float32)
+    _, jlse = _flash_fwd_impl(jq, jk, jv, True, window, chunk, 0)
+    _, vjp = jax.vjp(lambda a, b_, c: flash_attention(a, b_, c, True, window,
+                                                      chunk, 0), jq, jk, jv)
+    gq, gk, gv = vjp(jnp.asarray(do))
+    fold = lambda g: np.asarray(g).reshape(b, s, kv, h // kv, d).sum(3)
+    tq, tk, tv = _torch(q, k, v, torch.float32)
+    o, lse = sw.swa_attention_plain(tq, tk, tv, window=window, with_lse=True)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    _close("lse vs _flash_fwd", lse.numpy(), jlse, BWD_ATOL)
+    dq, dk, dv = swb.swa_attention_bwd_plain(tq, tk, tv, o, torch.from_numpy(do),
+                                             lse, window=window)
+    assert dk.shape == (b, s, kv, d) and dq.dtype == torch.float32
+    _close("bwd dq vs _flash_bwd", dq.numpy(), gq, BWD_ATOL)
+    _close("bwd dk vs _flash_bwd", dk.numpy(), fold(gk), BWD_ATOL)
+    _close("bwd dv vs _flash_bwd", dv.numpy(), fold(gv), BWD_ATOL)
+    # autograd through the dispatched function runs the same backward
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    got = torch.autograd.grad(dispatch.swa_attention(*leaves, window=window),
+                              leaves, torch.from_numpy(do))
+    assert all(torch.equal(x, y) for x, y in zip(got, (dq, dk, dv)))
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,window,causal", [
+    (2, 6, 4, 2, 3, 3, True),
+    (1, 7, 2, 1, 5, None, True),
+    (1, 6, 2, 2, 4, 4, False),
+])
+def test_swa_attention_function_passes_gradcheck(b, s, h, kv, d, window,
+                                                 causal):
+    gen = torch.Generator().manual_seed(s + h)
+    args = [torch.randn(shape, generator=gen, dtype=torch.float64,
+                        requires_grad=True)
+            for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
+    fn = lambda q, k, v: dispatch.SwaAttention.apply(q, k, v, window, causal)
+    assert torch.autograd.gradcheck(fn, args)
+
+
+def test_backward_wrappers_refuse_bad_residuals():
+    q, k, v = torch.zeros(1, 4, 2, 120), torch.zeros(1, 4, 1, 120), \
+        torch.zeros(1, 4, 1, 120)
+    with pytest.raises(ValueError, match="lse must be"):
+        swb.swa_attention_bwd_plain(q, k, v, q, q, torch.zeros(1, 4, 2))
+    with pytest.raises(ValueError, match="o and do must be"):
+        swb.swa_attention_bwd_plain(q, k, v, q[:, :2], q, torch.zeros(1, 2, 4))
+    before = swb.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        swb.swa_attention_bwd_cuda(q, k, v, q, q, torch.zeros(1, 2, 4))
+    assert swb.launches == before
 
 
 if __name__ == "__main__":
