@@ -12,6 +12,8 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
 1. device — the card, its power limit, torch / CUDA / nvcc versions; TF32
    off for the plain reference's fp32 matmuls;
 2. build — every kernel of ``src/repro_torch/kernels/csrc`` with ``nvcc``;
+   the bf16 attention kernels (forward, and the backward's dq and dk / dv
+   kernels) must hold ``HGMMA`` instructions;
 3. kernel vs plain — the hand-written ``policy_infer`` kernel against its
    plain PyTorch version on the card, over widths, batch sizes, modes, init
    scales and dtypes, and the in-place write into the noise buffer; and at
@@ -199,8 +201,9 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    ``repro_torch.launch.train.train(device="cuda")``: first the forward's
    log-sum-exp and the hand-written ``swa_attention_bwd`` kernel against
    their plain versions (S in {1, 127, 1024, 4608} x W in {None, 1, 64,
-   4096} x 32 / 8 heads of 120 and 24 / 8 of 128, fp32 and bf16, and the
-   main path's (2, 1024); fp32 within 1e-5 of the largest |gradient|, bf16
+   4096} x 32 / 8 heads of 120 and 24 / 8 of 128, fp32 and bf16, the main
+   path's (2, 1024) and the bf16 kernels' tile edges, ``BWD_EDGE_CASES``:
+   S 65-255, W 100 / 200, H = KV; fp32 within 1e-5 of the largest |gradient|, bf16
    against the float64 gradient within 2x / 1.1x the plain version's
    largest / mean error, a second launch bitwise); then the main path,
    h2o-danube-3-4b at its published width cut to 2 of 24 layers
@@ -213,7 +216,9 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    step; one windowed step at 1 x 4608 (W 4096 binds) with the kernels
    against the plain attention; a mid-size fp32 config card vs CPU on
    every strategy (one period each); the backward's time beside its bound, the plain
-   version's and SDPA's backward, and one profiled window of a period.
+   version's and SDPA's backward (alone: ``c.bwd_alone()``), one profiled
+   window of a period, and ``row_mean`` / ``adam_update`` at the phase's
+   (2, 555,436,800) bf16 rows beside ``x.mean(0)`` / ``torch._fused_adamw_``.
    Alone: ``python3 -c 'import chip_smoke as c; c.lm_train_alone()'``.
 
 Its last lines are the kernel summary JSON, the card's name and power limit,
@@ -4893,9 +4898,9 @@ def profile_swa(TC, TM, launch, card) -> dict:
     return {"prefill": pre, "decode": dec}
 
 
-def hgmma_count(_build) -> int:
+def hgmma_count(_build, kernel: str = SWA_KERNEL) -> int:
     """``HGMMA`` instructions (wgmma on the tensor cores) in the built
-    library's bf16 swa_attention kernels, by ``cuobjdump -sass``."""
+    library's kernels whose name holds ``kernel``, by ``cuobjdump -sass``."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", _build.build_info["library"]],
                           capture_output=True, text=True, check=True,
@@ -4903,7 +4908,7 @@ def hgmma_count(_build) -> int:
     count, inside = 0, False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = SWA_KERNEL in line
+            inside = kernel in line
         elif inside and "HGMMA" in line:
             count += 1
     return count
@@ -4933,7 +4938,9 @@ LSE_REL = 1e-5                        # |lse - plain| <= LSE_REL * max(1, |lse|)
 BWD_REL = 1e-5                        # fp32: |dx - plain| <= BWD_REL * G
 BWD_MAX_RATIO, BWD_MEAN_RATIO = 2.0, 1.1   # bf16: against float64, x plain's
 BWD_FLOOR = 1e-6                      # ... + BWD_FLOOR * G (W = 1: grads ~ 0)
-BWD_KERNELS = ("swa_bwd_dq_kernel", "swa_bwd_dkdv_kernel")
+# The bf16 backward's two kernels (the profile's and the HGMMA count's
+# names); the fp32 path runs swa_bwd_dq_kernel and swa_bwd_dkdv_kernel.
+BWD_KERNELS = ("swa_bwd_dq_hopper_kernel", "swa_bwd_dkdv_hopper_kernel")
 LMT_KERNELS = ("swa_attention", "swa_attention_bwd", "adam_update",
                "row_mean", "consensus_step")
 
@@ -5060,14 +5067,23 @@ def bwd_check(sw, swb, q, k, v, do, window, what) -> dict:
     return row
 
 
+# Where the bf16 kernels' 64- and 128-row tiles end ragged (S 65, 129, 200,
+# 255), a window crosses a tile (W 100, 200), H = KV; both head sizes.
+BWD_EDGE_CASES = [(1, 129, 8, 8, 120, 100), (1, 255, 8, 8, 128, 200),
+                  (1, 129, 24, 8, 128, 200), (1, 255, 32, 8, 120, 100),
+                  (2, 200, 12, 4, 120, 100), (1, 65, 4, 4, 128, None)]
+
+
 def bwd_vs_plain(sw, swb) -> dict:
     """Phase 18 (1, 2): lse and the backward kernel on the grid S in {1,
     127, 1024, 4608} x W in {None, 1, 64, 4096} x (32 / 8 heads of 120, 24
-    / 8 of 128) x {fp32, bf16}, B = 1, and the main path's (2, 1024)."""
+    / 8 of 128) x {fp32, bf16}, B = 1, the main path's (2, 1024) and the
+    tile edges of ``BWD_EDGE_CASES``."""
     cases = [(1, s, h, kv, d, w) for s in (1, 127, 1024, 4608)
              for w in (None, 1, 64, 4096)
              for (h, kv, d) in ((32, 8, 120), (24, 8, 128))]
     cases.append((LMT_BATCH, LMT_SEQ, 32, 8, 120, 4096))
+    cases += BWD_EDGE_CASES
     rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for i, (b, s, h, kv, d, w) in enumerate(cases):
@@ -5314,49 +5330,17 @@ def sdpa_bwd_fn(q, k, v, do, window):
 
 
 def lmt_times(sw, swb, TC, launch, card) -> dict:
-    """Phase 18 (6): swa_attention_bwd in bf16 at the main path's (2, 1024)
-    and at (1, 4608), W 4096: CUDA events, L2 flushed and warm, beside its
-    bound, the plain backward's time (one call) and SDPA's backward; then
-    one profiled window of 2 local steps and a sync (periodic, tau 2) at
-    full width: the device idle share and the busy time split between the
-    matrix products, swa_attention, swa_attention_bwd, adam_update and the
-    sync."""
+    """Phase 18 (6, 7): ``bwd_times``; then one profiled window of 2 local
+    steps and a sync (periodic, tau 2) at full width: the device idle share
+    and the busy time split between the matrix products, swa_attention,
+    swa_attention_bwd (and its two kernels), adam_update and the sync; then
+    ``lmt_flat_times``."""
     from repro_torch.data import SyntheticLM
     from repro_torch.optim import adamw
     from torch.profiler import ProfilerActivity, profile
     cyc = sleep_cycles_per_ms()
     flush = l2_flusher()
-    rows = {}
-    for b, s in ((LMT_BATCH, LMT_SEQ), LMT_LONG):
-        q, k, v, do = bwd_inputs(b, s, 32, 8, 120, torch.bfloat16, SEED + 18)
-        o, lse = sw.swa_attention_cuda(q, k, v, window=4096, with_lse=True)
-        kern = lambda: swb.swa_attention_bwd_cuda(q, k, v, o, do, lse,
-                                                  window=4096)
-        plain = lambda: swb.swa_attention_bwd_plain(q, k, v, o, do, lse,
-                                                    window=4096)
-        lib = sdpa_bwd_fn(q, k, v, do, 4096)
-        n_ev = CHUNK * (2 if s <= LMT_SEQ else 1)
-        rec = {"shape": [b, s, 32, 8, 120], "window": 4096,
-               "dtype": "bfloat16",
-               "ms": device_ms(kern, cyc, flush, n_ev)[0],
-               "warm_l2_ms": device_ms(kern, cyc, None, n_ev)[0],
-               "plain_ms": events_ms(plain, 1),
-               "library_ms": device_ms(lib, cyc, flush, n_ev)[0],
-               "library_backend": sdpa_backend_of(q, k, v, 4096),
-               **bwd_bound(b, s, 32, 8, 120, 4096)}
-        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
-        rows[f"swa_attention_bwd/{b}x{s}"] = rec
-        log(f"time swa_attention_bwd shape=({b}, {s}, 32/8, 120) bf16 W=4096 "
-            f"L2 flushed: kernel_ms={rec['ms']!r} (L2-warm "
-            f"{rec['warm_l2_ms']!r}) plain_ms={rec['plain_ms']!r} "
-            f"bound_ms={rec['bound_ms']!r} ({rec['bound_by']}; "
-            f"{rec['flops']} FLOP at {BF16_FLOP_PER_S / 1e12:g} TFLOP/s, "
-            f"{rec['bytes']} B at {HBM_BYTES_PER_S / 1e12:g} TB/s; share "
-            f"{rec['share_of_bound']!r}) library_ms={rec['library_ms']!r} "
-            f"(SDPA backward, {rec['library_backend']} forward choice) "
-            f"card=\"{card}\"")
-        del q, k, v, do, o, lse
-        torch.cuda.empty_cache()
+    rows = bwd_times(sw, swb, cyc, flush, card)
 
     cfg, _ = lmt_configs(TC)
     fed = launch.FedTrainConfig(strategy="periodic", tau=LMT_TAU)
@@ -5390,9 +5374,13 @@ def lmt_times(sw, swb, TC, launch, card) -> dict:
              "swa_attention": pick("swa_attention_hopper_kernel",
                                    "swa_attention_kernel") / 1e3,
              "swa_attention_bwd": pick(*BWD_KERNELS) / 1e3,
+             "swa_attention_bwd_dq": pick(BWD_KERNELS[0]) / 1e3,
+             "swa_attention_bwd_dkdv": pick(BWD_KERNELS[1]) / 1e3,
              "adam_update": pick("adam_update_kernel") / 1e3,
              "sync": pick("row_mean_kernel") / 1e3}
-    split["other"] = busy / 1e3 - sum(split.values())
+    split["other"] = busy / 1e3 - sum(
+        v for k, v in split.items() if k not in ("swa_attention_bwd_dq",
+                                                 "swa_attention_bwd_dkdv"))
     top = sorted(dev.items(), key=lambda kv_: -kv_[1][1])[:8]
     prof_row = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
                 "device_idle_share": 1.0 - busy / wall_us,
@@ -5407,7 +5395,159 @@ def lmt_times(sw, swb, TC, launch, card) -> dict:
     del state
     torch.cuda.empty_cache()
     rows["profile"] = prof_row
+    rows["flat"] = lmt_flat_times(cyc, flush, card)
     return rows
+
+
+def _fused_adamw_fn(p, g, w, mu, nu, lr, t, wd):
+    """``torch._fused_adamw_`` (the call behind ``torch.optim.AdamW(
+    fused=True)``) on the rows of ``p`` and ``g``, with moments in the dtype
+    of ``mu`` / ``nu``, step ``t`` and one ``grad_scale`` = 1 / the first
+    row's clip weight (it takes one for all rows and divides by it)."""
+    rows = lambda x: list(x.unbind(0))
+    steps = [torch.full((), float(t), device=p.device) for _ in range(len(p))]
+    scale = (1.0 / w[0]).reshape(())
+    return lambda: torch._fused_adamw_(
+        rows(p), rows(g), rows(mu), rows(nu), [], steps, lr=lr, beta1=0.9,
+        beta2=0.95, weight_decay=wd, eps=1e-8, amsgrad=False, maximize=False,
+        grad_scale=scale, found_inf=None)
+
+
+def lmt_flat_times(cyc, flush, card) -> dict:
+    """Phase 18 (7): rows 2 and 4 of the kernel table where phase 18 runs
+    them, (2, 555,436,800) bf16 rows, with their byte bounds and library
+    calls: ``row_mean`` (reads both rows, writes the bf16 mean: 6 bytes a
+    column) beside ``x.mean(0)``; ``adam_update`` in place (bf16 p and g,
+    fp32 mu and nu, per-row clip weight: 22 bytes an element) beside
+    ``torch._fused_adamw_`` on the same rows (fp32 moments where it takes
+    them, else bf16 ones: the record says which), and both again at the
+    training path's (1024, 9347) fp32, L2 flushed. CUDA events; at 3-24 GB
+    a call the L2 plays no part, so the LM-shape calls are not flushed."""
+    from repro_torch.kernels import flat_update as fu
+    n = LMT_PARAMS
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 187)
+    x = torch.randn((LMT_AGENTS, n), generator=gen, device="cuda",
+                    dtype=torch.float32).to(torch.bfloat16)
+    rec = {"shape": [LMT_AGENTS, n], "dtype": "bfloat16",
+           "ms": device_ms(lambda: fu.row_mean_cuda(x), cyc, None, CHUNK)[0],
+           "library_ms": device_ms(lambda: x.mean(0), cyc, None, CHUNK)[0],
+           "library": "x.mean(0)",
+           "bytes": 3 * 2 * n}
+    rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    out["row_mean"] = rec
+    g = torch.randn((LMT_AGENTS, n), generator=gen, device="cuda",
+                    dtype=torch.float32).to(torch.bfloat16).mul_(1e-3)
+    mu = torch.zeros((LMT_AGENTS, n), device="cuda")
+    nu = torch.zeros((LMT_AGENTS, n), device="cuda")
+    w = torch.tensor([0.5, 0.25], device="cuda")
+    lr, t, wd = 3e-4, 3, 0.01
+    bc1, bc2 = 1.0 - 0.9 ** t, 1.0 - 0.95 ** t
+
+    def adam(p_, g_, mu_, nu_, w_):
+        return lambda: fu.adam_update_cuda(
+            p_, g_, mu_, nu_, w_, lr, bc1, bc2, b1=0.9, b2=0.95, eps=1e-8,
+            weight_decay=wd, p_out=p_, mu_out=mu_, nu_out=nu_)
+
+    rec = {"shape": [LMT_AGENTS, n], "dtype": "bfloat16 p, g; fp32 moments",
+           "ms": device_ms(adam(x, g, mu, nu, w), cyc, None, CHUNK)[0],
+           "bytes": 22 * LMT_AGENTS * n}
+    rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    try:
+        rec["library_ms"] = device_ms(_fused_adamw_fn(x, g, w, mu, nu, lr, t,
+                                                      wd), cyc, None, CHUNK)[0]
+        rec["library"] = "torch._fused_adamw_, fp32 moments"
+    except (RuntimeError, TypeError) as e:
+        rec["library_refused"] = str(e).splitlines()[0][:200]
+        mu16, nu16 = mu.to(torch.bfloat16), nu.to(torch.bfloat16)
+        rec["library_bf16_moments_ms"] = device_ms(
+            _fused_adamw_fn(x, g, w, mu16, nu16, lr, t, wd), cyc, None,
+            CHUNK)[0]
+        rec["library_ms"] = None
+        rec["library"] = ("none: torch._fused_adamw_ refuses fp32 moments "
+                          "beside bf16 parameters; timed with bf16 moments")
+        del mu16, nu16
+    out["adam_update"] = rec
+    del x, g, mu, nu
+    torch.cuda.empty_cache()
+    m_, n_ = 1024, 9347
+    p32 = torch.randn((m_, n_), generator=gen, device="cuda")
+    g32 = torch.randn((m_, n_), generator=gen, device="cuda") * 1e-3
+    mu32, nu32 = torch.zeros_like(p32), torch.zeros_like(p32)
+    w32 = torch.full((m_,), 0.5, device="cuda")
+    out["adam_update_1024"] = {
+        "shape": [m_, n_], "dtype": "float32",
+        "ms": device_ms(adam(p32, g32, mu32, nu32, w32), cyc, flush)[0],
+        "library_ms": device_ms(_fused_adamw_fn(p32, g32, w32, mu32, nu32,
+                                                lr, t, wd), cyc, flush)[0],
+        "library": "torch._fused_adamw_, one grad_scale for all rows",
+        "bytes": 28 * m_ * n_}
+    out["adam_update_1024"]["bound_ms"] = \
+        out["adam_update_1024"]["bytes"] / HBM_BYTES_PER_S * 1e3
+    for k, r in out.items():
+        log(f"time {k} at {r['shape']} {r['dtype']}: kernel_ms={r['ms']!r} "
+            f"bound_ms={r['bound_ms']!r} (bytes) library_ms="
+            f"{r['library_ms']!r} ({r['library']}"
+            + (f"; refused: {r['library_refused']}; bf16 moments "
+               f"{r['library_bf16_moments_ms']!r} ms"
+               if "library_refused" in r else "") + f") card=\"{card}\"")
+    del p32, g32, mu32, nu32
+    torch.cuda.empty_cache()
+    return out
+
+
+def bwd_times(sw, swb, cyc, flush, card) -> dict:
+    """swa_attention_bwd in bf16 at the main path's (2, 1024) and at (1,
+    4608), W 4096: CUDA events, L2 flushed and warm, beside its bound, the
+    plain backward's time (one call) and SDPA's backward."""
+    rows = {}
+    for b, s in ((LMT_BATCH, LMT_SEQ), LMT_LONG):
+        q, k, v, do = bwd_inputs(b, s, 32, 8, 120, torch.bfloat16, SEED + 18)
+        o, lse = sw.swa_attention_cuda(q, k, v, window=4096, with_lse=True)
+        kern = lambda: swb.swa_attention_bwd_cuda(q, k, v, o, do, lse,
+                                                  window=4096)
+        plain = lambda: swb.swa_attention_bwd_plain(q, k, v, o, do, lse,
+                                                    window=4096)
+        lib = sdpa_bwd_fn(q, k, v, do, 4096)
+        n_ev = CHUNK * (2 if s <= LMT_SEQ else 1)
+        rec = {"shape": [b, s, 32, 8, 120], "window": 4096,
+               "dtype": "bfloat16",
+               "ms": device_ms(kern, cyc, flush, n_ev)[0],
+               "warm_l2_ms": device_ms(kern, cyc, None, n_ev)[0],
+               "plain_ms": events_ms(plain, 1),
+               "library_ms": device_ms(lib, cyc, flush, n_ev)[0],
+               "library_backend": sdpa_backend_of(q, k, v, 4096),
+               **bwd_bound(b, s, 32, 8, 120, 4096)}
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rows[f"swa_attention_bwd/{b}x{s}"] = rec
+        log(f"time swa_attention_bwd shape=({b}, {s}, 32/8, 120) bf16 W=4096 "
+            f"L2 flushed: kernel_ms={rec['ms']!r} (L2-warm "
+            f"{rec['warm_l2_ms']!r}) plain_ms={rec['plain_ms']!r} "
+            f"bound_ms={rec['bound_ms']!r} ({rec['bound_by']}; "
+            f"{rec['flops']} FLOP at {BF16_FLOP_PER_S / 1e12:g} TFLOP/s, "
+            f"{rec['bytes']} B at {HBM_BYTES_PER_S / 1e12:g} TB/s; share "
+            f"{rec['share_of_bound']!r}) library_ms={rec['library_ms']!r} "
+            f"(SDPA backward, {rec['library_backend']} forward choice) "
+            f"card=\"{card}\"")
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bwd_alone() -> dict:
+    """The backward's times alone (``python3 -c 'import chip_smoke as c;
+    c.bwd_alone()'``): builds the kernels, then ``bwd_times``. Run from a
+    checkout of another commit (this file copied into it) and from this one
+    in turns to compare two kernels in one chip call."""
+    if not torch.cuda.is_available():
+        raise SystemExit("bwd_alone: no CUDA card")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.kernels import swa_attention_bwd as swb
+    card = card_line()
+    _build.load()
+    return bwd_times(sw, swb, sleep_cycles_per_ms(), l2_flusher(), card)
 
 
 def lm_train_phase(km, sw, swb, TC, TM, launch, card) -> dict:
@@ -5519,11 +5659,12 @@ def main() -> int:
         if ("ptxas info" in line and "Used" in line) or "(C75" in line or (
                 "spill" in line and " 0 bytes spill stores" not in line):
             log(f"phase build: {line.strip()}")
-    n_hgmma = hgmma_count(_build)
-    log(f"phase build: {n_hgmma} HGMMA instructions in {SWA_KERNEL} "
-        f"(cuobjdump -sass)")
-    if n_hgmma == 0:
-        raise AssertionError(f"{SWA_KERNEL} issues no wgmma")
+    n_hgmma = {k: hgmma_count(_build, k) for k in (SWA_KERNEL,) + BWD_KERNELS}
+    log(f"phase build: HGMMA instructions by kernel (cuobjdump -sass): "
+        f"{n_hgmma}")
+    if not all(n_hgmma.values()):
+        raise AssertionError(f"a bf16 attention kernel issues no wgmma: "
+                             f"{n_hgmma}")
 
     # 3. kernel vs plain
     parity = kernel_vs_plain(pinf)
@@ -5729,6 +5870,14 @@ def main() -> int:
                   "window": 4096, "dtype": "bfloat16"},
         "replaces_note": "_flash_bwd, the jnp backward of the JAX model's "
                          "flash_attention (no Pallas kernel)",
+        "design": "bf16 (timed): swa_bwd_dq_hopper_kernel (128 query "
+                  "rows a block, a consumer warpgroup per 64) then "
+                  "swa_bwd_dkdv_hopper_kernel (64 keys a block, its two "
+                  "consumer warpgroups take the streamed q tiles in turn "
+                  "and add their sums in a fixed order); wgmma on 64-row "
+                  "tiles a TMA producer streams through a 4-slot ring; p "
+                  "and ds as bf16 hi + lo. fp32: the CUDA-core "
+                  "swa_bwd_dq_kernel and swa_bwd_dkdv_kernel",
         "max_abs_err_all_cases": lmt["bwd_parity"]["worst"],
     })
     s0, m0_, n0_ = SWEEP_KERNEL_SHAPES[0]

@@ -64,7 +64,9 @@
 //   2^-17 p), 16 m64n128k16 per tile instead of 8;
 // - within a q tile the blocks run the heads that share a KV head side by
 //   side (their k and v meet in the L2).
-// D = 64 is kBoxes = 1 (64-column boxes per row) and an n64 p v wgmma.
+// The mbarrier, TMA and wgmma helpers are hopper_common.cuh's, shared with
+// the backward. D = 64 is kBoxes = 1 (64-column boxes per row) and an n64
+// p v wgmma.
 // D = 256 is kBoxes = 4 and an n256 p v wgmma whose accumulator takes 128
 // registers: it also needs 64-key tiles (s and p in 32 each; the 64 KB q
 // tile and the ring then fit in shared memory).
@@ -89,7 +91,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
+
+using namespace repro_hopper;
 
 constexpr float kMasked = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -307,140 +313,7 @@ constexpr int kConsumers = 256;          // two warpgroups of 64 query rows
 constexpr int kHThreads = kConsumers + 128;  // + the producer warpgroup
 // Registers a thread after setmaxnreg: 128 x 56 + 256 x 224 <= 65,536.
 constexpr int kProducerRegs = 56, kConsumerRegs = 224;
-constexpr int kBoxCols = 64;             // bf16 columns of one 128-byte row
 constexpr int kBoxBytes = kRows * 128;   // one box: 128 rows x 128 bytes
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// One arrival per warp, once every lane is done with the slot.
-__device__ __forceinline__ void release(uint64_t* bar, int lane) {
-  __syncwarp();
-  if (lane == 0)
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                     smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  }
-}
-
-// One box of the 4-d tensor map at coordinates (c0, c1, c2, c3) into dst.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3) : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// Wait until at most n committed wgmma groups are still in flight.
-template <int n>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(n) : "memory");
-}
-
-// Ties the registers to the point in the instruction stream where this is
-// issued, so no access to them moves across a wgmma wait.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_regs(uint32_t (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-#define REPRO_ACC64(d)                                                        \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),            \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),        \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),        \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
-      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),        \
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),        \
-      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),        \
-      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),        \
-      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),        \
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),        \
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-
-#define REPRO_D64                                                             \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "    \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "    \
-  "%58, %59, %60, %61, %62, %63}"
-
-// d (64 x 128, fp32) (+)= a (64 x 16, shared memory, K-major) x
-// b (16 x 128, shared memory, K-major); d is zeroed first unless accumulate.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REPRO_D64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : REPRO_ACC64(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 128, fp32) += a (64 x 16, bf16 pairs in registers) x
-// b (16 x 128, shared memory, MN-major).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REPRO_D64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : REPRO_ACC64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef REPRO_D64
-#undef REPRO_ACC64
-
-// 2^x on the SFU (relative error about 2^-22; results below 2^-126 are 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // s = q k^T for 64 query rows x 128 keys: K = D in 16-column steps, four
 // per 128-byte box (both operands K-major).
@@ -448,11 +321,9 @@ template <int kBoxes>
 __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_addr,
                                          uint32_t k_addr) {
 #pragma unroll
-  for (int kk = 0; kk < 4 * kBoxes; ++kk) {
-    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    wgmma_ss_n128(s, sw128_desc(q_addr + off, 16, 1024),
-                  sw128_desc(k_addr + off, 16, 1024), kk > 0);
-  }
+  for (int kk = 0; kk < 4 * kBoxes; ++kk)
+    wgmma_ss_n128(s, kmajor_desc(q_addr, kRows, 0, kk),
+                  kmajor_desc(k_addr, kRows, 0, kk), kk > 0);
   wgmma_commit();
 }
 
@@ -464,7 +335,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[64],
                                          uint32_t v_addr) {
 #pragma unroll
   for (int kk = 0; kk < kRows / 16; ++kk) {
-    const uint64_t dv = sw128_desc(v_addr + kk * 16 * 128, kBoxBytes, 1024);
+    const uint64_t dv = mnmajor_desc(v_addr, kRows, kk);
     wgmma_rs_n128(acc, p_hi + 4 * kk, dv);
     wgmma_rs_n128(acc, p_lo + 4 * kk, dv);
   }
@@ -525,21 +396,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], Rows& st,
   }
   st.l_a = st.l_a * al_a + sum_a;
   st.l_b = st.l_b * al_b + sum_b;
-}
-
-// p split into bf16 p_hi + p_lo, in the A-fragment order of the m64k16
-// wgmma: register r of k-step kk holds elements 8kk + 2r and 8kk + 2r + 1.
-__device__ __forceinline__ void split_p(const float (&p)[64],
-                                        uint32_t (&p_hi)[32],
-                                        uint32_t (&p_lo)[32]) {
-#pragma unroll
-  for (int e = 0; e < 64; e += 2) {
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(p[e], p[e + 1]);
-    const float lo0 = p[e] - __low2float(hi), lo1 = p[e + 1] - __high2float(hi);
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(lo0, lo1);
-    p_hi[e / 2] = *reinterpret_cast<const uint32_t*>(&hi);
-    p_lo[e / 2] = *reinterpret_cast<const uint32_t*>(&lo);
-  }
 }
 
 // o rows r_a and r_a + 8 of (b, h), where below Sq: the accumulator over
@@ -704,7 +560,7 @@ swa_attention_hopper_kernel(__grid_constant__ const CUtensorMap tq,
     release(&free_k[0], lane);
     softmax_tile(s, st, al_a, al_b, w.t0 * kRows, r_wg, r_a, col0, Sk,
                  window, causal, scale_log2);
-    split_p(s, p_hi, p_lo);
+    split_bf16(s, p_hi, p_lo);
     for (int i = 1; i < w.n_tiles; ++i) {
       const int sn = i % kStages, sp = (i - 1) % kStages;
       mbar_wait(&bar_k[sn], (i / kStages) & 1);
@@ -725,7 +581,7 @@ swa_attention_hopper_kernel(__grid_constant__ const CUtensorMap tq,
       release(&free_v[sp], lane);
 #pragma unroll
       for (int e = 0; e < 64; ++e) acc[e] *= (e & 2) ? al_b : al_a;
-      split_p(s, p_hi, p_lo);
+      split_bf16(s, p_hi, p_lo);
     }
     // The last tile's p v.
     const int last = w.n_tiles - 1, sl = last % kStages;
@@ -741,43 +597,6 @@ swa_attention_hopper_kernel(__grid_constant__ const CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up once through the CUDA runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (B, S, heads, D) bf16 tensor as 64-column x 128-row boxes with the
-// 128-byte swizzle; reads past D or S give zeros.
-bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
-                int S, int heads, int D) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kBoxCols, 1, (cuuint32_t)kRows, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int Sq, int Sk, int H, int KV, int window,
@@ -788,9 +607,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   const EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!encode_map(enc, &tq, q, B, Sq, H, D) ||
-      !encode_map(enc, &tk, k, B, Sk, KV, D) ||
-      !encode_map(enc, &tv, v, B, Sk, KV, D))
+  if (!encode_map(enc, &tq, q, B, Sq, H, D, kRows) ||
+      !encode_map(enc, &tk, k, B, Sk, KV, D, kRows) ||
+      !encode_map(enc, &tv, v, B, Sk, KV, D, kRows))
     return (int)cudaErrorInvalidValue;
   static bool opted_in = false;
   if (!opted_in) {

@@ -20,12 +20,15 @@ the ``H / KV`` query heads of a group is the gradient of JAX's
 ``_repeat_kv``.
 
 * :func:`swa_attention_bwd_cuda` wraps ``csrc/swa_attention_bwd.cu``: a dq
-  kernel (one block per (b, h, 64-row q tile), walking the key tiles of its
+  kernel (one block per (b, h, q tile), walking the key tiles of its
   window; it also writes ``delta``) and a dk / dv kernel (one block per
   (b, KV head, 64-row key tile), walking the group's query heads and the q
   tiles that see the tile, in a fixed order, so a shape's result repeats
-  bitwise). One call is two launches on the current stream and counts one
-  in :data:`launches`. fp32 and bf16, head sizes ``HEAD_DIMS``.
+  bitwise). bf16 runs on the tensor cores (wgmma on tiles a TMA producer
+  streams through a shared-memory ring; ``p`` and ``ds`` enter the products
+  as bf16 hi + lo), fp32 on the CUDA cores. One call is two launches on the
+  current stream and counts one in :data:`launches`. Head sizes
+  ``HEAD_DIMS``.
 * :func:`swa_attention_bwd_plain` is the same function in plain PyTorch,
   scores materialised in fp32 (float64 for float64 inputs) per KV group, as
   ``swa_attention_plain`` does. The CPU path runs it; on the card it is
@@ -108,14 +111,17 @@ def swa_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            lse: torch.Tensor, *,
                            window: Optional[int] = None, causal: bool = True
                            ) -> Grads:
-    """Launch ``swa_bwd_dq_kernel`` then ``swa_bwd_dkdv_kernel``: returns
-    ``(dq, dk, dv)`` in the inputs' dtype.
+    """Launch the dq kernel then the dk / dv kernel (bf16:
+    ``swa_bwd_dq_hopper_kernel``, ``swa_bwd_dkdv_hopper_kernel``; fp32:
+    ``swa_bwd_dq_kernel``, ``swa_bwd_dkdv_kernel``): returns ``(dq, dk, dv)``
+    in the inputs' dtype.
 
     ``q``, ``o``, ``do`` are contiguous ``(B, Sq, H, D)`` CUDA tensors,
     ``k`` and ``v`` contiguous ``(B, Sk, KV, D)``, all fp32 or all bf16 on
     one device, D in :data:`HEAD_DIMS`; ``lse`` is the forward's contiguous
-    fp32 ``(B, H, Sq)``. The outputs and the fp32 ``delta`` scratch are
-    allocated here.
+    fp32 ``(B, H, Sq)``; every pointer 16-byte aligned. The outputs and the
+    fp32 scratch (``delta``, and for bf16 also ``lse * log2 e``, each padded
+    to whole 128-row tiles) are allocated here.
     """
     global launches
     fn = "swa_attention_bwd_cuda"
@@ -133,8 +139,12 @@ def swa_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("k", k), ("v", v)):
         check_buffer(fn, name, t, k.shape, dtypes, device)
     check_buffer(fn, "lse", lse, (B, H, Sq), (torch.float32,), device)
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must start on a 16-byte boundary")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=device)
+    delta = torch.empty((2, B, H, -(-Sq // 128) * 128), dtype=torch.float32,
+                        device=device)
     lib = _build.load()
     raise_on(fn, lib, lib.repro_swa_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),

@@ -1226,20 +1226,14 @@ def _bwd_case(b, s, h, kv, d, dtype, seed, device):
         rnd(b, s, h, d)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("window", [None, 1, 64, 4096])
-@pytest.mark.parametrize("b,s,h,kv,d", [
-    (1, 1, 32, 8, 120), (1, 127, 32, 8, 120), (1, 1024, 24, 8, 128),
-    (2, 300, 24, 8, 128), (2, 1024, 32, 8, 120)])
-def test_swa_attention_bwd_kernel_matches_plain(card, b, s, h, kv, d, window,
-                                                dtype):
+def _check_bwd_kernel(b, s, h, kv, d, window, dtype, seed, card):
     """The forward's lse within 1e-5 (relative, at least 1) of the plain
     version's; the backward on the kernel forward's o and lse: fp32 within
     1e-5 of the largest |gradient| of the plain backward, bf16 against the
     float64 gradient within 2x / 1.1x the plain bf16 backward's largest /
     mean error (+ 1e-6 of the largest |gradient|: with W = 1, dq and dk are
     0 up to rounding); one launch a call, and a second call the same bits."""
-    q, k, v, do = _bwd_case(b, s, h, kv, d, dtype, s + h + (window or 0), card)
+    q, k, v, do = _bwd_case(b, s, h, kv, d, dtype, seed, card)
     kw = dict(window=window, causal=True)
     o, lse = sw.swa_attention_cuda(q, k, v, with_lse=True, **kw)
     assert torch.equal(o, sw.swa_attention_cuda(q, k, v, **kw))
@@ -1267,6 +1261,31 @@ def test_swa_attention_bwd_kernel_matches_plain(card, b, s, h, kv, d, window,
         assert float(ex.max()) <= BWD_MAX_RATIO * float(ep.max()) + BWD_FLOOR * G
         assert float(ex.mean()) <= BWD_MEAN_RATIO * float(ep.mean()) + \
             BWD_FLOOR * G
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("window", [None, 1, 64, 4096])
+@pytest.mark.parametrize("b,s,h,kv,d", [
+    (1, 1, 32, 8, 120), (1, 127, 32, 8, 120), (1, 1024, 24, 8, 128),
+    (2, 300, 24, 8, 128), (2, 1024, 32, 8, 120)])
+def test_swa_attention_bwd_kernel_matches_plain(card, b, s, h, kv, d, window,
+                                                dtype):
+    """See ``_check_bwd_kernel``."""
+    _check_bwd_kernel(b, s, h, kv, d, window, dtype, s + h + (window or 0),
+                      card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,s,h,kv,d,window", [
+    (1, 129, 8, 8, 120, 100), (1, 255, 8, 8, 128, 200),
+    (1, 129, 24, 8, 128, 200), (1, 255, 32, 8, 120, 100),
+    (2, 200, 12, 4, 120, 100), (1, 65, 4, 4, 128, None)])
+def test_swa_attention_bwd_kernel_at_tile_edges(card, b, s, h, kv, d, window,
+                                                dtype):
+    """``_check_bwd_kernel`` where the 64- and 128-row tiles of the bf16
+    kernels end ragged (S 65, 129, 200, 255), a window crosses a tile (W
+    100, 200), and H = KV, for both head sizes."""
+    _check_bwd_kernel(b, s, h, kv, d, window, dtype, 7 * s + h, card)
 
 
 def test_swa_attention_bwd_kernel_refuses_what_it_does_not_take(card):

@@ -277,11 +277,14 @@ def test_mean_error_rule_passes_the_split_and_fails_one_bf16_p(
 
 # (b, s, h, kv, d, window, chunk of the JAX scan): GQA with a window; an
 # odd length that pads the last chunk, 3 query heads a KV head, no window;
-# W = 1 at another odd length.
+# W = 1 at another odd length; lengths past two chunks with windows that
+# divide neither the length nor the chunk.
 BWD_CASES = [
     (2, 32, 4, 2, 32, 8, 8),
     (1, 37, 6, 2, 16, None, 8),
     (1, 29, 2, 2, 24, 1, 16),
+    (2, 40, 4, 1, 24, 12, 16),
+    (1, 50, 3, 3, 16, 7, 16),
 ]
 BWD_ATOL = 1e-5
 
@@ -313,6 +316,90 @@ def test_plain_backward_and_lse_match_jax_flash_vjp(b, s, h, kv, d, window,
     got = torch.autograd.grad(dispatch.swa_attention(*leaves, window=window),
                               leaves, torch.from_numpy(do))
     assert all(torch.equal(x, y) for x, y in zip(got, (dq, dk, dv)))
+
+
+def _bwd_kernel_numerics(q, k, v, o, do, lse, window, split):
+    """The bf16 backward kernel's arithmetic in plain torch: fp32 scores
+    ``s = q k^T`` and ``dp = do v^T`` (bf16 operands, exact products, fp32
+    sums), ``p = exp(s D^-1/2 - lse)`` (0 where masked), ``delta`` the fp32
+    row sums of ``do * o`` and ``ds = p (dp - delta) D^-1/2`` in fp32; then
+    ``dv = p^T do``, ``dq = ds k`` and ``dk = ds^T q`` with ``p`` and ``ds``
+    as ``bf16(x) + bf16(x - bf16(x))`` (``split``) or as one ``bf16(x)``,
+    fp32 sums (float64 here, as the tensor cores' exact products and wide
+    sums) and bf16 outputs. ``q``, ``k``, ``v``, ``o``, ``do`` hold bf16
+    values; ``lse`` is fp32 ``(B, H, Sq)``; causal."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    kr, vr = (t.repeat_interleave(rep, dim=2).double() for t in (k, v))
+    scale = D ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), kr).float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.double(), vr).float()
+    ok = sw.swa_mask(Sq, Sk, window, True, q.device)
+    p = torch.where(ok, torch.exp(s * scale - lse[..., None]),
+                    torch.zeros(()))
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    ds = p * (dp - delta[..., None]) * scale
+
+    def product(eq, x, y):
+        hi = x.bfloat16()
+        parts = [hi, (x - hi.float()).bfloat16()] if split else [hi]
+        return sum(torch.einsum(eq, a.double(), y) for a in parts)
+
+    fold = lambda g: g.reshape(B, Sk, KV, rep, D).sum(3)
+    dq = product("bhqk,bkhd->bqhd", ds, kr)
+    dk = fold(product("bhqk,bqhd->bkhd", ds, q.double()))
+    dv = fold(product("bhqk,bqhd->bkhd", p, do.double()))
+    return tuple(x.float().bfloat16() for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("s,window,h,kv,d", [
+    (129, None, 4, 1, 120),
+    (200, 100, 6, 2, 128),
+    (255, 1, 3, 3, 120),
+    (129, 100, 3, 1, 128),
+    (255, None, 4, 4, 120),
+    (200, 1, 8, 2, 120),
+])
+def test_bwd_error_rule_passes_the_split_and_fails_one_bf16_p_and_ds(
+        s, window, h, kv, d):
+    """The card's rule for the bf16 backward (each of dq, dk, dv against
+    float64 within 2x the plain version's largest and 1.1x its mean error,
+    + 1e-6 of the largest |gradient|) on the kernel's arithmetic: p and ds
+    as bf16 hi + lo keep it; one bf16 rounding of each breaks the mean rule
+    wherever W > 1 (with W = 1, p is exactly 1 and dq, dk are 0)."""
+    gen = torch.Generator().manual_seed(s * h + d)
+    rnd = lambda *sh: torch.randn(sh, generator=gen).bfloat16()
+    q, k, v, do = rnd(1, s, h, d), rnd(1, s, kv, d), rnd(1, s, kv, d), \
+        rnd(1, s, h, d)
+    o, lse = sw.swa_attention_plain(q, k, v, window=window, with_lse=True)
+    plain = swb.swa_attention_bwd_plain(q, k, v, o, do, lse, window=window)
+    x64 = [t.double() for t in (q, k, v, do)]
+    o64, lse64 = sw.swa_attention_plain(*x64[:3], window=window, with_lse=True)
+    want = swb.swa_attention_bwd_plain(*x64[:3], o64, x64[3], lse64,
+                                       window=window)
+    G = max(float(w.abs().max()) for w in want)
+    ratios = {}
+    for split in (True, False):
+        got = _bwd_kernel_numerics(q, k, v, o, do, lse, window, split)
+        for name, x, p, w in zip(("dq", "dk", "dv"), got, plain, want):
+            ex, ep = (x.double() - w).abs(), (p.double() - w).abs()
+            ratios[split, name] = (
+                (float(ex.max()) - 1e-6 * G) / max(float(ep.max()), 1e-30),
+                (float(ex.mean()) - 1e-6 * G) / max(float(ep.mean()), 1e-30))
+    for name in ("dq", "dk", "dv"):
+        mx, mean = ratios[True, name]
+        REACHED["bwd split max err / plain's"] = max(
+            REACHED.get("bwd split max err / plain's", 0.0), mx)
+        REACHED["bwd split mean err / plain's"] = max(
+            REACHED.get("bwd split mean err / plain's", 0.0), mean)
+        assert mx <= 2.0 and mean <= 1.1, (name, mx, mean)
+    if window != 1:
+        one = max(ratios[False, n][1] for n in ("dq", "dk", "dv"))
+        REACHED["bwd one bf16 p, ds mean err / plain's (smallest)"] = min(
+            REACHED.get("bwd one bf16 p, ds mean err / plain's (smallest)",
+                        np.inf), one)
+        assert one > 1.1
 
 
 @pytest.mark.parametrize("b,s,h,kv,d,window,causal", [
