@@ -44,7 +44,8 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    with the periodic (tau 10) and decay (tau 15, tau_i ~ U{1..15}, lambda
    0.95) strategies, each with SGD, momentum and Adam: the Table II geometry
    (shared FIGURE_EIGHT env, m = 7, T = 150, P = 25, eta = 5e-3), fleets of
-   m in {64, 1024, 10000} agents with B = 1 (m = 64 also with B = 4 and 2 PPO
+   m in {64, 1024, 10000} agents with B = 1 (m = 10000 with SGD only; m = 64
+   also with B = 4 and 2 PPO
    epochs of 2 minibatches) and one run with bf16 buffers, each seeded and
    drawing on the card (these give updates/sec per m). The m = 7
    configurations, the m = 64 ones with SGD and the bf16 run run again on
@@ -159,8 +160,8 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    bf16 / fp16, scalar / shared / per-run / per-row coefficients, shared /
    per-run learning rates, mixing matrices and edge weights, and the S == m
    refusals; then ``repro_torch.sweep.run_sweep(device="cuda")`` on Fig. 5's
-   lambda grid (3 x 2 seeds), Fig. 6's eps grid (3 x 2, dense and sparse),
-   Fig. 4's taus grid (4 x 2), an eta x momentum / Adam grid (2 x 1) and a
+   lambda grid (3 x 1 seed), Fig. 6's eps grid (3 x 1, dense and sparse),
+   Fig. 4's taus grid (4 x 1), an eta x momentum / Adam grid (2 x 1) and a
    top-k uplink point (2 seeds), m = 7, T 150, P 25, 2 epochs: each against
    ``run_sweep_loop`` (bitwise or within rtol / atol 1e-4, stated), its
    first 4 runs against the CPU on the same draws (1e-4), launches S times
@@ -220,6 +221,31 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    window of a period, and ``row_mean`` / ``adam_update`` at the phase's
    (2, 555,436,800) bf16 rows beside ``x.mean(0)`` / ``torch._fused_adamw_``.
    Alone: ``python3 -c 'import chip_smoke as c; c.lm_train_alone()'``.
+19. head 256 (slice 15) — the ``swa_attention`` kernels at D = 256 against
+   their plain version (fp32 and bf16, Sq = Sk in {1, 63, 64, 65, 127, 128,
+   129, 200}, W in {None, 2048, 40}, 1 and 16 KV heads of 16 query heads,
+   phase 12's rules, each call repeated bitwise, the lse at two shapes);
+   then gemma-7b (28 global ``attn`` layers, 16 / 16 heads of 256, 8.54 B
+   parameters) and recurrentgemma-9b (38 layers of ``(rglru, rglru,
+   local)``, MQA 16 / 1 heads of 256, W 2048, 9.40 B parameters) at full
+   width and depth, seeded bf16 weights, each freed before the next is
+   drawn: ``make_prefill_step`` at 8 x 512 and 1 x 8192,
+   ``make_serve_step`` for 16 tokens at B = 8, an 8-slot ``ServingLoop``
+   over 16 requests of 16-512 prompt and 16-32 new tokens
+   (recurrentgemma-9b's request 0 of 2,100 tokens wraps its ring),
+   launches counted (one per attention layer per prefill call and
+   admission, none per decode step); every fourth completion against
+   single-request greedy decoding (bf16 near-ties counted), an admission
+   against the other slots' rows of every state leaf (K/V, positions, the
+   RG-LRU ``h`` and conv inputs), the kernel against the plain version on
+   the first attention layer's q, k, v at both prefill shapes, a profiled
+   1 x 8192 prefill (the kernel's and, for recurrentgemma-9b, the RG-LRU
+   scan's share of the busy time); phi4-mini-3.8b at full size (a prefill
+   at 8 x 512 and an 8-request ``ServingLoop`` held to single-request
+   greedy decoding with ``prefill(cache_len=)``); the D = 256 kernel's
+   times at the three prefill calls beside its bound, the plain version's
+   and SDPA's. Alone: ``python3 -c 'import chip_smoke as c;
+   c.head256_alone()'``.
 
 Its last lines are the kernel summary JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -1476,7 +1502,8 @@ def training_plan() -> list:
     the CPU on replayed draws: every m = 7 run, the m = 64 runs with SGD
     and the bf16 run (the m = 64 momentum and Adam replays went when phase
     18 came: their kernels are held card vs CPU at m = 7, in phases 6 and
-    15)."""
+    15). At m = 10000 SGD only (momentum and Adam went when phase 19 came;
+    m = 1024 runs them)."""
     plan = []
     for kind in ("periodic", "decay"):
         for opt in ("sgd", "momentum", "adam"):
@@ -1490,6 +1517,8 @@ def training_plan() -> list:
             plan.append((f"m=64 B=4 ppo2x2 {kind} {opt}", opt == "sgd",
                          dict(base, m=64, B=4, ppo_epochs=2, n_minibatches=2)))
             for m in TRAIN_FLEETS[1:]:
+                if m > 1024 and opt != "sgd":
+                    continue          # cut when phase 19 came
                 plan.append((f"m={m} B=1 {kind} {opt}", False,
                              dict(base, m=m, B=1)))
     plan.append(("m=64 B=1 decay adam bf16", True,
@@ -1506,12 +1535,14 @@ def consensus_plan() -> list:
     tau = 15 as ``benchmarks/compression_bench.py:59-69``) and top-k
     gossip. The m = 7 runs on the 3-4 topology are held against the CPU on
     replayed draws, those on the 5-6 one run seeded only (their replays
-    went when phase 18 came)."""
+    went when phase 18 came) and with SGD only (momentum and Adam went when
+    phase 19 came)."""
     plan = []
     for topo in (("random_regularish", 7, 3, 4, 0),
                  ("random_regularish", 7, 5, 6, 0)):
         for rounds in (1, 2):
-            for opt in ("sgd", "momentum", "adam"):
+            opts = ("sgd", "momentum", "adam") if topo[2] == 3 else ("sgd",)
+            for opt in opts:
                 plan.append((
                     f"m=7 consensus rand{topo[2]}-{topo[3]} E={rounds} {opt}",
                     topo[2] == 3, dict(kind="consensus", opt=opt, m=7,
@@ -2503,14 +2534,16 @@ def sweep_kernel_times(km, core, comm, card) -> dict:
 
 # The figure sweeps through repro_torch.sweep.run_sweep on the card, each at
 # m = 7 and the Table II run geometry (T 150, P 25, eta 5e-3) for
-# SWEEP_EPOCHS epochs, seeds 0-1: Fig. 5's lambda grid, Fig. 6's eps grid on
-# the sparse E=1 topology (dense path, and the sparse path forced), Fig. 4's
-# taus grid at tau = 15, a short eta x momentum / Adam grid (a static axis of
-# the two optimizers; seed 0) and a top-k uplink static point (a
-# compression_axis). Seeds 0-3 until phase 17 came: the loop of one-run calls
-# that each sweep is held against took 64 s of the phase's 103 s; 2 seeds
-# halve it and keep every path, and 2 epochs keep each tau = 10 sweep's sync
-# (the top-k one's topk_scatter).
+# SWEEP_EPOCHS epochs: Fig. 5's lambda grid, Fig. 6's eps grid on the sparse
+# E=1 topology (dense path, and the sparse path forced), Fig. 4's taus grid
+# at tau = 15 (these four at seed 0: 3-4 runs a batch), a short eta x
+# momentum / Adam grid (a static axis of the two optimizers; seed 0) and a
+# top-k uplink static point (a compression_axis; seeds 0-1). Seeds 0-3 until
+# phase 17 came: the loop of one-run calls that each sweep is held against
+# took 64 s of the phase's 103 s; 2 seeds halved it and kept every path; the
+# four grids went to seed 0 when phase 19 came (every grid point still runs
+# batched and looped). 2 epochs keep each tau = 10 sweep's sync (the top-k
+# one's topk_scatter).
 SWEEP_EPOCHS = 2
 SWEEP_SEEDS = (0, 1)
 SWEEP_CPU_RUNS = 4           # runs of each sweep held against the CPU
@@ -2541,21 +2574,21 @@ def sweep_specs(rl, core, optim, comm, sweep) -> list:
         sparse=sparse)
     return [
         ("fig5 lambda", sweep.SweepSpec(
-            name="chip_fig5", seeds=SWEEP_SEEDS,
+            name="chip_fig5", seeds=SWEEP_SEEDS[:1],
             base=cfg(core.make_strategy(
                 "decay", tau=15, taus=taus15,
                 decay=core.exponential_decay(0.98))),
             vmapped=(sweep.SweepAxis("lam", (0.98, 0.95, 0.92)),))),
         ("fig6 eps dense", sweep.SweepSpec(
-            name="chip_fig6_dense", seeds=SWEEP_SEEDS,
+            name="chip_fig6_dense", seeds=SWEEP_SEEDS[:1],
             base=cfg(consensus(False)),
             vmapped=(sweep.SweepAxis("eps", eps),))),
         ("fig6 eps sparse", sweep.SweepSpec(
-            name="chip_fig6_sparse", seeds=SWEEP_SEEDS,
+            name="chip_fig6_sparse", seeds=SWEEP_SEEDS[:1],
             base=cfg(consensus(True)),
             vmapped=(sweep.SweepAxis("eps", eps),))),
         ("fig4 taus", sweep.SweepSpec(
-            name="chip_fig4", seeds=SWEEP_SEEDS,
+            name="chip_fig4", seeds=SWEEP_SEEDS[:1],
             base=cfg(core.make_strategy("periodic", tau=15, m=m)),
             vmapped=(sweep.SweepAxis("taus", scheds),))),
         ("eta x optimizer", sweep.SweepSpec(
@@ -3410,7 +3443,7 @@ LM_PROMPT = (16, 512)                 # prompt lengths, inclusive
 LM_NEW = (32, 64)                     # new tokens, inclusive
 LM_MAX_SEQ = 1024
 LM_ADMIT_TIMED = (1, 256)             # an admission of a mid-length prompt
-LM_TIMED = 3                          # timed calls per prefill shape
+LM_TIMED = 2                          # timed calls per prefill shape
 # wkv6 kernel vs plain: both against the plain loop in float64 on the same
 # inputs; the kernel's error within max(WKV_ATOL, 2x the fp32 plain loop's).
 WKV_ATOL = 1e-5
@@ -3595,6 +3628,20 @@ def _margins(logits: torch.Tensor):
 def _prompt_tokens(rng, cfg, b, t):
     return torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, t)),
                            device="cuda")
+
+
+def _requests(rng, launch, cfg, long_prompt=None, n=LM_REQUESTS,
+              prompt=LM_PROMPT, new=LM_NEW):
+    """``n`` requests: prompts of ``prompt`` tokens (inclusive range) and
+    ``new`` new tokens; request 0's prompt of ``long_prompt`` tokens where
+    given (it wraps a ring of that length's window)."""
+    reqs = []
+    for i in range(n):
+        p = long_prompt if (i == 0 and long_prompt) else int(
+            rng.integers(prompt[0], prompt[1] + 1))
+        reqs.append(launch.Request(i, rng.integers(0, cfg.vocab_size, p),
+                                   int(rng.integers(new[0], new[1] + 1))))
+    return reqs
 
 
 def lm_greedy_check(TM, cfg, params, req, tokens, near_tie,
@@ -3859,10 +3906,7 @@ def lm_serving_path(wk, _build, TC, TM, launch, card) -> dict:
     out["decode"] = {"batch": LM_SLOTS, "steps": LM_DECODE_TOKENS,
                      "seconds": dec_s,
                      "tokens_per_s": LM_SLOTS * LM_DECODE_TOKENS / dec_s}
-    reqs = [launch.Request(i, rng.integers(0, cfg.vocab_size, int(rng.integers(
-        LM_PROMPT[0], LM_PROMPT[1] + 1))), int(rng.integers(LM_NEW[0],
-                                                            LM_NEW[1] + 1)))
-            for i in range(LM_REQUESTS)]
+    reqs = _requests(rng, launch, cfg)
     warm = launch.ServingLoop(cfg, params, n_slots=LM_SLOTS,
                               max_seq=LM_MAX_SEQ)
     before = wk.launches
@@ -4397,18 +4441,6 @@ def swa_model_kernel_vs_plain(sw, TM, cfg, params, rng) -> dict:
     return out
 
 
-def _swa_requests(rng, launch, cfg):
-    """16 requests: prompts of 16-512 tokens and 32-64 new tokens, but
-    request 0's prompt of SWA_LONG_PROMPT tokens, which wraps its ring."""
-    reqs = []
-    for i in range(LM_REQUESTS):
-        n = SWA_LONG_PROMPT if i == 0 else int(rng.integers(LM_PROMPT[0],
-                                                             LM_PROMPT[1] + 1))
-        reqs.append(launch.Request(i, rng.integers(0, cfg.vocab_size, n),
-                                   int(rng.integers(LM_NEW[0], LM_NEW[1] + 1))))
-    return reqs
-
-
 def swa_serving_path(sw, _build, TC, TM, launch, card) -> dict:
     """Phase 13: h2o-danube-3-4b at full width and depth, seeded bf16
     weights on the card, through the user's entry points:
@@ -4484,7 +4516,7 @@ def swa_serving_path(sw, _build, TC, TM, launch, card) -> dict:
                      "seconds": dec_s,
                      "tokens_per_s": LM_SLOTS * LM_DECODE_TOKENS / dec_s}
     del dec_states
-    reqs = _swa_requests(rng, launch, cfg)
+    reqs = _requests(rng, launch, cfg, long_prompt=SWA_LONG_PROMPT)
     warm = launch.ServingLoop(cfg, params, n_slots=LM_SLOTS, max_seq=64)
     warm.run([launch.Request(-1, r.prompt[:24], 2) for r in reqs[1:3]])
     del warm
@@ -4819,19 +4851,15 @@ def swa_times(sw, swa, card) -> dict:
     return rows
 
 
-def profile_swa(TC, TM, launch, card) -> dict:
-    """Two ``torch.profiler`` windows of h2o-danube-3-4b at full width,
-    bf16: one 1 x 8192 prefill call (device idle share, the swa_attention
-    kernel's and the matrix products' share of the busy time) and 16
-    decode steps at B = 8 after a 512-token prefill (idle share, the matrix
-    products' share, the top device ops)."""
+def profile_prefill(prefill_step, params, toks, n_attn) -> dict:
+    """One ``torch.profiler`` window of a prefill call (after one warm
+    call), taken again up to CUPTI_WINDOWS times while the tracer loses the
+    kernel's records: wall and device busy time, the idle share, the
+    swa_attention kernel's and the matrix products' device time and share
+    of the busy time, the top device ops. ``n_attn``: the kernel launches a
+    call makes."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = TC.get_arch(SWA_ARCH)
-    params = TM.init_params(cfg, seed=SEED, device="cuda")
-    prefill_step = launch.make_prefill_step(cfg)
-    toks = _prompt_tokens(np.random.default_rng(SEED + 51), cfg,
-                          *SWA_PREFILL[1])
     prefill_step(params, {"tokens": toks})
     torch.cuda.synchronize()
     for window in range(1, CUPTI_WINDOWS + 1):
@@ -4843,25 +4871,40 @@ def profile_swa(TC, TM, launch, card) -> dict:
             wall_us = (time.perf_counter() - t0) * 1e6
         dev = _device_ops(prof)
         n_swa = sum(c for k, (c, _) in dev.items() if SWA_KERNEL in k)
-        if n_swa == cfg.n_layers:
+        if n_swa == n_attn:
             break
         log(f"profile window {window} of {CUPTI_WINDOWS} lost: {n_swa} "
-            f"records of {SWA_KERNEL}, expected {cfg.n_layers}")
+            f"records of {SWA_KERNEL}, expected {n_attn}")
     else:
         raise AssertionError("every profiled prefill window was lost")
     busy = sum(t for _, t in dev.values())
     swa_us = sum(t for k, (_, t) in dev.items() if SWA_KERNEL in k)
     mm = _matmul_us(dev)
     top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:10]
-    pre = {"shape": list(SWA_PREFILL[1]), "wall_ms": wall_us / 1e3,
-           "device_busy_ms": busy / 1e3,
-           "device_idle_share": 1.0 - busy / wall_us,
-           "swa_attention_ms": swa_us / 1e3, "swa_attention_launches": n_swa,
-           "matmul_ms": mm / 1e3,
-           "swa_share_of_busy": swa_us / busy if busy else None,
-           "matmul_share_of_busy": mm / busy if busy else None,
-           "top_device_ops": {k: {"count": c, "device_ms": t / 1e3}
-                              for k, (c, t) in top}}
+    return {"shape": list(toks.shape), "wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "swa_attention_ms": swa_us / 1e3, "swa_attention_launches": n_swa,
+            "matmul_ms": mm / 1e3,
+            "swa_share_of_busy": swa_us / busy if busy else None,
+            "matmul_share_of_busy": mm / busy if busy else None,
+            "top_device_ops": {k: {"count": c, "device_ms": t / 1e3}
+                               for k, (c, t) in top}}
+
+
+def profile_swa(TC, TM, launch, card) -> dict:
+    """Two ``torch.profiler`` windows of h2o-danube-3-4b at full width,
+    bf16: one 1 x 8192 prefill call (device idle share, the swa_attention
+    kernel's and the matrix products' share of the busy time) and 16
+    decode steps at B = 8 after a 512-token prefill (idle share, the matrix
+    products' share, the top device ops)."""
+    cfg = TC.get_arch(SWA_ARCH)
+    params = TM.init_params(cfg, seed=SEED, device="cuda")
+    prefill_step = launch.make_prefill_step(cfg)
+    toks = _prompt_tokens(np.random.default_rng(SEED + 51), cfg,
+                          *SWA_PREFILL[1])
+    pre = profile_prefill(prefill_step, params, toks, cfg.n_layers)
+    n_swa = pre["swa_attention_launches"]
     log(f"profile swa prefill 1 x {SWA_PREFILL[1][1]}: wall_ms="
         f"{pre['wall_ms']!r} device_busy_ms={pre['device_busy_ms']!r} "
         f"device_idle_share={pre['device_idle_share']!r} swa_attention_ms="
@@ -5599,6 +5642,512 @@ def lm_train_alone() -> dict:
     return lm_train_phase(km, sw, swb, TC, TM, launch, card)
 
 
+# --- phase 19: head-256 serving (slice 15) -----------------------------------------
+
+HD_ARCHS = ("gemma-7b", "recurrentgemma-9b")
+# the JAX init trees' counts at full width (tests/test_torch_head256.py)
+HD_PARAMS = {"gemma-7b": 8_537_680_896, "recurrentgemma-9b": 9_396_408_320}
+HD_PREFILL = ((8, 512), (1, 8192))    # (B, T) of the prefill step
+HD_TIMED = 1                          # timed prefill calls per shape
+HD_DECODE_TOKENS = 16
+HD_NEW = (16, 32)                     # new tokens of a loop request
+HD_LONG_PROMPT = 2100                 # recurrentgemma request 0: past W = 2048
+HD_MAX_SEQ = {"gemma-7b": 640, "recurrentgemma-9b": 2240}
+HD_CHECKED = 4                        # every 4th completion held to B = 1
+# the D = 256 kernel vs plain: B 1, 16 query heads, Sq = Sk
+HD_SQ = (1, 63, 64, 65, 127, 128, 129, 200)
+HD_WINDOWS = (None, 2048, 40)
+HD_KV = (1, 16)
+# timed: (model, B, T, KV heads, window) at the three prefill calls
+HD_TIMES = (("gemma-7b", 8, 512, 16, None), ("gemma-7b", 1, 8192, 16, None),
+            ("recurrentgemma-9b", 1, 8192, 1, 2048))
+PHI4_ARCH = "phi4-mini-3.8b"
+PHI4_PARAMS = 3_836_021_760           # tests/test_torch_attention.py
+PHI4_REQUESTS = 8
+PHI4_PROMPT = (16, 256)
+PHI4_NEW = (16, 32)
+PHI4_MAX_SEQ = 320
+
+
+def hd_vs_plain(sw) -> dict:
+    """The D = 256 kernels against the plain version on the card: fp32 and
+    bf16, Sq = Sk in ``HD_SQ`` (the 64- and 128-row tile edges), windows
+    ``HD_WINDOWS``, 1 and 16 KV heads under 16 query heads, by phase 12's
+    rules (``swa_check``; the bf16 mean rule's control required wherever a
+    row sees more than one key, i.e. Sq > 1 and W > 1); each call repeated
+    and held bitwise to the first; the lse (``with_lse``) against the plain
+    version's at two shapes."""
+    rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for n, (sq, window, kv) in enumerate(
+                (s, w, k) for s in HD_SQ for w in HD_WINDOWS for k in HD_KV):
+            q, k, v = swa_inputs(1, sq, sq, 16, kv, 256, dtype, SEED + 190 + n)
+            got = sw.swa_attention_cuda(q, k, v, window=window)
+            again = sw.swa_attention_cuda(q, k, v, window=window)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"swa_attention D=256 {name} Sq {sq} "
+                                     f"W {window} KV {kv}: repeats differ")
+            row = {"sq": sq, "window": window, "kv": kv, "dtype": name}
+            row.update(swa_check(sw, q, k, v, got, window, True,
+                                 f"swa_attention D=256 Sq {sq} W {window} KV "
+                                 f"{kv} {name}", control=sq > 1))
+            worst[name] = max(worst[name], row["err"])
+            rows.append(row)
+    lse_err = 0.0
+    for sq, window in ((200, 40), (129, None)):
+        q, k, v = swa_inputs(1, sq, sq, 16, 1, 256, torch.bfloat16, SEED + 199)
+        _, lse = sw.swa_attention_cuda(q, k, v, window=window, with_lse=True)
+        _, plse = sw.swa_attention_plain(q, k, v, window=window,
+                                         with_lse=True)
+        lse_err = max(lse_err, float(((lse - plse).abs()
+                                      / plse.abs().clamp(min=1.0)).max()))
+    if not lse_err <= LSE_REL:
+        raise AssertionError(f"swa_attention D=256 lse: rel err {lse_err!r}")
+    out = {"cases": rows, "worst": worst, "lse_rel_err": lse_err,
+           **_mean_ratios([r for r in rows if r["sq"] > 1])}
+    log(f"phase head256 kernel vs plain: {len(rows)} cases ok (D 256, Sq "
+        f"{HD_SQ}, W {HD_WINDOWS}, KV {HD_KV} of 16 heads), each repeated "
+        f"bitwise; max abs err vs float64: fp32 {worst['float32']!r}, bf16 "
+        f"{worst['bfloat16']!r} (phase 12's rule); bf16 mean err / plain's at "
+        f"most {out['mean_ratio_max']!r} (rule <= {SWA_MEAN_RATIO}), the "
+        f"control (one bf16 p) at least {out['control_ratio_min']!r}; lse "
+        f"rel err {lse_err!r} (rule <= {LSE_REL})")
+    return out
+
+
+def hd_layer_vs_plain(sw, TM, cfg, params, toks) -> dict:
+    """One prefill of ``toks`` in which the first attention layer's q, k, v
+    are kept; then the kernel on them against the plain version by phase
+    12's rules (the control not required, as in phase 13)."""
+    seen = []
+
+    def keep_first(q, k, v, *, window, causal):
+        if not seen:
+            seen.append((q, k, v, window, causal))
+        return sw.swa_attention_cuda(q, k, v, window=window, causal=causal)
+
+    TM.prefill(cfg, params, toks, swa_impl=keep_first)
+    q, k, v, window, causal = seen[0]
+    got = sw.swa_attention_cuda(q, k, v, window=window, causal=causal)
+    row = {"shape": list(q.shape), "kv": k.shape[2], "window": window}
+    row.update(swa_check(sw, q, k, v, got, window, causal,
+                         f"{cfg.name} {tuple(toks.shape)} layer q/k/v",
+                         control=False))
+    del seen
+    torch.cuda.empty_cache()
+    return row
+
+
+def _hd_profile(TM, launch, cfg, params, rg) -> dict:
+    """``profile_prefill`` of one 1 x 8192 prefill call and, for an rglru
+    model, the RG-LRU scan's share of its busy time: ``rglru_scan`` timed
+    alone by CUDA events at the prefill's (1, 8192, W) fp32 inputs, times
+    the model's rglru layers, over the busy time."""
+    toks = _prompt_tokens(np.random.default_rng(SEED + 191), cfg,
+                          *HD_PREFILL[1])
+    n_attn = sum(cfg.block_kind(i) in ("attn", "local")
+                 for i in range(cfg.n_layers))
+    out = profile_prefill(launch.make_prefill_step(cfg), params, toks,
+                          n_attn)
+    if rg is not None:
+        n_rg = cfg.n_layers - n_attn
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 192)
+        shape = (1, HD_PREFILL[1][1], cfg.lru_dim)
+        a_log = -8.0 * torch.rand(shape, generator=gen, device="cuda")
+        x = torch.randn(shape, generator=gen, device="cuda")
+        h0 = torch.zeros(shape[0], shape[2], device="cuda")
+        scan_ms = events_ms(lambda: rg.rglru_scan(a_log, x, h0), 5)
+        out.update(rglru_layers=n_rg, rglru_scan_ms=scan_ms,
+                   rglru_scan_share_of_busy=n_rg * scan_ms
+                   / out["device_busy_ms"])
+    return out
+
+
+def hd_serving_path(sw, _build, TC, TM, launch, card, arch) -> dict:
+    """One head-256 model at full width and depth, seeded bf16 weights on
+    the card, through the user's entry points: ``make_prefill_step`` at
+    8 x 512 and 1 x 8192, ``make_serve_step`` for HD_DECODE_TOKENS tokens at
+    B = 8, and a ``ServingLoop`` of 8 slots over 16 requests (for
+    recurrentgemma-9b request 0's prompt of HD_LONG_PROMPT tokens wraps its
+    ring of 2048). The swa_attention counter is set to 0 before this main
+    path and read after it: one launch per attention layer per prefill call
+    and admission (28 for gemma-7b, 12 for recurrentgemma-9b), none per
+    decode step, no build. Then the checks: every HD_CHECKED-th completion
+    against single-request greedy decoding (bf16 near-ties counted as in
+    phases 10 and 13), an admission against the other slots' rows of every
+    state leaf (K/V, positions, the RG-LRU ``h`` and conv inputs), the
+    kernel against the plain version on the first attention layer's q, k, v
+    at both prefill shapes; then a profiled 1 x 8192 prefill."""
+    from repro_torch.models import rglru
+    cfg = TC.get_arch(arch)
+    n_attn = sum(cfg.block_kind(i) in ("attn", "local")
+                 for i in range(cfg.n_layers))
+    rng = np.random.default_rng(SEED + 193 + HD_ARCHS.index(arch))
+    t0 = time.perf_counter()
+    params = TM.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = TM.count_params(params)
+    if n_params != HD_PARAMS[arch]:
+        raise AssertionError(f"{arch}: {n_params} parameters, expected "
+                             f"{HD_PARAMS[arch]}")
+    prefill_step = launch.make_prefill_step(cfg)
+    serve_step = launch.make_serve_step(cfg)
+    max_seq = HD_MAX_SEQ[arch]
+    reqs = _requests(rng, launch, cfg, long_prompt=HD_LONG_PROMPT
+                        if cfg.sliding_window else None, new=HD_NEW)
+    builds = _build.n_builds
+    out = {"arch": arch, "params": n_params, "init_s": init_s,
+           "init_peak_gb": init_peak / 1e9, "attention_layers": n_attn,
+           "layers": cfg.n_layers, "prefill": {}}
+
+    # --- the main path, counted ---
+    sw.launches = 0
+    for b, t in HD_PREFILL:
+        toks = _prompt_tokens(rng, cfg, b, t)
+        secs = []
+        for _ in range(1 + HD_TIMED):
+            before = sw.launches
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, states = prefill_step(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            if sw.launches - before != n_attn:
+                raise AssertionError(f"{arch} prefill {b}x{t}: "
+                                     f"{sw.launches - before} swa_attention "
+                                     f"launches, expected {n_attn}")
+        if tuple(logits.shape) != (b, 1, TM.padded_vocab(cfg)) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch} prefill {b}x{t}: bad logits")
+        med = statistics.median(secs[1:])
+        out["prefill"][f"{b}x{t}"] = {"first_s": secs[0], "median_s": med,
+                                      "tokens_per_s": b * t / med}
+        if b == LM_SLOTS:
+            dec_logits, dec_states = logits, states
+        del states, logits
+    tok = dec_logits.argmax(-1)
+    pos = torch.full((LM_SLOTS,), HD_PREFILL[0][1], device="cuda")
+    before = sw.launches
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(HD_DECODE_TOKENS):
+        logits, dec_states = serve_step(params, tok, dec_states, pos + i)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t1
+    if sw.launches != before or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} decode: {sw.launches - before} "
+                             f"swa_attention launches, expected 0")
+    out["decode"] = {"batch": LM_SLOTS, "steps": HD_DECODE_TOKENS,
+                     "seconds": dec_s,
+                     "tokens_per_s": LM_SLOTS * HD_DECODE_TOKENS / dec_s}
+    del dec_states, dec_logits
+    loop = launch.ServingLoop(cfg, params, n_slots=LM_SLOTS, max_seq=max_seq)
+    before = sw.launches
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    done = loop.run(reqs)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t1
+    loop_launches = sw.launches - before
+    launches = sw.launches
+    # --- end of the main path ---
+    if _build.n_builds != builds:
+        raise AssertionError(f"an nvcc build ran on the {arch} serving path")
+    if loop_launches != n_attn * loop.n_prefills:
+        raise AssertionError(f"{arch} ServingLoop: {loop_launches} "
+                             f"swa_attention launches for {loop.n_prefills} "
+                             f"prefills of {n_attn} attention layers")
+    got = {c.rid: c.tokens for c in done}
+    if sorted(got) != list(range(len(reqs))) or any(
+            len(got[r.rid]) != r.max_new_tokens for r in reqs):
+        raise AssertionError(f"{arch} ServingLoop: missing or short "
+                             f"completions")
+    n_tok = sum(len(c.tokens) for c in done)
+    out["loop"] = {"slots": LM_SLOTS, "requests": len(reqs),
+                   "max_seq": max_seq,
+                   "prompt_tokens": int(sum(len(r.prompt) for r in reqs)),
+                   "new_tokens": n_tok, "seconds": loop_s,
+                   "tokens_per_s": n_tok / loop_s,
+                   "prefills": loop.n_prefills, "steps": loop.n_steps,
+                   "launches": loop_launches}
+    out["launches"] = launches
+    out["launches_per_prefill_call"], out["launches_per_decode_step"] = \
+        n_attn, 0
+    del loop
+    log(f"phase head256 serving: {arch} {n_params} params bf16 ({cfg.n_layers}"
+        f" layers, {n_attn} attention at D 256) init {init_s!r} s, peak "
+        f"{out['init_peak_gb']!r} GB; prefill tokens/s " + ", ".join(
+            f"{k}: {v['tokens_per_s']!r}" for k, v in out["prefill"].items())
+        + f"; decode B={LM_SLOTS} tokens/s {out['decode']['tokens_per_s']!r}; "
+        f"ServingLoop {LM_SLOTS} slots x {len(reqs)} requests, max_seq "
+        f"{max_seq} ({out['loop']['prompt_tokens']} prompt + {n_tok} new "
+        f"tokens, {out['loop']['prefills']} prefills, {out['loop']['steps']} "
+        f"steps) "
+        f"{out['loop']['tokens_per_s']!r} new tokens/s; swa_attention "
+        f"launches {launches} ({n_attn} per prefill call, 0 per decode step; "
+        f"no build) card=\"{card}\"")
+
+    out["check_seconds"], t_chk = {}, [time.perf_counter()]
+
+    def checked(name):
+        now = time.perf_counter()
+        out["check_seconds"][name] = now - t_chk[0]
+        t_chk[0] = now
+
+    near_tie = lambda best: LM_BF16_ULPS * bf16_ulp(best)
+    checks = [lm_greedy_check(TM, cfg, params, r, got[r.rid], near_tie,
+                              cache_len=max_seq) for r in reqs[::HD_CHECKED]]
+    ties = [t for c in checks for t in c["ties"]]
+    out["loop_vs_single_request"] = {
+        "requests": len(checks),
+        "positions": sum(c["positions"] for c in checks),
+        "min_top2_margin": min(c["min_margin"] for c in checks),
+        "equal_requests": sum(not c["ties"] for c in checks),
+        "near_ties": ties}
+    log(f"check {arch} ServingLoop bf16: every token of {len(checks)} of the "
+        f"{len(reqs)} completions (ids {[r.rid for r in reqs[::HD_CHECKED]]}"
+        f", {out['loop_vs_single_request']['positions']} positions) is "
+        f"single-request greedy on the card or a near-tie; "
+        f"{out['loop_vs_single_request']['equal_requests']} equal outright; "
+        f"{len(ties)} near-ties (within {LM_BF16_ULPS} bf16 ulp of the max)")
+    checked("loop_vs_single_request_bf16")
+    adm, _, _ = admission_rows(TM, launch, cfg, params, reqs, max_seq)
+    out["admission"] = {"slots_unchanged": LM_SLOTS - 1,
+                        "state_keys": _state_keys(adm.state)}
+    if cfg.sliding_window:
+        cache = adm.state["local"]["cache"]["pos"]
+        out["admission"]["slot0_ring_slots_filled"] = int(
+            (cache[:, 0] >= 0).sum()) // cache.shape[0]
+    log(f"check {arch} admission: {LM_SLOTS - 1} other slots' rows of every "
+        f"state leaf ({out['admission']['state_keys']}) bitwise unchanged "
+        f"and the new slot's equal to a B = 1 prefill" + (
+            f"; slot 0 holds request 0's {HD_LONG_PROMPT - 1}-token prefill "
+            f"in {out['admission']['slot0_ring_slots_filled']} of "
+            f"{cfg.sliding_window} ring slots" if cfg.sliding_window else ""))
+    del adm
+    checked("admission")
+    out["layer_vs_plain"] = {
+        f"{b}x{t}": hd_layer_vs_plain(sw, TM, cfg, params,
+                                      _prompt_tokens(rng, cfg, b, t))
+        for b, t in HD_PREFILL}
+    log(f"check {arch} kernel vs plain on the first attention layer's q, k, "
+        f"v: " + "; ".join(f"{k}: max err {v['err']!r}, mean err / plain's "
+                           f"{v['mean_err'] / v['plain_mean_err']!r}"
+                           for k, v in out["layer_vs_plain"].items()))
+    checked("layer_vs_plain")
+    out["profile"] = _hd_profile(TM, launch, cfg, params,
+                                 rglru if "rglru" in cfg.layer_pattern
+                                 else None)
+    pr = out["profile"]
+    log(f"profile {arch} prefill 1 x {HD_PREFILL[1][1]}: wall_ms="
+        f"{pr['wall_ms']!r} device_busy_ms={pr['device_busy_ms']!r} "
+        f"device_idle_share={pr['device_idle_share']!r} swa_attention_ms="
+        f"{pr['swa_attention_ms']!r} ({pr['swa_attention_launches']} "
+        f"launches, share of busy {pr['swa_share_of_busy']!r}) matmul share "
+        f"{pr['matmul_share_of_busy']!r}" + (
+            f"; rglru_scan {pr['rglru_scan_ms']!r} ms a layer x "
+            f"{pr['rglru_layers']} layers = share of busy "
+            f"{pr['rglru_scan_share_of_busy']!r}" if "rglru_scan_ms" in pr
+            else "") + f" card=\"{card}\"")
+    checked("profile")
+    log(f"phase head256 {arch}: seconds by check {out['check_seconds']}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _state_keys(state) -> list:
+    """The leaf names of a decode state, e.g. ['local/cache/k', ...]."""
+    if isinstance(state, dict):
+        return [f"{k}/{x}" if x else k for k in sorted(state)
+                for x in (_state_keys(state[k]) or [""])]
+    return []
+
+
+def phi4_serving(sw, _build, TC, TM, launch, card) -> dict:
+    """phi4-mini-3.8b at full width and depth (32 global attention layers of
+    24 / 8 heads of 128, tied embeddings), seeded bf16 weights: a counted
+    prefill step at 8 x 512 and a ``ServingLoop`` of 8 slots over
+    PHI4_REQUESTS requests at max_seq PHI4_MAX_SEQ, every second completion
+    held to single-request greedy decoding whose cache is sized with
+    ``prefill(cache_len=max_seq)`` (ROADMAP Queue C 3)."""
+    cfg = TC.get_arch(PHI4_ARCH)
+    rng = np.random.default_rng(SEED + 195)
+    params = TM.init_params(cfg, seed=SEED, device="cuda")
+    n_params = TM.count_params(params)
+    if n_params != PHI4_PARAMS:
+        raise AssertionError(f"{PHI4_ARCH}: {n_params} parameters, expected "
+                             f"{PHI4_PARAMS}")
+    L = cfg.n_layers
+    prefill_step = launch.make_prefill_step(cfg)
+    reqs = _requests(rng, launch, cfg, n=PHI4_REQUESTS, prompt=PHI4_PROMPT,
+                     new=PHI4_NEW)
+    b, t = HD_PREFILL[0]
+    toks = _prompt_tokens(rng, cfg, b, t)
+    # --- the main path, counted ---
+    sw.launches = 0
+    secs = []
+    for _ in range(1 + HD_TIMED):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, states = prefill_step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+    del states
+    loop = launch.ServingLoop(cfg, params, n_slots=LM_SLOTS,
+                              max_seq=PHI4_MAX_SEQ)
+    t1 = time.perf_counter()
+    done = loop.run(reqs)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t1
+    launches = sw.launches
+    # --- end of the main path ---
+    if launches != L * (1 + HD_TIMED + loop.n_prefills) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{PHI4_ARCH}: {launches} swa_attention "
+                             f"launches, expected {L} per prefill call")
+    got = {c.rid: c.tokens for c in done}
+    if sorted(got) != list(range(len(reqs))) or any(
+            len(got[r.rid]) != r.max_new_tokens for r in reqs):
+        raise AssertionError(f"{PHI4_ARCH} ServingLoop: missing or short "
+                             f"completions")
+    n_tok = sum(len(c.tokens) for c in done)
+    near_tie = lambda best: LM_BF16_ULPS * bf16_ulp(best)
+    chk = loop_vs_single_request(TM, cfg, params, reqs, got, near_tie,
+                                 cache_len=PHI4_MAX_SEQ)
+    med = statistics.median(secs[1:])
+    out = {"arch": PHI4_ARCH, "params": n_params, "launches": launches,
+           "prefill": {f"{b}x{t}": {"median_s": med,
+                                    "tokens_per_s": b * t / med}},
+           "loop": {"requests": len(reqs), "max_seq": PHI4_MAX_SEQ,
+                    "new_tokens": n_tok, "seconds": loop_s,
+                    "tokens_per_s": n_tok / loop_s,
+                    "prefills": loop.n_prefills, "steps": loop.n_steps},
+           "loop_vs_single_request": chk}
+    log(f"phase head256 {PHI4_ARCH}: {n_params} params bf16 ({L} layers, D "
+        f"{cfg.head_dim}); prefill {b}x{t} {b * t / med!r} tokens/s; ServingLoop {LM_SLOTS} slots x {len(reqs)} requests, "
+        f"max_seq {PHI4_MAX_SEQ}: {n_tok} new tokens, {n_tok / loop_s!r} "
+        f"tokens/s; swa_attention launches {launches} ({L} per prefill call);"
+        f" every token of {chk['requests']} completions ({chk['positions']} "
+        f"positions) single-request greedy with the cache sized by "
+        f"prefill(cache_len={PHI4_MAX_SEQ}) or a near-tie "
+        f"({len(chk['near_ties'])}) card=\"{card}\"")
+    del params, loop
+    torch.cuda.empty_cache()
+    return out
+
+
+def hd_times(sw, card) -> dict:
+    """The D = 256 kernel in bf16 at the three prefill calls of HD_TIMES (L2
+    flushed and warm, CUDA events and CUPTI) beside its bound, the plain
+    version's time (one call, events), SDPA's default call (events, the
+    kernels line's ``library_ms``; which backend) and, at 8 x 512, the fp32
+    kernel by events."""
+    cyc = sleep_cycles_per_ms()
+    flush = l2_flusher()
+    rows = {}
+    for arch, b, t, kv, window in HD_TIMES:
+        n_ev, n_cu = ((TIMED_LAUNCHES, CUPTI_CALLS) if b * t <= 4096
+                      else (CHUNK, 10))
+        q, k, v = swa_inputs(b, t, t, 16, kv, 256, torch.bfloat16, SEED + 196)
+        kern = lambda: sw.swa_attention_cuda(q, k, v, window=window)
+        lib = sdpa_fn(q, k, v, window)
+        got = kern()
+        err = float((lib().transpose(1, 2).float() - got.float()).abs()
+                    .max())
+        bnd = swa_bound(b, t, t, 16, kv, 256, window, True)
+        rec = {"arch": arch, "shape": [b, t, 16, kv, 256], "window": window,
+               "dtype": "bfloat16",
+               "cupti_ms": cupti_ms(kern, flush, SWA_KERNEL, n_cu),
+               "warm_l2_cupti_ms": cupti_ms(kern, None, SWA_KERNEL, n_cu),
+               "ms": device_ms(kern, cyc, flush, n_ev)[0],
+               "warm_l2_ms": device_ms(kern, cyc, None, n_ev)[0],
+               "library_ms": device_ms(lib, cyc, flush, n_ev)[0],
+               "library_backend": sdpa_backend_of(q, k, v, window),
+               "library_vs_kernel_max_abs_diff": err,
+               "plain_ms": events_ms(lambda: sw.swa_attention_plain(
+                   q, k, v, window=window), 1), **bnd}
+        rec["share_of_bound"] = bnd["bound_ms"] / rec["ms"]
+        if b * t <= 4096:
+            q32, k32, v32 = (x.float() for x in (q, k, v))
+            rec["fp32_ms"] = device_ms(lambda: sw.swa_attention_cuda(
+                q32, k32, v32, window=window), cyc, flush, n_ev)[0]
+            rec["fp32_bound_ms"] = max(
+                bnd["bytes"] * 2 / HBM_BYTES_PER_S * 1e3,
+                4 * 256 * bnd["pairs"] / FP32_FLOP_PER_S * 1e3)
+            del q32, k32, v32
+        rows[f"{arch}/{b}x{t}"] = rec
+        log(f"time swa_attention D=256 {arch} shape=({b}, {t}, 16/{kv}, 256) "
+            f"bf16 W={window} L2 flushed: kernel_ms={rec['ms']!r} (cupti "
+            f"{rec['cupti_ms']!r}; L2-warm {rec['warm_l2_ms']!r}, cupti "
+            f"{rec['warm_l2_cupti_ms']!r}) plain_ms={rec['plain_ms']!r} "
+            f"bound_ms={bnd['bound_ms']!r} ({bnd['bound_by']}; share reached "
+            f"{rec['share_of_bound']!r}) SDPA {rec['library_backend']} "
+            f"{rec['library_ms']!r} ms (max |SDPA - kernel| {err!r})" + (
+                f"; fp32 kernel {rec['fp32_ms']!r} ms (bound "
+                f"{rec['fp32_bound_ms']!r})" if "fp32_ms" in rec else "")
+            + f" card=\"{card}\"")
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def head256_phase(sw, _build, TC, TM, launch, card) -> dict:
+    """Phase 19 (slice 15): the D = 256 kernel vs plain, gemma-7b and
+    recurrentgemma-9b served at full width and depth (each freed before
+    the next is drawn), phi4-mini-3.8b at full size, the kernel's times."""
+    t0 = time.perf_counter()
+    parts, lap = {}, [t0]
+
+    def done(name):
+        parts[name] = time.perf_counter() - lap[0]
+        lap[0] = time.perf_counter()
+
+    out = {"parity": hd_vs_plain(sw)}
+    done("parity")
+    out["models"] = {}
+    for arch in HD_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        out["models"][arch] = hd_serving_path(sw, _build, TC, TM, launch,
+                                              card, arch)
+        done(arch)
+    out["phi4"] = phi4_serving(sw, _build, TC, TM, launch, card)
+    done(PHI4_ARCH)
+    out["times"] = hd_times(sw, card)
+    done("times")
+    out["launches"] = (sum(m["launches"] for m in out["models"].values())
+                       + out["phi4"]["launches"])
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    log(f"phase head256: {out['seconds']!r} s; by part {parts}")
+    return out
+
+
+def head256_alone() -> dict:
+    """Phase 19 without the rest of the script (``python3 -c 'import
+    chip_smoke as c; c.head256_alone()'``): builds the kernels, then the
+    head-256 phase."""
+    if not torch.cuda.is_available():
+        raise SystemExit("head256_alone: no CUDA card")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import configs as TC
+    from repro_torch import launch
+    from repro_torch import models as TM
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import swa_attention as sw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"card {card}")
+    _build.load()
+    return head256_phase(sw, _build, TC, TM, launch, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5749,6 +6298,11 @@ def main() -> int:
     # the mid config card vs CPU, times and a profiled window
     lmt = lm_train_phase(km, sw, swb, TC, TM, launch, card)
     lap('18 lm_train')
+
+    # 19. head-256 serving (slice 15): the D = 256 kernel vs plain,
+    # gemma-7b and recurrentgemma-9b at full size, phi4-mini-3.8b
+    hd = head256_phase(sw, _build, TC, TM, launch, card)
+    lap('19 head256')
 
     top = rows["mean/1024"]
     kernels = [{
@@ -5901,6 +6455,24 @@ def main() -> int:
         if k["name"] in LMT_KERNELS and k["name"] != "swa_attention_bwd":
             k["lm_train"] = {"launches": lmt["main"]["launches"][k["name"]]}
             k["launches"] += lmt["main"]["launches"][k["name"]]
+        if k["name"] == "swa_attention":   # and phase 19's (head 256)
+            r = hd["times"]["recurrentgemma-9b/1x8192"]
+            k["head256"] = {
+                "launches": hd["launches"],
+                "launches_by_model": {
+                    **{a: m["launches"] for a, m in hd["models"].items()},
+                    PHI4_ARCH: hd["phi4"]["launches"]},
+                "max_abs_err": hd["parity"]["worst"],
+                "shape": {"B": 1, "S": 8192, "H": 16, "KV": 1, "D": 256,
+                          "window": 2048, "dtype": "bfloat16"},
+                **{key: r[key] for key in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms",
+                                           "library_backend")},
+                "times": {n: {key: t[key] for key in (
+                    "ms", "cupti_ms", "warm_l2_ms", "plain_ms", "bound_ms",
+                    "library_ms", "library_backend", "fp32_ms")
+                    if key in t} for n, t in hd["times"].items()}}
+            k["launches"] += hd["launches"]
     if len(kernels) != 11 or any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"kernels line: {len(kernels)} kernels, "
                              f"launches {[k['launches'] for k in kernels]}")
@@ -5922,7 +6494,7 @@ def main() -> int:
                    "swa_hgmma": n_hgmma,
                    "sweep_parity": sweep_parity, "sweeps": sweeps,
                    "sweep_times": sweep_rows, "async": async_run,
-                   "fmarl": fmarl, "lm_train": lmt,
+                   "fmarl": fmarl, "lm_train": lmt, "head256": hd,
                    "kernels": kernels, "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

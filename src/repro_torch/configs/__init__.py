@@ -2,8 +2,10 @@
 
 ``ModelConfig`` and the registries are copies of the JAX package's. Only the
 configurations whose model the port runs are registered: ``rwkv6-1.6b``
-(slice 4), ``h2o-danube-3-4b`` and ``phi4-mini-3.8b`` (slice 5). The other
-seven come with the slices that port their block kinds.
+(slice 4), ``h2o-danube-3-4b`` and ``phi4-mini-3.8b`` (slice 5),
+``gemma-7b`` and ``recurrentgemma-9b`` (slice 15: head size 256, the
+``rglru`` block and a mixed layer pattern). The other five come with the
+slices that port their block kinds.
 """
 from repro_torch.configs.base import (
     ARCH_REGISTRY,
@@ -17,8 +19,10 @@ from repro_torch.configs.base import (
 )
 
 # Import for registration side effects.
+from repro_torch.configs import gemma_7b  # noqa: F401
 from repro_torch.configs import h2o_danube3_4b  # noqa: F401
 from repro_torch.configs import phi4_mini_3_8b  # noqa: F401
+from repro_torch.configs import recurrentgemma_9b  # noqa: F401
 from repro_torch.configs import rwkv6_1_6b  # noqa: F401
 
 __all__ = [

@@ -9,7 +9,7 @@
 // q is (B, Sq, H, D); k and v are (B, Sk, KV, D), not repeated: head h
 // reads KV head h / (H / KV), the mapping of the JAX package's _repeat_kv
 // (each KV head repeated H / KV times in a row). Inputs are fp32 or bf16;
-// D is 120 or 128. The softmax weights p keep fp32 accuracy for p @ v in
+// D is 120, 128 or 256. The softmax weights p keep fp32 accuracy for p @ v in
 // both kernels below, as in the TPU kernel (the JAX model's own
 // flash_attention rounds them to q's type first).
 //
@@ -43,8 +43,8 @@
 //   with the most kv tiles first, so the short causal tiles fill the tail.
 //   Two consumer warpgroups of 64 query rows and a producer warpgroup in
 //   which one thread issues TMA; setmaxnreg moves registers from the
-//   producer (56 a thread) to the consumers (224), ptxas -v: 168 at
-//   entry, no spill;
+//   producer (56 a thread; 40 at D = 256) to the consumers (224; 232),
+//   ptxas -v: 168 at entry, no spill (at every D);
 // - the producer loads the q tile once and each 128-key k and v tile into a
 //   ring of kStages slots by TMA (4-d tensor maps over (D, heads, S, B),
 //   boxes of 64 columns x 128 rows with the 128-byte swizzle; columns past D
@@ -65,24 +65,28 @@
 // - within a q tile the blocks run the heads that share a KV head side by
 //   side (their k and v meet in the L2).
 // The mbarrier, TMA and wgmma helpers are hopper_common.cuh's, shared with
-// the backward. D = 64 is kBoxes = 1 (64-column boxes per row) and an n64
-// p v wgmma.
-// D = 256 is kBoxes = 4 and an n256 p v wgmma whose accumulator takes 128
-// registers: it also needs 64-key tiles (s and p in 32 each; the 64 KB q
-// tile and the ring then fit in shared memory).
+// the backward. D = 64 would be kBoxes = 1 (64-column boxes per row) and an
+// n64 p v wgmma.
+// D = 256 (gemma-7b, recurrentgemma-9b; Geometry<256>): kBoxes = 4 and
+// 64-key tiles, so the 64 KB q tile and two stages of 32 KB k and v tiles
+// fit (193 KB); s = q k^T is 16 m64n64k16, o two m64n128 halves (128
+// registers a thread) that each take p_hi v and p_lo v, 16 m64n128k16 a
+// tile. Work per pair is the same as at D = 128 per column; the tiles are
+// half as deep in keys, so the softmax's share of a tile's time doubles.
 //
 // fp32: swa_attention_kernel, on the CUDA cores (fp32 q.k on the tensor
 // cores would need TF32, which the port's numerics rule out). One block of
 // 256 threads per (b, h, 64-row q tile). The q tile and each 64-row k and v
 // tile are staged in shared memory (row stride D + 4 floats: float4 reads
 // of 8 neighbouring rows fall in distinct banks), 112-119 KB of dynamic
-// shared memory, so one block per SM. Thread (ty, tx) of a 16 x 16 grid owns
-// query rows 4ty..4ty+3: it computes their scores against keys tx + 16c
-// (c < 4) with fp32 FMAs, the row max and sum go across the 16 threads of
-// the row by warp shuffles, p goes through shared memory, and the thread
-// accumulates columns 4tx..4tx+3 and 64+4tx..64+4tx+3 of its rows' outputs
-// in 32 registers. Bound: 4*D FLOP per pair at 67 TFLOP/s fp32; every
-// product is a shared-memory operand, so the shared-memory loads, not the
+// shared memory (212 KB at D = 256), so one block per SM. Thread (ty, tx)
+// of a 16 x 16 grid owns query rows 4ty..4ty+3: it computes their scores
+// against keys tx + 16c (c < 4) with fp32 FMAs, the row max and sum go
+// across the 16 threads of the row by warp shuffles, p goes through shared
+// memory, and the thread accumulates columns 64cg + 4tx..64cg + 4tx + 3 of
+// its rows' outputs, one group of 4 per 64 columns of D (32 registers up
+// to D = 128, 64 at D = 256). Bound: 4*D FLOP per pair at 67 TFLOP/s fp32;
+// every product is a shared-memory operand, so the shared-memory loads, not the
 // FMAs, limit its inner loops.
 
 #include <cuda.h>
@@ -158,15 +162,16 @@ swa_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int hi = causal ? min(Sk - 1, q_hi) : Sk - 1;
 
-  float m[4], l[4], acc[4][8];
+  // Column group cg holds the thread's columns 64cg + 4tx .. + 3.
+  constexpr int kCG = (D + 63) / 64;
+  float m[4], l[4], acc[4][4 * kCG];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kMasked;
     l[i] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.0f;
+    for (int c = 0; c < 4 * kCG; ++c) acc[i][c] = 0.0f;
   }
-  const bool hi_cols = 64 + 4 * tx < D;   // this thread's second 4 columns
 
   for (int k0 = (lo / kBK) * kBK; k0 <= hi; k0 += kBK) {
     __syncthreads();   // the previous tile's k, v and p have been read
@@ -235,11 +240,11 @@ swa_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l[i] = l[i] * alpha + sum;
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < 4 * kCG; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();
 
-    // acc += p v for rows 4ty + i, columns 4tx.. and 64 + 4tx..
+    // acc += p v for rows 4ty + i, columns 64cg + 4tx..
 #pragma unroll 2
     for (int c = 0; c < kBK; c += 4) {
       float4 pa[4];
@@ -248,21 +253,21 @@ swa_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
         const float* vr = v_s + (c + cc) * DP;
-        const float4 va = load4(vr + 4 * tx);
-        const float4 vb = hi_cols ? load4(vr + 64 + 4 * tx)
-                                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = cc == 0 ? pa[i].x : cc == 1 ? pa[i].y
-                        : cc == 2 ? pa[i].z : pa[i].w;
-          acc[i][0] = fmaf(p, va.x, acc[i][0]);
-          acc[i][1] = fmaf(p, va.y, acc[i][1]);
-          acc[i][2] = fmaf(p, va.z, acc[i][2]);
-          acc[i][3] = fmaf(p, va.w, acc[i][3]);
-          acc[i][4] = fmaf(p, vb.x, acc[i][4]);
-          acc[i][5] = fmaf(p, vb.y, acc[i][5]);
-          acc[i][6] = fmaf(p, vb.z, acc[i][6]);
-          acc[i][7] = fmaf(p, vb.w, acc[i][7]);
+        for (int cg = 0; cg < kCG; ++cg) {
+          const float4 va = 64 * cg + 4 * tx < D
+                                ? load4(vr + 64 * cg + 4 * tx)
+                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = cc == 0 ? pa[i].x : cc == 1 ? pa[i].y
+                          : cc == 2 ? pa[i].z : pa[i].w;
+            float* a = acc[i] + 4 * cg;
+            a[0] = fmaf(p, va.x, a[0]);
+            a[1] = fmaf(p, va.y, a[1]);
+            a[2] = fmaf(p, va.z, a[2]);
+            a[3] = fmaf(p, va.w, a[3]);
+          }
         }
       }
     }
@@ -276,11 +281,13 @@ swa_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (lse != nullptr && tx == 0)
       lse[((int64_t)b * H + h) * Sq + r] = m[i] + logf(den);
     float* out = o + ((int64_t)b * Sq + r) * q_stride + (int64_t)h * D;
-    store4(out + 4 * tx, make_float4(acc[i][0] / den, acc[i][1] / den,
-                                     acc[i][2] / den, acc[i][3] / den));
-    if (hi_cols)
-      store4(out + 64 + 4 * tx, make_float4(acc[i][4] / den, acc[i][5] / den,
-                                            acc[i][6] / den, acc[i][7] / den));
+#pragma unroll
+    for (int cg = 0; cg < kCG; ++cg) {
+      const float* a = acc[i] + 4 * cg;
+      if (64 * cg + 4 * tx < D)
+        store4(out + 64 * cg + 4 * tx, make_float4(a[0] / den, a[1] / den,
+                                                   a[2] / den, a[3] / den));
+    }
   }
 }
 
@@ -307,39 +314,75 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 
 // --- bf16: tensor cores, TMA, a K/V ring ---------------------------------
 
-constexpr int kRows = 128;               // q rows per block, keys per tile
+constexpr int kRows = 128;               // q rows per block
 constexpr int kStages = 2;               // K/V ring depth
 constexpr int kConsumers = 256;          // two warpgroups of 64 query rows
 constexpr int kHThreads = kConsumers + 128;  // + the producer warpgroup
-// Registers a thread after setmaxnreg: 128 x 56 + 256 x 224 <= 65,536.
-constexpr int kProducerRegs = 56, kConsumerRegs = 224;
-constexpr int kBoxBytes = kRows * 128;   // one box: 128 rows x 128 bytes
 
-// s = q k^T for 64 query rows x 128 keys: K = D in 16-column steps, four
+// The tile geometry of head size D. D is padded to kBoxes 64-column TMA
+// boxes (128 bytes a row). Up to D = 128: 128-key tiles, o one m64n128
+// accumulator (64 registers) beside s (64) and p_hi / p_lo (32 each), 161 KB
+// of shared memory, registers 128 x 56 + 256 x 224 after setmaxnreg.
+// D = 256: a 128-row q tile is 64 KB, so the kv tiles hold 64 keys (32 KB:
+// q and two stages of k and v take 193 KB); o is two m64n128 halves (128
+// registers) beside s (32) and p_hi / p_lo (16 each), the same 192 as at
+// D = 128, and the consumers take 232 registers (128 x 40 + 256 x 232 <=
+// 65,536).
+template <int D>
+struct Geometry {
+  static constexpr int kBoxes = (D + 63) / 64;
+  static constexpr int kKeys = kBoxes > 2 ? 64 : 128;   // keys per kv tile
+  static constexpr int kHalves = (kBoxes + 1) / 2;       // n128 halves of o
+  static constexpr int kS = kKeys / 2;       // score registers a thread
+  static constexpr int kP = kKeys / 4;       // p_hi (and p_lo) registers
+  static constexpr int kQTile = kBoxes * kRows * 128;    // bytes
+  static constexpr int kKvTile = kBoxes * kKeys * 128;
+  static constexpr int kSmem = 1024 + kQTile + 2 * kStages * kKvTile;
+  static constexpr int kProducerRegs = kBoxes > 2 ? 40 : 56;
+  static constexpr int kConsumerRegs = kBoxes > 2 ? 232 : 224;
+};
+
+// s = q k^T for 64 query rows x kKeys keys: K = D in 16-column steps, four
 // per 128-byte box (both operands K-major).
-template <int kBoxes>
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_addr,
-                                         uint32_t k_addr) {
+template <int kBoxes, int kKeys>
+__device__ __forceinline__ void issue_qk(float (&s)[kKeys / 2],
+                                         uint32_t q_addr, uint32_t k_addr) {
 #pragma unroll
-  for (int kk = 0; kk < 4 * kBoxes; ++kk)
-    wgmma_ss_n128(s, kmajor_desc(q_addr, kRows, 0, kk),
-                  kmajor_desc(k_addr, kRows, 0, kk), kk > 0);
+  for (int kk = 0; kk < 4 * kBoxes; ++kk) {
+    const uint64_t dq = kmajor_desc(q_addr, kRows, 0, kk);
+    const uint64_t dk = kmajor_desc(k_addr, kKeys, 0, kk);
+    if constexpr (kKeys == 128)
+      wgmma_ss_n128(s, dq, dk, kk > 0);
+    else
+      wgmma_ss_n64(s, dq, dk, kk > 0);
+  }
   wgmma_commit();
 }
 
-// acc += p_hi v + p_lo v: K = 128 keys in 16-row steps of v (MN-major; the
-// next 64 columns one box further on).
-__device__ __forceinline__ void issue_pv(float (&acc)[64],
-                                         const uint32_t (&p_hi)[32],
-                                         const uint32_t (&p_lo)[32],
+// acc += p_hi v + p_lo v: K = kKeys keys in 16-row steps of v (MN-major);
+// half hf of o takes v's columns 128hf.. (boxes 2hf and 2hf + 1).
+template <int kHalves, int kKeys>
+__device__ __forceinline__ void issue_pv(float (&acc)[kHalves][64],
+                                         const uint32_t (&p_hi)[kKeys / 4],
+                                         const uint32_t (&p_lo)[kKeys / 4],
                                          uint32_t v_addr) {
 #pragma unroll
-  for (int kk = 0; kk < kRows / 16; ++kk) {
-    const uint64_t dv = mnmajor_desc(v_addr, kRows, kk);
-    wgmma_rs_n128(acc, p_hi + 4 * kk, dv);
-    wgmma_rs_n128(acc, p_lo + 4 * kk, dv);
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+#pragma unroll
+    for (int hf = 0; hf < kHalves; ++hf) {
+      const uint64_t dv = mnmajor_desc(v_addr + hf * 2 * kKeys * 128, kKeys,
+                                       kk);
+      wgmma_rs_n128(acc[hf], p_hi + 4 * kk, dv);
+      wgmma_rs_n128(acc[hf], p_lo + 4 * kk, dv);
+    }
   }
   wgmma_commit();
+}
+
+template <int kHalves>
+__device__ __forceinline__ void fence_acc(float (&acc)[kHalves][64]) {
+#pragma unroll
+  for (int hf = 0; hf < kHalves; ++hf) fence_regs(acc[hf]);
 }
 
 // A thread's two query rows: running max (log2 domain) and its own part of
@@ -348,21 +391,24 @@ struct Rows {
   float m_a, m_b, l_a, l_b;
 };
 
-// Scores to p in place for one 64 x 128 tile, in the log2 domain, masked
+// Scores to p in place for one 64 x kKeys tile, in the log2 domain, masked
 // where some mask reaches the warpgroup's rows r_wg..r_wg + 63. The thread
 // holds rows r_a (accumulator elements 4j, 4j + 1) and r_a + 8 (4j + 2,
-// 4j + 3) at keys k0 + 8j + col0 + {0, 1}, j < 16. Updates the running max
-// and sums, and returns the factors that rescale the earlier output.
-__device__ __forceinline__ void softmax_tile(float (&s)[64], Rows& st,
+// 4j + 3) at keys k0 + 8j + col0 + {0, 1}, j < kKeys / 8. Updates the
+// running max and sums, and returns the factors that rescale the earlier
+// output.
+template <int kKeys>
+__device__ __forceinline__ void softmax_tile(float (&s)[kKeys / 2], Rows& st,
                                              float& al_a, float& al_b, int k0,
                                              int r_wg, int r_a, int col0,
                                              int Sk, int window, int causal,
                                              float scale_log2) {
-  const bool masked = k0 + kRows > Sk || (causal && k0 + kRows - 1 > r_wg) ||
+  constexpr int kS = kKeys / 2;
+  const bool masked = k0 + kKeys > Sk || (causal && k0 + kKeys - 1 > r_wg) ||
                       (window > 0 && k0 <= r_wg + 63 - window);
   float mx_a = kMasked, mx_b = kMasked;
 #pragma unroll
-  for (int e = 0; e < 64; ++e) {
+  for (int e = 0; e < kS; ++e) {
     float x = s[e] * scale_log2;
     if (masked) {
       const int kp = k0 + 8 * (e / 4) + col0 + (e & 1);
@@ -389,7 +435,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], Rows& st,
   st.m_b = mn_b;
   float sum_a = 0.0f, sum_b = 0.0f;
 #pragma unroll
-  for (int e = 0; e < 64; ++e) {
+  for (int e = 0; e < kS; ++e) {
     s[e] = fast_exp2(s[e] - ((e & 2) ? mn_b : mn_a));
     if (e & 2) sum_b += s[e];
     else sum_a += s[e];
@@ -400,10 +446,11 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], Rows& st,
 
 // o rows r_a and r_a + 8 of (b, h), where below Sq: the accumulator over
 // the row sums (the four threads of a row add their parts first), bf16.
-template <int D, int kBoxes>
+// Half hf's element 4j + .. is column 128hf + 8j + col0 + ...
+template <int D, int kHalves>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ o,
                                           float* __restrict__ lse,
-                                          const float (&acc)[64],
+                                          const float (&acc)[kHalves][64],
                                           const Rows& st, int b, int h,
                                           int r_a, int col0, int Sq, int H) {
   float l_a = st.l_a, l_b = st.l_b;
@@ -428,27 +475,32 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ o,
                          (int64_t)h * D + col0;
   __nv_bfloat16* out_b = out_a + 8 * q_stride;
 #pragma unroll
-  for (int j = 0; j < 8 * kBoxes; ++j) {
-    if (8 * j + col0 >= D) continue;
-    if (r_a < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(out_a + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j] * inv_a, acc[4 * j + 1] * inv_a);
-    if (r_a + 8 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(out_b + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j + 2] * inv_b,
-                                acc[4 * j + 3] * inv_b);
+  for (int hf = 0; hf < kHalves; ++hf) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 128 * hf + 8 * j;
+      if (c + col0 >= D) continue;
+      const float* a = acc[hf] + 4 * j;
+      if (r_a < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(out_a + c) =
+            __floats2bfloat162_rn(a[0] * inv_a, a[1] * inv_a);
+      if (r_a + 8 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(out_b + c) =
+            __floats2bfloat162_rn(a[2] * inv_b, a[3] * inv_b);
+    }
   }
 }
 
-// One block's work: a (b, h, 128-row q tile) and the kv tiles that overlap
-// [q0 - W + 1, q_hi] (the Pallas block skip). Blocks are numbered with the q
-// tiles that visit the most kv tiles first (the short causal tiles fill the
-// tail), and within a q tile the heads that share a KV head side by side
-// (their k and v meet in the L2).
+// One block's work: a (b, h, 128-row q tile) and the kKeys-key kv tiles that
+// overlap [q0 - W + 1, q_hi] (the Pallas block skip). Blocks are numbered
+// with the q tiles that visit the most kv tiles first (the short causal
+// tiles fill the tail), and within a q tile the heads that share a KV head
+// side by side (their k and v meet in the L2).
 struct Unit {
   int b, h, q0, t0, n_tiles;
 };
 
+template <int kKeys>
 __device__ __forceinline__ Unit unit_of(int u, int n_q, int B, int H, int Sq,
                                         int Sk, int window, int causal) {
   Unit w;
@@ -459,13 +511,12 @@ __device__ __forceinline__ Unit unit_of(int u, int n_q, int B, int H, int Sq,
   const int q_hi = min(w.q0 + kRows, Sq) - 1;
   const int lo = window > 0 ? max(0, w.q0 - window + 1) : 0;
   const int hi = causal ? min(Sk - 1, q_hi) : Sk - 1;
-  w.t0 = lo / kRows;
-  w.n_tiles = hi / kRows - w.t0 + 1;
+  w.t0 = lo / kKeys;
+  w.n_tiles = hi / kKeys - w.t0 + 1;
   return w;
 }
 
-// One block per unit. The head size D is padded to kBoxes 64-column boxes
-// (kBoxes = 2 here: the p v product is one m64n128 wgmma wide).
+// One block per unit, in the geometry of head size D (Geometry<D>).
 template <int D>
 __global__ void __launch_bounds__(kHThreads, 1)
 swa_attention_hopper_kernel(__grid_constant__ const CUtensorMap tq,
@@ -475,9 +526,9 @@ swa_attention_hopper_kernel(__grid_constant__ const CUtensorMap tq,
                             float* __restrict__ lse, int B, int Sq,
                             int Sk, int H, int KV, int window, int causal,
                             float scale_log2) {
-  constexpr int kBoxes = 2;
-  static_assert(D > 64 * (kBoxes - 1) && D <= 64 * kBoxes, "head size");
-  constexpr int kTile = kBoxes * kBoxBytes;       // 128 rows, padded D
+  using G = Geometry<D>;
+  constexpr int kKeys = G::kKeys;
+  static_assert(D > 64 * (G::kBoxes - 1) && D <= 64 * G::kBoxes, "head size");
   extern __shared__ uint8_t smem_raw[];
   // Full barriers (the producer's TMA) and release barriers (the consumer
   // warps) of the q tile and of the kStages slots of the k and v ring; k is
@@ -486,10 +537,10 @@ swa_attention_hopper_kernel(__grid_constant__ const CUtensorMap tq,
       free_k[kStages], free_v[kStages];
   // The 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
   uint8_t* q_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* k_s = q_s + kTile;              // kStages tiles
-  uint8_t* v_s = k_s + kStages * kTile;    // kStages tiles
-  const Unit w = unit_of(blockIdx.x, (Sq + kRows - 1) / kRows, B, H, Sq, Sk,
-                         window, causal);
+  uint8_t* k_s = q_s + G::kQTile;              // kStages tiles
+  uint8_t* v_s = k_s + kStages * G::kKvTile;   // kStages tiles
+  const Unit w = unit_of<kKeys>(blockIdx.x, (Sq + kRows - 1) / kRows, B, H,
+                                Sq, Sk, window, causal);
 
   if (threadIdx.x == 0) {
     mbar_init(&bar_q, 1);
@@ -509,26 +560,27 @@ swa_attention_hopper_kernel(__grid_constant__ const CUtensorMap tq,
   if (warp >= kConsumers / 32) {
     // Producer warpgroup (one thread works): q, then the kv tiles into the
     // ring as slots free.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        G::kProducerRegs));
     if (warp == kConsumers / 32 && lane == 0) {
       const int g = w.h / (H / KV);
-      mbar_expect_tx(&bar_q, kTile);
-      for (int c = 0; c < kBoxes; ++c)
-        tma_load(q_s + c * kBoxBytes, &tq, &bar_q, c * kBoxCols, w.h, w.q0,
+      mbar_expect_tx(&bar_q, G::kQTile);
+      for (int c = 0; c < G::kBoxes; ++c)
+        tma_load(q_s + c * kRows * 128, &tq, &bar_q, c * kBoxCols, w.h, w.q0,
                  w.b);
       for (int n = 0; n < w.n_tiles; ++n) {
         const int s = n % kStages;
         const uint32_t par = (n / kStages - 1) & 1;   // the slot's last use
-        const int k0 = (w.t0 + n) * kRows;
+        const int k0 = (w.t0 + n) * kKeys;
         if (n >= kStages) mbar_wait(&free_k[s], par);
-        mbar_expect_tx(&bar_k[s], kTile);
-        for (int c = 0; c < kBoxes; ++c)
-          tma_load(k_s + s * kTile + c * kBoxBytes, &tk, &bar_k[s],
+        mbar_expect_tx(&bar_k[s], G::kKvTile);
+        for (int c = 0; c < G::kBoxes; ++c)
+          tma_load(k_s + s * G::kKvTile + c * kKeys * 128, &tk, &bar_k[s],
                    c * kBoxCols, g, k0, w.b);
         if (n >= kStages) mbar_wait(&free_v[s], par);
-        mbar_expect_tx(&bar_v[s], kTile);
-        for (int c = 0; c < kBoxes; ++c)
-          tma_load(v_s + s * kTile + c * kBoxBytes, &tv, &bar_v[s],
+        mbar_expect_tx(&bar_v[s], G::kKvTile);
+        for (int c = 0; c < G::kBoxes; ++c)
+          tma_load(v_s + s * G::kKvTile + c * kKeys * 128, &tv, &bar_v[s],
                    c * kBoxCols, g, k0, w.b);
       }
     }
@@ -537,63 +589,71 @@ swa_attention_hopper_kernel(__grid_constant__ const CUtensorMap tq,
     // rows q0 + row0 and q0 + row0 + 8. Tile i's s = q k^T runs on the
     // tensor cores while tile i - 1's p v is still in flight, and the
     // softmax of tile i then overlaps that p v.
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+        G::kConsumerRegs));
     const int wg = warp / 4;
     const int row0 = 64 * wg + 16 * (warp % 4) + lane / 4;
     const int col0 = 2 * (lane % 4);
     const uint32_t q_addr = smem_u32(q_s) + wg * 64 * 128;
     const uint32_t k_addr = smem_u32(k_s), v_addr = smem_u32(v_s);
     const int r_wg = w.q0 + 64 * wg, r_a = w.q0 + row0;
-    float acc[64], s[64];
-    uint32_t p_hi[32], p_lo[32];
+    float acc[G::kHalves][64], s[G::kS];
+    uint32_t p_hi[G::kP], p_lo[G::kP];
     float al_a, al_b;
 #pragma unroll
-    for (int e = 0; e < 64; ++e) acc[e] = s[e] = 0.0f;
+    for (int hf = 0; hf < G::kHalves; ++hf)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[hf][e] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < G::kS; ++e) s[e] = 0.0f;
 
     Rows st{kMasked, kMasked, 0.0f, 0.0f};
     mbar_wait(&bar_q, 0);
     mbar_wait(&bar_k[0], 0);
     wgmma_fence();
-    issue_qk<kBoxes>(s, q_addr, k_addr);
+    issue_qk<G::kBoxes, kKeys>(s, q_addr, k_addr);
     wgmma_wait<0>();
     fence_regs(s);
     release(&free_k[0], lane);
-    softmax_tile(s, st, al_a, al_b, w.t0 * kRows, r_wg, r_a, col0, Sk,
-                 window, causal, scale_log2);
+    softmax_tile<kKeys>(s, st, al_a, al_b, w.t0 * kKeys, r_wg, r_a, col0, Sk,
+                        window, causal, scale_log2);
     split_bf16(s, p_hi, p_lo);
     for (int i = 1; i < w.n_tiles; ++i) {
       const int sn = i % kStages, sp = (i - 1) % kStages;
       mbar_wait(&bar_k[sn], (i / kStages) & 1);
       mbar_wait(&bar_v[sp], ((i - 1) / kStages) & 1);
-      fence_regs(acc);
+      fence_acc(acc);
       fence_regs(p_hi);
       fence_regs(p_lo);
       wgmma_fence();
-      issue_qk<kBoxes>(s, q_addr, k_addr + sn * kTile);     // tile i
-      issue_pv(acc, p_hi, p_lo, v_addr + sp * kTile);        // tile i - 1
+      issue_qk<G::kBoxes, kKeys>(s, q_addr, k_addr + sn * G::kKvTile);  // i
+      issue_pv<G::kHalves, kKeys>(acc, p_hi, p_lo,
+                                  v_addr + sp * G::kKvTile);          // i - 1
       wgmma_wait<1>();
       fence_regs(s);
       release(&free_k[sn], lane);
-      softmax_tile(s, st, al_a, al_b, (w.t0 + i) * kRows, r_wg, r_a, col0, Sk,
-                   window, causal, scale_log2);
+      softmax_tile<kKeys>(s, st, al_a, al_b, (w.t0 + i) * kKeys, r_wg, r_a,
+                          col0, Sk, window, causal, scale_log2);
       wgmma_wait<0>();
-      fence_regs(acc);
+      fence_acc(acc);
       release(&free_v[sp], lane);
 #pragma unroll
-      for (int e = 0; e < 64; ++e) acc[e] *= (e & 2) ? al_b : al_a;
+      for (int hf = 0; hf < G::kHalves; ++hf)
+#pragma unroll
+        for (int e = 0; e < 64; ++e) acc[hf][e] *= (e & 2) ? al_b : al_a;
       split_bf16(s, p_hi, p_lo);
     }
     // The last tile's p v.
     const int last = w.n_tiles - 1, sl = last % kStages;
     mbar_wait(&bar_v[sl], (last / kStages) & 1);
-    fence_regs(acc);
+    fence_acc(acc);
     fence_regs(p_hi);
     fence_regs(p_lo);
     wgmma_fence();
-    issue_pv(acc, p_hi, p_lo, v_addr + sl * kTile);
+    issue_pv<G::kHalves, kKeys>(acc, p_hi, p_lo, v_addr + sl * G::kKvTile);
     wgmma_wait<0>();
-    fence_regs(acc);
-    store_rows<D, kBoxes>(o, lse, acc, st, w.b, w.h, r_a, col0, Sq, H);
+    fence_acc(acc);
+    store_rows<D, G::kHalves>(o, lse, acc, st, w.b, w.h, r_a, col0, Sq, H);
   }
 }
 
@@ -601,29 +661,40 @@ template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int Sq, int Sk, int H, int KV, int window,
                 int causal, float scale, cudaStream_t stream) {
-  constexpr int kSmem = 1024 + (1 + 2 * kStages) * 2 * kBoxBytes;
+  using G = Geometry<D>;
   const int64_t n_units = (int64_t)((Sq + kRows - 1) / kRows) * B * H;
   if (n_units > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
   if (!encode_map(enc, &tq, q, B, Sq, H, D, kRows) ||
-      !encode_map(enc, &tk, k, B, Sk, KV, D, kRows) ||
-      !encode_map(enc, &tv, v, B, Sk, KV, D, kRows))
+      !encode_map(enc, &tk, k, B, Sk, KV, D, G::kKeys) ||
+      !encode_map(enc, &tv, v, B, Sk, KV, D, G::kKeys))
     return (int)cudaErrorInvalidValue;
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
         swa_attention_hopper_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
   }
-  swa_attention_hopper_kernel<D><<<(unsigned)n_units, kHThreads, kSmem,
+  swa_attention_hopper_kernel<D><<<(unsigned)n_units, kHThreads, G::kSmem,
                                    stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, B, Sq, Sk, H, KV,
       window, causal, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
+}
+
+// Both kernels of head size D, by dtype.
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int H, int KV, int window, int causal,
+           float scale, int dtype, cudaStream_t stream) {
+  return dtype == 0 ? launch_f32<D>(q, k, v, o, lse, B, Sq, Sk, H, KV, window,
+                                    causal, scale, stream)
+                    : launch_bf16<D>(q, k, v, o, lse, B, Sq, Sk, H, KV,
+                                     window, causal, scale, stream);
 }
 
 }  // namespace
@@ -631,7 +702,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 // Attention over contiguous q (B, Sq, H, D) and k, v (B, Sk, KV, D), all of
 // one dtype (0 = fp32, 1 = bf16), into o (B, Sq, H, D) of that dtype and,
 // unless lse is null, each row's fp32 log-sum-exp into lse (B, H, Sq).
-// window <= 0 means no window; causal is 0 or 1; D is 120 or 128; H a
+// window <= 0 means no window; causal is 0 or 1; D is 120, 128 or 256; H a
 // multiple of KV; the pointers 16-byte aligned. Returns 0 or a cudaError_t.
 extern "C" int repro_swa_attention(const void* q, const void* k, const void* v,
                                    void* o, void* lse_out, int64_t B, int64_t Sq, int64_t Sk,
@@ -646,17 +717,17 @@ extern "C" int repro_swa_attention(const void* q, const void* k, const void* v,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int b = (int)B, sq = (int)Sq, sk = (int)Sk, h = (int)H, kv = (int)KV;
   float* lse = static_cast<float*>(lse_out);
-  if (D == 120)
-    return dtype == 0
-        ? launch_f32<120>(q, k, v, o, lse, b, sq, sk, h, kv, w, causal, scale,
-                          s)
-        : launch_bf16<120>(q, k, v, o, lse, b, sq, sk, h, kv, w, causal,
-                           scale, s);
-  if (D == 128)
-    return dtype == 0
-        ? launch_f32<128>(q, k, v, o, lse, b, sq, sk, h, kv, w, causal, scale,
-                          s)
-        : launch_bf16<128>(q, k, v, o, lse, b, sq, sk, h, kv, w, causal,
-                           scale, s);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 120:
+      return launch<120>(q, k, v, o, lse, b, sq, sk, h, kv, w, causal, scale,
+                         dtype, s);
+    case 128:
+      return launch<128>(q, k, v, o, lse, b, sq, sk, h, kv, w, causal, scale,
+                         dtype, s);
+    case 256:
+      return launch<256>(q, k, v, o, lse, b, sq, sk, h, kv, w, causal, scale,
+                         dtype, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

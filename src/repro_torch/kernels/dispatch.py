@@ -71,6 +71,7 @@ from repro_torch.kernels.swa_attention import (
     swa_attention_plain,
 )
 from repro_torch.kernels.swa_attention_bwd import (
+    check_head_dim,
     swa_attention_bwd_cuda,
     swa_attention_bwd_plain,
 )
@@ -721,12 +722,14 @@ class SwaAttention(torch.autograd.Function):
     dk, dv)`` from them and ``do``: the ``swa_attention_bwd`` kernel on CUDA
     tensors, ``swa_attention_bwd_plain`` on CPU tensors. ``k`` and ``v``
     stay un-repeated; the sum over a KV group's query heads happens inside
-    the backward.
+    the backward. On CUDA tensors a head size the backward kernels do not
+    take (256) is refused before the forward launches.
     """
 
     @staticmethod
     def forward(ctx, q, k, v, window, causal):
         if _is_cuda(q):
+            check_head_dim("swa_attention (training)", q.shape[-1])
             o, lse = swa_attention_cuda(q, k, v, window=window, causal=causal,
                                         with_lse=True)
         else:
@@ -754,9 +757,10 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (head h reads KV head ``h // (H // KV)``); positions of q and k both
     start at 0. CPU tensors run the plain version (any float dtype and head
     size); CUDA tensors launch the kernel, which takes fp32 or bf16 and head
-    sizes 120 and 128 and raises on anything else. Where autograd records
-    (grad mode on and an input that requires grad) the call goes through
-    :class:`SwaAttention`, whose forward also writes the log-sum-exp;
+    sizes 120, 128 and 256 and raises on anything else. Where autograd
+    records (grad mode on and an input that requires grad) the call goes
+    through :class:`SwaAttention`, whose forward also writes the
+    log-sum-exp (head sizes 120 and 128 on the card: the backward's);
     otherwise (serving) it does not.
     """
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

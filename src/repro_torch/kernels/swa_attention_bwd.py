@@ -28,7 +28,7 @@ the ``H / KV`` query heads of a group is the gradient of JAX's
   streams through a shared-memory ring; ``p`` and ``ds`` enter the products
   as bf16 hi + lo), fp32 on the CUDA cores. One call is two launches on the
   current stream and counts one in :data:`launches`. Head sizes
-  ``HEAD_DIMS``.
+  :data:`HEAD_DIMS` (120 and 128; the forward also takes 256).
 * :func:`swa_attention_bwd_plain` is the same function in plain PyTorch,
   scores materialised in fp32 (float64 for float64 inputs) per KV group, as
   ``swa_attention_plain`` does. The CPU path runs it; on the card it is
@@ -48,12 +48,26 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decay_accum import check_buffer, raise_on, stream_of
 from repro_torch.kernels.swa_attention import (
     DTYPE_CODE,
-    HEAD_DIMS,
     check_shapes,
     swa_mask,
 )
 
+# The head sizes the backward kernels take: the forward's but 256, whose
+# backward (gemma-7b and recurrentgemma-9b training) comes with the next
+# slice; ``csrc/swa_attention_bwd.cu`` has no D = 256 entry.
+HEAD_DIMS = (120, 128)
+
 launches = 0               # calls of swa_attention_bwd_cuda (two kernels each)
+
+
+def check_head_dim(fn: str, d: int) -> None:
+    """Raise ``ValueError`` for a head size the backward kernels do not
+    take, naming the slice that brings it."""
+    if d not in HEAD_DIMS:
+        raise ValueError(
+            f"{fn}: the backward kernels take head sizes {HEAD_DIMS}, got "
+            f"{d}; the D = 256 backward (gemma-7b / recurrentgemma-9b "
+            f"training) comes with the next slice")
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -121,18 +135,17 @@ def swa_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     one device, D in :data:`HEAD_DIMS`; ``lse`` is the forward's contiguous
     fp32 ``(B, H, Sq)``; every pointer 16-byte aligned. The outputs and the
     fp32 scratch (``delta``, and for bf16 also ``lse * log2 e``, each padded
-    to whole 128-row tiles) are allocated here.
+    to whole 128-row tiles) are allocated here. A head size outside
+    :data:`HEAD_DIMS` is refused first, before any other check or launch.
     """
     global launches
     fn = "swa_attention_bwd_cuda"
+    check_head_dim(fn, q.shape[-1])
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"{fn}: tensors must be on a CUDA device, got {device}")
     B, Sq, Sk, H, KV, D = check_shapes(fn, q, k, v, window, causal)
     _check_residuals(fn, q, o, do, lse, B, Sq, H)
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{fn}: the kernel takes head sizes {HEAD_DIMS}, got "
-                         f"{D}")
     dtypes = (q.dtype,) if q.dtype in DTYPE_CODE else tuple(DTYPE_CODE)
     for name, t in (("q", q), ("o", o), ("do", do)):
         check_buffer(fn, name, t, q.shape, dtypes, device)

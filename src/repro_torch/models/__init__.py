@@ -1,6 +1,7 @@
 """Language models of the port (``repro.models``): the decoder LM with
-RWKV6 ``wkv`` blocks (slice 4), sliding-window attention (slice 5) and its
-training loss (slice 13)."""
+RWKV6 ``wkv`` blocks (slice 4), sliding-window attention (slice 5), its
+training loss (slice 13), and the Griffin ``rglru`` block with mixed layer
+patterns at head size 256 (slice 15)."""
 from repro_torch.models.transformer import (
     chunked_cross_entropy,
     count_params,

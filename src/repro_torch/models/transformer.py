@@ -3,18 +3,19 @@
 The JAX package groups layers into [head] + [cycles scanned over stacked
 params] + [tail]; here the scan over cycles is a Python loop over one
 parameter dict per layer (``params["blocks"]``), and :func:`layer_plan` is
-kept to read the JAX tree (:func:`params_from_jax`). The port runs models
-whose every layer is of one block kind:
+kept to read the JAX tree (:func:`params_from_jax`). Block kinds:
 
 * ``wkv`` (slice 4, ``rwkv6-1.6b``): the RWKV6 time-mix and channel-mix,
   the ``ln0`` of the ssm family;
 * ``attn`` and ``local`` (slice 5, ``phi4-mini-3.8b`` and
-  ``h2o-danube-3-4b``): ``ln1 -> attention -> +``, ``ln2 -> dense MLP ->
-  +``, global or sliding-window attention with RoPE.
+  ``h2o-danube-3-4b``; slice 15, ``gemma-7b``): ``ln1 -> attention -> +``,
+  ``ln2 -> dense MLP -> +``, global or sliding-window attention with RoPE;
+* ``rglru`` (slice 15, ``recurrentgemma-9b``): ``ln1 -> the Griffin
+  recurrent block (models/rglru.py) -> +``, ``ln2 -> dense MLP -> +``.
 
-Mixed patterns, other block kinds, MoE, modality frontends and
-encoder-decoder models raise ``NotImplementedError`` naming the slice that
-brings them.
+Layer patterns may mix kinds (``recurrentgemma-9b``: ``(rglru, rglru,
+local)``). MoE, modality frontends and encoder-decoder models raise
+``NotImplementedError`` naming the slice that brings them.
 
 Modes: ``train`` and ``prefill`` run a whole sequence from an initial state
 (train discards nothing here: both return the final states; attention
@@ -28,24 +29,32 @@ The loss (slice 13): :func:`lm_loss` is next-token cross-entropy over the
 hidden states, through :func:`chunked_cross_entropy` (per-chunk recompute,
 or the logits materialised when ``n_chunks`` is 0 or does not divide B).
 Attention models train through the differentiable ``swa_attention``
-(the forward and backward kernels on the card). ``wkv`` blocks, MoE,
-encoder-decoder and VLM models raise ``NotImplementedError`` there.
+(the forward and backward kernels on the card). ``wkv`` and ``rglru``
+blocks, MoE, encoder-decoder and VLM models raise ``NotImplementedError``
+there.
 
-The decode state is one dict for all layers, each leaf stacked over them
-(the JAX package's ``state["cycles"][0]`` for a one-kind pattern):
+The decode state of a one-kind pattern is one dict for all layers, each
+leaf stacked over them (the JAX package's ``state["cycles"][0]``):
 
 * ``wkv``: ``{"tm": {"shift": (L, B, d), "wkv": (L, B, H, hd, hd) fp32},
   "cm_shift": (L, B, d)}``, zeros;
 * ``attn`` / ``local``: ``{"cache": {"k": (L, B, W, KV, hd), "v": ...,
   "pos": (L, B, W) int32}}``, K/V zeros and ``pos`` -1 (empty slots), with
-  W = ``min(window, max_seq)`` for ``local`` and ``max_seq`` for ``attn``.
+  W = ``min(window, max_seq)`` for ``local`` and ``max_seq`` for ``attn``;
+* ``rglru``: ``{"rec": {"h": (L, B, W) fp32, "conv": (L, B, K - 1, W)}}``,
+  zeros.
 
-The batch axis is axis 1 of every leaf.
+A mixed pattern keeps one such stack per block kind, over that kind's
+layers only, keyed by the kind: ``{"rglru": {"rec": ...}, "local":
+{"cache": ...}}``; layer i's entry is :func:`state_index` (``(kind, j)``:
+the j-th layer of its kind). The batch axis is axis 1 of every leaf in
+both layouts, so a slot's rows are views of each leaf.
 
 In place: :func:`forward` (with ``states`` given) and :func:`decode_step`
 write the new states over the states they are given and return that same
 dict; the WKV kernel writes each layer's final state over its initial one,
-a prefill fills each layer's cache and a decode step writes one ring slot.
+a prefill fills each layer's cache and a decode step writes one ring slot;
+an ``rglru`` layer writes its final ``h`` and conv inputs over its state.
 """
 from __future__ import annotations
 
@@ -58,6 +67,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as at
+from repro_torch.models import rglru as rg
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models.layers import (
     apply_mlp,
@@ -70,9 +80,6 @@ from repro_torch.models.layers import (
     torch_dtype,
     unembed,
 )
-
-_LATER = {"rglru": "a later slice (recurrentgemma-9b, models/rglru.py)"}
-
 
 # ----------------------------------------------------------------------------
 # Layer plan
@@ -108,14 +115,6 @@ def check_supported(cfg) -> None:
     if cfg.family == "moe":
         raise NotImplementedError("MoE comes with a later slice (kimi-k2, "
                                   "arctic; models/moe.py)")
-    for kind in cfg.layer_pattern:
-        if kind in _LATER:
-            raise NotImplementedError(
-                f"block kind {kind!r} comes with {_LATER[kind]}")
-    if len(set(cfg.layer_pattern)) > 1:
-        raise NotImplementedError(
-            f"mixed layer patterns {cfg.layer_pattern} come with a later "
-            f"slice (recurrentgemma-9b)")
     if cfg.pos_emb == "sinusoidal":
         raise NotImplementedError("sinusoidal positions come with a later "
                                   "slice (whisper-small)")
@@ -136,22 +135,30 @@ def _init_block(gen, cfg, kind: str) -> dict:
                 "tm": rw.init_time_mix(gen, cfg),
                 "ln2": init_norm(gen, d, cfg.norm),
                 "cm": rw.init_channel_mix(gen, cfg)}
-    return {"ln1": init_norm(gen, d, cfg.norm),
-            "attn": at.init_attention(gen, cfg),
-            "ln2": init_norm(gen, d, cfg.norm),
-            "mlp": init_mlp(gen, d, cfg.d_ff, cfg.activation)}
+    p = {"ln1": init_norm(gen, d, cfg.norm)}
+    if kind == "rglru":
+        p["rec"] = rg.init_rglru_block(gen, cfg)
+    else:
+        p["attn"] = at.init_attention(gen, cfg)
+    p["ln2"] = init_norm(gen, d, cfg.norm)
+    p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.activation)
+    return p
 
 
-def _build_tree(cfg, gen) -> dict:
+def _build_tree(cfg, gen, cast: Callable = lambda t: t) -> dict:
+    """The parameter tree drawn from ``gen`` leaf by leaf in a fixed order;
+    each top-level entry and each block goes through ``cast`` as soon as it
+    is drawn."""
     check_supported(cfg)
     d, vp = cfg.d_model, padded_vocab(cfg)
-    p: dict = {"embed": init_embedding(gen, vp, d),
-               "final_norm": init_norm(gen, d, cfg.norm)}
+    part = lambda t: tree_map(cast, t)
+    p: dict = {"embed": part(init_embedding(gen, vp, d)),
+               "final_norm": part(init_norm(gen, d, cfg.norm))}
     if not cfg.tie_embeddings:
-        p["unembed"] = {"w": mk(gen, (d, vp), std=0.02)}
+        p["unembed"] = part({"w": mk(gen, (d, vp), std=0.02)})
     if cfg.family == "ssm":
-        p["ln0"] = init_norm(gen, d, cfg.norm)
-    p["blocks"] = [_init_block(gen, cfg, cfg.block_kind(i))
+        p["ln0"] = part(init_norm(gen, d, cfg.norm))
+    p["blocks"] = [part(_init_block(gen, cfg, cfg.block_kind(i)))
                    for i in range(cfg.n_layers)]
     return p
 
@@ -189,12 +196,13 @@ def init_params(cfg, seed: int = 0, device="cuda") -> dict:
     ``torch.Generator`` on that device, drawn leaf by leaf in a fixed order
     (embed, final norm, unembed, ln0, then each block). Not the JAX
     package's numbers (another generator); carry those with
-    :func:`params_from_jax`."""
+    :func:`params_from_jax`. Leaves are drawn in fp32 and cast as soon as
+    their entry (a block, the embedding) is drawn, so the fp32 draw alive
+    at once is one entry (the embedding, at full width), not the tree."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     dtype = torch_dtype(cfg.param_dtype)
-    tree = _build_tree(cfg, gen)
-    return tree_map(lambda t: t.to(dtype), tree)
+    return _build_tree(cfg, gen, cast=lambda t: t.to(dtype))
 
 
 def _as_tensor(a, dtype, device) -> torch.Tensor:
@@ -262,31 +270,67 @@ def params_from_jax(cfg, tree, device="cuda") -> dict:
 # Stream state
 # ----------------------------------------------------------------------------
 
+def state_kinds(cfg) -> tuple:
+    """The block kinds of ``cfg.layer_pattern``, each once, in order."""
+    return tuple(dict.fromkeys(cfg.layer_pattern))
+
+
+def state_index(cfg) -> List[tuple]:
+    """Where layer i's decode state lives: ``(None, i)`` in a one-kind
+    layout, ``(kind, j)`` in a mixed one, j counting the layers of that
+    kind before it."""
+    if len(state_kinds(cfg)) == 1:
+        return [(None, i) for i in range(cfg.n_layers)]
+    seen: dict = {}
+    out = []
+    for i in range(cfg.n_layers):
+        kind = cfg.block_kind(i)
+        out.append((kind, seen.get(kind, 0)))
+        seen[kind] = seen.get(kind, 0) + 1
+    return out
+
+
+def _kind_state(cfg, kind: str, batch: int, max_seq: int, dtype,
+                mode: str) -> dict:
+    """One layer's initial state (``meta`` tensors: shapes and dtypes)."""
+    if kind == "wkv":
+        return rw.init_wkv_state(cfg, batch, dtype, device="meta")
+    if kind == "rglru":
+        return {"rec": rg.init_rglru_state(cfg, batch, dtype, device="meta")}
+    if mode == "train":
+        return {}
+    if max_seq < 1:
+        raise ValueError(f"init_decode_state: attention layers need "
+                         f"max_seq >= 1, got {max_seq}")
+    return {"cache": at.init_kv_cache(cfg, batch, kind, max_seq, dtype,
+                                      device="meta")}
+
+
 def init_decode_state(cfg, batch: int, max_seq: int = 0, dtype=None,
                       mode: str = "decode", device="cuda") -> dict:
     """Initial states for ``batch`` streams, every leaf stacked over the
-    layers (see the module docstring). ``dtype`` (default
-    ``cfg.compute_dtype``) is that of the shift carries and the KV cache;
-    the WKV state is fp32. Attention layers hold a cache of
-    ``min(window, max_seq)`` slots (``max_seq`` for global attention), none
-    in ``train`` mode; the WKV state ignores ``max_seq`` and ``mode``."""
+    layers of its kind (see the module docstring). ``dtype`` (default
+    ``cfg.compute_dtype``) is that of the shift carries, the conv inputs
+    and the KV cache; the WKV and RG-LRU states are fp32. Attention layers
+    hold a cache of ``min(window, max_seq)`` slots (``max_seq`` for global
+    attention), none in ``train`` mode; recurrent states ignore ``max_seq``
+    and ``mode``."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.compute_dtype) if dtype is None else dtype
-    kind = cfg.layer_pattern[0]
-    if kind == "wkv":
-        one = rw.init_wkv_state(cfg, batch, dtype, device="meta")
-    elif mode == "train":
-        one = {}
-    else:
-        if max_seq < 1:
-            raise ValueError(f"init_decode_state: attention layers need "
-                             f"max_seq >= 1, got {max_seq}")
-        one = {"cache": at.init_kv_cache(cfg, batch, kind, max_seq, dtype,
-                                         device="meta")}
-    return reset_state(tree_map(
-        lambda t: torch.empty((cfg.n_layers,) + tuple(t.shape), dtype=t.dtype,
-                              device=dev), one))
+    kinds = state_kinds(cfg)
+
+    def stack(kind, n):
+        return tree_map(
+            lambda t: torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                                  device=dev),
+            _kind_state(cfg, kind, batch, max_seq, dtype, mode))
+
+    if len(kinds) == 1:
+        return reset_state(stack(kinds[0], cfg.n_layers))
+    index = state_index(cfg)
+    return reset_state({
+        kind: stack(kind, sum(k == kind for k, _ in index)) for kind in kinds})
 
 
 def reset_state(states: dict) -> dict:
@@ -302,7 +346,8 @@ def reset_state(states: dict) -> dict:
 
 
 def layer_state(states: dict, i: int) -> dict:
-    """Layer ``i``'s state as views of the stacked leaves."""
+    """Entry ``i`` of stacked leaves, as views (in a one-kind layout, layer
+    ``i``'s state; see :func:`state_index`)."""
     return tree_map(lambda t: t[i], states)
 
 
@@ -322,7 +367,11 @@ def _apply_block(p, x, cfg, kind, st, *, positions, pos, wkv_impl,
         y2, cm_shift = rw.channel_mix(p["cm"], xb, cfg, st["cm_shift"])
         st["cm_shift"].copy_(cm_shift)
         return x + y2
-    if pos is not None:
+    if kind == "rglru":
+        y, new = rg.apply_rglru_block(p["rec"], xa, cfg, st["rec"])
+        st["rec"]["h"].copy_(new["h"])
+        st["rec"]["conv"].copy_(new["conv"])
+    elif pos is not None:
         y, _ = at.attention_decode(p["attn"], xa, st["cache"], cfg, kind=kind,
                                    pos=pos)
     elif "cache" in st:
@@ -352,8 +401,10 @@ def _run_layers(cfg, params, x, states, *, positions=None, pos=None,
         raise ValueError(f"params hold {len(params['blocks'])} blocks, the "
                          f"config {cfg.n_layers} layers")
     recompute = remat_layers(cfg) if remat else ()
+    index = state_index(cfg)
     for i, p in enumerate(params["blocks"]):
-        st = layer_state(states, i)
+        kind, j = index[i]
+        st = layer_state(states if kind is None else states[kind], j)
         run = lambda x_, p=p, i=i, st=st: _apply_block(
             p, x_, cfg, cfg.block_kind(i), st, positions=positions, pos=pos,
             wkv_impl=wkv_impl, swa_impl=swa_impl)
@@ -466,6 +517,8 @@ def decode_step(cfg, params, token: torch.Tensor, states: dict,
 _NO_TRAINING = {
     "wkv": "training wkv blocks needs the wkv6 backward kernel, which comes "
            "with a later slice (RWKV training)",
+    "rglru": "training rglru blocks (recurrentgemma-9b) comes with the next "
+             "slice, with the D = 256 attention backward",
 }
 
 

@@ -832,6 +832,13 @@ def _swa_one_bf16_p(q, k, v, window, causal):
     (1, 129, 300, 4, 2, 128, None, False),
     (3, 200, 200, 8, 2, 120, 100, True),
     (3, 255, 255, 4, 4, 128, None, True),
+    # D = 256 (gemma-7b, recurrentgemma-9b): the bf16 kernel's 64-key tiles
+    (1, 65, 65, 16, 1, 256, None, True),
+    (2, 129, 129, 16, 16, 256, 2048, True),
+    (1, 200, 200, 8, 1, 256, 40, True),
+    (1, 127, 255, 4, 2, 256, None, True),
+    (1, 300, 129, 4, 4, 256, None, True),
+    (1, 129, 300, 4, 1, 256, None, False),
 ])
 def test_swa_attention_kernel_matches_plain(card, b, sq, sk, h, kv, d, window,
                                             causal, dtype):
@@ -862,7 +869,7 @@ def test_swa_attention_kernel_matches_plain(card, b, sq, sk, h, kv, d, window,
 
 def test_swa_attention_kernel_refuses_what_it_does_not_take(card):
     q, k, v = _swa_case(1, 8, 8, 4, 2, 120, torch.float32, 0, card)
-    with pytest.raises(ValueError, match=r"head sizes \(120, 128\)"):
+    with pytest.raises(ValueError, match=r"head sizes \(120, 128, 256\)"):
         sw.swa_attention_cuda(q[..., :64].contiguous(),
                               k[..., :64].contiguous(),
                               v[..., :64].contiguous())
@@ -878,6 +885,97 @@ def test_swa_attention_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="no key in their window"):
         sw.swa_attention_cuda(q, k[:, :2].contiguous(), v[:, :2].contiguous(),
                               window=4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_swa_attention_d256_repeats_bitwise_and_writes_the_lse(card, dtype):
+    """At D = 256 a call repeats bitwise and its lse matches the plain
+    version's (the backward slice reads it)."""
+    q, k, v = _swa_case(1, 300, 300, 16, 1, 256, dtype, 5, card)
+    o, lse = sw.swa_attention_cuda(q, k, v, window=100, with_lse=True)
+    o2, lse2 = sw.swa_attention_cuda(q, k, v, window=100, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    _, plse = sw.swa_attention_plain(q, k, v, window=100, with_lse=True)
+    assert float(((lse - plse).abs() / plse.abs().clamp(min=1.0)).max()) \
+        <= 1e-5
+
+
+def test_d256_training_is_refused_before_any_launch(card):
+    """The forward takes D = 256, its backward does not yet: a training
+    call on the card raises before the forward launches."""
+    q, k, v = _swa_case(1, 64, 64, 4, 1, 256, torch.bfloat16, 6, card)
+    q.requires_grad_(True)
+    before = (sw.launches, swb.launches)
+    with pytest.raises(ValueError, match="next slice"):
+        dispatch.swa_attention(q, k, v)
+    assert (sw.launches, swb.launches) == before
+
+
+def _reduced_head256(arch, card, scale=1.0):
+    """A reduced model at head size 256, fp32: gemma (2 global layers, 2
+    heads) or recurrentgemma (5 layers of (rglru, rglru, local), 4 query
+    heads on 1 KV head, window 8)."""
+    import dataclasses
+    kw = {"gemma-7b": dict(n_layers=2, n_heads=2, n_kv_heads=2),
+          "recurrentgemma-9b": dict(n_layers=5, n_heads=4, n_kv_heads=1,
+                                    lru_width=128, sliding_window=8)}[arch]
+    cfg = dataclasses.replace(TC.get_arch(arch), d_model=128, head_dim=256,
+                              d_ff=256, vocab_size=512, param_dtype="float32",
+                              compute_dtype="float32", remat=False, **kw)
+    params = TM.init_params(cfg, seed=1, device="cpu")
+    params = TM.transformer.tree_map(lambda t: t * scale, params)
+    return cfg, params, TM.transformer.tree_map(lambda t: t.to(card), params)
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "recurrentgemma-9b"])
+def test_head256_lm_on_the_card_matches_the_cpu_port(card, arch):
+    """Prefill 20 tokens and four decode steps at head 256 on the card
+    against the same on the CPU (atol 1e-4; for recurrentgemma the ring of
+    8 wraps), one kernel launch per attention layer and prefill, none per
+    decode step, the recurrent states equal too."""
+    cfg, cpu_p, gpu_p = _reduced_head256(arch, card)
+    n_attn = sum(cfg.block_kind(i) != "rglru" for i in range(cfg.n_layers))
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 24)))
+    lg_c, st_c = TM.prefill(cfg, cpu_p, toks[:, :20], cache_len=24)
+    before = sw.launches
+    lg_g, st_g = TM.prefill(cfg, gpu_p, toks[:, :20].to(card), cache_len=24)
+    assert sw.launches - before == n_attn
+    torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=0)
+    for i in range(4):
+        tok, pos = toks[:, 20 + i:21 + i], torch.full((2,), 20 + i)
+        lg_c, st_c = TM.decode_step(cfg, cpu_p, tok, st_c, pos)
+        before = sw.launches
+        lg_g, st_g = TM.decode_step(cfg, gpu_p, tok.to(card), st_g,
+                                    pos.to(card))
+        assert sw.launches == before
+        torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=0)
+    for a, b in zip(TM.transformer.tree_leaves(st_g),
+                    TM.transformer.tree_leaves(st_c)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
+
+
+def test_head256_serving_loop_on_the_card_matches_single_request_greedy(card):
+    """recurrentgemma reduced, weights x4: 2 slots, 5 requests, prompts
+    past the window, a 1-token prompt in a recycled slot."""
+    cfg, _, gpu_p = _reduced_head256("recurrentgemma-9b", card, scale=4.0)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (14, 3, 21, 1, 9)]
+    done = ServingLoop(cfg, gpu_p, n_slots=2, max_seq=48).run(
+        [Request(i, p, 4) for i, p in enumerate(prompts)])
+    got = {c.rid: c.tokens for c in done}
+    for i, p in enumerate(prompts):
+        lg, st = TM.prefill(cfg, gpu_p, torch.as_tensor(p[None], device=card),
+                            cache_len=48)
+        tok = lg[:, -1:].argmax(-1)
+        want = [int(tok)]
+        for j in range(3):
+            lg, st = TM.decode_step(cfg, gpu_p, tok, st,
+                                    torch.tensor([len(p) + j], device=card))
+            tok = lg[:, -1:].argmax(-1)
+            want.append(int(tok))
+        assert got[i] == want, i
 
 
 def _reduced_swa_lm(card, scale=1.0):

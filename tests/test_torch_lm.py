@@ -366,6 +366,13 @@ def test_serving_loop_stops_at_max_seq(scaled):
 def test_other_models_raise_naming_their_slice(arch, match):
     fields = dataclasses.asdict(C.get_arch(arch).reduced())
     tcfg = TC.ModelConfig(**fields)
+    if arch == "recurrentgemma-9b":
+        # served since slice 15; training its rglru blocks comes later
+        params = TM.init_params(tcfg, device="cpu")
+        with pytest.raises(NotImplementedError, match=match):
+            TM.lm_loss(tcfg, params, {"tokens": torch.zeros(
+                1, 4, dtype=torch.long)})
+        return
     with pytest.raises(NotImplementedError, match=match):
         TM.init_params(tcfg, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
