@@ -98,7 +98,7 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    slots over 16 requests (prompts of 16-512 tokens, 32-64 new tokens):
    prefill / decode / loop tokens per second; wkv6 launched exactly 24
    times per prefill call and per decode step, no build. Checks: every
-   other completion token by token against single-request greedy decoding
+   fourth completion token by token against single-request greedy decoding
    on the card (bf16: prefill and decode_step at B = 1 fed the loop's tokens, each
    token the argmax, or at a near-tie a logit within 2 bf16 ulp of the max,
    counted; the same requests in fp32: equal outright, each request's logits
@@ -133,7 +133,7 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    (max_seq 4736; request 0's 4600-token prompt wraps its ring):
    prefill / decode / loop tokens per second; swa_attention launched
    exactly 24 times per prefill call and per admission, never in a decode
-   step, no build. Checks: every other completion (bf16, request 0
+   step, no build. Checks: every fourth completion (bf16, request 0
    included) and every fp32 one against single-request greedy decoding on
    the card (bf16 with counted near-ties; fp32 outright); an
    admission leaves the other slots' cache rows bitwise unchanged; a bf16
@@ -216,7 +216,8 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    consensus_step exactly ``_lmtrain_expected``, tokens/s of a local
    step; one windowed step at 1 x 4608 (W 4096 binds) with the kernels
    against the plain attention; a mid-size fp32 config card vs CPU on
-   every strategy (one period each); the backward's time beside its bound, the plain
+   every strategy (one period each, one layer); the backward's time beside
+   its bound, the plain
    version's and SDPA's backward (alone: ``c.bwd_alone()``), one profiled
    window of a period, and ``row_mean`` / ``adam_update`` at the phase's
    (2, 555,436,800) bf16 rows beside ``x.mean(0)`` / ``torch._fused_adamw_``.
@@ -246,6 +247,30 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    times at the three prefill calls beside its bound, the plain version's
    and SDPA's. Alone: ``python3 -c 'import chip_smoke as c;
    c.head256_alone()'``.
+20. train (slice 16) — LM training for every family the port serves:
+   first the D = 256 ``swa_attention_bwd`` kernels against their plain
+   version on phase 19's grid (fp32 and bf16, Sq in {1, 63, 64, 65, 127,
+   128, 129, 200} x W in {None, 2048, 40} x 1 and 16 KV heads of 16; phase
+   18's rule, a second launch bitwise, and in bf16 the control with p and
+   ds rounded once to bf16, which must break the mean rule) and the
+   hand-written ``wkv6_bwd`` against ``wkv6_bwd_plain`` (T on and off its
+   16-step chunks, nonzero initial state and final-state gradient, (2,
+   1024, 32, 64); within 1e-5 of each gradient's largest |value|, a second
+   call bitwise); then gemma-7b (2 of 28 layers), recurrentgemma-9b (3 of
+   38: one ``(rglru, rglru, local)`` cycle) and rwkv6-1.6b (all 24) at
+   their published width through ``train`` (A 2 x B 2 x S 1024, periodic
+   tau 2) and one more period through ``make_local_step`` /
+   ``make_sync_step``: launches of swa_attention, swa_attention_bwd,
+   wkv6, wkv6_bwd, adam_update and row_mean exactly ``_train_expected``,
+   rows bitwise equal after each sync, tokens/s of a local step, sync ms,
+   the period's peak device memory, one profiled local step (matmuls,
+   attention and wkv6 forward and backward, Adam, the rest), and agent 0's
+   loss and gradient with the kernels against the plain attention and
+   recurrence (phase 18's rule); the kernels' times at the models' shapes
+   beside their bounds, the plain versions' and SDPA's backward, and the
+   plain RG-LRU scan's forward and backward. Alone: ``python3 -c 'import
+   chip_smoke as c; c.train_alone()'`` (``c.train_kernels_alone()``: the
+   two kernel checks only).
 
 Its last lines are the kernel summary JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -3438,7 +3463,7 @@ LM_SLOTS = 8
 LM_PREFILL = ((8, 512), (1, 4096))    # (B, T) of the prefill step
 LM_DECODE_TOKENS = 32
 LM_REQUESTS = 16
-LM_CHECKED = 2                        # every LM_CHECKED-th completion checked
+LM_CHECKED = 4                        # every LM_CHECKED-th completion checked
 LM_PROMPT = (16, 512)                 # prompt lengths, inclusive
 LM_NEW = (32, 64)                     # new tokens, inclusive
 LM_MAX_SEQ = 1024
@@ -3788,10 +3813,11 @@ def admission_control(TM, launch, cfg, params, reqs) -> dict:
 
 def loop_vs_single_request(TM, cfg, params, reqs, got, near_tie,
                            cache_len=None) -> dict:
-    """The completions of every other request (``LM_CHECKED``: the even
-    ids, request 0 included) against single-request greedy decoding
-    (``lm_greedy_check``). All 16 were checked until phase 18 came; at B =
-    1 a token's decode step is host-bound, so the check took 51-62 s."""
+    """The completions of every fourth request (``LM_CHECKED``: ids 0, 4,
+    8, 12) against single-request greedy decoding (``lm_greedy_check``).
+    All 16 were checked until phase 18 came, every other one until phase
+    20 came; at B = 1 a token's decode step is host-bound, so the check of
+    all 16 took 51-62 s."""
     checks = [lm_greedy_check(TM, cfg, params, r, got[r.rid], near_tie,
                               cache_len) for r in reqs[::LM_CHECKED]]
     ties = [t for c in checks for t in c["ties"]]
@@ -3974,7 +4000,7 @@ def lm_serving_path(wk, _build, TC, TM, launch, card) -> dict:
         out["check_seconds"][name] = now - t_chk[0]
         t_chk[0] = now
 
-    # --- check: every completion is single-request greedy decoding ---
+    # --- check: completions are single-request greedy decoding ---
     near_tie = lambda best: LM_BF16_ULPS * bf16_ulp(best)
     chk = loop_vs_single_request(TM, cfg, params, reqs, got, near_tie)
     out["loop_vs_single_request"] = chk
@@ -4570,7 +4596,7 @@ def swa_serving_path(sw, _build, TC, TM, launch, card) -> dict:
         out["check_seconds"][name] = now - t_chk[0]
         t_chk[0] = now
 
-    # --- check: every completion is single-request greedy decoding ---
+    # --- check: completions are single-request greedy decoding ---
     near_tie = lambda best: LM_BF16_ULPS * bf16_ulp(best)
     chk = loop_vs_single_request(TM, cfg, params, reqs, got, near_tie,
                                  cache_len=SWA_MAX_SEQ)
@@ -4941,20 +4967,22 @@ def profile_swa(TC, TM, launch, card) -> dict:
     return {"prefill": pre, "decode": dec}
 
 
-def hgmma_count(_build, kernel: str = SWA_KERNEL) -> int:
+def hgmma_counts(_build, kernels) -> dict:
     """``HGMMA`` instructions (wgmma on the tensor cores) in the built
-    library's kernels whose name holds ``kernel``, by ``cuobjdump -sass``."""
+    library's kernels whose name holds each of ``kernels``, from one
+    ``cuobjdump -sass`` of the library (each run of it takes seconds)."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", _build.build_info["library"]],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    count, inside = 0, False
+    counts, inside = {k: 0 for k in kernels}, ()
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = kernel in line
-        elif inside and "HGMMA" in line:
-            count += 1
-    return count
+            inside = [k for k in kernels if k in line]
+        else:
+            for k in inside:
+                counts[k] += "HGMMA" in line
+    return counts
 
 
 # --- phase 18: federated LM training (slice 13) -------------------------------------
@@ -4967,7 +4995,8 @@ LMT_PARAMS = 555_436_800              # 2 x 122,880,000 embed / unembed + 3,840
 LMT_AGENTS, LMT_BATCH, LMT_SEQ, LMT_TAU, LMT_STEPS = 2, 2, 1024, 2, 6
 LMT_LONG = (1, 4608)                  # the windowed step: W = 4096 binds
 LMT_MID_ARCH = "h2o-danube-3-4b-mid"
-LMT_MID = dict(n_layers=2, d_model=960, n_heads=8, n_kv_heads=2,
+# one layer (the CPU side's Adam over the rows dominates the phase's time)
+LMT_MID = dict(n_layers=1, d_model=960, n_heads=8, n_kv_heads=2,
                head_dim=120, d_ff=2560, vocab_size=4096, sliding_window=64,
                param_dtype="float32", compute_dtype="float32")
 # 2 steps (one period at tau 2): the plain Adam over 2 x 27.2 M fp32 rows
@@ -5234,20 +5263,22 @@ def lm_train_path(km, sw, swb, TC, TM, launch, card) -> dict:
             "steps": LMT_STEPS, "runs": runs, "launches": launches}
 
 
-def lmt_period_times(launch, cfg, fed, state) -> dict:
-    """One more period on ``state``: each local step and the sync timed by
-    the host clock around work that ends in a synchronise."""
+def lmt_period_times(launch, cfg, fed, state, agents=LMT_AGENTS,
+                     batch=LMT_BATCH, seq=LMT_SEQ, offset=LMT_STEPS) -> dict:
+    """One more period on ``state`` (tau local steps on the batches of steps
+    ``offset`` on, then the sync), each step and the sync timed by the host
+    clock around work that ends in a synchronise."""
     from repro_torch.data import SyntheticLM
     from repro_torch.optim import adamw
     local = launch.make_local_step(cfg, adamw(weight_decay=0.01), fed,
-                                   n_agents=LMT_AGENTS)
-    sync = launch.make_sync_step(cfg, fed, n_agents=LMT_AGENTS)
+                                   n_agents=agents)
+    sync = launch.make_sync_step(cfg, fed, n_agents=agents)
     data = SyntheticLM(vocab_size=cfg.vocab_size, seed=SEED)
     times = []
     for j in range(fed.tau):
         toks = torch.from_numpy(np.stack([
-            data.batch(LMT_STEPS + j, LMT_BATCH, LMT_SEQ + 1, agent=a)
-            for a in range(LMT_AGENTS)])).cuda()
+            data.batch(offset + j, batch, seq + 1, agent=a)
+            for a in range(agents)])).cuda()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         local(state, {"tokens": toks})
@@ -5258,9 +5289,10 @@ def lmt_period_times(launch, cfg, fed, state) -> dict:
     torch.cuda.synchronize()
     sync_ms = (time.perf_counter() - t0) * 1e3
     ms = statistics.median(times) * 1e3
-    return {"local_step_ms": ms, "sync_ms": sync_ms,
-            "tokens_per_s": LMT_AGENTS * LMT_BATCH * LMT_SEQ / ms * 1e3,
-            "tokens_per_s_per_agent": LMT_BATCH * LMT_SEQ / ms * 1e3}
+    return {"local_step_ms": ms, "local_steps_ms": [x * 1e3 for x in times],
+            "sync_ms": sync_ms,
+            "tokens_per_s": agents * batch * seq / ms * 1e3,
+            "tokens_per_s_per_agent": batch * seq / ms * 1e3}
 
 
 def lmt_windowed_step(sw, TC, launch) -> dict:
@@ -5304,7 +5336,7 @@ def lmt_windowed_step(sw, TC, launch) -> dict:
 
 def lmt_mid_vs_cpu(TC, launch) -> dict:
     """Phase 18 (5): the mid-size fp32 config (d 960, 8 / 2 heads of 120,
-    d_ff 2560, vocab 4096, W 64, 2 layers) through ``train`` on the card
+    d_ff 2560, vocab 4096, W 64, 1 layer) through ``train`` on the card
     and on the CPU from one CPU-made state, A 2, B 1, S 128, tau 2, 2
     steps, every strategy: losses within LMT_MID_LOSS_ATOL, parameters
     within LMT_MID_PARAM_ATOL."""
@@ -6148,6 +6180,589 @@ def head256_alone() -> dict:
     return head256_phase(sw, _build, TC, TM, launch, card)
 
 
+# --- phase 20: LM training for every family (slice 16) -----------------------------
+
+# (arch, layers of the published depth kept): gemma-7b 2 of 28 and
+# recurrentgemma-9b 3 of 38 (one (rglru, rglru, local) cycle) fit one card
+# with two agents' Adam state; rwkv6-1.6b whole (~24 bytes a parameter).
+TR_MODELS = (("gemma-7b", 2), ("recurrentgemma-9b", 3), ("rwkv6-1.6b", 24))
+TR_AGENTS, TR_BATCH, TR_SEQ, TR_TAU = 2, 2, 1024, 2
+# tokens a row of the kernel-vs-plain step: rwkv6-1.6b's plain recurrence
+# is a host loop over t (forward and backward, 24 layers), so its step runs
+# the first 256 of the 1024 (wkv6_bwd is held at (2, 1024) on its own)
+TR_PLAIN_SEQ = {"rwkv6-1.6b": 256}
+TR_KERNELS = ("swa_attention", "swa_attention_bwd", "wkv6", "wkv6_bwd",
+              "adam_update", "row_mean")
+WKV6_BWD_REL = 1e-5       # |kernel - plain| <= WKV6_BWD_REL * max |plain|
+# (B, T, H, nonzero s0, nonzero dL/dS_T): T past and off the kernel's
+# 16-step chunks, one step, the main path's shape
+WKV6_BWD_CASES = ((1, 37, 2, True, True), (2, 16, 3, False, True),
+                  (1, 1, 4, True, False), (3, 100, 1, True, True),
+                  (TR_BATCH, TR_SEQ, 32, True, True))
+# The D = 256 backward's two bf16 kernels and wkv6_bwd's two kernels.
+BWD256_KERNELS = ("swa_bwd_dq_hopper_d256_kernel",
+                  "swa_bwd_dkdv_hopper_d256_kernel")
+WKV6_BWD_KERNELS = ("wkv6_bwd_kernel", "wkv6_bwd_reduce_kernel")
+# timed: (model, B, S, KV heads, window) of the models' training steps
+HB_TIMES = (("gemma-7b", TR_BATCH, TR_SEQ, 16, None),
+            ("recurrentgemma-9b", TR_BATCH, TR_SEQ, 1, 2048))
+
+
+def bwd_one_bf16_pds(q, k, v, o, do, lse, window) -> tuple:
+    """The control of the bf16 backward's error rule (the arithmetic of
+    ``tests/test_torch_swa.py::_bwd_kernel_numerics`` with ``split``
+    False): fp32 s, dp, p, ds from the bf16 inputs, then dv = p^T do, dq =
+    ds k and dk = ds^T q with p and ds rounded once to bf16 (exact products,
+    float64 sums), bf16 outputs. The rule must reject it."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    kr, vr = (t.repeat_interleave(rep, dim=2).double() for t in (k, v))
+    scale = D ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), kr).float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.double(), vr).float()
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Sk, device=q.device)[None, :]
+    ok = (j <= i) & ((j > i - window) if window else True)
+    p = torch.where(ok, torch.exp(s * scale - lse[..., None]),
+                    torch.zeros((), device=q.device))
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    ds = p * (dp - delta[..., None]) * scale
+    one = lambda x: x.bfloat16().double()
+    fold = lambda g: g.reshape(B, Sk, KV, rep, D).sum(3)
+    dq = torch.einsum("bhqk,bkhd->bqhd", one(ds), kr)
+    dk = fold(torch.einsum("bhqk,bqhd->bkhd", one(ds), q.double()))
+    dv = fold(torch.einsum("bhqk,bqhd->bkhd", one(p), do.double()))
+    return tuple(x.float().bfloat16() for x in (dq, dk, dv))
+
+
+def hd_bwd_vs_plain(sw, swb) -> dict:
+    """Phase 20 (1): the D = 256 backward against its plain version on the
+    card, fp32 and bf16, 16 query heads on KV in ``HD_KV``, B = 1, Sq = Sk
+    in ``HD_SQ`` (the 64-row tile edges), windows ``HD_WINDOWS``, and the
+    models' training shapes (``HB_TIMES``: B = 2, S = 1024, 16 tiles), by
+    phase 18's rule (``bwd_check``: the lse, fp32 within BWD_REL of the largest
+    |gradient|, bf16 against float64 within BWD_MAX_RATIO / BWD_MEAN_RATIO
+    x the plain version's max / mean error, a second launch bitwise); in
+    bf16 also the control (``bwd_one_bf16_pds``, p and ds rounded once)
+    held to break the mean rule wherever a row sees more than one key."""
+    rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
+    control_min = math.inf
+    cases = [(1, s, w, k) for s in HD_SQ for w in HD_WINDOWS for k in HD_KV]
+    cases += [(b, s, w, kv) for _, b, s, kv, w in HB_TIMES]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for n, (b, sq, window, kv) in enumerate(cases):
+            q, k, v, do = bwd_inputs(b, sq, 16, kv, 256, dtype, SEED + 200 + n)
+            what = (f"swa_attention_bwd D=256 B {b} Sq {sq} W {window} KV {kv} "
+                    f"{name}")
+            row = bwd_check(sw, swb, q, k, v, do, window, what)
+            row.update(b=b, sq=sq, window=window, kv=kv, dtype=name)
+            if dtype == torch.bfloat16 and sq > 1:
+                o, lse = sw.swa_attention_cuda(q, k, v, window=window,
+                                               with_lse=True)
+                ctl = bwd_one_bf16_pds(q, k, v, o, do, lse, window)
+                x64 = [t.double() for t in (q, k, v, do)]
+                o64, lse64 = sw.swa_attention_plain(*x64[:3], window=window,
+                                                    with_lse=True)
+                want = swb.swa_attention_bwd_plain(*x64[:3], o64, x64[3],
+                                                   lse64, window=window)
+                ratio = max(
+                    (float((c.double() - w).abs().mean())
+                     - BWD_FLOOR * row["G"]) / max(row[g]["plain_mean_err"],
+                                                   1e-30)
+                    for g, c, w in zip(("dq", "dk", "dv"), ctl, want))
+                if not ratio > BWD_MEAN_RATIO:
+                    raise AssertionError(f"{what}: the one-bf16 p / ds control "
+                                         f"keeps the mean rule ({ratio!r})")
+                row["control_mean_ratio"] = ratio
+                control_min = min(control_min, ratio)
+            worst[name] = max(worst[name], row["err"])
+            rows.append(row)
+            del q, k, v, do
+    torch.cuda.empty_cache()
+    # Sq = 1: dq and dk are 0 in float64 (one key: ds = 0), so the plain
+    # version's error is 0 and the floor alone bounds the kernel's
+    ratios = [max((r[g]["mean_err"] - BWD_FLOOR * r["G"])
+                  / max(r[g]["plain_mean_err"], 1e-30)
+                  for g in ("dq", "dk", "dv"))
+              for r in rows if r["dtype"] == "bfloat16" and r["sq"] > 1]
+    out = {"cases": rows, "worst": worst, "mean_ratio_max": max(ratios),
+           "control_ratio_min": control_min}
+    log(f"phase train: swa_attention_bwd D=256 vs plain at {len(rows)} cases "
+        f"ok (B 1, Sq {HD_SQ}, W {HD_WINDOWS}, KV {HD_KV} of 16 heads; the "
+        f"training shapes {[(b, s, kv, w) for _, b, s, kv, w in HB_TIMES]}; "
+        f"fp32 within "
+        f"{BWD_REL} x max |grad|, bf16 within {BWD_MAX_RATIO} / "
+        f"{BWD_MEAN_RATIO} x the plain version's max / mean error against "
+        f"float64; a second launch bitwise); largest |kernel - reference| "
+        f"{worst}; bf16 mean err / plain's at most {out['mean_ratio_max']!r}, "
+        f"the one-bf16 p / ds control at least {control_min!r}")
+    return out
+
+
+def wkv6_bwd_vs_plain(wk) -> dict:
+    """Phase 20 (2): ``wkv6_bwd_cuda`` against ``wkv6_bwd_plain`` on the
+    card at ``WKV6_BWD_CASES`` (phase 9's inputs, dy ~ N(0, 1), dL/dS_T ~
+    0.1 N(0, 1) or none): each gradient within WKV6_BWD_REL of its largest
+    |plain value|; a second call bitwise equal to the first."""
+    rows, worst = [], 0.0
+    for n, (b, t, h, s_on, g_on) in enumerate(WKV6_BWD_CASES):
+        r, k, v, w, u, s0 = wkv6_inputs(b, t, h, SEED + 210 + n,
+                                        state=0.1 if s_on else 0.0)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 220 + n)
+        dy = torch.randn(r.shape, generator=gen, device="cuda")
+        dsT = 0.1 * torch.randn(s0.shape, generator=gen, device="cuda") \
+            if g_on else None
+        got = wk.wkv6_bwd_cuda(r, k, v, w, u, s0, dy, dsT)
+        again = wk.wkv6_bwd_cuda(r, k, v, w, u, s0, dy, dsT)
+        torch.cuda.synchronize()
+        what = f"wkv6_bwd ({b}, {t}, {h}, 64) s0 {s_on} dsT {g_on}"
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{what}: a second call gave other bits")
+        plain = wk.wkv6_bwd_plain(r, k, v, w, u, s0, dy, dsT)
+        row = {"shape": [b, t, h, 64], "s0": s_on, "dsT": g_on}
+        for name, x, p in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                              plain):
+            G = float(p.abs().max())
+            err = float((x - p).abs().max())
+            if not err <= WKV6_BWD_REL * max(G, 1e-30):
+                raise AssertionError(f"{what} {name}: err {err!r} > "
+                                     f"{WKV6_BWD_REL} x {G!r}")
+            row[name] = {"err": err, "G": G}
+            worst = max(worst, err / max(G, 1e-30))
+        rows.append(row)
+        del r, k, v, w, u, s0, dy, dsT, got, again, plain
+    torch.cuda.empty_cache()
+    log(f"phase train: wkv6_bwd vs plain at {len(rows)} shapes ok (T off the "
+        f"16-step chunks, nonzero s0 and dL/dS_T, {WKV6_BWD_CASES[-1][:3]}); "
+        f"largest |kernel - plain| / max |plain| {worst!r} <= {WKV6_BWD_REL}; "
+        f"a second call bitwise")
+    return {"cases": rows, "worst_rel": worst}
+
+
+def tr_config(TC, arch, layers):
+    """``arch`` at its published width with its first ``layers`` layers
+    (registered as ``<arch>-<layers>l``); the whole model when ``layers``
+    is its depth."""
+    base = TC.get_arch(arch)
+    if layers == base.n_layers:
+        return base
+    name = f"{arch}-{layers}l"
+    if name not in TC.ARCH_REGISTRY:
+        TC.register_arch(dataclasses.replace(base, name=name, n_layers=layers))
+    return TC.get_arch(name)
+
+
+def _train_expected(cfg, fed, n_agents, steps) -> dict:
+    """Launches of ``steps`` local steps (and their syncs) by kernel. Per
+    step and agent: one forward (two for the layers ``cfg.remat``
+    recomputes) and one backward kernel per attention layer
+    (``swa_attention`` / ``swa_attention_bwd``) and per ``wkv`` layer
+    (``wkv6`` / ``wkv6_bwd``); per step one ``adam_update``; one
+    ``row_mean`` a period (periodic)."""
+    from repro_torch.models.transformer import remat_layers
+    rec = set(remat_layers(cfg)) if cfg.remat else set()
+    out = {k: 0 for k in TR_KERNELS}
+    for i in range(cfg.n_layers):
+        kind = cfg.block_kind(i)
+        fwd, bwd = {"attn": ("swa_attention", "swa_attention_bwd"),
+                    "local": ("swa_attention", "swa_attention_bwd"),
+                    "wkv": ("wkv6", "wkv6_bwd")}.get(kind, (None, None))
+        if fwd is None:
+            continue
+        out[fwd] += steps * n_agents * (2 if i in rec else 1)
+        out[bwd] += steps * n_agents
+    out["adam_update"] = steps
+    out["row_mean"] = steps // fed.tau
+    return out
+
+
+def _tr_counts(km, sw, swb, wk) -> dict:
+    c = _kernel_counts(km)
+    return {"swa_attention": sw.launches, "swa_attention_bwd": swb.launches,
+            "wkv6": wk.launches, "wkv6_bwd": wk.bwd_launches,
+            "adam_update": c["adam_update"], "row_mean": c["row_mean"],
+            "others": {k: v for k, v in c.items()
+                       if k not in ("adam_update", "row_mean")}}
+
+
+def _tr_reset(km, sw, swb, wk) -> None:
+    _reset_counts(km)
+    sw.launches = swb.launches = wk.launches = wk.bwd_launches = 0
+
+
+class PlainWkv6(torch.autograd.Function):
+    """The reference recurrence of the kernel-vs-plain step: ``wkv6_plain``
+    forward and ``wkv6_bwd_plain`` backward on the card (autograd through
+    the plain loop would keep every step's state of every layer)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        from repro_torch.kernels import wkv6 as wk
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return wk.wkv6_plain(r, k, v, w, u, s0)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        from repro_torch.kernels import wkv6 as wk
+        saved = ctx.saved_tensors
+        dy = torch.zeros_like(saved[0]) if dy is None else dy.contiguous()
+        return wk.wkv6_bwd_plain(*saved, dy, ds)
+
+
+def tr_kernel_vs_plain(sw, TM, cfg, state, toks) -> dict:
+    """Agent 0's loss and gradient row on ``state`` with the kernels and
+    with the plain attention (``swa_impl``, by autograd) and recurrence
+    (``PlainWkv6``): losses within LMT_LONG_LOSS_REL, gradient rows within
+    LMT_LONG_GRAD_REL in relative L2 (phase 18's rule; bf16). Both sides
+    run with ``remat`` off (the same values: tests/test_torch_train_
+    families.py holds remat on and off bitwise), so the plain recurrence's
+    host loop runs once a layer. The state's gradient buffer is
+    overwritten; no launch here counts."""
+    cfg = dataclasses.replace(cfg, remat=False)
+    out = {}
+    for name, kw in (("kernel", {}),
+                     ("plain", {"swa_impl": sw.swa_attention_plain,
+                                "wkv_impl": PlainWkv6.apply})):
+        state.grads[0].zero_()
+        row = state.params[0].detach().requires_grad_()
+        params = state.layout.model_params(row, state.grads, 0)
+        loss = TM.lm_loss(cfg, params, {"tokens": toks[0]}, **kw)
+        loss.backward()
+        out[name] = (float(loss), state.grads[0].float().clone())
+        del loss, params, row
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    grad_rel = float(torch.linalg.vector_norm(gk - gp)
+                     / torch.linalg.vector_norm(gp))
+    if not (loss_rel <= LMT_LONG_LOSS_REL and grad_rel <= LMT_LONG_GRAD_REL):
+        raise AssertionError(f"train {cfg.name}: kernel vs plain loss {lk!r} "
+                             f"vs {lp!r} (rel {loss_rel!r}), gradient rel L2 "
+                             f"{grad_rel!r}")
+    return {"loss_kernel": lk, "loss_plain": lp, "loss_rel": loss_rel,
+            "grad_rel_l2": grad_rel}
+
+
+def _tr_split(prof) -> dict:
+    """A profiled step's device ms: matmuls, attention forward and backward,
+    wkv6 forward and backward, Adam, row_mean, other (the RG-LRU scan and
+    the rest of the elementwise work)."""
+    dev = _device_ops(prof)
+    busy = sum(t for _, t in dev.values())
+    if busy <= 0:
+        raise AssertionError("train profile: no device time")
+    pick = lambda *names: sum(t for k, (_, t) in dev.items()
+                              if any(n in k for n in names)) / 1e3
+    split = {"matmul": _matmul_us(dev) / 1e3,
+             "swa_attention": pick("swa_attention_hopper_kernel",
+                                   "swa_attention_kernel"),
+             "swa_attention_bwd": pick("swa_bwd_"),
+             "wkv6": pick("wkv6_kernel"),
+             "wkv6_bwd": pick(*WKV6_BWD_KERNELS),
+             "adam_update": pick("adam_update_kernel"),
+             "row_mean": pick("row_mean_kernel")}
+    split["other"] = busy / 1e3 - sum(split.values())
+    top = sorted(dev.items(), key=lambda kv_: -kv_[1][1])[:8]
+    return {"device_busy_ms": busy / 1e3, "device_ms": split,
+            "top_ops": [[k[:80], c, t / 1e3] for k, (c, t) in top]}
+
+
+def train_model_path(km, sw, swb, wk, TC, TM, launch, card, arch,
+                     layers) -> dict:
+    """Phase 20 (3): one model at its published width through
+    ``repro_torch.launch.train.train`` (A 2, B 2, S 1024, periodic tau 2,
+    2 steps: one period and its sync), the counts set to 0 before and read
+    after: launches exactly ``_train_expected``, losses finite, the agent
+    rows bitwise equal after the sync. Then on the returned state, one more
+    period through ``make_local_step`` / ``make_sync_step``, timed (tokens/s
+    of a local step, sync ms, the peak device memory of the period); one
+    profiled local step; and the kernel-vs-plain step (not counted; the
+    first ``TR_PLAIN_SEQ`` tokens of each row where that is set)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as T
+    from repro_torch.optim import adamw
+    from torch.profiler import ProfilerActivity, profile
+    cfg = tr_config(TC, arch, layers)
+    fed = launch.FedTrainConfig(strategy="periodic", tau=TR_TAU)
+    builds = _build.n_builds
+    _tr_reset(km, sw, swb, wk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parts, lap = {}, [t0]
+
+    def done(name):
+        now = time.perf_counter()
+        parts[name], lap[0] = now - lap[0], now
+
+    state, losses = T.train(cfg.name, reduced=False, steps=TR_TAU, fed=fed,
+                            n_agents=TR_AGENTS, batch=TR_BATCH, seq=TR_SEQ,
+                            log_every=TR_TAU + 1, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train {cfg.name}: losses {losses}")
+    equal = bool(torch.equal(state.params[0], state.params[1]))
+    if not equal or not bool(torch.isfinite(state.params).all()):
+        raise AssertionError(f"train {cfg.name}: agent rows differ after the "
+                             f"sync, or are not finite")
+    done("train")
+    torch.cuda.reset_peak_memory_stats()
+    timing = lmt_period_times(launch, cfg, fed, state, TR_AGENTS, TR_BATCH,
+                              TR_SEQ, TR_TAU)
+    peak = torch.cuda.max_memory_allocated()
+    done("period")
+    local = launch.make_local_step(cfg, adamw(weight_decay=0.01), fed,
+                                   n_agents=TR_AGENTS)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seed=SEED)
+    toks = torch.from_numpy(np.stack([
+        data.batch(3 * TR_TAU, TR_BATCH, TR_SEQ + 1, agent=a)
+        for a in range(TR_AGENTS)])).cuda()
+    torch.cuda.synchronize()
+    # device activity only: the split reads kernels alone, and recording
+    # every host op of rwkv6-1.6b's 24 layers made the profile's processing
+    # the largest part of its run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        local(state, {"tokens": toks})
+        torch.cuda.synchronize()
+        step_us = (time.perf_counter() - t1) * 1e6
+    split = _tr_split(prof)
+    done("profile")
+    split.update(wall_ms=step_us / 1e3,
+                 device_idle_share=1.0 - split["device_busy_ms"] * 1e3
+                 / step_us)
+    counts = _tr_counts(km, sw, swb, wk)
+    got = {k: counts[k] for k in TR_KERNELS}
+    want = _train_expected(cfg, fed, TR_AGENTS, 2 * TR_TAU + 1)
+    want["row_mean"] = 2
+    if got != want or counts["others"] != {k: 0 for k in counts["others"]}:
+        raise AssertionError(f"train {cfg.name}: launches {got}, expected "
+                             f"{want} (others {counts['others']})")
+    if _build.n_builds != builds:
+        raise AssertionError("a build on the training hot path")
+    plain_seq = TR_PLAIN_SEQ.get(arch, TR_SEQ)
+    parity = tr_kernel_vs_plain(sw, TM, cfg, state,
+                                toks[..., :plain_seq + 1])
+    parity["seq"] = plain_seq
+    done("kernel_vs_plain")
+    n_params = state.layout.n
+    log(f"phase train: {cfg.name} ({n_params} parameters an agent, A "
+        f"{TR_AGENTS} x {TR_BATCH} x {TR_SEQ}): losses {losses}; train() "
+        f"{wall!r} s for {TR_TAU} steps (init included); local step "
+        f"{timing['local_step_ms']!r} ms = {timing['tokens_per_s']!r} tokens/s"
+        f", sync {timing['sync_ms']!r} ms, peak device memory {peak} B; rows "
+        f"equal after the sync; launches {got} (the formula's); profiled step "
+        f"wall {split['wall_ms']!r} ms, busy {split['device_busy_ms']!r} ms, "
+        f"idle {split['device_idle_share']!r}, device ms {split['device_ms']};"
+        f" kernel vs plain (S {plain_seq}): loss {parity['loss_kernel']!r} / "
+        f"{parity['loss_plain']!r} (rel {parity['loss_rel']!r}), gradient "
+        f"rel L2 {parity['grad_rel_l2']!r} card=\"{card}\"; seconds by part "
+        f"{parts}")
+    del state
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": layers, "params_per_agent": n_params,
+            "part_seconds": parts, "losses": losses, "train_wall_s": wall, **timing,
+            "peak_memory_bytes": peak, "rows_equal_after_sync": equal,
+            "launches": got, "profile": split, "kernel_vs_plain": parity}
+
+
+def wkv6_bwd_bound(b, t, h) -> dict:
+    """The least time of wkv6_bwd (fp32, D 64): its bytes (r, k, v, w, dy
+    read, dr, dk, dv, dw written, u, du, s0, dL/dS_T, ds0) over the HBM
+    rate against its FLOP (per step and (i, j): the state's recomputation,
+    G's update and the four sums, 2 each: 12 D^2, + 10 D for c_t and the
+    bonus terms) at the fp32 peak."""
+    d = 64
+    nbytes = 4 * (9 * b * t * h * d + 2 * h * d + 3 * b * h * d * d)
+    flops = b * t * h * (12 * d * d + 10 * d)
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def train_times(sw, swb, wk, card) -> dict:
+    """Phase 20 (4): the D = 256 backward in bf16 at the models' training
+    shapes (``HB_TIMES``) and wkv6_bwd at (2, 1024, 32, 64): CUPTI (L2
+    flushed; the kernels' records summed) and CUDA events (flushed and
+    warm), beside the bound, the plain version's time (one call, events)
+    and, for attention, SDPA's autograd backward on repeated K/V."""
+    cyc = sleep_cycles_per_ms()
+    flush = l2_flusher()
+    rows = {}
+    for arch, b, s, kv, window in HB_TIMES:
+        q, k, v, do = bwd_inputs(b, s, 16, kv, 256, torch.bfloat16, SEED + 230)
+        o, lse = sw.swa_attention_cuda(q, k, v, window=window, with_lse=True)
+        kern = lambda: swb.swa_attention_bwd_cuda(q, k, v, o, do, lse,
+                                                  window=window)
+        lib = sdpa_bwd_fn(q, k, v, do, window)
+        rec = {"arch": arch, "shape": [b, s, 16, kv, 256], "window": window,
+               "dtype": "bfloat16",
+               "cupti_ms": sum(cupti_ms(kern, flush, n)
+                               for n in BWD256_KERNELS),
+               "ms": device_ms(kern, cyc, flush, CHUNK)[0],
+               "warm_l2_ms": device_ms(kern, cyc, None, CHUNK)[0],
+               "plain_ms": events_ms(lambda: swb.swa_attention_bwd_plain(
+                   q, k, v, o, do, lse, window=window), 1),
+               "library_ms": device_ms(lib, cyc, flush, CHUNK)[0],
+               "library_backend": sdpa_backend_of(q, k, v, window),
+               **bwd_bound(b, s, 16, kv, 256, window)}
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rows[f"swa_attention_bwd_d256/{arch}"] = rec
+        log(f"time swa_attention_bwd D=256 {arch} shape=({b}, {s}, 16/{kv}, "
+            f"256) bf16 W={window} L2 flushed: kernel_ms={rec['ms']!r} (cupti "
+            f"{rec['cupti_ms']!r}; L2-warm {rec['warm_l2_ms']!r}) plain_ms="
+            f"{rec['plain_ms']!r} bound_ms={rec['bound_ms']!r} "
+            f"({rec['bound_by']}; share {rec['share_of_bound']!r}) "
+            f"library_ms={rec['library_ms']!r} (SDPA backward, "
+            f"{rec['library_backend']} forward choice) card=\"{card}\"")
+        del q, k, v, do, o, lse, lib
+        torch.cuda.empty_cache()
+    r, k, v, w, u, s0 = wkv6_inputs(TR_BATCH, TR_SEQ, 32, SEED + 231)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 232)
+    dy = torch.randn(r.shape, generator=gen, device="cuda")
+    dsT = 0.1 * torch.randn(s0.shape, generator=gen, device="cuda")
+    kern = lambda: wk.wkv6_bwd_cuda(r, k, v, w, u, s0, dy, dsT)
+    rec = {"shape": [TR_BATCH, TR_SEQ, 32, 64], "dtype": "float32",
+           "cupti_ms": sum(cupti_ms(kern, flush, n)
+                           for n in WKV6_BWD_KERNELS),
+           "ms": device_ms(kern, cyc, flush, CHUNK)[0],
+           "warm_l2_ms": device_ms(kern, cyc, None, CHUNK)[0],
+           "plain_ms": events_ms(lambda: wk.wkv6_bwd_plain(
+               r, k, v, w, u, s0, dy, dsT), 1),
+           "library_ms": None, **wkv6_bwd_bound(TR_BATCH, TR_SEQ, 32)}
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    rows["wkv6_bwd"] = rec
+    del r, k, v, w, u, s0, dy, dsT
+    rows["rglru_scan"] = rglru_scan_times(card)
+    log(f"time wkv6_bwd shape=({TR_BATCH}, {TR_SEQ}, 32, 64) fp32 L2 flushed: "
+        f"kernel_ms={rec['ms']!r} (cupti {rec['cupti_ms']!r}; L2-warm "
+        f"{rec['warm_l2_ms']!r}) plain_ms={rec['plain_ms']!r} bound_ms="
+        f"{rec['bound_ms']!r} ({rec['bound_by']}; {rec['flops']} FLOP, "
+        f"{rec['bytes']} B; share {rec['share_of_bound']!r}) library_ms=None "
+        f"card=\"{card}\"")
+    return rows
+
+
+def rglru_scan_times(card) -> dict:
+    """The plain RG-LRU scan of one recurrentgemma-9b layer at the training
+    step's (2, 1024, 4096) fp32 (no kernel: JAX has no Pallas twin), by
+    CUDA events: the forward alone, forward + backward (autograd through
+    the log-depth recursion), and the device memory its saved levels hold
+    between the two."""
+    from repro_torch.models import rglru as rg
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 233)
+    shape = (TR_BATCH, TR_SEQ, 4096)
+    a_log = -8.0 * torch.rand(shape, generator=gen, device="cuda")
+    gate = torch.randn(shape, generator=gen, device="cuda")
+    h0 = torch.randn((TR_BATCH, 4096), generator=gen, device="cuda")
+    leaves = [t.requires_grad_() for t in (a_log, gate, h0)]
+    g = torch.randn(shape, generator=gen, device="cuda")
+
+    def fwd_bwd():
+        h, last = rg.rglru_scan(*leaves)
+        return torch.autograd.grad((h * g).sum() + last.sum(), leaves)
+    with torch.no_grad():
+        fwd_ms = events_ms(lambda: rg.rglru_scan(*leaves), 5)
+    both_ms = events_ms(fwd_bwd, 5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    h, last = rg.rglru_scan(*leaves)
+    saved = torch.cuda.memory_allocated() - base
+    del h, last
+    rec = {"shape": list(shape), "fwd_ms": fwd_ms, "fwd_bwd_ms": both_ms,
+           "saved_bytes": saved, "input_bytes": 4 * shape[0] * shape[1]
+           * shape[2]}
+    log(f"time rglru_scan (plain) shape={shape} fp32: forward "
+        f"{fwd_ms!r} ms, forward + backward {both_ms!r} ms (events); the "
+        f"forward under autograd holds {saved} B ({saved / rec['input_bytes']!r}"
+        f" x one (B, S, W) fp32 input) for the backward card=\"{card}\"")
+    return rec
+
+
+def train_phase(km, sw, swb, wk, TC, TM, launch, card) -> dict:
+    """Phase 20 (slice 16): (1) the D = 256 backward and (2) wkv6_bwd
+    against their plain versions, (3) gemma-7b, recurrentgemma-9b and
+    rwkv6-1.6b trained at their published width, (4) the kernels' times."""
+    t0 = time.perf_counter()
+    parts, lap = {}, [t0]
+
+    def done(name):
+        parts[name] = time.perf_counter() - lap[0]
+        lap[0] = time.perf_counter()
+
+    out = {"bwd256_parity": hd_bwd_vs_plain(sw, swb)}
+    done("bwd256_parity")
+    out["wkv6_bwd_parity"] = wkv6_bwd_vs_plain(wk)
+    done("wkv6_bwd_parity")
+    out["models"] = {}
+    for arch, layers in TR_MODELS:
+        out["models"][arch] = train_model_path(km, sw, swb, wk, TC, TM,
+                                               launch, card, arch, layers)
+        done(arch)
+    out["times"] = train_times(sw, swb, wk, card)
+    done("times")
+    out["launches"] = {k: sum(m["launches"][k] for m in out["models"].values())
+                       for k in TR_KERNELS}
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    log(f"phase train: {out['seconds']!r} s; by part {parts}; main path "
+        f"launches {out['launches']}")
+    return out
+
+
+def _alone_modules():
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import configs as TC
+    from repro_torch import launch
+    from repro_torch import models as TM
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.kernels import swa_attention_bwd as swb
+    from repro_torch.kernels import wkv6 as wk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return TC, launch, TM, _build, sw, swb, wk
+
+
+def train_kernels_alone() -> dict:
+    """Phase 20's kernel checks alone (``python3 -c 'import chip_smoke as c;
+    c.train_kernels_alone()'``): builds the kernels, prints ptxas's lines
+    for the new kernels, then the D = 256 backward and wkv6_bwd against
+    their plain versions."""
+    if not torch.cuda.is_available():
+        raise SystemExit("train_kernels_alone: no CUDA card")
+    TC, launch, TM, _build, sw, swb, wk = _alone_modules()
+    log(f"card {card_line()}")
+    _build.load()
+    for line in str(_build.build_info.get("log", "")).splitlines():
+        if ("ptxas info" in line and ("Used" in line or "Compiling" in line)
+                and ("d256" in line or "wkv6_bwd" in line
+                     or "swa_bwd_d" in line)) or "(C75" in line or (
+                "spill" in line and " 0 bytes spill stores" not in line):
+            log(f"build: {line.strip()}")
+    log(f"HGMMA: {hgmma_counts(_build, BWD256_KERNELS)}")
+    return {"bwd256": hd_bwd_vs_plain(sw, swb), "wkv6": wkv6_bwd_vs_plain(wk)}
+
+
+def train_alone() -> dict:
+    """Phase 20 without the rest of the script (``python3 -c 'import
+    chip_smoke as c; c.train_alone()'``): builds the kernels, then the
+    training phase."""
+    if not torch.cuda.is_available():
+        raise SystemExit("train_alone: no CUDA card")
+    TC, launch, TM, _build, sw, swb, wk = _alone_modules()
+    km, _, _, _ = _sweep_modules()
+    card = card_line()
+    log(f"card {card}")
+    _build.load()
+    return train_phase(km, sw, swb, wk, TC, TM, launch, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -6200,7 +6815,6 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
-    lap("1-2 device_and_build")
     log(f"phase build: {build_s!r} s, {_build.build_info.get('sources')} -> "
         f"{_build.build_info['library']} (nvcc runs: {_build.n_builds}; "
         f"flags {_build.build_info.get('flags')})")
@@ -6208,12 +6822,14 @@ def main() -> int:
         if ("ptxas info" in line and "Used" in line) or "(C75" in line or (
                 "spill" in line and " 0 bytes spill stores" not in line):
             log(f"phase build: {line.strip()}")
-    n_hgmma = {k: hgmma_count(_build, k) for k in (SWA_KERNEL,) + BWD_KERNELS}
+    n_hgmma = hgmma_counts(_build, (SWA_KERNEL,) + BWD_KERNELS
+                           + BWD256_KERNELS)
     log(f"phase build: HGMMA instructions by kernel (cuobjdump -sass): "
         f"{n_hgmma}")
     if not all(n_hgmma.values()):
         raise AssertionError(f"a bf16 attention kernel issues no wgmma: "
                              f"{n_hgmma}")
+    lap("1-2 device_and_build")
 
     # 3. kernel vs plain
     parity = kernel_vs_plain(pinf)
@@ -6303,6 +6919,12 @@ def main() -> int:
     # gemma-7b and recurrentgemma-9b at full size, phi4-mini-3.8b
     hd = head256_phase(sw, _build, TC, TM, launch, card)
     lap('19 head256')
+
+    # 20. LM training for every family (slice 16): the D = 256 backward and
+    # wkv6_bwd vs plain, gemma-7b, recurrentgemma-9b and rwkv6-1.6b trained
+    # at their published width, the kernels' times
+    tr = train_phase(km, sw, swb, wk, TC, TM, launch, card)
+    lap('20 train')
 
     top = rows["mean/1024"]
     kernels = [{
@@ -6473,7 +7095,49 @@ def main() -> int:
                     "library_ms", "library_backend", "fp32_ms")
                     if key in t} for n, t in hd["times"].items()}}
             k["launches"] += hd["launches"]
-    if len(kernels) != 11 or any(k["launches"] < 1 for k in kernels):
+    for k in kernels:                  # and phase 20's (every family trains)
+        if k["name"] in TR_KERNELS:
+            k["train"] = {"launches": tr["launches"][k["name"]]}
+            k["launches"] += tr["launches"][k["name"]]
+        if k["name"] == "swa_attention_bwd":
+            k["d256"] = {
+                "max_abs_err": tr["bwd256_parity"]["worst"],
+                "mean_ratio_max": tr["bwd256_parity"]["mean_ratio_max"],
+                "control_ratio_min": tr["bwd256_parity"]["control_ratio_min"],
+                "design": "bf16: swa_bwd_dq_hopper_d256_kernel (64 query "
+                          "rows a block, its two consumer warpgroups take "
+                          "the streamed k / v tiles in turn, fixed-order "
+                          "sum) then swa_bwd_dkdv_hopper_d256_kernel (64 "
+                          "keys a block, one warpgroup accumulates dv, the "
+                          "other dk); a 2-slot TMA ring; fp32: the CUDA-core "
+                          "kernels staging one streamed tile at a time",
+                "times": {n: {key: t[key] for key in (
+                    "ms", "cupti_ms", "warm_l2_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library_backend")}
+                    for n, t in tr["times"].items()
+                    if n.startswith("swa_attention_bwd_d256/")}}
+    r = tr["times"]["wkv6_bwd"]
+    kernels.append({
+        "name": "wkv6_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+        "replaces": "src/repro/models/rwkv6.py:64",
+        "launches": tr["launches"]["wkv6_bwd"],
+        "max_abs_err": max(c[g]["err"] for c in tr["wkv6_bwd_parity"]["cases"]
+                           for g in ("dr", "dk", "dv", "dw", "du", "ds0")),
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": None,
+        "cupti_ms": r["cupti_ms"],
+        "replaces_note": "autograd through wkv_scan's lax.scan (no Pallas "
+                         "backward)",
+        "shape": {"B": TR_BATCH, "T": TR_SEQ, "H": 32, "D": 64,
+                  "dtype": "float32"},
+        "max_rel_err": tr["wkv6_bwd_parity"]["worst_rel"],
+    })
+    if len(kernels) != 12 or any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"kernels line: {len(kernels)} kernels, "
                              f"launches {[k['launches'] for k in kernels]}")
     with open(os.path.join(ROOT, "build", "chip_smoke", "result.json"),
@@ -6495,6 +7159,7 @@ def main() -> int:
                    "sweep_parity": sweep_parity, "sweeps": sweeps,
                    "sweep_times": sweep_rows, "async": async_run,
                    "fmarl": fmarl, "lm_train": lmt, "head256": hd,
+                   "train": tr,
                    "kernels": kernels, "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

@@ -110,6 +110,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         _P,                              # stream
     ]
     lib.repro_wkv6.restype = _I
+    lib.repro_wkv6_bwd.argtypes = [
+        _P, _P, _P, _P, _P, _P,          # r, k, v, w, u, s0
+        _P, _P,                          # dy, dsT (may be null)
+        _P, _P, _P,                      # ckpt, dv_part, du_part (scratch)
+        _P, _P, _P, _P, _P, _P,          # dr, dk, dv, dw, du, ds0
+        _L, _L, _L, _L,                  # B, T, H, D
+        _P,                              # stream
+    ]
+    lib.repro_wkv6_bwd.restype = _I
     lib.repro_swa_attention.argtypes = [
         _P, _P, _P, _P, _P,              # q, k, v, o, lse (may be null)
         _L, _L, _L, _L, _L, _L,          # B, Sq, Sk, H, KV, D

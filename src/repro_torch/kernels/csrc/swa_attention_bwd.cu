@@ -12,8 +12,9 @@
 // q, o, do, dq are (B, Sq, H, D); k, v, dk, dv (B, Sk, KV, D), not
 // repeated: head h reads KV head h / (H / KV), so dk and dv of a KV head
 // sum over the H / KV query heads of its group (the gradient of the JAX
-// package's _repeat_kv). Inputs are fp32 or bf16, D is 120 or 128; every
-// product accumulates in fp32 and the results are cast to the input type.
+// package's _repeat_kv). Inputs are fp32 or bf16, D is 120, 128 or 256
+// (D = 256: kernels of their own, below); every product accumulates in fp32
+// and the results are cast to the input type.
 //
 // Replaces no Pallas kernel: the JAX package's training attention is the
 // jnp flash_attention custom VJP, whose backward _flash_bwd
@@ -84,7 +85,9 @@
 // heads and the q tiles that see its keys (p and ds through shared memory,
 // dv += p^T do and dk += ds^T q into 64 registers a thread). Tiles are fp32
 // with a row stride of D + 4 floats: 150 KB and 167 KB of dynamic shared
-// memory, one block per SM. Bound: 14*D FLOP per pair with the
+// memory, one block per SM. At D = 256 a thread covers four column groups
+// (64 and 128 accumulator registers) and the kernels stage one streamed
+// tile at a time (kLean: 213 KB each). Bound: 14*D FLOP per pair with the
 // recomputation, at 67 TFLOP/s; every operand of the inner loops comes from
 // shared memory, so the shared-memory loads, not the FMAs, limit them.
 
@@ -138,27 +141,32 @@ __device__ __forceinline__ bool seen(int qp, int kp, int Sq, int Sk,
          !(window > 0 && kp <= qp - window);
 }
 
-// Row r's 4 x 8 accumulator into dst (columns 4tx.. and 64 + 4tx..).
+// Column groups of 64 a thread row covers: its columns are 64 g + 4 tx ..
+// 64 g + 4 tx + 3 for g < kGroups (those below D).
 template <int D>
-__device__ __forceinline__ void store_row(float* dst, const float (&acc)[8],
+constexpr int kGroups = (D + 63) / 64;
+
+// Row r's 4 x (4 kGroups) accumulator into dst.
+template <int D>
+__device__ __forceinline__ void store_row(float* dst,
+                                          const float (&acc)[4 * kGroups<D>],
                                           int tx) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c) dst[4 * tx + c] = acc[c];
-  if (64 + 4 * tx < D) {
+  for (int g = 0; g < kGroups<D>; ++g) {
+    if (64 * g + 4 * tx >= D) continue;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) dst[64 + 4 * tx + c] = acc[4 + c];
+    for (int c = 0; c < 4; ++c) dst[64 * g + 4 * tx + c] = acc[4 * g + c];
   }
 }
 
-// acc[i][0..7] += a_i * (row's columns 4tx.. and 64 + 4tx..), for the 4
-// rows of a thread, over the 64 rows of `rows` weighted by w_s (row stride
+// acc[i][4g..4g+3] += a_i * (row's columns 64 g + 4tx ..), for the 4 rows
+// of a thread, over the 64 rows of `rows` weighted by w_s (row stride
 // kPS): acc[i] += sum_r w_s[(4ty + i) * kPS + r] * rows[r].
 template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[4][8],
+__device__ __forceinline__ void accumulate(float (&acc)[4][4 * kGroups<D>],
                                            const float* w_s, const float* rows,
                                            int tx, int ty) {
-  constexpr int DP = D + 4;
-  const bool hi_cols = 64 + 4 * tx < D;
+  constexpr int DP = D + 4, NG = kGroups<D>;
 #pragma unroll 2
   for (int r = 0; r < kT; r += 4) {
     float4 wa[4];
@@ -167,22 +175,46 @@ __device__ __forceinline__ void accumulate(float (&acc)[4][8],
 #pragma unroll
     for (int rr = 0; rr < 4; ++rr) {
       const float* row = rows + (r + rr) * DP;
-      const float4 a = load4(row + 4 * tx);
-      const float4 b = hi_cols ? load4(row + 64 + 4 * tx)
-                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float4 a[NG];
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        a[g] = 64 * g + 4 * tx < D ? load4(row + 64 * g + 4 * tx)
+                                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float w = lane4(wa[i], rr);
-        acc[i][0] = fmaf(w, a.x, acc[i][0]);
-        acc[i][1] = fmaf(w, a.y, acc[i][1]);
-        acc[i][2] = fmaf(w, a.z, acc[i][2]);
-        acc[i][3] = fmaf(w, a.w, acc[i][3]);
-        acc[i][4] = fmaf(w, b.x, acc[i][4]);
-        acc[i][5] = fmaf(w, b.y, acc[i][5]);
-        acc[i][6] = fmaf(w, b.z, acc[i][6]);
-        acc[i][7] = fmaf(w, b.w, acc[i][7]);
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          acc[i][4 * g] = fmaf(w, a[g].x, acc[i][4 * g]);
+          acc[i][4 * g + 1] = fmaf(w, a[g].y, acc[i][4 * g + 1]);
+          acc[i][4 * g + 2] = fmaf(w, a[g].z, acc[i][4 * g + 2]);
+          acc[i][4 * g + 3] = fmaf(w, a[g].w, acc[i][4 * g + 3]);
+        }
       }
     }
+  }
+}
+
+// x[i][c] = a row (4ty + i) . b row (tx + 16c): one 64 x 64 score tile.
+template <int D>
+__device__ __forceinline__ void one_score(float (&x)[4][4], const float* a,
+                                          const float* b, int tx, int ty) {
+  constexpr int DP = D + 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) x[i][c] = 0.0f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 aa[4], bb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) aa[i] = load4(a + (4 * ty + i) * DP + d);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) bb[c] = load4(b + (tx + 16 * c) * DP + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) x[i][c] = dot4(aa[i], bb[c], x[i][c]);
   }
 }
 
@@ -220,8 +252,19 @@ __device__ __forceinline__ void two_scores(float (&x)[4][4], float (&y)[4][4],
   }
 }
 
+// D = 256 does not fit four staged 64 x (D + 4) tiles (266 KB), so there the
+// kernels stage one streamed tile at a time ("lean"): dq loads v, forms dp,
+// then k, forms s and ds and accumulates ds k with k still staged; dk / dv
+// stage do, form dp^T, then q, form s^T, p^T and ds^T, accumulate ds^T q,
+// then stage do again for p^T do. The sums' order is the same as with
+// both tiles staged.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+constexpr bool kLean = D > 128;
+
+// One block an SM (the staged tiles take most of its shared memory), so
+// ptxas may give a thread up to 255 registers.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
 swa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ o,
                   const float* __restrict__ dout, const float* __restrict__ lse,
@@ -232,7 +275,8 @@ swa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* q_s = smem;                 // kT x DP
   float* do_s = q_s + kT * DP;       // kT x DP
   float* k_s = do_s + kT * DP;       // kT x DP (o first, for delta)
-  float* v_s = k_s + kT * DP;        // kT x DP
+  // kT x DP; lean: v shares k's tile
+  float* v_s = kLean<D> ? k_s : k_s + kT * DP;
   float* ds_s = v_s + kT * DP;       // kT x kPS
   float* lse_s = ds_s + kT * kPS;    // kT
   float* dl_s = lse_s + kT;          // kT
@@ -269,20 +313,29 @@ swa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int hi = causal ? min(Sk - 1, q_hi) : Sk - 1;
-  float acc[4][8];
+  float acc[4][4 * kGroups<D>];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[i][c] = 0.0f;
+    for (int c = 0; c < 4 * kGroups<D>; ++c) acc[i][c] = 0.0f;
 
   for (int k0 = (lo / kT) * kT; k0 <= hi; k0 += kT) {
-    __syncthreads();   // o (first tile), the previous k, v and ds are read
-    load_tile<D>(k_s, k_bh + k0 * kv_stride, kv_stride, Sk - k0);
-    load_tile<D>(v_s, v_bh + k0 * kv_stride, kv_stride, Sk - k0);
-    __syncthreads();
-
     float s[4][4], dp[4][4];
-    two_scores<D>(s, dp, q_s, k_s, do_s, v_s, tx, ty);
+    __syncthreads();   // o (first tile), the previous k, v and ds are read
+    if constexpr (kLean<D>) {
+      load_tile<D>(v_s, v_bh + k0 * kv_stride, kv_stride, Sk - k0);
+      __syncthreads();
+      one_score<D>(dp, do_s, v_s, tx, ty);
+      __syncthreads();
+      load_tile<D>(k_s, k_bh + k0 * kv_stride, kv_stride, Sk - k0);
+      __syncthreads();
+      one_score<D>(s, q_s, k_s, tx, ty);
+    } else {
+      load_tile<D>(k_s, k_bh + k0 * kv_stride, kv_stride, Sk - k0);
+      load_tile<D>(v_s, v_bh + k0 * kv_stride, kv_stride, Sk - k0);
+      __syncthreads();
+      two_scores<D>(s, dp, q_s, k_s, do_s, v_s, tx, ty);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = 4 * ty + i;
@@ -307,7 +360,7 @@ swa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 swa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse,
@@ -319,9 +372,11 @@ swa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* k_s = smem;                 // kT x DP
   float* v_s = k_s + kT * DP;        // kT x DP
   float* q_s = v_s + kT * DP;        // kT x DP
-  float* do_s = q_s + kT * DP;       // kT x DP
+  // kT x DP; lean: do shares q's tile
+  float* do_s = kLean<D> ? q_s : q_s + kT * DP;
   float* p_s = do_s + kT * DP;       // kT x kPS: p^T (keys x query rows)
-  float* ds_s = p_s + kT * kPS;      // kT x kPS: ds^T
+  // kT x kPS: ds^T; lean: shares p's tile
+  float* ds_s = kLean<D> ? p_s : p_s + kT * kPS;
   float* lse_s = ds_s + kT * kPS;    // kT
   float* dl_s = lse_s + kT;          // kT
 
@@ -339,11 +394,11 @@ swa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // The query rows that see a key of this tile.
   const int lo = causal ? k0 : 0;
   const int hi = window > 0 ? min(Sq - 1, k_hi + window - 1) : Sq - 1;
-  float dk_acc[4][8], dv_acc[4][8];
+  float dk_acc[4][4 * kGroups<D>], dv_acc[4][4 * kGroups<D>];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
+    for (int c = 0; c < 4 * kGroups<D>; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
 
   for (int hh = 0; hh < rep; ++hh) {
     const int h = g * rep + hh;
@@ -351,9 +406,14 @@ swa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int q0 = (lo / kT) * kT; q0 <= hi; q0 += kT) {
       const int nq = min(kT, Sq - q0);
       const int64_t q_off = ((int64_t)b * Sq + q0) * q_stride + (int64_t)h * D;
+      float s[4][4], dp[4][4];
       __syncthreads();   // the previous q, do, p and ds are read
-      load_tile<D>(q_s, q + q_off, q_stride, nq);
-      load_tile<D>(do_s, dout + q_off, q_stride, nq);
+      if constexpr (kLean<D>)
+        load_tile<D>(do_s, dout + q_off, q_stride, nq);
+      else {
+        load_tile<D>(q_s, q + q_off, q_stride, nq);
+        load_tile<D>(do_s, dout + q_off, q_stride, nq);
+      }
       if (threadIdx.x < kT) {
         const int r = threadIdx.x;
         lse_s[r] = r < nq ? lse[row_h + q0 + r] : 0.0f;
@@ -362,8 +422,15 @@ swa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
 
       // s^T and dp^T: keys 4ty + i against query rows tx + 16c
-      float s[4][4], dp[4][4];
-      two_scores<D>(s, dp, k_s, q_s, v_s, do_s, tx, ty);
+      if constexpr (kLean<D>) {
+        one_score<D>(dp, v_s, do_s, tx, ty);
+        __syncthreads();
+        load_tile<D>(q_s, q + q_off, q_stride, nq);
+        __syncthreads();
+        one_score<D>(s, k_s, q_s, tx, ty);
+      } else {
+        two_scores<D>(s, dp, k_s, q_s, v_s, do_s, tx, ty);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int kr = 4 * ty + i;
@@ -373,13 +440,37 @@ swa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float p = seen(q0 + r, k0 + kr, Sq, Sk, window, causal)
                               ? expf(s[i][c] * scale - lse_s[r])
                               : 0.0f;
-          p_s[kr * kPS + r] = p;
-          ds_s[kr * kPS + r] = p * (dp[i][c] - dl_s[r]) * scale;
+          s[i][c] = p;
+          dp[i][c] = p * (dp[i][c] - dl_s[r]) * scale;
+          if constexpr (!kLean<D>) {
+            p_s[kr * kPS + r] = p;
+            ds_s[kr * kPS + r] = dp[i][c];
+          }
         }
       }
-      __syncthreads();
-      accumulate<D>(dv_acc, p_s, do_s, tx, ty);
-      accumulate<D>(dk_acc, ds_s, q_s, tx, ty);
+      if constexpr (kLean<D>) {
+        // ds^T q with q staged, then p^T do with do staged again
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) ds_s[(4 * ty + i) * kPS + tx + 16 * c] =
+              dp[i][c];
+        __syncthreads();
+        accumulate<D>(dk_acc, ds_s, q_s, tx, ty);
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) p_s[(4 * ty + i) * kPS + tx + 16 * c] =
+              s[i][c];
+        load_tile<D>(do_s, dout + q_off, q_stride, nq);
+        __syncthreads();
+        accumulate<D>(dv_acc, p_s, do_s, tx, ty);
+      } else {
+        __syncthreads();
+        accumulate<D>(dv_acc, p_s, do_s, tx, ty);
+        accumulate<D>(dk_acc, ds_s, q_s, tx, ty);
+      }
     }
   }
 
@@ -398,9 +489,14 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o,
                void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
                int window, int causal, float scale, cudaStream_t stream) {
   constexpr int DP = D + 4;
-  constexpr int kSmemDq = (4 * kT * DP + kT * kPS + 2 * kT) * (int)sizeof(float);
+  // Staged tiles: dq q, do, k, v (lean: k and v share one); dk / dv k, v,
+  // q, do (lean: q and do share one) and p, ds (lean: one).
+  constexpr int kTiles = kLean<D> ? 3 : 4;
+  constexpr int kSmemDq =
+      (kTiles * kT * DP + kT * kPS + 2 * kT) * (int)sizeof(float);
   constexpr int kSmemDkdv =
-      (4 * kT * DP + 2 * kT * kPS + 2 * kT) * (int)sizeof(float);
+      (kTiles * kT * DP + (kLean<D> ? 1 : 2) * kT * kPS + 2 * kT) *
+      (int)sizeof(float);
   static bool opted_in = false;
   if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -477,19 +573,20 @@ __device__ __forceinline__ void row_stats(const __nv_bfloat16* __restrict__ o,
 }
 
 // Rows r_a and r_a + 8 (where below S) of an fp32 64 x 128 accumulator into
-// a (B, S, heads, D) bf16 tensor at (b, head): columns 8j + col0 + {0, 1}.
+// a (B, S, heads, D) bf16 tensor at (b, head): columns c0 + 8j + col0 +
+// {0, 1} (c0: 128 for the second half of a D = 256 row).
 template <int D>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ out,
                                           const float (&acc)[64], int b,
                                           int head, int r_a, int col0, int S,
-                                          int heads) {
+                                          int heads, int c0 = 0) {
   const int64_t stride = (int64_t)heads * D;
   __nv_bfloat16* out_a =
-      out + ((int64_t)b * S + r_a) * stride + (int64_t)head * D + col0;
+      out + ((int64_t)b * S + r_a) * stride + (int64_t)head * D + c0 + col0;
   __nv_bfloat16* out_b = out_a + 8 * stride;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    if (8 * j + col0 >= D) continue;
+    if (c0 + 8 * j + col0 >= D) continue;
     if (r_a < S)
       *reinterpret_cast<__nv_bfloat162*>(out_a + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
@@ -905,13 +1002,404 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// --- bf16 at D = 256 (gemma-7b, recurrentgemma-9b) -------------------------
+//
+// A 64-row tile is four boxes (32 KB), so the D <= 128 geometry no longer
+// fits (dq: 128 q and do rows and a 4-slot k / v ring are 385 KB), and a
+// 64 x 256 fp32 accumulator takes 128 registers a thread. Both kernels keep
+// the shape above (a TMA producer warpgroup, two consumer warpgroups, 64-row
+// tiles, p and ds as bf16 hi + lo, a fixed order) with a 2-slot ring:
+// - dq (swa_bwd_dq_hopper_d256_kernel): a unit is (b, h, 64 query rows),
+//   q and do 64 KB, the ring 128 KB (193 KB). The two warpgroups take the
+//   streamed k / v tiles in turn (the first the even ones, in slot 0; the
+//   second the odd ones, in slot 1), each into its own 64 x 256 dq (two
+//   m64n128 halves); at the end the second's sums pass through shared
+//   memory to the first, which adds them (always in that order) and stores.
+// - dk / dv (swa_bwd_dkdv_hopper_d256_kernel): a unit is (b, KV head, 64
+//   keys), k and v 64 KB, the ring 2 x (q, do, stats) 130 KB (195 KB). Both
+//   warpgroups take every streamed tile: the first forms s^T and p^T and
+//   accumulates dv += p^T do, the second forms s^T and dp^T, ds^T and
+//   accumulates dk += ds^T q (s^T is formed twice: one product more than at
+//   D = 128). Each holds one 64 x 256 accumulator and stores it.
+// Registers: the accumulator (128), s and dp (32 each) and a split fragment
+// (16 + 16) under the consumers' 240.
+constexpr int kTile256 = 4 * kT * 128;    // a 64-row tile of 256 columns
+constexpr int kStages256 = 2;             // ring slots
+constexpr int kSlot256 = 2 * kTile256 + kStatBytes;   // dk / dv: q, do, stats
+
+// s (64 x 64) = a b^T over 256 columns, both 64-row tiles K-major.
+__device__ __forceinline__ void issue_s256(float (&s)[32], uint32_t a,
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk)
+    wgmma_ss_n64(s, kmajor_desc(a, kT, 0, kk), kmajor_desc(b, kT, 0, kk),
+                 kk > 0);
+}
+
+// acc (64 x 256, two halves) += x b for x = hi + lo (64 x 64 from
+// registers) and b a 64-row tile of 256 columns (MN-major).
+__device__ __forceinline__ void issue_acc256(float (&acc)[2][64],
+                                             const uint32_t (&hi)[16],
+                                             const uint32_t (&lo)[16],
+                                             uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const uint64_t d = mnmajor_desc(b + hf * 2 * kT * 128, kT, kk);
+      wgmma_rs_n128(acc[hf], hi + 4 * kk, d);
+      wgmma_rs_n128(acc[hf], lo + 4 * kk, d);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kHThreads, 1)
+swa_bwd_dq_hopper_d256_kernel(__grid_constant__ const CUtensorMap tq,
+                              __grid_constant__ const CUtensorMap tk,
+                              __grid_constant__ const CUtensorMap tv,
+                              __grid_constant__ const CUtensorMap tdo,
+                              const __nv_bfloat16* __restrict__ o,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              float* __restrict__ ws,
+                              __nv_bfloat16* __restrict__ dq, int B, int Sq,
+                              int Sk, int H, int KV, int window, int causal,
+                              float scale, float scale_log2) {
+  constexpr int D = 256;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, full[kStages256], empty[kStages256];
+  uint8_t* q_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* do_s = q_s + kTile256;
+  uint8_t* ring = do_s + kTile256;         // kStages256 x (k tile, v tile)
+
+  const int n_q = (Sq + kT - 1) / kT;
+  const int bh = blockIdx.x % (B * H);
+  const int h = bh % H, b = bh / H;
+  const int q0 = (n_q - 1 - (int)blockIdx.x / (B * H)) * kT;   // long first
+  const int q_hi = min(q0 + kT, Sq) - 1;
+  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int hi = causal ? min(Sk - 1, q_hi) : Sk - 1;
+  const int t0 = lo / kT, n_tiles = hi / kT - t0 + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+    for (int s = 0; s < kStages256; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);             // one warpgroup takes a slot
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= kConsumers / 32) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (warp == kConsumers / 32 && lane == 0) {
+      const int g = h / (H / KV);
+      mbar_expect_tx(&bar_q, 2 * kTile256);
+      for (int c = 0; c < 4; ++c) {
+        tma_load(q_s + c * kT * 128, &tq, &bar_q, c * kBoxCols, h, q0, b);
+        tma_load(do_s + c * kT * 128, &tdo, &bar_q, c * kBoxCols, h, q0, b);
+      }
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % kStages256;
+        if (n >= kStages256) mbar_wait(&empty[s], (n / kStages256 - 1) & 1);
+        uint8_t* slot = ring + s * 2 * kTile256;
+        const int k0 = (t0 + n) * kT;
+        mbar_expect_tx(&full[s], 2 * kTile256);
+        for (int c = 0; c < 4; ++c) {
+          tma_load(slot + c * kT * 128, &tk, &full[s], c * kBoxCols, g, k0, b);
+          tma_load(slot + kTile256 + c * kT * 128, &tv, &full[s],
+                   c * kBoxCols, g, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int wg = warp / 4, t = threadIdx.x % 128;
+  const int r_a = q0 + 16 * (warp % 4) + lane / 4;    // and r_a + 8
+  const int col0 = 2 * (lane % 4);
+  float ls_a, ls_b, dl_a, dl_b;
+  row_stats<D>(o, dout, lse, b, h, r_a, Sq, H, lane % 4, ls_a, dl_a);
+  row_stats<D>(o, dout, lse, b, h, r_a + 8, Sq, H, lane % 4, ls_b, dl_b);
+  if (wg == 0 && lane % 4 == 0) {
+    // For the dk / dv kernel: lse * log2 e, then delta, (B * H, sq_pad).
+    const int64_t sq_pad = (int64_t)((Sq + kQRows - 1) / kQRows) * kQRows;
+    const int64_t plane = (int64_t)B * H * sq_pad;
+    float* row = ws + (int64_t)bh * sq_pad + r_a;
+    row[0] = ls_a;
+    row[8] = ls_b;
+    row[plane] = dl_a;
+    row[plane + 8] = dl_b;
+  }
+
+  const uint32_t q_addr = smem_u32(q_s), do_addr = smem_u32(do_s);
+  float acc[2][64], s[32], dp[32];
+  uint32_t ds_hi[16], ds_lo[16];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[0][e] = acc[1][e] = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.0f;
+
+  mbar_wait(&bar_q, 0);
+  for (int n = wg; n < n_tiles; n += 2) {
+    const int sl = n % kStages256;
+    mbar_wait(&full[sl], (n / kStages256) & 1);
+    const int k0 = (t0 + n) * kT;
+    const uint32_t k_addr = smem_u32(ring + sl * 2 * kTile256);
+    const uint32_t v_addr = k_addr + kTile256;
+    wgmma_fence();
+    issue_s256(s, q_addr, k_addr);
+    issue_s256(dp, do_addr, v_addr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool masked = k0 + kT > Sk || (causal && k0 + kT - 1 > q0) ||
+                        (window > 0 && k0 <= q0 + kT - 1 - window);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const bool rb = e & 2;
+      float p = fast_exp2(fmaf(s[e], scale_log2, -(rb ? ls_b : ls_a)));
+      if (masked) {
+        const int kp = k0 + 8 * (e / 4) + col0 + (e & 1);
+        const int qp = r_a + (rb ? 8 : 0);
+        if (kp >= Sk || (causal && kp > qp) ||
+            (window > 0 && kp <= qp - window))
+          p = 0.0f;
+      }
+      dp[e] = p * (dp[e] - (rb ? dl_b : dl_a)) * scale;
+    }
+    split_bf16(dp, ds_hi, ds_lo);
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    fence_regs(ds_hi);
+    fence_regs(ds_lo);
+    wgmma_fence();
+    issue_acc256(acc, ds_hi, ds_lo, k_addr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    fence_regs(ds_hi);
+    fence_regs(ds_lo);
+    release(&empty[sl], lane);
+  }
+  float* buf = reinterpret_cast<float*>(ring);
+  combine(acc[0], buf, wg, t);
+  combine(acc[1], buf + 64 * 128, wg, t);
+  if (wg == 0) {
+    store_acc<D>(dq, acc[0], b, h, r_a, col0, Sq, H, 0);
+    store_acc<D>(dq, acc[1], b, h, r_a, col0, Sq, H, 128);
+  }
+}
+
+__global__ void __launch_bounds__(kHThreads, 1)
+swa_bwd_dkdv_hopper_d256_kernel(__grid_constant__ const CUtensorMap tq,
+                                __grid_constant__ const CUtensorMap tk,
+                                __grid_constant__ const CUtensorMap tv,
+                                __grid_constant__ const CUtensorMap tdo,
+                                const float* __restrict__ ws,
+                                __nv_bfloat16* __restrict__ dk,
+                                __nv_bfloat16* __restrict__ dv, int B, int Sq,
+                                int Sk, int H, int KV, int window, int causal,
+                                float scale, float scale_log2) {
+  constexpr int D = 256;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_kv, full[kStages256], empty[kStages256];
+  uint8_t* k_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* v_s = k_s + kTile256;
+  uint8_t* ring = v_s + kTile256;          // kStages256 x (q, do, stats)
+
+  const int64_t sq_pad = (int64_t)((Sq + kQRows - 1) / kQRows) * kQRows;
+  const int bg = blockIdx.x % (B * KV);
+  const int g = bg % KV, b = bg / KV;
+  const int k0 = ((int)blockIdx.x / (B * KV)) * kT;      // long first
+  const int k_hi = min(k0 + kT, Sk) - 1;
+  const int rep = H / KV;
+  const int lo = causal ? k0 : 0;
+  const int hi = window > 0 ? min(Sq - 1, k_hi + window - 1) : Sq - 1;
+  const int tq0 = lo / kT;
+  const int nt = lo <= hi ? hi / kT - tq0 + 1 : 0;       // q tiles a head
+  const int n_tiles = rep * nt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_kv, 1);
+    for (int s = 0; s < kStages256; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);   // both warpgroups take a slot
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= kConsumers / 32) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (warp == kConsumers / 32 && lane == 0) {
+      const int64_t plane = (int64_t)B * H * sq_pad;
+      mbar_expect_tx(&bar_kv, 2 * kTile256);
+      for (int c = 0; c < 4; ++c) {
+        tma_load(k_s + c * kT * 128, &tk, &bar_kv, c * kBoxCols, g, k0, b);
+        tma_load(v_s + c * kT * 128, &tv, &bar_kv, c * kBoxCols, g, k0, b);
+      }
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % kStages256;
+        if (n >= kStages256) mbar_wait(&empty[s], (n / kStages256 - 1) & 1);
+        uint8_t* slot = ring + s * kSlot256;
+        const int h = g * rep + n / nt, q0 = (tq0 + n % nt) * kT;
+        const float* stat = ws + ((int64_t)b * H + h) * sq_pad + q0;
+        mbar_expect_tx(&full[s], 2 * kTile256 + 2 * kT * 4);
+        for (int c = 0; c < 4; ++c) {
+          tma_load(slot + c * kT * 128, &tq, &full[s], c * kBoxCols, h, q0, b);
+          tma_load(slot + kTile256 + c * kT * 128, &tdo, &full[s],
+                   c * kBoxCols, h, q0, b);
+        }
+        bulk_load(slot + 2 * kTile256, stat, kT * 4, &full[s]);
+        bulk_load(slot + 2 * kTile256 + kT * 4, stat + plane, kT * 4,
+                  &full[s]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int wg = warp / 4;                 // 0: dv, 1: dk
+  const int row_l = 16 * (warp % 4) + lane / 4;   // keys row_l, row_l + 8
+  const int col0 = 2 * (lane % 4);
+  const int kp_a = k0 + row_l;
+  const uint32_t k_addr = smem_u32(k_s), v_addr = smem_u32(v_s);
+  float acc[2][64], s[32], dp[32];
+  uint32_t x_hi[16], x_lo[16];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[0][e] = acc[1][e] = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.0f;
+
+  mbar_wait(&bar_kv, 0);
+  for (int n = 0; n < n_tiles; ++n) {
+    const int sl = n % kStages256;
+    mbar_wait(&full[sl], (n / kStages256) & 1);
+    uint8_t* slot = ring + sl * kSlot256;
+    const uint32_t q_addr = smem_u32(slot), do_addr = q_addr + kTile256;
+    const float* lse_s = reinterpret_cast<const float*>(slot + 2 * kTile256);
+    const float* dl_s = lse_s + kT;
+    wgmma_fence();
+    issue_s256(s, k_addr, q_addr);
+    if (wg == 1) issue_s256(dp, v_addr, do_addr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // s^T and dp^T: keys kp_a + {0, 8} (rows) x query rows q0 + 8j + col0 +
+    // {0, 1} (columns).
+    const int q0 = (tq0 + n % nt) * kT;
+    const bool masked = (causal && k0 + kT - 1 > q0) ||
+                        (window > 0 && q0 + kT - 1 - k0 >= window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + col0);
+      const float2 d2 = *reinterpret_cast<const float2*>(dl_s + 8 * j + col0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = 4 * j + i;
+        const bool c1 = i & 1;
+        float p = fast_exp2(fmaf(s[e], scale_log2, -(c1 ? l2.y : l2.x)));
+        if (masked) {
+          const int qp = q0 + 8 * j + col0 + (c1 ? 1 : 0);
+          const int kp = kp_a + ((i & 2) ? 8 : 0);
+          if ((causal && kp > qp) || (window > 0 && kp <= qp - window))
+            p = 0.0f;
+        }
+        if (wg == 0)
+          s[e] = p;
+        else
+          dp[e] = p * (dp[e] - (c1 ? d2.y : d2.x)) * scale;
+      }
+    }
+    if (wg == 0)
+      split_bf16(s, x_hi, x_lo);
+    else
+      split_bf16(dp, x_hi, x_lo);
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    fence_regs(x_hi);
+    fence_regs(x_lo);
+    wgmma_fence();
+    issue_acc256(acc, x_hi, x_lo, wg == 0 ? do_addr : q_addr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+    fence_regs(x_hi);
+    fence_regs(x_lo);
+    release(&empty[sl], lane);
+  }
+  __nv_bfloat16* out = wg == 0 ? dv : dk;
+  store_acc<D>(out, acc[0], b, g, kp_a, col0, Sk, KV, 0);
+  store_acc<D>(out, acc[1], b, g, kp_a, col0, Sk, KV, 128);
+}
+
+int launch_bf16_d256(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     float* ws, void* dq, void* dk, void* dv, int B, int Sq,
+                     int Sk, int H, int KV, int window, int causal,
+                     float scale, cudaStream_t stream) {
+  constexpr int D = 256;
+  constexpr int kSmemDq = 1024 + 2 * kTile256 + kStages256 * 2 * kTile256;
+  constexpr int kSmemDkdv = 1024 + 2 * kTile256 + kStages256 * kSlot256;
+  const int64_t n_q = (Sq + kT - 1) / kT, n_k = (Sk + kT - 1) / kT;
+  if (n_q * B * H > 0x7fffffff || n_k * B * KV > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!encode_map(enc, &tq, q, B, Sq, H, D, kT) ||
+      !encode_map(enc, &tk, k, B, Sk, KV, D, kT) ||
+      !encode_map(enc, &tv, v, B, Sk, KV, D, kT) ||
+      !encode_map(enc, &tdo, dout, B, Sq, H, D, kT))
+    return (int)cudaErrorInvalidValue;
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        swa_bwd_dq_hopper_d256_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDq);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(swa_bwd_dkdv_hopper_d256_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemDkdv);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
+  }
+  const float scale_log2 = scale * kLog2e;
+  swa_bwd_dq_hopper_d256_kernel<<<(unsigned)(n_q * B * H), kHThreads, kSmemDq,
+                                  stream>>>(
+      tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, ws,
+      static_cast<__nv_bfloat16*>(dq), B, Sq, Sk, H, KV, window, causal, scale,
+      scale_log2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  swa_bwd_dkdv_hopper_d256_kernel<<<(unsigned)(n_k * B * KV), kHThreads,
+                                    kSmemDkdv, stream>>>(
+      tq, tk, tv, tdo, ws, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), B, Sq, Sk, H, KV, window, causal, scale,
+      scale_log2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Gradients of attention over contiguous q, o, do (B, Sq, H, D) and k, v
 // (B, Sk, KV, D), all of one dtype (0 = fp32, 1 = bf16), with the
 // forward's fp32 lse (B, H, Sq): dq (B, Sq, H, D), dk, dv (B, Sk, KV, D) in
 // that dtype. delta is fp32 scratch of 2 * B * H * ceil(Sq / 128) * 128
-// floats. window <= 0 means no window; causal is 0 or 1; D is 120 or 128; H
+// floats. window <= 0 means no window; causal is 0 or 1; D is 120, 128 or
+// 256; H
 // a multiple of KV; the pointers 16-byte aligned. Two launches on `stream`.
 // Returns 0 or a cudaError_t.
 extern "C" int repro_swa_attention_bwd(
@@ -937,6 +1425,10 @@ extern "C" int repro_swa_attention_bwd(
     return dtype == 0 ? REPRO_BWD(launch_f32, 120) : REPRO_BWD(launch_bf16, 120);
   if (D == 128)
     return dtype == 0 ? REPRO_BWD(launch_f32, 128) : REPRO_BWD(launch_bf16, 128);
+  if (D == 256)
+    return dtype == 0 ? REPRO_BWD(launch_f32, 256)
+                      : launch_bf16_d256(q, k, v, o, dout, l, dl, dq, dk, dv, b,
+                                         sq, sk, h, kv, w, causal, scale, s);
 #undef REPRO_BWD
   return (int)cudaErrorInvalidValue;
 }

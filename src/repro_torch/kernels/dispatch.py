@@ -33,9 +33,10 @@ slice; the plain versions on the CPU compute run by run.
 
 The language models' recurrence ``wkv6`` and their full-sequence attention
 ``swa_attention`` route the same way: the plain version on CPU tensors, the
-hand-written kernel on CUDA tensors. ``swa_attention`` is differentiable
-(:class:`SwaAttention`): its backward is the hand-written
-``swa_attention_bwd`` kernel on the card, the plain backward on the CPU.
+hand-written kernel on CUDA tensors. Both are differentiable
+(:class:`Wkv6`, :class:`SwaAttention`): the backward is the hand-written
+``wkv6_bwd`` / ``swa_attention_bwd`` kernel on the card, the plain backward
+on the CPU.
 """
 from __future__ import annotations
 
@@ -71,7 +72,6 @@ from repro_torch.kernels.swa_attention import (
     swa_attention_plain,
 )
 from repro_torch.kernels.swa_attention_bwd import (
-    check_head_dim,
     swa_attention_bwd_cuda,
     swa_attention_bwd_plain,
 )
@@ -81,6 +81,8 @@ from repro_torch.kernels.topk_scatter import (
 )
 from repro_torch.kernels.wkv6 import (
     check_shapes as check_wkv6_shapes,
+    wkv6_bwd_cuda,
+    wkv6_bwd_plain,
     wkv6_cuda,
     wkv6_plain,
 )
@@ -703,7 +705,16 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     ``state_out`` when given (it may be ``state``: the in-place update),
     else to a new tensor. CPU tensors run the plain loop; CUDA tensors launch
     the kernel, which takes fp32 and D = 64 only and raises on anything else.
+    Where autograd records (grad mode on and an input that requires grad)
+    the call goes through :class:`Wkv6` and takes no ``state_out``: the
+    final state is a new tensor.
     """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, state)):
+        if state_out is not None:
+            raise ValueError("wkv6: a recorded (training) call writes no "
+                             "state in place; state_out must be None")
+        return Wkv6.apply(r, k, v, w, u, state)
     if _is_cuda(r):
         return wkv6_cuda(r, k, v, w, u, state, state_out=state_out)
     check_wkv6_shapes("wkv6", r, k, v, w, u, state)
@@ -711,6 +722,32 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if state_out is None:
         return y, s
     return y, state_out.copy_(s)
+
+
+class Wkv6(torch.autograd.Function):
+    """Differentiable :func:`wkv6`: ``(y, final_state)``. The JAX package
+    differentiates ``wkv_scan``'s ``lax.scan``; here the forward saves its
+    inputs and the backward computes every input's gradient from them, ``dy``
+    and the final state's gradient: the ``wkv6`` / ``wkv6_bwd`` kernels on
+    CUDA tensors, ``wkv6_plain`` / ``wkv6_bwd_plain`` on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        if _is_cuda(r):
+            y, s = wkv6_cuda(r, k, v, w, u, state)
+        else:
+            check_wkv6_shapes("wkv6", r, k, v, w, u, state)
+            y, s = wkv6_plain(r, k, v, w, u, state)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        r, k, v, w, u, state = ctx.saved_tensors
+        dy = torch.zeros_like(r) if dy is None else dy.contiguous()
+        ds = None if ds is None else ds.contiguous()
+        bwd = wkv6_bwd_cuda if _is_cuda(r) else wkv6_bwd_plain
+        return bwd(r, k, v, w, u, state, dy, ds)
 
 
 class SwaAttention(torch.autograd.Function):
@@ -722,14 +759,12 @@ class SwaAttention(torch.autograd.Function):
     dk, dv)`` from them and ``do``: the ``swa_attention_bwd`` kernel on CUDA
     tensors, ``swa_attention_bwd_plain`` on CPU tensors. ``k`` and ``v``
     stay un-repeated; the sum over a KV group's query heads happens inside
-    the backward. On CUDA tensors a head size the backward kernels do not
-    take (256) is refused before the forward launches.
+    the backward.
     """
 
     @staticmethod
     def forward(ctx, q, k, v, window, causal):
         if _is_cuda(q):
-            check_head_dim("swa_attention (training)", q.shape[-1])
             o, lse = swa_attention_cuda(q, k, v, window=window, causal=causal,
                                         with_lse=True)
         else:
@@ -760,8 +795,7 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sizes 120, 128 and 256 and raises on anything else. Where autograd
     records (grad mode on and an input that requires grad) the call goes
     through :class:`SwaAttention`, whose forward also writes the
-    log-sum-exp (head sizes 120 and 128 on the card: the backward's);
-    otherwise (serving) it does not.
+    log-sum-exp; otherwise (serving) it does not.
     """
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

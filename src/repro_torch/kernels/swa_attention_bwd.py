@@ -28,7 +28,7 @@ the ``H / KV`` query heads of a group is the gradient of JAX's
   streams through a shared-memory ring; ``p`` and ``ds`` enter the products
   as bf16 hi + lo), fp32 on the CUDA cores. One call is two launches on the
   current stream and counts one in :data:`launches`. Head sizes
-  :data:`HEAD_DIMS` (120 and 128; the forward also takes 256).
+  :data:`HEAD_DIMS` (120, 128 and 256, the forward's).
 * :func:`swa_attention_bwd_plain` is the same function in plain PyTorch,
   scores materialised in fp32 (float64 for float64 inputs) per KV group, as
   ``swa_attention_plain`` does. The CPU path runs it; on the card it is
@@ -46,28 +46,24 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decay_accum import check_buffer, raise_on, stream_of
+# The head sizes the backward kernels take are the forward's (D = 256:
+# gemma-7b and recurrentgemma-9b training).
 from repro_torch.kernels.swa_attention import (
     DTYPE_CODE,
+    HEAD_DIMS,
     check_shapes,
     swa_mask,
 )
-
-# The head sizes the backward kernels take: the forward's but 256, whose
-# backward (gemma-7b and recurrentgemma-9b training) comes with the next
-# slice; ``csrc/swa_attention_bwd.cu`` has no D = 256 entry.
-HEAD_DIMS = (120, 128)
 
 launches = 0               # calls of swa_attention_bwd_cuda (two kernels each)
 
 
 def check_head_dim(fn: str, d: int) -> None:
     """Raise ``ValueError`` for a head size the backward kernels do not
-    take, naming the slice that brings it."""
+    take."""
     if d not in HEAD_DIMS:
-        raise ValueError(
-            f"{fn}: the backward kernels take head sizes {HEAD_DIMS}, got "
-            f"{d}; the D = 256 backward (gemma-7b / recurrentgemma-9b "
-            f"training) comes with the next slice")
+        raise ValueError(f"{fn}: the backward kernels take head sizes "
+                         f"{HEAD_DIMS}, got {d}")
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 

@@ -16,9 +16,19 @@ The port of the Pallas TPU kernel ``wkv6_pallas``
   the inputs' dtype. The CPU path runs it; on the card it is only the
   reference the kernel is held against.
 
-Callers go through :func:`repro_torch.kernels.dispatch.wkv6`. No single
-PyTorch call computes this recurrence, so the kernel has no library
-yardstick.
+Its gradient (training) has no Pallas twin: the JAX package differentiates
+``wkv_scan``'s ``lax.scan``. Given ``dy`` and the gradient ``dsT`` of the
+final state:
+
+* :func:`wkv6_bwd_cuda` wraps the hand-written kernel of
+  ``csrc/wkv6_bwd.cu`` (two launches, counted once in
+  :data:`bwd_launches`): ``(dr, dk, dv, dw, du, ds0)``;
+* :func:`wkv6_bwd_plain` is the same function in plain PyTorch (the
+  forward's states kept, then the reverse loop).
+
+Callers go through :func:`repro_torch.kernels.dispatch.wkv6` (and its
+autograd function ``dispatch.Wkv6``). No single PyTorch call computes this
+recurrence or its gradient, so neither kernel has a library yardstick.
 """
 from __future__ import annotations
 
@@ -33,6 +43,9 @@ from repro_torch.kernels.decay_accum import check_buffer, raise_on, stream_of
 HEAD_DIM = 64         # the one head size the kernel takes
 
 launches = 0          # kernel launches made by wkv6_cuda
+bwd_launches = 0      # calls of wkv6_bwd_cuda (two kernels each)
+BWD_CHUNK = 16        # steps between the states csrc/wkv6_bwd.cu saves
+BWD_TILES = 4         # row tiles a (b, h): dv's partials
 
 
 def check_shapes(fn: str, r, k, v, w, u, state) -> Tuple[int, int, int, int]:
@@ -126,3 +139,110 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream_of(device)))
     launches += 1
     return y, state_out
+
+
+Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+              torch.Tensor, torch.Tensor]
+
+
+def _check_bwd(fn, r, k, v, w, u, s0, dy, dsT):
+    B, T, H, D = check_shapes(fn, r, k, v, w, u, s0)
+    if tuple(dy.shape) != tuple(r.shape):
+        raise ValueError(f"{fn}: dy must match r {tuple(r.shape)}, got "
+                         f"{tuple(dy.shape)}")
+    if dsT is not None and tuple(dsT.shape) != tuple(s0.shape):
+        raise ValueError(f"{fn}: dsT must match the state {tuple(s0.shape)}, "
+                         f"got {tuple(dsT.shape)}")
+    return B, T, H, D
+
+
+def wkv6_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                   dy: torch.Tensor, dsT: Optional[torch.Tensor] = None
+                   ) -> Grads:
+    """Plain version of the gradient of :func:`wkv6_plain`: ``(dr, dk, dv,
+    dw, du, ds0)`` in ``r``'s dtype, from ``dy`` (``(B, T, H, D)``) and the
+    final state's gradient ``dsT`` (``None``: zero). With ``G`` the
+    gradient of the state after step t and ``S`` the one before it:
+    ``G <- w_t G + r_t dy_t^T`` walking t down, ``dr = S dy + u k (dy.v)``,
+    ``dk = G v + r u (dy.v)``, ``dv = G^T k + (r.u k) dy``, ``dw = rowsum(G
+    * S)``, ``du = sum r k (dy.v)``. Keeps the T states S and G: a
+    reference for short sequences and small batches."""
+    _check_bwd("wkv6_bwd_plain", r, k, v, w, u, s0, dy, dsT)
+    # The states S_{t-1} (forward) and G_t (walking t down), (B, T, H, D, D)
+    # each; every other gradient is a batched sum over them.
+    states, s = [], s0
+    for k_t, v_t, w_t in zip(k.unbind(1), v.unbind(1), w.unbind(1)):
+        states.append(s)
+        s = w_t[..., :, None] * s + k_t[..., :, None] * v_t[..., None, :]
+    G = torch.zeros_like(s0) if dsT is None else dsT
+    grads = [None] * r.shape[1]
+    for t in range(r.shape[1] - 1, -1, -1):
+        grads[t] = G
+        G = w[:, t, ..., None] * G + r[:, t, ..., None] * dy[:, t, :, None, :]
+    if not grads:
+        z = torch.zeros_like(r)
+        return z, z.clone(), z.clone(), z.clone(), torch.zeros_like(u), G
+    S, Gs = torch.stack(states, 1), torch.stack(grads, 1)
+    c = (dy * v).sum(-1, keepdim=True)                      # (B, T, H, 1)
+    dr = torch.einsum("bthij,bthj->bthi", S, dy) + u * k * c
+    dk = torch.einsum("bthij,bthj->bthi", Gs, v) + r * u * c
+    dv = torch.einsum("bthij,bthi->bthj", Gs, k) \
+        + (r * u * k).sum(-1, keepdim=True) * dy
+    dw = (Gs * S).sum(-1)
+    du = (r * k * c).sum((0, 1))
+    return dr, dk, dv, dw, du, G
+
+
+def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                  dy: torch.Tensor, dsT: Optional[torch.Tensor] = None
+                  ) -> Grads:
+    """Launch ``wkv6_bwd_kernel`` then ``wkv6_bwd_reduce_kernel``: returns
+    ``(dr, dk, dv, dw, du, ds0)``.
+
+    Takes what :func:`wkv6_cuda` takes (contiguous fp32 on one CUDA device,
+    D = 64, T >= 1), with ``dy`` like ``r`` and ``dsT`` like ``s0`` or
+    ``None`` (a zero gradient of the final state); every pointer 16-byte
+    aligned. The outputs and the fp32 scratch (the states saved every
+    :data:`BWD_CHUNK` steps, dv's :data:`BWD_TILES` partials, du's per
+    batch row) are allocated here. Fixed order, no atomics: a shape's
+    result repeats bitwise; it matches :func:`wkv6_bwd_plain` to fp32
+    rounding."""
+    global bwd_launches
+    fn = "wkv6_bwd_cuda"
+    device = r.device
+    if device.type != "cuda":
+        raise ValueError(f"{fn}: tensors must be on a CUDA device, got {device}")
+    B, T, H, D = _check_bwd(fn, r, k, v, w, u, s0, dy, dsT)
+    if D != HEAD_DIM:
+        raise ValueError(f"{fn}: the kernel takes head size {HEAD_DIM}, got {D}")
+    if T < 1:
+        raise ValueError(f"{fn}: needs T >= 1, got {T}")
+    f32 = (torch.float32,)
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("dy", dy)):
+        check_buffer(fn, name, t, r.shape, f32, device)
+    check_buffer(fn, "u", u, (H, D), f32, device)
+    check_buffer(fn, "s0", s0, (B, H, D, D), f32, device)
+    if dsT is not None:
+        check_buffer(fn, "dsT", dsT, (B, H, D, D), f32, device)
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
+                    ("s0", s0), ("dy", dy), ("dsT", dsT)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must start on a 16-byte boundary")
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du, ds0 = torch.empty_like(u), torch.empty_like(s0)
+    ckpt = torch.empty((B, H, -(-T // BWD_CHUNK), D, D), dtype=torch.float32,
+                       device=device)
+    dv_part = torch.empty((BWD_TILES,) + tuple(r.shape), dtype=torch.float32,
+                          device=device)
+    du_part = torch.empty((B, H, D), dtype=torch.float32, device=device)
+    lib = _build.load()
+    raise_on(fn, lib, lib.repro_wkv6_bwd(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        s0.data_ptr(), dy.data_ptr(), 0 if dsT is None else dsT.data_ptr(),
+        ckpt.data_ptr(), dv_part.data_ptr(), du_part.data_ptr(),
+        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+        du.data_ptr(), ds0.data_ptr(), B, T, H, D, stream_of(device)))
+    bwd_launches += 1
+    return dr, dk, dv, dw, du, ds0

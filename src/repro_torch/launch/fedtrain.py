@@ -21,7 +21,8 @@ an agent's row; one backward writes the agent's gradient row into an
 
 Hot path on the card, per local step: the model's forward and backward for
 each agent (the ``swa_attention`` forward and ``swa_attention_bwd`` kernels
-in every attention layer, the forward twice under ``cfg.remat``), each
+in every attention layer, the ``wkv6`` and ``wkv6_bwd`` kernels in every
+``wkv`` layer, each forward twice under ``cfg.remat``), each
 agent's global gradient norm (one fp32 sum per leaf, added in leaf order,
 as ``repro.utils.pytree.tree_l2_norm``), then one ``adam_update`` launch
 over all A rows with the clip factor as the per-row weight ``w`` (it
@@ -395,14 +396,15 @@ def grad_norms(state: TrainState) -> torch.Tensor:
 
 
 def make_local_step(cfg, optimizer: Optimizer, fed: FedTrainConfig,
-                    n_agents: int = 1, *, swa_impl=None):
+                    n_agents: int = 1, *, swa_impl=None, wkv_impl=None):
     """Returns ``local_step(state, batch) -> (state, metrics)``.
     ``batch["tokens"]``: ``(A, B, S + 1)`` integer on the state's device.
     Each agent's loss and gradient, its clip factor ``min(1, clip /
     max(norm, 1e-12))``, then one flat update of all rows at ``lr`` (times
     ``lambda^(j / 2)`` at period offset j for ``decay``). ``metrics``:
     ``{"loss", "grad_norm"}``, the agents' means (0-d fp32). ``swa_impl``
-    replaces the dispatched attention (a reference run)."""
+    and ``wkv_impl`` replace the dispatched attention and recurrence (a
+    reference run)."""
     check_trainable(cfg)
     flat = _flat_of(optimizer)
     decay_w = _decay_weights(fed)
@@ -417,7 +419,7 @@ def make_local_step(cfg, optimizer: Optimizer, fed: FedTrainConfig,
             row = state.params[a].detach().requires_grad_()
             params = state.layout.model_params(row, state.grads, a)
             loss = lm_loss(cfg, params, {"tokens": tokens[a]},
-                           swa_impl=swa_impl)
+                           swa_impl=swa_impl, wkv_impl=wkv_impl)
             loss.backward()
             losses.append(loss.detach())
         gnorm = grad_norms(state)

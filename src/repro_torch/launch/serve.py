@@ -1,7 +1,10 @@
 """Serving steps: prefill (context ingest) and serve_step (one-token decode),
 as ``repro.launch.serve`` builds them. There is no mesh: the steps run on
-the device the parameters lie on."""
+the device the parameters lie on, and record nothing for autograd, whether
+or not the parameters require grad."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.models.transformer import (
     check_supported,
@@ -20,6 +23,7 @@ def make_prefill_step(cfg):
     full logits; the values are the same row of the same product)."""
     check_supported(cfg)
 
+    @torch.no_grad()
     def prefill_step(params, batch):
         if batch.get("patch_embeds") is not None:
             raise NotImplementedError("a VLM embedding prefix comes with a "
@@ -40,6 +44,7 @@ def make_serve_step(cfg):
     states)``: one decode step; ``states`` are updated in place."""
     check_supported(cfg)
 
+    @torch.no_grad()
     def serve_step(params, token, states, pos):
         return decode_step(cfg, params, token, states, pos)
 

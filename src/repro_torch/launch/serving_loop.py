@@ -68,7 +68,8 @@ class ServingLoop:
     """Greedy decoding over a slot pool, on the device the parameters lie
     on. A slot stops after ``max_new_tokens`` or once its position reaches
     ``max_seq - 1``. ``n_prefills`` and ``n_steps`` count the admissions
-    that ran a prefill and the lockstep decode steps."""
+    that ran a prefill and the lockstep decode steps. Nothing is recorded
+    for autograd, whether or not the parameters require grad."""
 
     def __init__(self, cfg, params, n_slots: int = 4, max_seq: int = 256):
         self.cfg, self.params = cfg, params
@@ -87,6 +88,7 @@ class ServingLoop:
         """Slot ``i``'s rows of every state leaf, as (L, 1, ...) views."""
         return tree_map(lambda t: t[:, i:i + 1], self.state)
 
+    @torch.no_grad()
     def _admit(self, req: Request, slot_idx: int):
         prompt = np.asarray(req.prompt).reshape(-1)
         if prompt.size == 0:
@@ -103,6 +105,7 @@ class ServingLoop:
         s.pos = int(prompt.size) - 1
         self._tok[slot_idx, 0] = int(prompt[-1])
 
+    @torch.no_grad()
     def run(self, requests: Iterable[Request]) -> List[Completion]:
         queue = list(requests)
         done: List[Completion] = []

@@ -17,7 +17,9 @@ No Pallas kernel computes the recurrence: JAX runs it as
 ``jax.lax.associative_scan``. :func:`rglru_scan` is that scan in plain
 PyTorch, with the same recursion (pairs combined, the half-length scan
 recursed into, the even elements fixed up), so its sums are taken in JAX's
-order: log2(S) levels of a few launches each, never a loop over S.
+order: log2(S) levels of a few launches each, never a loop over S. Its
+gradient (training) is autograd through the same recursion, as JAX's is
+``jax.grad`` through ``associative_scan``.
 
 State per stream: ``{"h": (B, W) fp32, "conv": (B, K - 1, W)}``, the last
 K - 1 inputs of the conv (in the compute dtype), zeros to start.
@@ -100,6 +102,13 @@ def _scan(a: torch.Tensor, b: torch.Tensor
     return _interleave(ea, oa), _interleave(eb, ob)
 
 
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: the values of ``torch.clamp``, and JAX's gradient,
+    which at a bound is half (``min`` / ``max`` split a tie), where
+    ``clamp`` passes all of it."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def rglru_scan(a_log: torch.Tensor, gate_in: torch.Tensor, h0: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t * x_t), in fp32.
@@ -108,7 +117,7 @@ def rglru_scan(a_log: torch.Tensor, gate_in: torch.Tensor, h0: torch.Tensor
     W) fp32. Returns ``(h (B, S, W), h[:, -1])``. The first input takes
     ``a_0 h0`` in, then the associative scan runs in ``O(log S)`` depth."""
     a = torch.exp(a_log)
-    inp = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * a_log), 1e-12, 1.0)) \
+    inp = torch.sqrt(_clip(1.0 - torch.exp(2.0 * a_log), 1e-12, 1.0)) \
         * gate_in
     inp = torch.cat([inp[:, :1] + a[:, :1] * h0[:, None], inp[:, 1:]], dim=1)
     _, h = _scan(a, inp)

@@ -12,9 +12,12 @@ hand-written kernel on the card, the plain ``wkv_scan`` loop on the CPU. The
 JAX package's matmul form ``wkv_chunked`` (``cfg.wkv_impl == "chunked"``) is
 a TPU formulation of the same function and is not ported.
 
-In place: :func:`time_mix` writes the new WKV state over ``state["wkv"]``
-(the kernel writes its final state there) and the new shift carry into
-``state["shift"]``.
+:func:`time_mix` and :func:`channel_mix` only read the state they are
+given and return the new one as new tensors; the caller writes it back
+(``transformer._run_layers``: over the layer's views in prefill and decode,
+stacked in training, where autograd holds the initial state). Under
+autograd the recurrence goes through the differentiable ``dispatch.Wkv6``
+(the ``wkv6_bwd`` kernel on the card).
 """
 from __future__ import annotations
 
@@ -67,7 +70,8 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 def time_mix(p: dict, xa: torch.Tensor, cfg, state: dict,
              wkv_impl: Optional[Callable] = None):
     """xa: normed input (B, S, d); state: ``{"shift": (B, d), "wkv": (B, H,
-    hd, hd) fp32}``. Returns ``(y, state)`` with ``state`` updated in place.
+    hd, hd) fp32}``, only read. Returns ``(y, new_state)``, ``new_state``
+    new tensors of the same layout (``shift`` a view of ``xa``).
 
     ``wkv_impl`` (``(r, k, v, w, u, s0) -> (y, sT)``) replaces the dispatched
     recurrence, as the JAX function's argument of that name does; the card
@@ -95,19 +99,14 @@ def time_mix(p: dict, xa: torch.Tensor, cfg, state: dict,
     w = torch.exp(w_log).reshape(b, s, h, hd)                 # decay in (0, 1)
 
     args = (r.float(), k.float(), v.float(), w, p["u"].float().contiguous())
-    if wkv_impl is None:
-        y, _ = dispatch.wkv6(*args, state["wkv"], state_out=state["wkv"])
-    else:
-        y, s_new = wkv_impl(*args, state["wkv"])
-        state["wkv"].copy_(s_new)
+    y, s_new = (wkv_impl or dispatch.wkv6)(*args, state["wkv"])
     # per-head group norm
     mu = y.mean(-1, keepdim=True)
     var = (y - mu).square().mean(-1, keepdim=True)
     y = ((y - mu) * torch.rsqrt(var + 1e-5)).reshape(b, s, d)
     y = y * p["gn_scale"] + p["gn_bias"]
     y = (y.to(xa.dtype) * g) @ p["wo"]
-    state["shift"].copy_(xa[:, -1])
-    return y, state
+    return y, {"shift": xa[:, -1], "wkv": s_new}
 
 
 def channel_mix(p: dict, xb: torch.Tensor, cfg, shift: torch.Tensor):

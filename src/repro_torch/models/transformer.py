@@ -18,20 +18,23 @@ local)``). MoE, modality frontends and encoder-decoder models raise
 ``NotImplementedError`` naming the slice that brings them.
 
 Modes: ``train`` and ``prefill`` run a whole sequence from an initial state
-(train discards nothing here: both return the final states; attention
-layers keep a cache only where a state is given or the mode is not
-``train``); ``decode`` runs one token against the states. A ``train``
-forward under autograd recomputes each scanned layer in the backward when
-``cfg.remat`` (``torch.utils.checkpoint``, as the JAX package wraps its
-cycle body in ``jax.checkpoint``) and writes nothing in place.
+(both return the final states; attention layers keep a cache only where a
+state is given or the mode is not ``train``); ``decode`` runs one token
+against the states. A ``train`` forward writes no recurrent state in place:
+each layer computes from its initial state and the final states come back
+as new tensors (autograd holds the initial ones). Under autograd it
+recomputes each scanned layer in the backward when ``cfg.remat``
+(``torch.utils.checkpoint``, as the JAX package wraps its cycle body in
+``jax.checkpoint``).
 
-The loss (slice 13): :func:`lm_loss` is next-token cross-entropy over the
-hidden states, through :func:`chunked_cross_entropy` (per-chunk recompute,
-or the logits materialised when ``n_chunks`` is 0 or does not divide B).
-Attention models train through the differentiable ``swa_attention``
-(the forward and backward kernels on the card). ``wkv`` and ``rglru``
-blocks, MoE, encoder-decoder and VLM models raise ``NotImplementedError``
-there.
+The loss (slice 13; every served family since slice 16): :func:`lm_loss`
+is next-token cross-entropy over the hidden states, through
+:func:`chunked_cross_entropy` (per-chunk recompute, or the logits
+materialised when ``n_chunks`` is 0 or does not divide B). Attention
+layers train through the differentiable ``swa_attention``, ``wkv`` blocks
+through the differentiable ``wkv6`` (forward and backward kernels on the
+card), ``rglru`` blocks by autograd through the plain RG-LRU scan. MoE,
+encoder-decoder and VLM models raise ``NotImplementedError`` there.
 
 The decode state of a one-kind pattern is one dict for all layers, each
 leaf stacked over them (the JAX package's ``state["cycles"][0]``):
@@ -50,11 +53,12 @@ layers only, keyed by the kind: ``{"rglru": {"rec": ...}, "local":
 the j-th layer of its kind). The batch axis is axis 1 of every leaf in
 both layouts, so a slot's rows are views of each leaf.
 
-In place: :func:`forward` (with ``states`` given) and :func:`decode_step`
-write the new states over the states they are given and return that same
-dict; the WKV kernel writes each layer's final state over its initial one,
-a prefill fills each layer's cache and a decode step writes one ring slot;
-an ``rglru`` layer writes its final ``h`` and conv inputs over its state.
+In place: :func:`forward` (with ``states`` given, in ``prefill`` or
+``decode`` mode) and :func:`decode_step` write the new states over the
+states they are given and return that same dict: a prefill fills each
+layer's cache and a decode step writes one ring slot; a recurrent layer's
+final state (``wkv``: the WKV state and both shift carries; ``rglru``: its
+``h`` and conv inputs) is copied over its views once the block has run.
 """
 from __future__ import annotations
 
@@ -357,20 +361,22 @@ def layer_state(states: dict, i: int) -> dict:
 
 def _apply_block(p, x, cfg, kind, st, *, positions, pos, wkv_impl,
                  swa_impl):
-    """One block; ``st`` (one layer's views) is updated in place. ``pos``
-    (B,) is given for a decode step, ``positions`` (B, S) otherwise."""
+    """One block: ``(x, new)``. ``pos`` (B,) is given for a decode step,
+    ``positions`` (B, S) otherwise. A recurrent block only reads ``st``
+    (one layer's views) and returns its new state in ``new`` as new
+    tensors; an attention block returns ``new`` None (its cache, where it
+    has one, is written in place)."""
     xa = apply_norm(p["ln1"], x, cfg.norm)
+    new = None
     if kind == "wkv":
-        y, _ = rw.time_mix(p["tm"], xa, cfg, st["tm"], wkv_impl=wkv_impl)
+        y, tm = rw.time_mix(p["tm"], xa, cfg, st["tm"], wkv_impl=wkv_impl)
         x = x + y
         xb = apply_norm(p["ln2"], x, cfg.norm)
         y2, cm_shift = rw.channel_mix(p["cm"], xb, cfg, st["cm_shift"])
-        st["cm_shift"].copy_(cm_shift)
-        return x + y2
+        return x + y2, {"tm": tm, "cm_shift": cm_shift}
     if kind == "rglru":
-        y, new = rg.apply_rglru_block(p["rec"], xa, cfg, st["rec"])
-        st["rec"]["h"].copy_(new["h"])
-        st["rec"]["conv"].copy_(new["conv"])
+        y, rec = rg.apply_rglru_block(p["rec"], xa, cfg, st["rec"])
+        new = {"rec": rec}
     elif pos is not None:
         y, _ = at.attention_decode(p["attn"], xa, st["cache"], cfg, kind=kind,
                                    pos=pos)
@@ -384,7 +390,7 @@ def _apply_block(p, x, cfg, kind, st, *, positions, pos, wkv_impl,
                          swa_impl=swa_impl)
     x = x + y
     xb = apply_norm(p["ln2"], x, cfg.norm)
-    return x + apply_mlp(p["mlp"], xb, cfg.activation)
+    return x + apply_mlp(p["mlp"], xb, cfg.activation), new
 
 
 def remat_layers(cfg) -> range:
@@ -395,22 +401,58 @@ def remat_layers(cfg) -> range:
     return range(start, start + plan.n_cycles * len(plan.cycle_kinds))
 
 
+def _stack_trees(trees):
+    """Equal-structured dicts of tensors -> one dict, each leaf stacked."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _write_tree(dst, src) -> None:
+    """Copy each leaf of ``src`` over the same leaf of ``dst``."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _write_tree(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
 def _run_layers(cfg, params, x, states, *, positions=None, pos=None,
-                wkv_impl=None, swa_impl=None, remat=False):
+                wkv_impl=None, swa_impl=None, remat=False, inplace=True):
+    """The blocks over ``x``: ``(x, states)``. With ``inplace`` (prefill,
+    decode) each recurrent layer's new state is written over its views of
+    ``states``, which is returned; without it (training) ``states`` is
+    only read and a new dict comes back, its recurrent leaves the layers'
+    new states stacked (new tensors)."""
     if len(params["blocks"]) != cfg.n_layers:
         raise ValueError(f"params hold {len(params['blocks'])} blocks, the "
                          f"config {cfg.n_layers} layers")
     recompute = remat_layers(cfg) if remat else ()
     index = state_index(cfg)
+    new = {}
     for i, p in enumerate(params["blocks"]):
         kind, j = index[i]
         st = layer_state(states if kind is None else states[kind], j)
         run = lambda x_, p=p, i=i, st=st: _apply_block(
             p, x_, cfg, cfg.block_kind(i), st, positions=positions, pos=pos,
             wkv_impl=wkv_impl, swa_impl=swa_impl)
-        x = checkpoint(run, x, use_reentrant=False) if i in recompute \
+        x, n = checkpoint(run, x, use_reentrant=False) if i in recompute \
             else run(x)
-    return x
+        if n is None:
+            continue
+        if inplace:
+            _write_tree(st, n)
+        else:
+            new.setdefault(kind, []).append(n)
+    if inplace or not new:
+        return x, states
+    out = dict(states)
+    for kind, layers in new.items():
+        if kind is None:
+            out.update(_stack_trees(layers))
+        else:
+            out[kind] = {**states[kind], **_stack_trees(layers)}
+    return x, out
 
 
 def _embed_in(cfg, params, tokens):
@@ -464,8 +506,9 @@ def forward(cfg, params, tokens: torch.Tensor, *, embeds=None,
                                    device=x.device)
     positions = torch.arange(s, device=x.device).expand(b, s)
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
-    x = _run_layers(cfg, params, x, states, positions=positions,
-                    wkv_impl=wkv_impl, swa_impl=swa_impl, remat=remat)
+    x, states = _run_layers(cfg, params, x, states, positions=positions,
+                            wkv_impl=wkv_impl, swa_impl=swa_impl,
+                            remat=remat, inplace=mode != "train")
     x = apply_norm(params["final_norm"], x, cfg.norm)
     aux = torch.zeros((), device=x.device)
     if not unembed_out:
@@ -503,8 +546,8 @@ def decode_step(cfg, params, token: torch.Tensor, states: dict,
         raise ValueError(f"decode_step: pos must be ({token.shape[0]},), got "
                          f"{tuple(pos.shape)}")
     x = _embed_in(cfg, params, token)
-    x = _run_layers(cfg, params, x, states, positions=pos[:, None], pos=pos,
-                    wkv_impl=wkv_impl)
+    x, states = _run_layers(cfg, params, x, states, positions=pos[:, None],
+                            pos=pos, wkv_impl=wkv_impl)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return lm_head(cfg, params, x), states
 
@@ -514,18 +557,10 @@ def decode_step(cfg, params, token: torch.Tensor, states: dict,
 # Loss
 # ----------------------------------------------------------------------------
 
-_NO_TRAINING = {
-    "wkv": "training wkv blocks needs the wkv6 backward kernel, which comes "
-           "with a later slice (RWKV training)",
-    "rglru": "training rglru blocks (recurrentgemma-9b) comes with the next "
-             "slice, with the D = 256 attention backward",
-}
-
-
 def check_trainable(cfg) -> None:
     """Raise ``NotImplementedError`` for models :func:`lm_loss` cannot train
-    yet (on every device: no plain-recurrence autograd stands in for a
-    missing kernel)."""
+    yet: those the port cannot serve either (encoder-decoder, MoE, a VLM
+    prefix)."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError("encdec_loss (whisper-small) comes with a "
                                   "later slice")
@@ -535,20 +570,18 @@ def check_trainable(cfg) -> None:
     if cfg.frontend is not None:
         raise NotImplementedError(f"the {cfg.frontend} prefix of a training "
                                   f"batch comes with a later slice")
-    for kind in cfg.layer_pattern:
-        if kind in _NO_TRAINING:
-            raise NotImplementedError(_NO_TRAINING[kind])
     check_supported(cfg)
 
 
 def lm_loss(cfg, params, batch, *, ce_chunks: Optional[int] = None,
-            swa_impl: Optional[Callable] = None) -> torch.Tensor:
+            swa_impl: Optional[Callable] = None,
+            wkv_impl: Optional[Callable] = None) -> torch.Tensor:
     """Next-token cross-entropy (0-d fp32). ``batch``: ``{'tokens': (B, S)}``
     integer; the model reads ``tokens[:, :-1]`` and predicts
     ``tokens[:, 1:]``. ``ce_chunks`` (default ``cfg.ce_chunks``, as JAX's
     ``ce_chunks or cfg.ce_chunks``) picks :func:`chunked_cross_entropy`'s
-    branch; ``swa_impl`` replaces the dispatched attention (see
-    :func:`forward`)."""
+    branch; ``swa_impl`` and ``wkv_impl`` replace the dispatched attention
+    and recurrence (see :func:`forward`)."""
     check_trainable(cfg)
     if batch.get("patch_embeds") is not None or batch.get("frames") is not None:
         raise NotImplementedError("VLM / audio batches come with a later "
@@ -556,7 +589,8 @@ def lm_loss(cfg, params, batch, *, ce_chunks: Optional[int] = None,
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     hidden, _, _ = forward(cfg, params, inputs, mode="train",
-                           unembed_out=False, swa_impl=swa_impl)
+                           unembed_out=False, swa_impl=swa_impl,
+                           wkv_impl=wkv_impl)
     w = (params["embed"]["table"].T if cfg.tie_embeddings
          else params["unembed"]["w"])
     return chunked_cross_entropy(hidden, w, targets,

@@ -902,14 +902,19 @@ def test_swa_attention_d256_repeats_bitwise_and_writes_the_lse(card, dtype):
 
 
 def test_d256_training_is_refused_before_any_launch(card):
-    """The forward takes D = 256, its backward does not yet: a training
-    call on the card raises before the forward launches."""
+    """Since slice 16 the backward takes D = 256 too: a training call on
+    the card launches the forward and the backward kernel once each, and
+    its gradients are the backward kernel's on the forward's residuals."""
     q, k, v = _swa_case(1, 64, 64, 4, 1, 256, torch.bfloat16, 6, card)
-    q.requires_grad_(True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    do = torch.randn_like(q)
     before = (sw.launches, swb.launches)
-    with pytest.raises(ValueError, match="next slice"):
-        dispatch.swa_attention(q, k, v)
-    assert (sw.launches, swb.launches) == before
+    o = dispatch.swa_attention(*leaves)
+    got = torch.autograd.grad(o, leaves, do)
+    assert (sw.launches - before[0], swb.launches - before[1]) == (1, 1)
+    o2, lse = sw.swa_attention_cuda(q, k, v, with_lse=True)
+    want = swb.swa_attention_bwd_cuda(q, k, v, o2, do, lse)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 def _reduced_head256(arch, card, scale=1.0):
@@ -1386,10 +1391,97 @@ def test_swa_attention_bwd_kernel_at_tile_edges(card, b, s, h, kv, d, window,
     _check_bwd_kernel(b, s, h, kv, d, window, dtype, 7 * s + h, card)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("kv", [1, 16])
+@pytest.mark.parametrize("window", [None, 2048, 40])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 200])
+def test_swa_attention_bwd_kernel_matches_plain_at_d256(card, s, window, kv,
+                                                        dtype):
+    """``_check_bwd_kernel`` at D = 256 on phase 20's grid: 16 query heads
+    on 1 (recurrentgemma-9b) or 16 (gemma-7b) KV heads, the 64-row tile
+    edges, no window, recurrentgemma's 2048 and one that crosses tiles."""
+    _check_bwd_kernel(1, s, 16, kv, 256, window, dtype, 11 * s + kv, card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("kv,window", [(16, None), (1, 2048)],
+                         ids=["gemma-7b", "recurrentgemma-9b"])
+def test_swa_attention_bwd_kernel_matches_plain_at_d256_training_shapes(
+        card, kv, window, dtype):
+    """``_check_bwd_kernel`` at D = 256 at the training steps' shapes of
+    phase 20 (B 2, S 1024: 16 q / k tiles, a second batch row): gemma-7b's
+    16 / 16 heads, recurrentgemma-9b's 16 / 1 with W 2048."""
+    _check_bwd_kernel(2, 1024, 16, kv, 256, window, dtype, 1024 + kv, card)
+
+
+# (B, T, H, nonzero s0, nonzero dL/dS_T): phase 20's shapes
+@pytest.mark.parametrize("b,t,h,s_on,g_on", [
+    (1, 37, 2, True, True), (2, 16, 3, False, True), (1, 1, 4, True, False),
+    (3, 100, 1, True, True), (2, 1024, 32, True, True)])
+def test_wkv6_bwd_kernel_matches_plain(card, b, t, h, s_on, g_on):
+    """wkv6_bwd against wkv6_bwd_plain: each gradient within 1e-5 of its
+    largest |plain value| (fp32, summation order), one launch a call, a
+    second call the same bits; T on and off the kernel's 16-step chunks."""
+    gen = torch.Generator(device=card).manual_seed(31 * t + h)
+    rnd = lambda *sh: torch.randn(sh, generator=gen, device=card)
+    r, k, v, dy = (rnd(b, t, h, 64) for _ in range(4))
+    w = torch.exp(-torch.exp(0.5 * rnd(b, t, h, 64)))
+    u = 0.5 * rnd(h, 64)
+    s0 = 0.1 * rnd(b, h, 64, 64) if s_on else torch.zeros(b, h, 64, 64,
+                                                           device=card)
+    dsT = 0.1 * rnd(b, h, 64, 64) if g_on else None
+    before = wk.bwd_launches
+    got = wk.wkv6_bwd_cuda(r, k, v, w, u, s0, dy, dsT)
+    again = wk.wkv6_bwd_cuda(r, k, v, w, u, s0, dy, dsT)
+    torch.cuda.synchronize()
+    assert wk.bwd_launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    plain = wk.wkv6_bwd_plain(r, k, v, w, u, s0, dy, dsT)
+    for x, p in zip(got, plain):
+        assert x.shape == p.shape and x.dtype == torch.float32
+        assert float((x - p).abs().max()) <= 1e-5 * float(p.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-1.6b"])
+def test_recurrent_lm_trains_on_the_card_as_on_the_cpu(card, arch):
+    """Reduced recurrentgemma-9b (head 256, window 8) and rwkv6-1.6b in
+    fp32, remat on: the loss and every gradient on the card (the
+    swa_attention / wkv6 forward and backward kernels) against the CPU
+    port's (plain versions): loss atol 1e-4, each gradient within 1e-4 of
+    its leaf's largest |value| (fp32 in other summation orders)."""
+    import dataclasses
+    kw = dict(param_dtype="float32", compute_dtype="float32", remat=True)
+    if arch == "recurrentgemma-9b":
+        kw.update(n_layers=5, n_heads=4, n_kv_heads=1, head_dim=256,
+                  sliding_window=8)
+    cfg = dataclasses.replace(TC.get_arch(arch).reduced(), **kw)
+    params = TM.init_params(cfg, seed=2, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 40)))
+    out = {}
+    for dev in ("cpu", card):
+        leaves = TM.transformer.tree_map(
+            lambda t: t.detach().to(dev, copy=True).requires_grad_(), params)
+        before = (swb.launches, wk.bwd_launches)
+        loss = TM.lm_loss(cfg, leaves, {"tokens": toks.to(dev)})
+        loss.backward()
+        out[str(dev)] = (float(loss.detach()), [t.grad.cpu() for t in
+                                       TM.transformer.tree_leaves(leaves)])
+        launched = (swb.launches - before[0], wk.bwd_launches - before[1])
+    n = sum(cfg.block_kind(i) in ("attn", "local", "wkv")
+            for i in range(cfg.n_layers))
+    assert sum(launched) == n
+    (lc, gc), (lg, gg) = out["cpu"], out[str(card)]
+    assert abs(lc - lg) <= 1e-4
+    for x, y in zip(gg, gc):
+        assert float((x - y).abs().max()) <= 1e-4 * max(float(y.abs().max()),
+                                                        1e-30)
+
+
 def test_swa_attention_bwd_kernel_refuses_what_it_does_not_take(card):
     q, k, v, do = _bwd_case(1, 8, 4, 2, 120, torch.float32, 0, card)
     o, lse = sw.swa_attention_cuda(q, k, v, with_lse=True)
-    with pytest.raises(ValueError, match=r"head sizes \(120, 128\)"):
+    with pytest.raises(ValueError, match=r"head sizes \(120, 128, 256\)"):
         swb.swa_attention_bwd_cuda(*(t[..., :64].contiguous()
                                      for t in (q, k, v, o, do)), lse)
     with pytest.raises(TypeError):

@@ -258,23 +258,26 @@ def test_remat_recomputes_and_changes_nothing():
     assert all(torch.equal(x, y) for x, y in zip(*out))
 
 
-@pytest.mark.parametrize("arch,match", [("rwkv6-1.6b", "wkv6 backward"),
+@pytest.mark.parametrize("arch,match", [("rwkv6-1.6b", None),
                                         ("phi4-mini-3.8b", None)])
 def test_lm_loss_refuses_what_the_port_cannot_train(arch, match):
+    """Every family the port serves trains (RWKV6 since slice 16, global
+    attention since slice 13); MoE and encoder-decoder models are refused
+    by ``lm_loss`` and the flat layout."""
     cfg = TC.get_arch(arch).reduced()
     toks = torch.zeros(1, 9, dtype=torch.int64)
-    if match is None:          # global attention trains
-        params = TM.init_params(cfg, seed=0, device="cpu")
-        assert torch.isfinite(TM.lm_loss(cfg, params, {"tokens": toks}))
-        return
-    with pytest.raises(NotImplementedError, match=match):
-        TM.lm_loss(cfg, {}, {"tokens": toks})
-    with pytest.raises(NotImplementedError, match=match):
-        TF.ParamLayout(cfg)
+    assert match is None
+    params = TM.init_params(cfg, seed=0, device="cpu")
+    assert torch.isfinite(TM.lm_loss(cfg, params, {"tokens": toks}))
+    assert TF.ParamLayout(cfg).n > 0
     moe = dataclasses.replace(TC.get_arch("h2o-danube-3-4b").reduced(),
                               family="moe", n_experts=2, top_k=1)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TM.lm_loss(moe, {}, {"tokens": toks})
+    encdec = dataclasses.replace(cfg, is_encoder_decoder=True)
+    for bad, text in ((moe, "MoE"), (encdec, "encdec")):
+        with pytest.raises(NotImplementedError, match=text):
+            TM.lm_loss(bad, {}, {"tokens": toks})
+        with pytest.raises(NotImplementedError, match=text):
+            TF.ParamLayout(bad)
 
 
 # --- the federated steps --------------------------------------------------------
