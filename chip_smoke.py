@@ -49,7 +49,10 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    epochs of 2 minibatches) and one run with bf16 buffers, each seeded and
    drawing on the card (these give updates/sec per m). The m = 7
    configurations, the m = 64 ones with SGD and the bf16 run run again on
-   draws made on the host, on the card and on the CPU, which must agree; every kernel's launches must equal the count
+   draws made on the host, on the card and on the CPU, which must agree
+   (the CPU runs of phases 7 and 7b go to a pool of spawned processes from
+   phase 6 on, beside the card runs; each run's laps are logged); every
+   kernel's launches must equal the count
    the loop implies, with no build on the hot path; the final server
    parameters go through ``save_for_serving`` ->
    ``ServeEngine.from_checkpoint(device="cuda")`` -> one ``decide``;
@@ -1435,14 +1438,57 @@ def _compare_runs(label, cfg, card_run, cpu_run) -> dict:
     return {"metrics_max_rel": worst_rel, "params_max_abs": worst_abs}
 
 
-def run_plan(phase, plan, km, _build, rl, core, optim, comm, card) -> dict:
+# The CPU side of phases 7 / 7b's card-vs-CPU checks runs in CPU_WORKERS
+# spawned processes (a thread budget each) while the card runs go on: a
+# reference needs only its plan entry and SEED, so none waits in turn
+# behind the card runs.
+CPU_WORKERS, CPU_WORKER_THREADS = 3, 2
+
+
+def _cpu_worker_init() -> None:
+    torch.set_num_threads(CPU_WORKER_THREADS)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+
+
+def cpu_reference(kw) -> tuple:
+    """A worker's task: ``_train_cfg(**kw)`` run on the CPU on the draws
+    ``run_plan``'s replayed card run takes (``replay_of`` the host
+    generator of SEED). Returns the server parameters, the metrics and the
+    run's seconds."""
+    import repro_torch.rl as rl
+    from repro_torch import comm, core, optim
+    t0 = time.perf_counter()
+    cfg = _train_cfg(rl, core, optim, comm, **kw)
+    params, metrics, _ = rl.run_fedrl(
+        cfg, rl.replay_of(cfg, rl.TorchDraws(SEED, "cpu")), device="cpu")
+    return params, metrics, time.perf_counter() - t0
+
+
+def cpu_references(plans):
+    """Start the worker pool and submit the CPU reference of every compared
+    entry of ``plans``: ``(pool, {label: future})``. The caller shuts the
+    pool down."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=CPU_WORKERS, initializer=_cpu_worker_init,
+        mp_context=multiprocessing.get_context("spawn"))
+    futures = {label: pool.submit(cpu_reference, kw)
+               for plan in plans for label, compare, kw in plan if compare}
+    return pool, futures
+
+
+def run_plan(phase, plan, km, _build, rl, core, optim, comm, card,
+             refs) -> dict:
     """Drive one slice's training path: every configuration of ``plan``
     ``(label, compare, kwargs of _train_cfg)`` as a seeded, timed run that
     draws on the card (updates/sec), and, where ``compare``, again on draws
-    made on the host, on the card and on the CPU, which must agree. The
-    kernel counts are set to 0 just before the path and read just after;
-    every run's launches must equal the count the loop implies, with no
-    build on the hot path."""
+    made on the host, on the card and, in ``refs`` (``cpu_references``), on
+    the CPU, which must agree. The kernel counts are set to 0 just before
+    the path and read just after; every run's launches must equal the count
+    the loop implies, with no build on the hot path. Each run's laps are
+    logged: the seeded and replayed card runs, the CPU reference's own
+    seconds and the time spent waiting for it."""
     builds_before = _build.n_builds
     total = {k: 0 for k in TRAIN_KERNELS}
     by_m = {}
@@ -1486,10 +1532,15 @@ def run_plan(phase, plan, km, _build, rl, core, optim, comm, card) -> dict:
                "ledger": ledger.table_row()}
         if compare:
             draws = rl.replay_of(cfg, rl.TorchDraws(SEED, "cpu"))
-            rp, rmet, _, _, rgot = card_run(f"{label} replayed", cfg, draws)
-            cpu = rl.run_fedrl(cfg, draws, device="cpu")
-            rec["vs_cpu"] = _compare_runs(label, cfg, (rp, rmet), cpu[:2])
+            rp, rmet, _, rwall, rgot = card_run(f"{label} replayed", cfg,
+                                                draws)
+            t0 = time.perf_counter()
+            cp, cm, cpu_s = refs[label].result()
+            wait = time.perf_counter() - t0
+            rec["vs_cpu"] = _compare_runs(label, cfg, (rp, rmet), (cp, cm))
             rec["replayed_launches"] = rgot
+            rec["laps"] = {"replayed_card_s": rwall, "cpu_s": cpu_s,
+                           "cpu_wait_s": wait}
         runs.append(rec)
         last_params = params
         log(f"training {label}: {n_updates} updates in {wall!r} s = "
@@ -1497,8 +1548,8 @@ def run_plan(phase, plan, km, _build, rl, core, optim, comm, card) -> dict:
             f"per-epoch eval); nas {metrics['nas'].tolist()} grad_sq "
             f"{metrics['server_grad_sq_norm'].tolist()}; launches "
             f"{ {k: v for k, v in got.items() if v} }"
-            + (f"; replayed draws card vs CPU {rec['vs_cpu']}" if compare
-               else "")
+            + (f"; replayed draws card vs CPU {rec['vs_cpu']}; laps "
+               f"{rec['laps']}" if compare else "")
             + f" card=\"{card}\"")
     launches = _kernel_counts(km)          # read right after the path
     if launches != total:
@@ -1602,7 +1653,8 @@ def consensus_plan() -> list:
     return plan
 
 
-def training_path(km, _build, rl, core, optim, comm, serve, card) -> dict:
+def training_path(km, _build, rl, core, optim, comm, serve, card,
+                  refs) -> dict:
     """Slice 2's path (``training_plan``), then the trained server
     parameters served through slice 1's engine."""
     # warm the card's libraries (cuBLAS, the generator) outside the counts
@@ -1610,7 +1662,7 @@ def training_path(km, _build, rl, core, optim, comm, serve, card) -> dict:
                             n_epochs=1, epoch_len=50), SEED, device="cuda")
     torch.cuda.synchronize()
     out = run_plan("training", training_plan(), km, _build, rl, core, optim,
-                   comm, card)
+                   comm, card, refs)
 
     ckpt = os.path.join(ROOT, "build", "chip_smoke", "trained_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -1632,11 +1684,11 @@ def training_path(km, _build, rl, core, optim, comm, serve, card) -> dict:
     return out
 
 
-def consensus_path(km, _build, rl, core, optim, comm, card) -> dict:
+def consensus_path(km, _build, rl, core, optim, comm, card, refs) -> dict:
     """Slice 3's path (``consensus_plan``): consensus gossip (dense fused,
     dense forced, sparse by auto-selection) and compressed payloads."""
     out = run_plan("consensus training", consensus_plan(), km, _build, rl,
-                   core, optim, comm, card)
+                   core, optim, comm, card, refs)
     out.pop("last_params")
     return out
 
@@ -6194,15 +6246,23 @@ TR_PLAIN_SEQ = {"rwkv6-1.6b": 256}
 TR_KERNELS = ("swa_attention", "swa_attention_bwd", "wkv6", "wkv6_bwd",
               "adam_update", "row_mean")
 WKV6_BWD_REL = 1e-5       # |kernel - plain| <= WKV6_BWD_REL * max |plain|
-# (B, T, H, nonzero s0, nonzero dL/dS_T): T past and off the kernel's
-# 16-step chunks, one step, the main path's shape
+# (B, T, H, nonzero s0, nonzero dL/dS_T): T on and off the kernel's
+# 32-step chunks and 4-step sub-chunks, one step, the main path's shape;
+# then the chunks' edges (T 31, 32, 33), one block (B H = 1) under one
+# chunk and at one step, and ragged last chunks (131: 3 steps, 200: 8)
 WKV6_BWD_CASES = ((1, 37, 2, True, True), (2, 16, 3, False, True),
                   (1, 1, 4, True, False), (3, 100, 1, True, True),
-                  (TR_BATCH, TR_SEQ, 32, True, True))
-# The D = 256 backward's two bf16 kernels and wkv6_bwd's two kernels.
+                  (TR_BATCH, TR_SEQ, 32, True, True),
+                  (1, 31, 2, True, True), (2, 32, 2, True, True),
+                  (1, 33, 3, True, True), (1, 20, 1, True, True),
+                  (1, 1, 1, True, True), (2, 131, 2, True, True),
+                  (1, 200, 2, False, True))
+# The D = 256 backward's two bf16 kernels and wkv6_bwd's three kernels (the
+# profile's split by name).
 BWD256_KERNELS = ("swa_bwd_dq_hopper_d256_kernel",
                   "swa_bwd_dkdv_hopper_d256_kernel")
-WKV6_BWD_KERNELS = ("wkv6_bwd_kernel", "wkv6_bwd_reduce_kernel")
+WKV6_BWD_KERNELS = ("wkv6_bwd_bound_kernel", "wkv6_bwd_chunk_kernel",
+                    "wkv6_bwd_du_kernel")
 # timed: (model, B, S, KV heads, window) of the models' training steps
 HB_TIMES = (("gemma-7b", TR_BATCH, TR_SEQ, 16, None),
             ("recurrentgemma-9b", TR_BATCH, TR_SEQ, 1, 2048))
@@ -6334,8 +6394,9 @@ def wkv6_bwd_vs_plain(wk) -> dict:
         rows.append(row)
         del r, k, v, w, u, s0, dy, dsT, got, again, plain
     torch.cuda.empty_cache()
-    log(f"phase train: wkv6_bwd vs plain at {len(rows)} shapes ok (T off the "
-        f"16-step chunks, nonzero s0 and dL/dS_T, {WKV6_BWD_CASES[-1][:3]}); "
+    log(f"phase train: wkv6_bwd vs plain at {len(rows)} shapes ok (T on and "
+        f"off the 32-step chunks and 4-step sub-chunks, one block, nonzero s0 "
+        f"and dL/dS_T, {WKV6_BWD_CASES[4][:3]}); "
         f"largest |kernel - plain| / max |plain| {worst!r} <= {WKV6_BWD_REL}; "
         f"a second call bitwise")
     return {"cases": rows, "worst_rel": worst}
@@ -6621,30 +6682,76 @@ def train_times(sw, swb, wk, card) -> dict:
             f"{rec['library_backend']} forward choice) card=\"{card}\"")
         del q, k, v, do, o, lse, lib
         torch.cuda.empty_cache()
+    rows["wkv6_bwd"] = wkv6_bwd_times(wk, cyc, flush, card)
+    rows["rglru_scan"] = rglru_scan_times(card)
+    return rows
+
+
+def _device_kernels(fn, part) -> tuple:
+    """The names of the device kernels one call of ``fn`` launches that
+    contain ``part``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return tuple(sorted({e.key for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA
+                         and part in e.key}))
+
+
+def wkv6_bwd_times(wk, cyc, flush, card, names=WKV6_BWD_KERNELS) -> dict:
+    """wkv6_bwd at (2, 1024, 32, 64) fp32: CUPTI (L2 flushed; the records
+    of each kernel in ``names`` summed; None: the kernels whose name holds
+    "wkv6_bwd", found by profiling one call, which a fresh process needs
+    for a checkout whose names it does not know) and CUDA events (flushed
+    and warm) beside the bound, and the plain version's time (one call,
+    events)."""
     r, k, v, w, u, s0 = wkv6_inputs(TR_BATCH, TR_SEQ, 32, SEED + 231)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 232)
     dy = torch.randn(r.shape, generator=gen, device="cuda")
     dsT = 0.1 * torch.randn(s0.shape, generator=gen, device="cuda")
     kern = lambda: wk.wkv6_bwd_cuda(r, k, v, w, u, s0, dy, dsT)
+    names = names or _device_kernels(kern, "wkv6_bwd")
+    if not names:
+        raise AssertionError("wkv6_bwd: the profile shows none of its kernels")
+    by_kernel = {n.split("::")[-1].split("(")[0]: cupti_ms(kern, flush, n)
+                 for n in names}
     rec = {"shape": [TR_BATCH, TR_SEQ, 32, 64], "dtype": "float32",
-           "cupti_ms": sum(cupti_ms(kern, flush, n)
-                           for n in WKV6_BWD_KERNELS),
+           "cupti_ms": sum(by_kernel.values()), "cupti_by_kernel": by_kernel,
            "ms": device_ms(kern, cyc, flush, CHUNK)[0],
            "warm_l2_ms": device_ms(kern, cyc, None, CHUNK)[0],
            "plain_ms": events_ms(lambda: wk.wkv6_bwd_plain(
                r, k, v, w, u, s0, dy, dsT), 1),
            "library_ms": None, **wkv6_bwd_bound(TR_BATCH, TR_SEQ, 32)}
     rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
-    rows["wkv6_bwd"] = rec
     del r, k, v, w, u, s0, dy, dsT
-    rows["rglru_scan"] = rglru_scan_times(card)
+    torch.cuda.empty_cache()
     log(f"time wkv6_bwd shape=({TR_BATCH}, {TR_SEQ}, 32, 64) fp32 L2 flushed: "
-        f"kernel_ms={rec['ms']!r} (cupti {rec['cupti_ms']!r}; L2-warm "
-        f"{rec['warm_l2_ms']!r}) plain_ms={rec['plain_ms']!r} bound_ms="
-        f"{rec['bound_ms']!r} ({rec['bound_by']}; {rec['flops']} FLOP, "
-        f"{rec['bytes']} B; share {rec['share_of_bound']!r}) library_ms=None "
-        f"card=\"{card}\"")
-    return rows
+        f"kernel_ms={rec['ms']!r} (cupti {rec['cupti_ms']!r}: {by_kernel}; "
+        f"L2-warm {rec['warm_l2_ms']!r}) plain_ms={rec['plain_ms']!r} "
+        f"bound_ms={rec['bound_ms']!r} ({rec['bound_by']}; {rec['flops']} "
+        f"FLOP, {rec['bytes']} B; share {rec['share_of_bound']!r}) "
+        f"library_ms=None card=\"{card}\"")
+    return rec
+
+
+def wkv6_bwd_alone() -> dict:
+    """wkv6_bwd's times alone (``python3 -c 'import chip_smoke as c;
+    c.wkv6_bwd_alone()'``): builds the kernels and times ``wkv6_bwd_cuda``
+    as phase 20 does, its kernels found by profiling. Copied into another
+    checkout it times that checkout's kernels, so two commits compare in
+    one call (parent, change, change, parent)."""
+    if not torch.cuda.is_available():
+        raise SystemExit("wkv6_bwd_alone: no CUDA card")
+    TC, launch, TM, _build, sw, swb, wk = _alone_modules()
+    card = card_line()
+    log(f"card {card}")
+    _build.load()
+    return wkv6_bwd_times(wk, sleep_cycles_per_ms(), l2_flusher(), card,
+                          names=None)
 
 
 def rglru_scan_times(card) -> dict:
@@ -6844,21 +6951,28 @@ def main() -> int:
     prof = profile_serving(serve, card)
     lap('5 times')
 
-    # 6. flat kernels vs plain
-    flat = flat_kernels_vs_plain(dacc, fu, dispatch)
-    lap('6 flat_kernel_vs_plain')
+    # the CPU references of phases 7 / 7b start here, beside the card
+    pool, refs = cpu_references((training_plan(), consensus_plan()))
+    try:
+        # 6. flat kernels vs plain
+        flat = flat_kernels_vs_plain(dacc, fu, dispatch)
+        lap('6 flat_kernel_vs_plain')
 
-    # 6b. gossip and compression kernels vs plain
-    gossip = gossip_kernels_vs_plain(km, core, comm)
-    lap('6b gossip_kernel_vs_plain')
+        # 6b. gossip and compression kernels vs plain
+        gossip = gossip_kernels_vs_plain(km, core, comm)
+        lap('6b gossip_kernel_vs_plain')
 
-    # 7. the training path (slice 2)
-    training = training_path(km, _build, rl, core, optim, comm, serve, card)
-    lap('7 training')
+        # 7. the training path (slice 2)
+        training = training_path(km, _build, rl, core, optim, comm, serve,
+                                 card, refs)
+        lap('7 training')
 
-    # 7b. the consensus and compression path (slice 3)
-    consensus = consensus_path(km, _build, rl, core, optim, comm, card)
-    lap('7b consensus')
+        # 7b. the consensus and compression path (slice 3)
+        consensus = consensus_path(km, _build, rl, core, optim, comm, card,
+                                   refs)
+        lap('7b consensus')
+    finally:
+        pool.shutdown(cancel_futures=True)
 
     # 8. kernel times, a profiled training window
     flat_rows = flat_times(dacc, fu, dispatch, training, card)

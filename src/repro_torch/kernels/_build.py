@@ -113,7 +113,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_wkv6_bwd.argtypes = [
         _P, _P, _P, _P, _P, _P,          # r, k, v, w, u, s0
         _P, _P,                          # dy, dsT (may be null)
-        _P, _P, _P,                      # ckpt, dv_part, du_part (scratch)
+        _P, _P, _P,                      # sck, gck, du_part (scratch)
         _P, _P, _P, _P, _P, _P,          # dr, dk, dv, dw, du, ds0
         _L, _L, _L, _L,                  # B, T, H, D
         _P,                              # stream

@@ -20,8 +20,8 @@ Its gradient (training) has no Pallas twin: the JAX package differentiates
 ``wkv_scan``'s ``lax.scan``. Given ``dy`` and the gradient ``dsT`` of the
 final state:
 
-* :func:`wkv6_bwd_cuda` wraps the hand-written kernel of
-  ``csrc/wkv6_bwd.cu`` (two launches, counted once in
+* :func:`wkv6_bwd_cuda` wraps the hand-written kernels of
+  ``csrc/wkv6_bwd.cu`` (up to three launches, counted once in
   :data:`bwd_launches`): ``(dr, dk, dv, dw, du, ds0)``;
 * :func:`wkv6_bwd_plain` is the same function in plain PyTorch (the
   forward's states kept, then the reverse loop).
@@ -43,9 +43,8 @@ from repro_torch.kernels.decay_accum import check_buffer, raise_on, stream_of
 HEAD_DIM = 64         # the one head size the kernel takes
 
 launches = 0          # kernel launches made by wkv6_cuda
-bwd_launches = 0      # calls of wkv6_bwd_cuda (two kernels each)
-BWD_CHUNK = 16        # steps between the states csrc/wkv6_bwd.cu saves
-BWD_TILES = 4         # row tiles a (b, h): dv's partials
+bwd_launches = 0      # calls of wkv6_bwd_cuda (up to three kernels each)
+BWD_CHUNK = 32        # steps a time chunk of csrc/wkv6_bwd.cu
 
 
 def check_shapes(fn: str, r, k, v, w, u, state) -> Tuple[int, int, int, int]:
@@ -194,21 +193,32 @@ def wkv6_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dr, dk, dv, dw, du, G
 
 
+def bwd_scratch_shapes(B: int, T: int, H: int, D: int = HEAD_DIM) -> dict:
+    """The fp32 scratch :func:`wkv6_bwd_cuda` gives its kernels, with n =
+    ceil(T / :data:`BWD_CHUNK`) time chunks: the state S at the start of
+    chunks 1 .. n - 1 (``sck``), the state gradient G at the end of chunks
+    0 .. n - 2 (``gck``), and du's partial of every (b, chunk)
+    (``du_part``)."""
+    n = -(-T // BWD_CHUNK)
+    return {"sck": (B, H, n - 1, D, D), "gck": (B, H, n - 1, D, D),
+            "du_part": (B, n, H, D)}
+
+
 def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
                   dy: torch.Tensor, dsT: Optional[torch.Tensor] = None
                   ) -> Grads:
-    """Launch ``wkv6_bwd_kernel`` then ``wkv6_bwd_reduce_kernel``: returns
-    ``(dr, dk, dv, dw, du, ds0)``.
+    """Launch ``wkv6_bwd_bound_kernel`` (the states at the time chunks'
+    edges; not when T <= :data:`BWD_CHUNK`), ``wkv6_bwd_chunk_kernel``
+    (persistent blocks over the (b, h, chunk) units) and
+    ``wkv6_bwd_du_kernel``: returns ``(dr, dk, dv, dw, du, ds0)``.
 
     Takes what :func:`wkv6_cuda` takes (contiguous fp32 on one CUDA device,
     D = 64, T >= 1), with ``dy`` like ``r`` and ``dsT`` like ``s0`` or
     ``None`` (a zero gradient of the final state); every pointer 16-byte
-    aligned. The outputs and the fp32 scratch (the states saved every
-    :data:`BWD_CHUNK` steps, dv's :data:`BWD_TILES` partials, du's per
-    batch row) are allocated here. Fixed order, no atomics: a shape's
-    result repeats bitwise; it matches :func:`wkv6_bwd_plain` to fp32
-    rounding."""
+    aligned. The outputs and the scratch of :func:`bwd_scratch_shapes` are
+    allocated here. Fixed order, no atomics: a shape's result repeats
+    bitwise; it matches :func:`wkv6_bwd_plain` to fp32 rounding."""
     global bwd_launches
     fn = "wkv6_bwd_cuda"
     device = r.device
@@ -232,16 +242,14 @@ def wkv6_bwd_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{fn}: {name} must start on a 16-byte boundary")
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du, ds0 = torch.empty_like(u), torch.empty_like(s0)
-    ckpt = torch.empty((B, H, -(-T // BWD_CHUNK), D, D), dtype=torch.float32,
-                       device=device)
-    dv_part = torch.empty((BWD_TILES,) + tuple(r.shape), dtype=torch.float32,
-                          device=device)
-    du_part = torch.empty((B, H, D), dtype=torch.float32, device=device)
+    sck, gck, du_part = (torch.empty(shape, dtype=torch.float32,
+                                     device=device)
+                         for shape in bwd_scratch_shapes(B, T, H, D).values())
     lib = _build.load()
     raise_on(fn, lib, lib.repro_wkv6_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         s0.data_ptr(), dy.data_ptr(), 0 if dsT is None else dsT.data_ptr(),
-        ckpt.data_ptr(), dv_part.data_ptr(), du_part.data_ptr(),
+        sck.data_ptr(), gck.data_ptr(), du_part.data_ptr(),
         dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
         du.data_ptr(), ds0.data_ptr(), B, T, H, D, stream_of(device)))
     bwd_launches += 1

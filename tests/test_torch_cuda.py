@@ -1417,11 +1417,16 @@ def test_swa_attention_bwd_kernel_matches_plain_at_d256_training_shapes(
 # (B, T, H, nonzero s0, nonzero dL/dS_T): phase 20's shapes
 @pytest.mark.parametrize("b,t,h,s_on,g_on", [
     (1, 37, 2, True, True), (2, 16, 3, False, True), (1, 1, 4, True, False),
-    (3, 100, 1, True, True), (2, 1024, 32, True, True)])
+    (3, 100, 1, True, True), (2, 1024, 32, True, True),
+    (1, 31, 2, True, True), (2, 32, 2, True, True), (1, 33, 3, True, True),
+    (1, 20, 1, True, True), (1, 1, 1, True, True), (2, 131, 2, True, True),
+    (1, 200, 2, False, True)])
 def test_wkv6_bwd_kernel_matches_plain(card, b, t, h, s_on, g_on):
     """wkv6_bwd against wkv6_bwd_plain: each gradient within 1e-5 of its
-    largest |plain value| (fp32, summation order), one launch a call, a
-    second call the same bits; T on and off the kernel's 16-step chunks."""
+    largest |plain value| (fp32, summation order), one count a call, a
+    second call the same bits; T on and off the kernel's 32-step chunks
+    and 4-step sub-chunks (31, 32, 33), one block (B H = 1) under one chunk
+    and at one step, ragged last chunks (131, 200)."""
     gen = torch.Generator(device=card).manual_seed(31 * t + h)
     rnd = lambda *sh: torch.randn(sh, generator=gen, device=card)
     r, k, v, dy = (rnd(b, t, h, 64) for _ in range(4))

@@ -17,7 +17,8 @@ package.
   largest |value|; the ``clip`` of ``1 - a^2`` takes JAX's gradient at its
   bounds (half, where ``torch.clamp`` passes all);
 * the wrappers of the two backward kernels take D = 256 and the shapes of
-  wkv6 and raise on CPU tensors before any launch.
+  wkv6 and raise on CPU tensors before any launch; ``wkv6_bwd_cuda``'s
+  scratch follows its 32-step chunks.
 """
 import jax
 import jax.numpy as jnp
@@ -101,8 +102,12 @@ def _wkv_inputs(b, t, h, d, seed):
     return r, k, v, w, u, s0, dy, dsT
 
 
+# the last four: the edges of the kernel's 32-step chunks (31, 32, 33) and
+# a ragged last chunk of 3 steps (131), as the card tests take them
 @pytest.mark.parametrize("b,t,h,d", [(2, 37, 2, 16), (1, 1, 3, 8),
-                                     (1, 20, 1, 64)])
+                                     (1, 20, 1, 64), (1, 31, 1, 8),
+                                     (2, 32, 1, 8), (1, 33, 2, 8),
+                                     (1, 131, 1, 8)])
 def test_wkv6_plain_backward_matches_jax_grad_of_wkv_scan(b, t, h, d):
     r, k, v, w, u, s0, dy, dsT = _wkv_inputs(b, t, h, d, seed=t * h + d)
 
@@ -142,6 +147,18 @@ def test_wkv6_function_passes_gradcheck_and_refuses_an_inplace_state():
     out = s0.clone()
     y, s = dispatch.wkv6(r, k, v, w, u, s0, state_out=out)
     assert s is out and torch.equal(s, wk.wkv6_plain(r, k, v, w, u, s0)[1])
+
+
+@pytest.mark.parametrize("t,n", [(1, 1), (31, 1), (32, 1), (33, 2),
+                                 (131, 5), (1024, 32)])
+def test_wkv6_bwd_scratch_is_sized_by_32_step_chunks(t, n):
+    """``wkv6_bwd_cuda``'s scratch, without a launch: the states at the
+    inner edges of ceil(T / 32) chunks (none for one chunk, where the bound
+    pass is not launched) and du's part of every (b, chunk)."""
+    assert wk.BWD_CHUNK == 32
+    got = wk.bwd_scratch_shapes(2, t, 3)
+    assert got == {"sck": (2, 3, n - 1, 64, 64), "gck": (2, 3, n - 1, 64, 64),
+                   "du_part": (2, n, 3, 64)}
 
 
 def test_backward_kernels_take_d256_and_raise_on_cpu_tensors():
