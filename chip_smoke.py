@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, consensus, sweep, async,
-task-generic FMARL, language-model serving (RWKV6 and sliding-window
-attention) and federated LM training paths on one NVIDIA GPU.
+task-generic FMARL, language-model serving (RWKV6, sliding-window
+attention, head 256 and the whisper encoder-decoder) and federated LM
+training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -12,8 +13,9 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
 1. device — the card, its power limit, torch / CUDA / nvcc versions; TF32
    off for the plain reference's fp32 matmuls;
 2. build — every kernel of ``src/repro_torch/kernels/csrc`` with ``nvcc``;
-   the bf16 attention kernels (forward, and the backward's dq and dk / dv
-   kernels) must hold ``HGMMA`` instructions;
+   the bf16 attention kernels (forward, its D = 64 instantiation on its
+   own, and the backward's dq and dk / dv kernels) must hold ``HGMMA``
+   instructions;
 3. kernel vs plain — the hand-written ``policy_infer`` kernel against its
    plain PyTorch version on the card, over widths, batch sizes, modes, init
    scales and dtypes, and the in-place write into the noise buffer; and at
@@ -274,6 +276,30 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    plain RG-LRU scan's forward and backward. Alone: ``python3 -c 'import
    chip_smoke as c; c.train_alone()'`` (``c.train_kernels_alone()``: the
    two kernel checks only).
+21. whisper (slice 18) — the ``swa_attention`` kernels at D = 64 against
+   their plain version (fp32 and bf16, phase 12's rules with the bf16
+   control required everywhere): the encoder's (8, 1500, 1500, 12 / 12)
+   with causal off, the cross-attention's Sq in {1, 4, 227} against
+   Sk = 1500, causal Sq = Sk in {4, 227, 448}, the 129 / 255 tile edges
+   both ways with causal on and off, B = 3 with H / KV = 4 and 1; then
+   whisper-small at full size (12 encoder and 12 decoder layers, d 768, 12
+   heads of 64, 238,270,464 seeded bf16 parameters, 1,500 random frame
+   embeddings a request) through ``make_prefill_step`` at 8 x 4 and
+   1 x 227, the model-level prefill sized for the decode and 64 steps of
+   ``make_serve_step`` at B = 8: prefill tokens/s and frames/s, decode
+   tokens/s, launches exactly 36 a prefill call and 12 a decode step, no
+   build; the encoder's frames/s alone; every fourth row's 65 tokens
+   against single-request greedy decoding (bf16 near-ties counted); a
+   profiled prefill and 16 profiled decode steps (idle share, the kernel's
+   and the matmuls' device time, the decode self-attention block by
+   events); in fp32 the card against the CPU (2 x 16 tokens, 4 decode
+   steps), the kernel against the plain attention in the model and a
+   prefill plus 8 decode steps against one forward (atol 1e-3); a D = 64
+   backward on the card refused before any launch; the kernel's times at
+   the encoder's, a decode step's and the 227-token prompt's
+   cross-attention beside its bound, the plain version's and SDPA's, and
+   fp32 kernels at D = 64, 120 and 256 beside SDPA's efficient backend.
+   Alone: ``python3 -c 'import chip_smoke as c; c.whisper_alone()'``.
 
 Its last lines are the kernel summary JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -4285,6 +4311,9 @@ SWA_KERNEL = "swa_attention_hopper_kernel"   # the bf16 kernel in CUPTI
 # The SFU's exponentials: 132 SMs x 16 ex2 a clock at ~1.85 GHz (H100 SXM).
 SFU_EXP_PER_S = 3.9e12
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+# profile_prefill's padding: empty spin kernels at each end of its window
+PAD_LAUNCHES = 64
+SPIN_KERNEL = "spin_kernel"       # torch.cuda._sleep's kernel
 
 
 def swa_inputs(b, sq, sk, h, kv, d, dtype, seed):
@@ -4781,15 +4810,18 @@ def swa_serving_path(sw, _build, TC, TM, launch, card) -> dict:
     return out
 
 
-def _sdpa_args(q, k, v, window) -> tuple:
+def _sdpa_args(q, k, v, window, causal=True) -> tuple:
     """(B, H, S, D) views of q and of K/V repeated to the query heads (the
     TPU kernel's inputs; the repeat is made here, outside any timed call),
     and ``is_causal`` where the window does not bite, else a boolean band
-    mask, over which SDPA computes all S^2 pairs."""
+    mask, over which SDPA computes all S^2 pairs; with ``causal`` off (no
+    window) no mask at all."""
     from repro_torch.models.attention import _repeat_kv
     qt = q.transpose(1, 2)
     kt, vt = (_repeat_kv(t, q.shape[2]).transpose(1, 2) for t in (k, v))
     s = q.shape[1]
+    if not causal:
+        return qt, kt, vt, {}
     if window is None or s <= window:
         return qt, kt, vt, {"is_causal": True}
     i = torch.arange(s, device=q.device)
@@ -4797,13 +4829,13 @@ def _sdpa_args(q, k, v, window) -> tuple:
                         & (i[None, :] > i[:, None] - window)}
 
 
-def sdpa_fn(q, k, v, window, backend=None):
+def sdpa_fn(q, k, v, window, backend=None, causal=True):
     """The library yardstick: one ``scaled_dot_product_attention`` call on
     the inputs of ``_sdpa_args``; ``backend`` (an ``SDPBackend`` name)
     restricts it to that backend."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    qt, kt, vt, kw = _sdpa_args(q, k, v, window)
+    qt, kt, vt, kw = _sdpa_args(q, k, v, window, causal)
     if backend is None:
         return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
 
@@ -4813,23 +4845,24 @@ def sdpa_fn(q, k, v, window, backend=None):
     return call
 
 
-def sdpa_backend_of(q, k, v, window) -> str:
+def sdpa_backend_of(q, k, v, window, causal=True) -> str:
     """The backend the default SDPA call picks, as PyTorch's own dispatcher
     (``torch._fused_sdp_choice``) chooses it."""
     from torch.nn.attention import SDPBackend
-    qt, kt, vt, kw = _sdpa_args(q, k, v, window)
+    qt, kt, vt, kw = _sdpa_args(q, k, v, window, causal)
     return SDPBackend(torch._fused_sdp_choice(
         qt, kt, vt, kw.get("attn_mask"), 0.0, kw.get("is_causal", False))).name
 
 
-def sdpa_backends(q, k, v, got, cyc, flush, n_ev) -> dict:
+def sdpa_backends(q, k, v, got, cyc, flush, n_ev, window=SWA_WINDOW,
+                  causal=True) -> dict:
     """Each SDPA backend of ``SDPA_BACKENDS`` on these inputs: refused (and
     why), or its device time by CUDA events, L2 flushed, and its largest
     difference from the kernel's output ``got``."""
     import warnings
     out = {}
     for backend in SDPA_BACKENDS:
-        fn = sdpa_fn(q, k, v, SWA_WINDOW, backend)
+        fn = sdpa_fn(q, k, v, window, backend, causal)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             try:
@@ -4929,25 +4962,43 @@ def swa_times(sw, swa, card) -> dict:
     return rows
 
 
-def profile_prefill(prefill_step, params, toks, n_attn) -> dict:
+def _spin_pad() -> None:
+    """PAD_LAUNCHES empty spin kernels (``torch.cuda._sleep(0)``), then a
+    synchronise: laid around a profiled call, they give the records a
+    tracer drops at a window's edges (one swa_attention record of 36 in
+    every window of whisper-small's prefill late in a full run) something
+    other than the call's to drop."""
+    for _ in range(PAD_LAUNCHES):
+        torch.cuda._sleep(0)
+    torch.cuda.synchronize()
+
+
+def profile_prefill(prefill_step, params, toks, n_attn, batch=None) -> dict:
     """One ``torch.profiler`` window of a prefill call (after one warm
     call), taken again up to CUPTI_WINDOWS times while the tracer loses the
     kernel's records: wall and device busy time, the idle share, the
     swa_attention kernel's and the matrix products' device time and share
     of the busy time, the top device ops. ``n_attn``: the kernel launches a
-    call makes."""
+    call makes; ``batch`` (default ``{"tokens": toks}``) the step's input.
+    The call sits between two ``_spin_pad``s, whose records are left out
+    and whose time is outside the wall clock."""
     from torch.profiler import ProfilerActivity, profile
 
-    prefill_step(params, {"tokens": toks})
+    batch = {"tokens": toks} if batch is None else batch
+    prefill_step(params, batch)
     torch.cuda.synchronize()
     for window in range(1, CUPTI_WINDOWS + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            _spin_pad()
             t0 = time.perf_counter()
-            prefill_step(params, {"tokens": toks})
+            prefill_step(params, batch)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+            _spin_pad()
         dev = _device_ops(prof)
+        n_pad = sum(c for k, (c, _) in dev.items() if SPIN_KERNEL in k)
+        dev = {k: v for k, v in dev.items() if SPIN_KERNEL not in k}
         n_swa = sum(c for k, (c, _) in dev.items() if SWA_KERNEL in k)
         if n_swa == n_attn:
             break
@@ -4963,7 +5014,7 @@ def profile_prefill(prefill_step, params, toks, n_attn) -> dict:
             "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / wall_us,
             "swa_attention_ms": swa_us / 1e3, "swa_attention_launches": n_swa,
-            "matmul_ms": mm / 1e3,
+            "pad_records_left_out": n_pad, "matmul_ms": mm / 1e3,
             "swa_share_of_busy": swa_us / busy if busy else None,
             "matmul_share_of_busy": mm / busy if busy else None,
             "top_device_ops": {k: {"count": c, "device_ms": t / 1e3}
@@ -6870,6 +6921,611 @@ def train_alone() -> dict:
     return train_phase(km, sw, swb, wk, TC, TM, launch, card)
 
 
+# --- phase 21: whisper-small serving (slice 18) -------------------------------------
+
+WH_ARCH = "whisper-small"
+WH_PARAMS = 238_270_464               # the JAX tree's (tests/test_torch_encdec.py)
+WH_FRAMES = 1500                      # frame embeddings a request (30 s at 50 Hz)
+WH_BATCH, WH_PROMPT = 8, 4            # SOT, language, task, no-timestamps
+WH_LONG = 227                         # B = 1: 223 previous-text tokens + 4
+WH_DECODE = 64                        # decode steps at B = WH_BATCH
+WH_TIMED = 2                          # timed calls per prefill shape
+WH_CHECKED = 4                        # every 4th completion held to B = 1
+WH_F32_TOKENS = 16                    # fp32 checks: 2 requests of 16 tokens
+WH_F32_STEPS = (4, 8)                 # decode steps: card vs CPU, vs forward
+WH_PER_PREFILL = 36                   # 12 encoder + 12 self + 12 cross
+WH_PER_STEP = 12                      # the cross-attentions of a decode step
+WH_PROFILE_STEPS = 16
+# The D = 64 kernel vs plain (phase 12's rules, both dtypes): b, sq, sk, h,
+# kv, causal. The encoder's self-attention, the cross-attention of a decode
+# step, of the 4-token prompts and of the 227-token one; causal prefills;
+# the 128-row tile edges both ways; B = 3 with H / KV = 4 and 1.
+WH_CASES = ((8, 1500, 1500, 12, 12, False), (8, 1, 1500, 12, 12, False),
+            (8, 4, 1500, 12, 12, False), (1, 227, 1500, 12, 12, False),
+            (8, 4, 4, 12, 12, True), (1, 227, 227, 12, 12, True),
+            (1, 448, 448, 12, 12, True), (1, 129, 255, 12, 12, False),
+            (1, 255, 129, 12, 12, False), (1, 129, 255, 12, 12, True),
+            (1, 255, 129, 12, 12, True), (3, 255, 255, 12, 3, True),
+            (3, 129, 300, 4, 4, False))
+# timed (name, b, sq, sk, causal), bf16
+WH_TIMES = (("encoder", 8, 1500, 1500, False),
+            ("cross_decode", 8, 1, 1500, False),
+            ("cross_prefill_227", 1, 227, 1500, False))
+# fp32 kernels beside SDPA's efficient backend (fp32): (name, b, s, h, kv,
+# d, window, causal); D = 120 and 256 are row 10's fp32 entries (danube's
+# and gemma-7b's 8 x 512 prefill)
+WH_F32_TIMES = (("d64_encoder", 8, 1500, 12, 12, 64, None, False),
+                ("d120_8x512", 8, 512, 32, 8, 120, SWA_WINDOW, True),
+                ("d256_8x512", 8, 512, 16, 16, 256, None, True))
+# the D = 64 instantiation of the bf16 kernel, by its mangled name in
+# cuobjdump's listing (CUPTI's records carry the demangled SWA_KERNEL<64>)
+WH_KERNEL_SASS = "swa_attention_hopper_kernelILi64E"
+
+
+def wh_vs_plain(sw) -> dict:
+    """The D = 64 kernels against their plain version on the card at
+    ``WH_CASES``, fp32 and bf16, by phase 12's rules (``swa_check``; in
+    bf16 the mean rule with its control, one bf16 p, which must break it
+    in every case)."""
+    rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
+    for n, (b, sq, sk, h, kv, causal) in enumerate(WH_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            q, k, v = swa_inputs(b, sq, sk, h, kv, 64, dtype, SEED + 210 + n)
+            got = sw.swa_attention_cuda(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            row = {"shape": [b, sq, sk, h, kv, 64], "window": None,
+                   "causal": causal, "dtype": name}
+            row.update(swa_check(sw, q, k, v, got, None, causal,
+                                 f"swa_attention D=64 {(b, sq, sk, h, kv)} "
+                                 f"causal={causal} {name}"))
+            worst[name] = max(worst[name], row["err"])
+            rows.append(row)
+            del q, k, v, got
+    torch.cuda.empty_cache()
+    out = {"cases": rows, "worst": worst, **_mean_ratios(rows)}
+    log(f"phase whisper kernel vs plain: {len(rows)} cases ok (D 64, "
+        f"{len(WH_CASES)} shapes x fp32 / bf16, causal on and off, Sq != Sk "
+        f"either way); max abs err vs float64: fp32 {worst['float32']!r}, "
+        f"bf16 {worst['bfloat16']!r} (phase 12's rule); bf16 mean err / "
+        f"plain's at most {out['mean_ratio_max']!r} (rule <= "
+        f"{SWA_MEAN_RATIO}), the control (one bf16 p) at least "
+        f"{out['control_ratio_min']!r}")
+    return out
+
+
+def _wh_frames(b, d, seed):
+    """Stub frame embeddings, ``0.1 * N(0, 1)`` (fp32; the model casts)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return 0.1 * torch.randn((b, WH_FRAMES, d), generator=gen, device="cuda")
+
+
+def _wh_decode_state(TM, cfg, st, b, max_seq):
+    """A decode state glued from a prefill's states (the JAX test's
+    glue)."""
+    state = TM.init_encdec_decode_state(cfg, b, max_seq, WH_FRAMES,
+                                        device="cuda")
+    state.update(self=st["cache"], cross_k=st["cross"]["k"],
+                 cross_v=st["cross"]["v"])
+    return state
+
+
+def wh_greedy_check(TM, cfg, params, prompt, frames, tokens,
+                    near_tie) -> dict:
+    """Single-request greedy decoding on the card (a B = 1 prefill sized
+    for the whole completion, then ``encdec_decode_step``), fed the batch's
+    own ``tokens``, so that every position is checked: where a batch token
+    is not the B = 1 argmax, its logit must lie within ``near_tie(max
+    logit)`` of the max (such near-ties are returned), else it raises."""
+    n = prompt.shape[1] + len(tokens) - 1
+    with torch.no_grad():
+        lg, st = TM.encdec_forward(cfg, params, prompt, frames,
+                                   mode="prefill", cache_len=n)
+        state = _wh_decode_state(TM, cfg, st, 1, n)
+        lg = lg[:, -1:]
+        min_margin, ties = float("inf"), []
+        for i, tok in enumerate(tokens):
+            top, margin = _margins(lg[0, 0])
+            min_margin = min(min_margin, float(margin))
+            if int(top) != tok:
+                best = float(lg[0, 0].max())
+                below = best - float(lg[0, 0, tok])
+                tie = {"index": i, "batch": tok, "single": int(top),
+                       "below_max": below, "tolerance": near_tie(best)}
+                if not below <= near_tie(best):
+                    raise AssertionError(f"whisper decode: token {i} is not "
+                                         f"single-request greedy: {tie}")
+                ties.append(tie)
+            if i + 1 < len(tokens):
+                lg, state = TM.encdec_decode_step(
+                    cfg, params, torch.tensor([[tok]], device="cuda"), state,
+                    torch.tensor([prompt.shape[1] + i], device="cuda"))
+    return {"positions": len(tokens), "min_margin": min_margin, "ties": ties}
+
+
+def wh_serving_path(sw, _build, TC, TM, launch, card) -> dict:
+    """whisper-small at full size, seeded bf16 weights on the card, through
+    the user's entry points: ``make_prefill_step`` at B = 8 with 4-token
+    prompts and at B = 1 with a 227-token one (1,500 frames a request), the
+    model-level prefill sized for the decode (``encdec_forward(...,
+    cache_len=)``), then ``make_serve_step`` for WH_DECODE steps at B = 8.
+    The swa_attention counter is set to 0 before this main path and read
+    after it: WH_PER_PREFILL launches a prefill call, WH_PER_STEP a decode
+    step, no build."""
+    cfg = TC.get_arch(WH_ARCH)
+    rng = np.random.default_rng(SEED + 211)
+    t0 = time.perf_counter()
+    params = TM.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = TM.count_params(params)
+    if n_params != WH_PARAMS:
+        raise AssertionError(f"{WH_ARCH}: {n_params} parameters, expected "
+                             f"{WH_PARAMS}")
+    prefill_step = launch.make_prefill_step(cfg)
+    serve_step = launch.make_serve_step(cfg)
+    frames = _wh_frames(WH_BATCH, cfg.d_model, SEED + 212)
+    prompts = {(WH_BATCH, WH_PROMPT): _prompt_tokens(rng, cfg, WH_BATCH,
+                                                      WH_PROMPT),
+               (1, WH_LONG): _prompt_tokens(rng, cfg, 1, WH_LONG)}
+    builds = _build.n_builds
+    out = {"arch": WH_ARCH, "params": n_params, "init_s": init_s,
+           "frames": WH_FRAMES, "prefill": {}}
+
+    # --- the main path, counted ---
+    sw.launches = 0
+    for (b, t), toks in prompts.items():
+        batch = {"tokens": toks, "frames": frames[:b]}
+        secs = []
+        for _ in range(1 + WH_TIMED):
+            before = sw.launches
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, states = prefill_step(params, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            if sw.launches - before != WH_PER_PREFILL:
+                raise AssertionError(f"whisper prefill {b}x{t}: "
+                                     f"{sw.launches - before} swa_attention "
+                                     f"launches, expected {WH_PER_PREFILL}")
+        if tuple(logits.shape) != (b, 1, TM.padded_vocab(cfg)) or \
+                not bool(torch.isfinite(logits).all()) or \
+                tuple(states["cross"]["k"].shape) != (
+                    cfg.n_layers, b, WH_FRAMES, cfg.n_kv_heads, cfg.head_dim):
+            raise AssertionError(f"whisper prefill {b}x{t}: bad logits or "
+                                 f"states")
+        med = statistics.median(secs[1:])
+        out["prefill"][f"{b}x{t}"] = {
+            "first_s": secs[0], "median_s": med, "tokens_per_s": b * t / med,
+            "frames_per_s": b * WH_FRAMES / med}
+        del logits, states
+    toks = prompts[(WH_BATCH, WH_PROMPT)]
+    max_seq = WH_PROMPT + WH_DECODE
+    before = sw.launches
+    with torch.no_grad():
+        lg, st = TM.encdec_forward(cfg, params, toks, frames, mode="prefill",
+                                   cache_len=max_seq)
+    if sw.launches - before != WH_PER_PREFILL:
+        raise AssertionError("whisper sized prefill: launches")
+    state = _wh_decode_state(TM, cfg, st, WH_BATCH, max_seq)
+    tok = lg[:, -1:].argmax(-1)
+    seq = [tok]
+    pos = torch.full((WH_BATCH,), WH_PROMPT, device="cuda")
+    before = sw.launches
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(WH_DECODE):
+        logits, state = serve_step(params, tok, state, pos + i)
+        tok = logits.argmax(-1)
+        seq.append(tok)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t1
+    dec_launches = sw.launches - before
+    launches = sw.launches
+    # --- end of the main path ---
+    if _build.n_builds != builds:
+        raise AssertionError("an nvcc build ran on the whisper serving path")
+    if dec_launches != WH_PER_STEP * WH_DECODE or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"whisper decode: {dec_launches} swa_attention "
+                             f"launches for {WH_DECODE} steps, expected "
+                             f"{WH_PER_STEP} a step")
+    out["decode"] = {"batch": WH_BATCH, "steps": WH_DECODE, "seconds": dec_s,
+                     "tokens_per_s": WH_BATCH * WH_DECODE / dec_s}
+    out.update(launches=launches, launches_per_prefill_call=WH_PER_PREFILL,
+               launches_per_decode_step=WH_PER_STEP)
+    p8 = out["prefill"][f"{WH_BATCH}x{WH_PROMPT}"]
+    log(f"phase whisper serving: {n_params} params bf16 "
+        f"({cfg.n_encoder_layers} + {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}) init {init_s!r} s; prefill "
+        + ", ".join(f"{k}: {v['tokens_per_s']!r} tokens/s, "
+                    f"{v['frames_per_s']!r} frames/s"
+                    for k, v in out["prefill"].items())
+        + f"; decode B={WH_BATCH} x {WH_DECODE} steps "
+        f"{out['decode']['tokens_per_s']!r} tokens/s; swa_attention launches "
+        f"{launches} ({WH_PER_PREFILL} per prefill call, {WH_PER_STEP} per "
+        f"decode step; no build) card=\"{card}\"")
+
+    out["check_seconds"], t_chk = {}, [time.perf_counter()]
+
+    def checked(name):
+        now = time.perf_counter()
+        out["check_seconds"][name] = now - t_chk[0]
+        t_chk[0] = now
+
+    # encoder alone: frames/s of encode() at B = 8
+    enc = lambda: TM.encode(cfg, params, frames)
+    with torch.no_grad():
+        enc_ms = events_ms(enc, 5)
+    out["encoder"] = {"ms": enc_ms,
+                      "frames_per_s": WH_BATCH * WH_FRAMES / enc_ms * 1e3,
+                      "share_of_prefill": enc_ms / 1e3 / p8["median_s"]}
+    log(f"time whisper encoder B={WH_BATCH} x {WH_FRAMES} frames: {enc_ms!r} "
+        f"ms (events) = {out['encoder']['frames_per_s']!r} frames/s; "
+        f"{out['encoder']['share_of_prefill']!r} of a {WH_BATCH} x "
+        f"{WH_PROMPT} prefill call card=\"{card}\"")
+    checked("encoder_time")
+    # every WH_CHECKED-th completion against single-request greedy decoding
+    done = torch.cat(seq, dim=1).tolist()
+    near_tie = lambda best: LM_BF16_ULPS * bf16_ulp(best)
+    checks = [wh_greedy_check(TM, cfg, params, toks[r:r + 1],
+                              frames[r:r + 1], done[r], near_tie)
+              for r in range(0, WH_BATCH, WH_CHECKED)]
+    ties = [t for c in checks for t in c["ties"]]
+    out["batch_vs_single_request"] = {
+        "rows": list(range(0, WH_BATCH, WH_CHECKED)),
+        "positions": sum(c["positions"] for c in checks),
+        "min_top2_margin": min(c["min_margin"] for c in checks),
+        "equal_rows": sum(not c["ties"] for c in checks),
+        "near_ties": ties}
+    log(f"check whisper bf16 decode: every token of rows "
+        f"{out['batch_vs_single_request']['rows']} of the {WH_BATCH} "
+        f"({out['batch_vs_single_request']['positions']} positions) is "
+        f"single-request greedy on the card or a near-tie; "
+        f"{out['batch_vs_single_request']['equal_rows']} equal outright; "
+        f"{len(ties)} near-ties (within {LM_BF16_ULPS} bf16 ulp of the max)")
+    checked("batch_vs_single_request_bf16")
+    out["profile"] = wh_profile(TM, launch, cfg, params, frames, toks, card)
+    checked("profile")
+    del params, state, st, lg, logits
+    torch.cuda.empty_cache()
+    out.update(wh_fp32_checks(sw, TM, cfg, rng))
+    checked("fp32")
+    log(f"phase whisper: seconds by check {out['check_seconds']}")
+    return out
+
+
+def wh_profile(TM, launch, cfg, params, frames, toks, card) -> dict:
+    """One profiled B = 8 prefill call (``profile_prefill``: idle share,
+    the kernel's and the matmuls' share of the busy time) and a profiled
+    window of WH_PROFILE_STEPS decode steps at B = 8 after a sized prefill
+    and 4 unprofiled steps (idle share, the kernel's and the matmuls'
+    device time), beside the decoder's self-attention blocks of a step
+    (``attention_decode``: projections, the ring-cache write, the plain
+    grouped scores, softmax and sum) timed alone by CUDA events, x 12."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import attention as at
+    pre = profile_prefill(launch.make_prefill_step(cfg), params, toks,
+                          WH_PER_PREFILL, batch={"tokens": toks,
+                                                 "frames": frames})
+    serve_step = launch.make_serve_step(cfg)
+    n = WH_PROMPT + 4 + WH_PROFILE_STEPS
+    with torch.no_grad():
+        lg, st = TM.encdec_forward(cfg, params, toks, frames, mode="prefill",
+                                   cache_len=n)
+    state = _wh_decode_state(TM, cfg, st, WH_BATCH, n)
+    tok = lg[:, -1:].argmax(-1)
+    pos = torch.full((WH_BATCH,), WH_PROMPT, device="cuda")
+    for i in range(4):
+        lg, state = serve_step(params, tok, state, pos + i)
+        tok = lg.argmax(-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(WH_PROFILE_STEPS):
+            lg, state = serve_step(params, tok, state, pos + 4 + i)
+            tok = lg.argmax(-1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = _device_ops(prof)
+    busy = sum(t for _, t in dev.values())
+    if busy <= 0:
+        raise AssertionError("the profiled whisper decode window has no "
+                             "device time")
+    kern = sum(t for k, (_, t) in dev.items() if SWA_KERNEL in k)
+    n_kern = sum(c for k, (c, _) in dev.items() if SWA_KERNEL in k)
+    mm = _matmul_us(dev)
+    # the self-attention block of one decoder layer, alone, on a copy of
+    # layer 0's cache at the window's last position
+    p0 = TM.transformer.layer_state(params["dec_blocks"], 0)["attn"]
+    cache = {k: v[0].clone() for k, v in state["self"].items()}
+    xa = torch.randn((WH_BATCH, 1, cfg.d_model), device="cuda",
+                     dtype=torch.bfloat16)
+    p_last = pos + 3 + WH_PROFILE_STEPS
+    with torch.no_grad():
+        self_ms = events_ms(lambda: at.attention_decode(
+            p0, xa, cache, cfg, kind="attn", pos=p_last), 20)
+    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:10]
+    dec = {"steps": WH_PROFILE_STEPS, "batch": WH_BATCH,
+           "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+           "device_idle_share": 1.0 - busy / wall_us,
+           "host_ms_per_step": wall_us / WH_PROFILE_STEPS / 1e3,
+           "swa_attention_ms": kern / 1e3, "swa_attention_launches": n_kern,
+           "swa_share_of_busy": kern / busy, "matmul_ms": mm / 1e3,
+           "matmul_share_of_busy": mm / busy,
+           "self_attention_block_ms_events": self_ms,
+           "self_attention_blocks_per_step_ms": cfg.n_layers * self_ms,
+           "top_device_ops": {k: {"count": c, "device_ms": t / 1e3}
+                              for k, (c, t) in top}}
+    log(f"profile whisper prefill {WH_BATCH} x {WH_PROMPT} (+ {WH_FRAMES} "
+        f"frames): wall_ms={pre['wall_ms']!r} device_busy_ms="
+        f"{pre['device_busy_ms']!r} device_idle_share="
+        f"{pre['device_idle_share']!r} swa_attention_ms="
+        f"{pre['swa_attention_ms']!r} ({pre['swa_attention_launches']} "
+        f"launches, share of busy {pre['swa_share_of_busy']!r}) matmul share "
+        f"{pre['matmul_share_of_busy']!r} ({pre['pad_records_left_out']} pad "
+        f"records left out) card=\"{card}\"")
+    log(f"profile whisper decode B={WH_BATCH} x {WH_PROFILE_STEPS} steps: "
+        f"wall_ms={dec['wall_ms']!r} device_busy_ms={dec['device_busy_ms']!r} "
+        f"device_idle_share={dec['device_idle_share']!r}; swa_attention "
+        f"(cross) {dec['swa_attention_ms']!r} ms ({n_kern} launches, share "
+        f"of busy {dec['swa_share_of_busy']!r}); matmuls {dec['matmul_ms']!r} "
+        f"ms (share {dec['matmul_share_of_busy']!r}); the self-attention "
+        f"block alone {self_ms!r} ms a layer by events, x {cfg.n_layers} = "
+        f"{dec['self_attention_blocks_per_step_ms']!r} ms a step; top: "
+        + ", ".join(f"{k[:48]} {v['device_ms']!r} ms x {v['count']}"
+                    for k, v in list(dec["top_device_ops"].items())[:5])
+        + f" card=\"{card}\"")
+    del state, st, lg, cache
+    return {"prefill": pre, "decode": dec}
+
+
+def wh_fp32_checks(sw, TM, cfg, rng) -> dict:
+    """The fp32 model at full size: the card against the CPU (2 requests,
+    WH_F32_TOKENS prompt tokens, WH_F32_STEPS[0] decode steps), the model
+    with the kernel against the same with the plain attention, and a
+    prefill plus WH_F32_STEPS[1] decode steps against one forward over the
+    whole sequence, each within LM_F32_ATOL."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    p_gpu = TM.init_params(cfg32, seed=SEED, device="cuda")
+    frames = _wh_frames(2, cfg.d_model, SEED + 213)
+    n_dec = max(WH_F32_STEPS)
+    seq = _prompt_tokens(rng, cfg, 2, WH_F32_TOKENS + n_dec)
+    toks = seq[:, :WH_F32_TOKENS]
+    out = {}
+    with torch.no_grad():
+        # card vs CPU
+        t1 = time.perf_counter()
+        p_cpu = TM.transformer.tree_map(lambda t: t.cpu(), p_gpu)
+        n_c = WH_F32_TOKENS + WH_F32_STEPS[0]
+
+        def side(p, dev):
+            """The prefill's last logits and each step's, and the state."""
+            lg, st = TM.encdec_forward(cfg32, p, toks.to(dev), frames.to(dev),
+                                       mode="prefill", cache_len=n_c)
+            state = TM.init_encdec_decode_state(cfg32, 2, n_c, WH_FRAMES,
+                                                device=dev)
+            state.update(self=st["cache"], cross_k=st["cross"]["k"],
+                         cross_v=st["cross"]["v"])
+            lgs = [lg[:, -1:].cpu()]
+            for i in range(WH_F32_STEPS[0]):
+                tok = seq[:, WH_F32_TOKENS + i:WH_F32_TOKENS + i + 1]
+                lg, state = TM.encdec_decode_step(
+                    cfg32, p, tok.to(dev), state,
+                    torch.full((2,), WH_F32_TOKENS + i, device=dev))
+                lgs.append(lg.cpu())
+            return lgs, state
+
+        (lg_g, st_g), (lg_c, st_c) = side(p_gpu, "cuda"), side(p_cpu, "cpu")
+        errs = [float((a - b).abs().max()) for a, b in zip(lg_g, lg_c)]
+        cross_err = float((st_g["cross_k"].cpu() - st_c["cross_k"])
+                          .abs().max())
+        if not max(errs) <= LM_F32_ATOL:
+            raise AssertionError(f"whisper fp32 card vs CPU: logits errs "
+                                 f"{errs}")
+        out["card_vs_cpu_fp32"] = {"logits_max_abs_err": errs,
+                                   "cross_k_max_abs_err": cross_err,
+                                   "atol": LM_F32_ATOL,
+                                   "seconds": time.perf_counter() - t1}
+        log(f"check whisper fp32 card vs CPU (2 x {WH_FRAMES} frames, 2 x "
+            f"{WH_F32_TOKENS} prompt tokens + {WH_F32_STEPS[0]} decode steps)"
+            f": logits max abs err per call {errs} (atol {LM_F32_ATOL}); "
+            f"cross k {cross_err!r}")
+        del p_cpu, st_g, st_c
+        # the kernel against the plain attention, the whole sequence
+        full, _ = TM.encdec_forward(cfg32, p_gpu, seq, frames)
+        plain, _ = TM.encdec_forward(cfg32, p_gpu, seq, frames,
+                                     swa_impl=sw.swa_attention_plain)
+        k_err = float((full - plain).abs().max())
+        if not k_err <= LM_F32_ATOL:
+            raise AssertionError(f"whisper kernel vs plain attention (fp32 "
+                                 f"model): {k_err!r}")
+        out["kernel_vs_plain_model_fp32"] = {
+            "tokens": seq.shape[1], "logits_max_abs_err": k_err,
+            "atol": LM_F32_ATOL}
+        # prefill + decode against the forward
+        n_f = WH_F32_TOKENS + WH_F32_STEPS[1]
+        lg, st = TM.encdec_forward(cfg32, p_gpu, toks, frames, mode="prefill",
+                                   cache_len=n_f)
+        d_err = float((lg - full[:, :WH_F32_TOKENS]).abs().max())
+        state = _wh_decode_state(TM, cfg32, st, 2, n_f)
+        for i in range(WH_F32_STEPS[1]):
+            p_i = WH_F32_TOKENS + i
+            lg, state = TM.encdec_decode_step(
+                cfg32, p_gpu, seq[:, p_i:p_i + 1], state,
+                torch.full((2,), p_i, device="cuda"))
+            d_err = max(d_err, float((lg[:, 0] - full[:, p_i]).abs().max()))
+        if not d_err <= LM_F32_ATOL:
+            raise AssertionError(f"whisper fp32 prefill + decode vs forward: "
+                                 f"{d_err!r}")
+        out["decode_vs_forward_fp32"] = {
+            "prefill": WH_F32_TOKENS, "decode": WH_F32_STEPS[1],
+            "logits_max_abs_err": d_err, "atol": LM_F32_ATOL}
+    log(f"check whisper fp32: kernel vs plain attention in the model "
+        f"({seq.shape[1]} tokens, every position) {k_err!r}; prefill "
+        f"{WH_F32_TOKENS} + {WH_F32_STEPS[1]} decode steps vs one forward "
+        f"{d_err!r} (atol {LM_F32_ATOL})")
+    del p_gpu, full, plain, state, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def wh_backward_refusal(sw, swb, dispatch) -> dict:
+    """A D = 64 training call on CUDA tensors: the forward kernel launches
+    once, the backward raises at its head check before any launch."""
+    q, k, v = (t.requires_grad_() for t in swa_inputs(
+        1, 64, 64, 4, 4, 64, torch.bfloat16, SEED + 214))
+    before = (sw.launches, swb.launches)
+    o = dispatch.swa_attention(q, k, v, causal=False)
+    try:
+        torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+    except (ValueError, RuntimeError) as e:
+        why = str(e)
+    else:
+        raise AssertionError("a D = 64 backward ran on the card")
+    if (sw.launches - before[0], swb.launches - before[1]) != (1, 0) or \
+            "head sizes" not in why:
+        raise AssertionError(f"D = 64 backward refusal: launches "
+                             f"{sw.launches - before[0]} / "
+                             f"{swb.launches - before[1]}, {why!r}")
+    log(f"check whisper: a D = 64 backward on the card raises before any "
+        f"launch: {why}")
+    return {"raised": why}
+
+
+def wh_times(sw, card) -> dict:
+    """The D = 64 kernel in bf16 at WH_TIMES (L2 flushed and warm, CUDA
+    events and CUPTI) beside its bound (and the SFU's limit), the plain
+    version's time (one call, events) and SDPA's: the default call (events;
+    the kernels line's ``library_ms``), which backend it picks, and each of
+    flash, efficient and cuDNN that accepts the call. Then fp32 at
+    WH_F32_TIMES: the CUDA-core kernel beside SDPA's efficient backend in
+    fp32, by events, flushed."""
+    cyc = sleep_cycles_per_ms()
+    flush = l2_flusher()
+    rows = {}
+    for name, b, sq, sk, causal in WH_TIMES:
+        q, k, v = swa_inputs(b, sq, sk, 12, 12, 64, torch.bfloat16,
+                             SEED + 215)
+        kern = lambda: sw.swa_attention_cuda(q, k, v, causal=causal)
+        lib = sdpa_fn(q, k, v, None, causal=causal)
+        got = kern()
+        err = float((lib().transpose(1, 2).float() - got.float()).abs()
+                    .max())
+        bnd = swa_bound(b, sq, sk, 12, 12, 64, None, causal)
+        rec = {"shape": [b, sq, sk, 12, 12, 64], "causal": causal,
+               "dtype": "bfloat16",
+               "cupti_ms": cupti_ms(kern, flush, SWA_KERNEL),
+               "warm_l2_cupti_ms": cupti_ms(kern, None, SWA_KERNEL),
+               "ms": device_ms(kern, cyc, flush)[0],
+               "warm_l2_ms": device_ms(kern, cyc, None)[0],
+               "library_ms": device_ms(lib, cyc, flush)[0],
+               "library_backend": sdpa_backend_of(q, k, v, None, causal),
+               "library_backends": sdpa_backends(q, k, v, got, cyc, flush,
+                                                 TIMED_LAUNCHES, None,
+                                                 causal),
+               "library_vs_kernel_max_abs_diff": err,
+               "plain_ms": events_ms(lambda: sw.swa_attention_plain(
+                   q, k, v, causal=causal), 1), **bnd}
+        rec["share_of_bound"] = bnd["bound_ms"] / rec["ms"]
+        rows[name] = rec
+        lim = bnd["limits_ms"]
+        log(f"time swa_attention D=64 {name} ({b}, {sq}, {sk}, 12/12, 64) "
+            f"bf16 causal={causal} L2 flushed: kernel_ms={rec['ms']!r} (cupti "
+            f"{rec['cupti_ms']!r}; L2-warm {rec['warm_l2_ms']!r}, cupti "
+            f"{rec['warm_l2_cupti_ms']!r}) plain_ms={rec['plain_ms']!r} "
+            f"bound_ms={bnd['bound_ms']!r} ({bnd['bound_by']}; share reached "
+            f"{rec['share_of_bound']!r}); limits ms: bytes {lim['bytes']!r}, "
+            f"tensor-core FLOP {lim['operations']!r}, SFU exp "
+            f"{lim['sfu_exp']!r}; SDPA default {rec['library_backend']} "
+            f"{rec['library_ms']!r} ms (max |SDPA - kernel| {err!r}); by "
+            f"backend: " + "; ".join(
+                f"{k_}: {v_['ms']!r} ms" if v_["accepted"]
+                else f"{k_}: refused ({v_['why'][:60]})"
+                for k_, v_ in rec["library_backends"].items())
+            + f" card=\"{card}\"")
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    for name, b, s, h, kv, d, window, causal in WH_F32_TIMES:
+        q, k, v = swa_inputs(b, s, s, h, kv, d, torch.float32, SEED + 216)
+        kern = lambda: sw.swa_attention_cuda(q, k, v, window=window,
+                                             causal=causal)
+        lib = sdpa_fn(q, k, v, window, "EFFICIENT_ATTENTION", causal)
+        err = float((lib().transpose(1, 2) - kern()).abs().max())
+        bnd = swa_bound(b, s, s, h, kv, d, window, causal)
+        lim = {"bytes": bnd["bytes"] * 2 / HBM_BYTES_PER_S * 1e3,
+               "operations": 4 * d * bnd["pairs"] / FP32_FLOP_PER_S * 1e3}
+        rec = {"shape": [b, s, s, h, kv, d], "window": window,
+               "causal": causal, "dtype": "float32",
+               "ms": device_ms(kern, cyc, flush, CHUNK * 2)[0],
+               "library_ms": device_ms(lib, cyc, flush, CHUNK * 2)[0],
+               "library_backend": "EFFICIENT_ATTENTION",
+               "library_vs_kernel_max_abs_diff": err,
+               "bound_ms": max(lim.values()),
+               "bound_by": max(lim, key=lim.get)}
+        rows[f"fp32/{name}"] = rec
+        log(f"time swa_attention fp32 {name} ({b}, {s}, {h}/{kv}, {d}) "
+            f"W={window} causal={causal} L2 flushed, events: kernel "
+            f"{rec['ms']!r} ms, SDPA efficient (fp32) {rec['library_ms']!r} "
+            f"ms (max |diff| {err!r}), bound {rec['bound_ms']!r} ms "
+            f"({rec['bound_by']}; 4 D FLOP a pair at "
+            f"{FP32_FLOP_PER_S / 1e12:g} TFLOP/s) card=\"{card}\"")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def whisper_phase(sw, swb, dispatch, _build, TC, TM, launch, card) -> dict:
+    """Phase 21 (slice 18): the D = 64 kernel vs plain, whisper-small served
+    at full size, the D = 64 backward's refusal, the kernel's times."""
+    t0 = time.perf_counter()
+    parts, lap = {}, [t0]
+
+    def done(name):
+        parts[name] = time.perf_counter() - lap[0]
+        lap[0] = time.perf_counter()
+
+    out = {"parity": wh_vs_plain(sw)}
+    done("parity")
+    out["serving"] = wh_serving_path(sw, _build, TC, TM, launch, card)
+    done("serving")
+    out["backward_refusal"] = wh_backward_refusal(sw, swb, dispatch)
+    out["times"] = wh_times(sw, card)
+    done("times")
+    out["launches"] = out["serving"]["launches"]
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    log(f"phase whisper: {out['seconds']!r} s; by part {parts}")
+    return out
+
+
+def whisper_alone() -> dict:
+    """Phase 21 without the rest of the script (``python3 -c 'import
+    chip_smoke as c; c.whisper_alone()'``): builds the kernels, logs
+    ptxas's lines and the HGMMA count of the D = 64 kernel, then the
+    whisper phase."""
+    if not torch.cuda.is_available():
+        raise SystemExit("whisper_alone: no CUDA card")
+    TC, launch, TM, _build, sw, swb, _ = _alone_modules()
+    from repro_torch.kernels import dispatch
+    card = card_line()
+    log(f"card {card}")
+    _build.load()
+    for line in str(_build.build_info.get("log", "")).splitlines():
+        if ("ptxas info" in line and ("Used" in line or "Compiling" in line)
+                and "swa_attention" in line and "ILi64E" in line) or \
+                "(C75" in line or ("spill" in line
+                                   and " 0 bytes spill stores" not in line):
+            log(f"build: {line.strip()}")
+    n = hgmma_counts(_build, (WH_KERNEL_SASS,))
+    log(f"HGMMA: {n}")
+    if not n[WH_KERNEL_SASS]:
+        raise AssertionError(f"the D = 64 bf16 kernel issues no wgmma: {n}")
+    return whisper_phase(sw, swb, dispatch, _build, TC, TM, launch, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -6929,7 +7585,7 @@ def main() -> int:
         if ("ptxas info" in line and "Used" in line) or "(C75" in line or (
                 "spill" in line and " 0 bytes spill stores" not in line):
             log(f"phase build: {line.strip()}")
-    n_hgmma = hgmma_counts(_build, (SWA_KERNEL,) + BWD_KERNELS
+    n_hgmma = hgmma_counts(_build, (SWA_KERNEL, WH_KERNEL_SASS) + BWD_KERNELS
                            + BWD256_KERNELS)
     log(f"phase build: HGMMA instructions by kernel (cuobjdump -sass): "
         f"{n_hgmma}")
@@ -7039,6 +7695,11 @@ def main() -> int:
     # at their published width, the kernels' times
     tr = train_phase(km, sw, swb, wk, TC, TM, launch, card)
     lap('20 train')
+
+    # 21. whisper-small serving (slice 18): the D = 64 kernel vs plain, the
+    # encoder-decoder at full size through the serve steps, its times
+    wh = whisper_phase(sw, swb, dispatch, _build, TC, TM, launch, card)
+    lap('21 whisper')
 
     top = rows["mean/1024"]
     kernels = [{
@@ -7209,6 +7870,29 @@ def main() -> int:
                     "library_ms", "library_backend", "fp32_ms")
                     if key in t} for n, t in hd["times"].items()}}
             k["launches"] += hd["launches"]
+    for k in kernels:                  # and phase 21's (whisper-small)
+        if k["name"] == "swa_attention":
+            r = wh["times"]["encoder"]
+            k["whisper"] = {
+                "launches": wh["launches"],
+                "launches_per_prefill_call": WH_PER_PREFILL,
+                "launches_per_decode_step": WH_PER_STEP,
+                "max_abs_err": wh["parity"]["worst"],
+                "mean_ratio_max": wh["parity"]["mean_ratio_max"],
+                "control_ratio_min": wh["parity"]["control_ratio_min"],
+                "hgmma_d64": n_hgmma[WH_KERNEL_SASS],
+                "shape": {"B": 8, "Sq": WH_FRAMES, "Sk": WH_FRAMES, "H": 12,
+                          "KV": 12, "D": 64, "causal": False,
+                          "dtype": "bfloat16"},
+                **{key: r[key] for key in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms",
+                                           "library_backend")},
+                "times": {n: {key: t[key] for key in (
+                    "ms", "cupti_ms", "warm_l2_ms", "warm_l2_cupti_ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_backend") if key in t}
+                    for n, t in wh["times"].items()}}
+            k["launches"] += wh["launches"]
     for k in kernels:                  # and phase 20's (every family trains)
         if k["name"] in TR_KERNELS:
             k["train"] = {"launches": tr["launches"][k["name"]]}
@@ -7273,7 +7957,7 @@ def main() -> int:
                    "sweep_parity": sweep_parity, "sweeps": sweeps,
                    "sweep_times": sweep_rows, "async": async_run,
                    "fmarl": fmarl, "lm_train": lmt, "head256": hd,
-                   "train": tr,
+                   "train": tr, "whisper": wh,
                    "kernels": kernels, "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

@@ -4,8 +4,9 @@
 configurations whose model the port runs are registered: ``rwkv6-1.6b``
 (slice 4), ``h2o-danube-3-4b`` and ``phi4-mini-3.8b`` (slice 5),
 ``gemma-7b`` and ``recurrentgemma-9b`` (slice 15: head size 256, the
-``rglru`` block and a mixed layer pattern). The other five come with the
-slices that port their block kinds.
+``rglru`` block and a mixed layer pattern), ``whisper-small`` (slice 18:
+the encoder-decoder at head size 64). The other four come with the slices
+that port their block kinds.
 """
 from repro_torch.configs.base import (
     ARCH_REGISTRY,
@@ -24,6 +25,7 @@ from repro_torch.configs import h2o_danube3_4b  # noqa: F401
 from repro_torch.configs import phi4_mini_3_8b  # noqa: F401
 from repro_torch.configs import recurrentgemma_9b  # noqa: F401
 from repro_torch.configs import rwkv6_1_6b  # noqa: F401
+from repro_torch.configs import whisper_small  # noqa: F401
 
 __all__ = [
     "ARCH_REGISTRY",

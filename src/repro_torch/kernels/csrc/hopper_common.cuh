@@ -1,7 +1,8 @@
 // Shared pieces of the Hopper (sm_90a) attention kernels (swa_attention.cu,
 // swa_attention_bwd.cu): mbarriers, TMA loads, wgmma descriptors and
 // products, the register fences around them, the bf16 hi + lo split of an
-// fp32 fragment and the tensor maps of a (B, S, heads, D) bf16 tensor.
+// fp32 fragment, the tensor maps of a (B, S, heads, D) bf16 tensor and the
+// context their encoder needs.
 //
 // Layout: a tile of R rows of a bf16 (.., D) tensor sits in shared memory as
 // ceil(D / 64) boxes of R rows x 128 bytes (64 columns), box c at c * R * 128
@@ -197,6 +198,18 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 64, fp32) += a (64 x 16, bf16 pairs in registers) x
+// b (16 x 64, shared memory, MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : REPRO_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef REPRO_D64
 #undef REPRO_D32
 #undef REPRO_ACC64
@@ -246,6 +259,21 @@ inline EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// Makes the current device's primary context current in this host thread,
+// once a thread. cuTensorMapEncodeTiled is a driver call and needs one, and
+// a thread has one only after its first runtime call: on a thread whose
+// first CUDA work is an attention launch (autograd's device thread, when
+// the attention backward is a backward's first op) the encode failed.
+inline cudaError_t bind_context() {
+  static thread_local bool bound = false;
+  if (bound) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  bound = err == cudaSuccess;
+  return err;
 }
 
 // A (B, S, heads, D) bf16 tensor as 64-column x box_rows-row boxes with the

@@ -9,8 +9,8 @@
 // q is (B, Sq, H, D); k and v are (B, Sk, KV, D), not repeated: head h
 // reads KV head h / (H / KV), the mapping of the JAX package's _repeat_kv
 // (each KV head repeated H / KV times in a row). Inputs are fp32 or bf16;
-// D is 120, 128 or 256. The softmax weights p keep fp32 accuracy for p @ v in
-// both kernels below, as in the TPU kernel (the JAX model's own
+// D is 64, 120, 128 or 256. The softmax weights p keep fp32 accuracy for
+// p @ v in both kernels below, as in the TPU kernel (the JAX model's own
 // flash_attention rounds them to q's type first).
 //
 // Replaces the Pallas TPU kernel swa_attention_pallas
@@ -65,8 +65,20 @@
 // - within a q tile the blocks run the heads that share a KV head side by
 //   side (their k and v meet in the L2).
 // The mbarrier, TMA and wgmma helpers are hopper_common.cuh's, shared with
-// the backward. D = 64 would be kBoxes = 1 (64-column boxes per row) and an
-// n64 p v wgmma.
+// the backward.
+// D = 64 (whisper-small; Geometry<64>): kBoxes = 1, one 64-column box a row,
+// 128-key tiles; s = q k^T is 4 m64n128k16, o one m64n64 accumulator (32
+// registers) that takes p_hi v and p_lo v as m64n64k16 (16 a tile). The q
+// tile and each k and v tile are 16 KB (81 KB with the 2-stage ring). Two
+// blocks an SM would need <= 85 registers a thread, and s, p_hi, p_lo and o
+// alone take 160; a 4-stage ring measured no faster (346.5 vs 349.0 us at
+// the encoder's shape, NVIDIA H100 80GB HBM3 at 700 W): the consumers'
+// per-tile chain, not the loads, holds it. A tile
+// does half the tensor-core work of D = 128 per exponential, so the SFU's
+// exponentials weigh twice as much: at the encoder's (8, 1500, 12 / 12)
+// they take ~55 us against ~84 us of tensor-core FLOP. A decode step's
+// cross-attention (Sq = 1 against Sk = 1500) computes a whole 128-row q
+// tile for its one row; its bound is the bytes of K and V.
 // D = 256 (gemma-7b, recurrentgemma-9b; Geometry<256>): kBoxes = 4 and
 // 64-key tiles, so the 64 KB q tile and two stages of 32 KB k and v tiles
 // fit (193 KB); s = q k^T is 16 m64n64k16, o two m64n128 halves (128
@@ -79,15 +91,15 @@
 // 256 threads per (b, h, 64-row q tile). The q tile and each 64-row k and v
 // tile are staged in shared memory (row stride D + 4 floats: float4 reads
 // of 8 neighbouring rows fall in distinct banks), 112-119 KB of dynamic
-// shared memory (212 KB at D = 256), so one block per SM. Thread (ty, tx)
+// shared memory (212 KB at D = 256, 68 KB at D = 64). Thread (ty, tx)
 // of a 16 x 16 grid owns query rows 4ty..4ty+3: it computes their scores
 // against keys tx + 16c (c < 4) with fp32 FMAs, the row max and sum go
 // across the 16 threads of the row by warp shuffles, p goes through shared
 // memory, and the thread accumulates columns 64cg + 4tx..64cg + 4tx + 3 of
-// its rows' outputs, one group of 4 per 64 columns of D (32 registers up
-// to D = 128, 64 at D = 256). Bound: 4*D FLOP per pair at 67 TFLOP/s fp32;
-// every product is a shared-memory operand, so the shared-memory loads, not the
-// FMAs, limit its inner loops.
+// its rows' outputs, one group of 4 per 64 columns of D (16 registers at
+// D = 64, 32 at D = 120 / 128, 64 at D = 256). Bound: 4*D FLOP per pair at
+// 67 TFLOP/s fp32; every product is a shared-memory operand, so the
+// shared-memory loads, not the FMAs, limit its inner loops.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -320,9 +332,10 @@ constexpr int kConsumers = 256;          // two warpgroups of 64 query rows
 constexpr int kHThreads = kConsumers + 128;  // + the producer warpgroup
 
 // The tile geometry of head size D. D is padded to kBoxes 64-column TMA
-// boxes (128 bytes a row). Up to D = 128: 128-key tiles, o one m64n128
-// accumulator (64 registers) beside s (64) and p_hi / p_lo (32 each), 161 KB
-// of shared memory, registers 128 x 56 + 256 x 224 after setmaxnreg.
+// boxes (128 bytes a row). D = 120 / 128: 128-key tiles, o one m64n128
+// accumulator (64 registers) beside s (64) and p_hi / p_lo (32 each), 161
+// KB of shared memory, registers 128 x 56 + 256 x 224 after setmaxnreg.
+// D = 64: o one m64n64 accumulator (32 registers), 16 KB tiles, 81 KB.
 // D = 256: a 128-row q tile is 64 KB, so the kv tiles hold 64 keys (32 KB:
 // q and two stages of k and v take 193 KB); o is two m64n128 halves (128
 // registers) beside s (32) and p_hi / p_lo (16 each), the same 192 as at
@@ -332,7 +345,9 @@ template <int D>
 struct Geometry {
   static constexpr int kBoxes = (D + 63) / 64;
   static constexpr int kKeys = kBoxes > 2 ? 64 : 128;   // keys per kv tile
-  static constexpr int kHalves = (kBoxes + 1) / 2;       // n128 halves of o
+  static constexpr int kHalves = (kBoxes + 1) / 2;       // halves of o
+  static constexpr int kN = kBoxes == 1 ? 64 : 128;     // columns of a half
+  static constexpr int kO = kN / 2;          // o registers of a half
   static constexpr int kS = kKeys / 2;       // score registers a thread
   static constexpr int kP = kKeys / 4;       // p_hi (and p_lo) registers
   static constexpr int kQTile = kBoxes * kRows * 128;    // bytes
@@ -360,9 +375,10 @@ __device__ __forceinline__ void issue_qk(float (&s)[kKeys / 2],
 }
 
 // acc += p_hi v + p_lo v: K = kKeys keys in 16-row steps of v (MN-major);
-// half hf of o takes v's columns 128hf.. (boxes 2hf and 2hf + 1).
-template <int kHalves, int kKeys>
-__device__ __forceinline__ void issue_pv(float (&acc)[kHalves][64],
+// half hf of o takes v's columns 128hf.. (boxes 2hf and 2hf + 1), each an
+// n128 product, or at D = 64 (kO = 32) the one box as an n64 product.
+template <int kHalves, int kO, int kKeys>
+__device__ __forceinline__ void issue_pv(float (&acc)[kHalves][kO],
                                          const uint32_t (&p_hi)[kKeys / 4],
                                          const uint32_t (&p_lo)[kKeys / 4],
                                          uint32_t v_addr) {
@@ -372,15 +388,20 @@ __device__ __forceinline__ void issue_pv(float (&acc)[kHalves][64],
     for (int hf = 0; hf < kHalves; ++hf) {
       const uint64_t dv = mnmajor_desc(v_addr + hf * 2 * kKeys * 128, kKeys,
                                        kk);
-      wgmma_rs_n128(acc[hf], p_hi + 4 * kk, dv);
-      wgmma_rs_n128(acc[hf], p_lo + 4 * kk, dv);
+      if constexpr (kO == 64) {
+        wgmma_rs_n128(acc[hf], p_hi + 4 * kk, dv);
+        wgmma_rs_n128(acc[hf], p_lo + 4 * kk, dv);
+      } else {
+        wgmma_rs_n64(acc[hf], p_hi + 4 * kk, dv);
+        wgmma_rs_n64(acc[hf], p_lo + 4 * kk, dv);
+      }
     }
   }
   wgmma_commit();
 }
 
-template <int kHalves>
-__device__ __forceinline__ void fence_acc(float (&acc)[kHalves][64]) {
+template <int kHalves, int kO>
+__device__ __forceinline__ void fence_acc(float (&acc)[kHalves][kO]) {
 #pragma unroll
   for (int hf = 0; hf < kHalves; ++hf) fence_regs(acc[hf]);
 }
@@ -446,11 +467,11 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kKeys / 2], Rows& st,
 
 // o rows r_a and r_a + 8 of (b, h), where below Sq: the accumulator over
 // the row sums (the four threads of a row add their parts first), bf16.
-// Half hf's element 4j + .. is column 128hf + 8j + col0 + ...
-template <int D, int kHalves>
+// Half hf's element 4j + .. is column 2 kO hf + 8j + col0 + ...
+template <int D, int kHalves, int kO>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ o,
                                           float* __restrict__ lse,
-                                          const float (&acc)[kHalves][64],
+                                          const float (&acc)[kHalves][kO],
                                           const Rows& st, int b, int h,
                                           int r_a, int col0, int Sq, int H) {
   float l_a = st.l_a, l_b = st.l_b;
@@ -477,8 +498,8 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ o,
 #pragma unroll
   for (int hf = 0; hf < kHalves; ++hf) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = 128 * hf + 8 * j;
+    for (int j = 0; j < kO / 4; ++j) {
+      const int c = 2 * kO * hf + 8 * j;
       if (c + col0 >= D) continue;
       const float* a = acc[hf] + 4 * j;
       if (r_a < Sq)
@@ -597,13 +618,13 @@ swa_attention_hopper_kernel(__grid_constant__ const CUtensorMap tq,
     const uint32_t q_addr = smem_u32(q_s) + wg * 64 * 128;
     const uint32_t k_addr = smem_u32(k_s), v_addr = smem_u32(v_s);
     const int r_wg = w.q0 + 64 * wg, r_a = w.q0 + row0;
-    float acc[G::kHalves][64], s[G::kS];
+    float acc[G::kHalves][G::kO], s[G::kS];
     uint32_t p_hi[G::kP], p_lo[G::kP];
     float al_a, al_b;
 #pragma unroll
     for (int hf = 0; hf < G::kHalves; ++hf)
 #pragma unroll
-      for (int e = 0; e < 64; ++e) acc[hf][e] = 0.0f;
+      for (int e = 0; e < G::kO; ++e) acc[hf][e] = 0.0f;
 #pragma unroll
     for (int e = 0; e < G::kS; ++e) s[e] = 0.0f;
 
@@ -627,8 +648,8 @@ swa_attention_hopper_kernel(__grid_constant__ const CUtensorMap tq,
       fence_regs(p_lo);
       wgmma_fence();
       issue_qk<G::kBoxes, kKeys>(s, q_addr, k_addr + sn * G::kKvTile);  // i
-      issue_pv<G::kHalves, kKeys>(acc, p_hi, p_lo,
-                                  v_addr + sp * G::kKvTile);          // i - 1
+      issue_pv<G::kHalves, G::kO, kKeys>(acc, p_hi, p_lo,
+                                         v_addr + sp * G::kKvTile);   // i - 1
       wgmma_wait<1>();
       fence_regs(s);
       release(&free_k[sn], lane);
@@ -640,7 +661,7 @@ swa_attention_hopper_kernel(__grid_constant__ const CUtensorMap tq,
 #pragma unroll
       for (int hf = 0; hf < G::kHalves; ++hf)
 #pragma unroll
-        for (int e = 0; e < 64; ++e) acc[hf][e] *= (e & 2) ? al_b : al_a;
+        for (int e = 0; e < G::kO; ++e) acc[hf][e] *= (e & 2) ? al_b : al_a;
       split_bf16(s, p_hi, p_lo);
     }
     // The last tile's p v.
@@ -650,10 +671,12 @@ swa_attention_hopper_kernel(__grid_constant__ const CUtensorMap tq,
     fence_regs(p_hi);
     fence_regs(p_lo);
     wgmma_fence();
-    issue_pv<G::kHalves, kKeys>(acc, p_hi, p_lo, v_addr + sl * G::kKvTile);
+    issue_pv<G::kHalves, G::kO, kKeys>(acc, p_hi, p_lo,
+                                       v_addr + sl * G::kKvTile);
     wgmma_wait<0>();
     fence_acc(acc);
-    store_rows<D, G::kHalves>(o, lse, acc, st, w.b, w.h, r_a, col0, Sq, H);
+    store_rows<D, G::kHalves, G::kO>(o, lse, acc, st, w.b, w.h, r_a, col0, Sq,
+                                     H);
   }
 }
 
@@ -664,6 +687,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   using G = Geometry<D>;
   const int64_t n_units = (int64_t)((Sq + kRows - 1) / kRows) * B * H;
   if (n_units > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return (int)bound;
   const EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
@@ -702,8 +727,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // Attention over contiguous q (B, Sq, H, D) and k, v (B, Sk, KV, D), all of
 // one dtype (0 = fp32, 1 = bf16), into o (B, Sq, H, D) of that dtype and,
 // unless lse is null, each row's fp32 log-sum-exp into lse (B, H, Sq).
-// window <= 0 means no window; causal is 0 or 1; D is 120, 128 or 256; H a
-// multiple of KV; the pointers 16-byte aligned. Returns 0 or a cudaError_t.
+// window <= 0 means no window; causal is 0 or 1; D is 64, 120, 128 or 256;
+// H a multiple of KV; the pointers 16-byte aligned. Returns 0 or a
+// cudaError_t.
 extern "C" int repro_swa_attention(const void* q, const void* k, const void* v,
                                    void* o, void* lse_out, int64_t B, int64_t Sq, int64_t Sk,
                                    int64_t H, int64_t KV, int64_t D,
@@ -718,6 +744,9 @@ extern "C" int repro_swa_attention(const void* q, const void* k, const void* v,
   const int b = (int)B, sq = (int)Sq, sk = (int)Sk, h = (int)H, kv = (int)KV;
   float* lse = static_cast<float*>(lse_out);
   switch (D) {
+    case 64:
+      return launch<64>(q, k, v, o, lse, b, sq, sk, h, kv, w, causal, scale,
+                        dtype, s);
     case 120:
       return launch<120>(q, k, v, o, lse, b, sq, sk, h, kv, w, causal, scale,
                          dtype, s);

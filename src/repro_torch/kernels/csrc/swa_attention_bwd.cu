@@ -965,6 +965,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
   const int64_t n_q = (Sq + kQRows - 1) / kQRows, n_k = (Sk + kT - 1) / kT;
   if (n_q * B * H > 0x7fffffff || n_k * B * KV > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
+  const cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return (int)bound;
   const EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv, tdo;
@@ -1355,6 +1357,8 @@ int launch_bf16_d256(const void* q, const void* k, const void* v,
   const int64_t n_q = (Sq + kT - 1) / kT, n_k = (Sk + kT - 1) / kT;
   if (n_q * B * H > 0x7fffffff || n_k * B * KV > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
+  const cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return (int)bound;
   const EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv, tdo;

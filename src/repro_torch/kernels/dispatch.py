@@ -792,10 +792,11 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (head h reads KV head ``h // (H // KV)``); positions of q and k both
     start at 0. CPU tensors run the plain version (any float dtype and head
     size); CUDA tensors launch the kernel, which takes fp32 or bf16 and head
-    sizes 120, 128 and 256 and raises on anything else. Where autograd
+    sizes 64, 120, 128 and 256 and raises on anything else. Where autograd
     records (grad mode on and an input that requires grad) the call goes
     through :class:`SwaAttention`, whose forward also writes the
-    log-sum-exp; otherwise (serving) it does not.
+    log-sum-exp; otherwise (serving) it does not. The backward takes head
+    sizes 120, 128 and 256: at D = 64 it raises before any launch.
     """
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

@@ -41,7 +41,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decay_accum import check_buffer, raise_on, stream_of
 
-HEAD_DIMS = (120, 128, 256)   # the head sizes the kernels take
+HEAD_DIMS = (64, 120, 128, 256)   # the head sizes the kernels take
 NEG_INF = -1e30
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

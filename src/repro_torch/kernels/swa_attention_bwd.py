@@ -28,7 +28,10 @@ the ``H / KV`` query heads of a group is the gradient of JAX's
   streams through a shared-memory ring; ``p`` and ``ds`` enter the products
   as bf16 hi + lo), fp32 on the CUDA cores. One call is two launches on the
   current stream and counts one in :data:`launches`. Head sizes
-  :data:`HEAD_DIMS` (120, 128 and 256, the forward's).
+  :data:`BWD_HEAD_DIMS`: 120, 128 and 256. The forward also takes D = 64
+  (whisper-small serving); the D = 64 backward comes with the slice that
+  trains the encoder-decoder, and until then a D = 64 call raises before
+  any launch.
 * :func:`swa_attention_bwd_plain` is the same function in plain PyTorch,
   scores materialised in fp32 (float64 for float64 inputs) per KV group, as
   ``swa_attention_plain`` does. The CPU path runs it; on the card it is
@@ -46,14 +49,15 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decay_accum import check_buffer, raise_on, stream_of
-# The head sizes the backward kernels take are the forward's (D = 256:
-# gemma-7b and recurrentgemma-9b training).
 from repro_torch.kernels.swa_attention import (
     DTYPE_CODE,
-    HEAD_DIMS,
     check_shapes,
     swa_mask,
 )
+
+# The head sizes the backward kernels take: a subset of the forward's
+# (D = 256: gemma-7b and recurrentgemma-9b training), without 64.
+BWD_HEAD_DIMS = (120, 128, 256)
 
 launches = 0               # calls of swa_attention_bwd_cuda (two kernels each)
 
@@ -61,9 +65,11 @@ launches = 0               # calls of swa_attention_bwd_cuda (two kernels each)
 def check_head_dim(fn: str, d: int) -> None:
     """Raise ``ValueError`` for a head size the backward kernels do not
     take."""
-    if d not in HEAD_DIMS:
+    if d not in BWD_HEAD_DIMS:
+        later = (" (the D = 64 backward comes with the slice that trains the "
+                 "encoder-decoder, whisper-small)" if d == 64 else "")
         raise ValueError(f"{fn}: the backward kernels take head sizes "
-                         f"{HEAD_DIMS}, got {d}")
+                         f"{BWD_HEAD_DIMS}, got {d}{later}")
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -128,11 +134,12 @@ def swa_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``q``, ``o``, ``do`` are contiguous ``(B, Sq, H, D)`` CUDA tensors,
     ``k`` and ``v`` contiguous ``(B, Sk, KV, D)``, all fp32 or all bf16 on
-    one device, D in :data:`HEAD_DIMS`; ``lse`` is the forward's contiguous
-    fp32 ``(B, H, Sq)``; every pointer 16-byte aligned. The outputs and the
-    fp32 scratch (``delta``, and for bf16 also ``lse * log2 e``, each padded
-    to whole 128-row tiles) are allocated here. A head size outside
-    :data:`HEAD_DIMS` is refused first, before any other check or launch.
+    one device, D in :data:`BWD_HEAD_DIMS`; ``lse`` is the forward's
+    contiguous fp32 ``(B, H, Sq)``; every pointer 16-byte aligned. The
+    outputs and the fp32 scratch (``delta``, and for bf16 also ``lse * log2
+    e``, each padded to whole 128-row tiles) are allocated here. A head size
+    outside :data:`BWD_HEAD_DIMS` (D = 64 among them) is refused first,
+    before any other check or launch.
     """
     global launches
     fn = "swa_attention_bwd_cuda"

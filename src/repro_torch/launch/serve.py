@@ -1,11 +1,17 @@
 """Serving steps: prefill (context ingest) and serve_step (one-token decode),
-as ``repro.launch.serve`` builds them. There is no mesh: the steps run on
-the device the parameters lie on, and record nothing for autograd, whether
-or not the parameters require grad."""
+as ``repro.launch.serve`` builds them, for decoder LMs and, through
+``models/encdec.py``, the encoder-decoder (whisper-small). There is no mesh:
+the steps run on the device the parameters lie on, and record nothing for
+autograd, whether or not the parameters require grad."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models.encdec import (
+    encdec_decode_step,
+    encdec_forward,
+    encdec_logits,
+)
 from repro_torch.models.transformer import (
     check_supported,
     decode_step,
@@ -20,11 +26,19 @@ def make_prefill_step(cfg):
     ``batch["tokens"]`` (B, S) through the sequence path from an initial
     state, the KV caches sized for S positions, as the JAX step sizes them.
     Only the last position is unembedded (the JAX step slices it from the
-    full logits; the values are the same row of the same product)."""
+    full logits; the values are the same row of the same product). An
+    encoder-decoder model also reads ``batch["frames"]`` (B, F, d), and its
+    states are ``encdec_forward``'s prefill states (self-attention caches
+    and cross K/V)."""
     check_supported(cfg)
 
     @torch.no_grad()
     def prefill_step(params, batch):
+        if cfg.is_encoder_decoder:
+            x, states = encdec_forward(cfg, params, batch["tokens"],
+                                       batch["frames"], mode="prefill",
+                                       unembed_out=False)
+            return encdec_logits(params, x[:, -1:]), states
         if batch.get("patch_embeds") is not None:
             raise NotImplementedError("a VLM embedding prefix comes with a "
                                       "later slice (internvl2-26b)")
@@ -41,11 +55,13 @@ def make_prefill_step(cfg):
 
 def make_serve_step(cfg):
     """``serve_step(params, token, states, pos) -> (logits (B, 1, V),
-    states)``: one decode step; ``states`` are updated in place."""
+    states)``: one decode step; ``states`` are updated in place (an
+    encoder-decoder model's are ``init_encdec_decode_state``'s layout)."""
     check_supported(cfg)
+    step = encdec_decode_step if cfg.is_encoder_decoder else decode_step
 
     @torch.no_grad()
     def serve_step(params, token, states, pos):
-        return decode_step(cfg, params, token, states, pos)
+        return step(cfg, params, token, states, pos)
 
     return serve_step

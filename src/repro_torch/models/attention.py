@@ -21,8 +21,12 @@ position -1.
 In place: :func:`build_cache` with ``out=`` and :func:`write_cache` write
 into the cache tensors they are given (views of the model's stacked decode
 state), and :func:`attention_decode` writes the new token's K/V there.
-Cross-attention (``cross_kv``, ``cross_attention``) comes with the
-whisper-small slice.
+
+Cross-attention (whisper-small's decoder): :func:`cross_kv` projects the
+encoder output to K/V once, :func:`cross_attention` attends the decoder's
+queries over all of it, no mask (the JAX package's all-zero positions),
+through the same dispatched kernel with ``causal=False`` and Sq != Sk, in
+prefill and at every decode step.
 """
 from __future__ import annotations
 
@@ -38,7 +42,9 @@ ATTN_IMPLS = ("flash", "chunked", "einsum")
 CACHE_UPDATES = ("scatter", "onehot")
 
 
-def init_attention(gen, cfg) -> dict:
+def init_attention(gen, cfg, *, cross: bool = False) -> dict:
+    """Q/K/V/O projections (and QKV biases where ``cfg.qkv_bias``). A
+    cross-attention block (``cross``) has the same keys and shapes."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     std = 0.02
     p = {
@@ -223,3 +229,34 @@ def attention_decode(p, x, cache: dict, cfg, *, kind: str, pos):
     wgt = torch.softmax(scores + bias[:, None, None, :], dim=-1).to(x.dtype)
     o = torch.einsum("bngt,btnh->bngh", wgt, cache["v"]).reshape(b, 1, h * hd)
     return o @ p["wo"], cache
+
+
+# ----------------------------------------------------------------------------
+# Cross-attention (whisper decoder); K/V precomputed from the encoder output
+# ----------------------------------------------------------------------------
+
+def cross_kv(p, enc_out, cfg):
+    """enc_out: (B, T, d) -> K, V (B, T, KV, hd), each with its bias."""
+    b, t, _ = enc_out.shape
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    k = enc_out @ p["wk"]
+    v = enc_out @ p["wv"]
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return k.reshape(b, t, kv, hd), v.reshape(b, t, kv, hd)
+
+
+def cross_attention(p, x, k, v, cfg, *, swa_impl: Optional[Callable] = None):
+    """x: (B, S, d) queries; k, v: (B, T, KV, hd) from :func:`cross_kv`.
+    Every query sees every key: the dispatched attention (or ``swa_impl``)
+    with no window and ``causal=False``. The JAX package picks ``attn_einsum``
+    or ``attn_chunked`` by S * T; both compute this function."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    q = q.reshape(b, s, h, hd)
+    fn = swa_impl or dispatch.swa_attention
+    o = fn(q, k, v, window=None, causal=False)
+    return o.reshape(b, s, h * hd) @ p["wo"]

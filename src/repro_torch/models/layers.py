@@ -4,11 +4,14 @@ Parameters are nested dicts of tensors in the JAX package's layout
 (weights ``(in, out)``), made by :func:`mk` from a seeded
 ``torch.Generator`` on the target device. The JAX package's logical sharding
 axes have no counterpart here. Only the parts the ported models read are
-here: norms, (un)embedding, rotary positions and the dense MLP; sinusoidal
-positions come with the slice of the model that uses them (whisper-small).
+here: norms, (un)embedding, rotary and sinusoidal positions (the latter
+for whisper-small's two stacks) and the dense MLP.
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -101,6 +104,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Sinusoidal positions
+# ----------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _sinusoid_denominators(d: int, device: torch.device) -> torch.Tensor:
+    """``10000 ** (2 i / d)`` for i < d / 2 on ``device`` (made once per
+    width and device), each the C library's fp32 ``powf`` of the fp32
+    exponent: the function XLA's CPU backend calls for the JAX package's
+    ``jnp.power``, so both tables divide by the same fp32 numbers.
+    (``torch.pow`` differs from it in the last bit at 4 of the 384 at
+    d = 768, which moves ``sin(447 / den)`` by up to 1.5e-5.)"""
+    powf = ctypes.CDLL(ctypes.util.find_library("m")).powf
+    powf.restype = ctypes.c_float
+    powf.argtypes = (ctypes.c_float, ctypes.c_float)
+    exps = 2.0 * torch.arange(d // 2, dtype=torch.float32) / d
+    return torch.tensor([powf(10000.0, float(e)) for e in exps],
+                        dtype=torch.float32, device=device)
+
+
+def sinusoidal_for_positions(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """``(..., d)`` fp32 embeddings of the integer positions ``pos``:
+    ``[sin(pos / den), cos(pos / den)]`` with ``den = 10000 ** (2 i / d)``,
+    i < d / 2, in fp32 on ``pos``'s device, as the JAX package computes them
+    (``layers.py:126-131``)."""
+    den = _sinusoid_denominators(d, pos.device)
+    angle = pos.to(torch.float32)[..., None] / den
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+def sinusoidal_positions(n_pos: int, d: int, device=None) -> torch.Tensor:
+    """``(n_pos, d)``: :func:`sinusoidal_for_positions` of 0..n_pos - 1."""
+    return sinusoidal_for_positions(torch.arange(n_pos, device=device), d)
 
 
 # ----------------------------------------------------------------------------

@@ -14,8 +14,13 @@ kept to read the JAX tree (:func:`params_from_jax`). Block kinds:
   recurrent block (models/rglru.py) -> +``, ``ln2 -> dense MLP -> +``.
 
 Layer patterns may mix kinds (``recurrentgemma-9b``: ``(rglru, rglru,
-local)``). MoE, modality frontends and encoder-decoder models raise
-``NotImplementedError`` naming the slice that brings them.
+local)``). MoE and the vision frontend raise ``NotImplementedError`` naming
+the slice that brings them. Encoder-decoder models (slice 18,
+``whisper-small``) run through ``models/encdec.py``: :func:`init_params`,
+:func:`params_from_jax`, :func:`param_shapes` and :func:`count_params`
+take their tree (``build_encdec_leaf_tree``), and the decoder-only
+:func:`forward`, :func:`decode_step` and :func:`init_decode_state` refuse
+them.
 
 Modes: ``train`` and ``prefill`` run a whole sequence from an initial state
 (both return the final states; attention layers keep a cache only where a
@@ -109,19 +114,27 @@ def layer_plan(cfg) -> LayerPlan:
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            "encoder-decoder models (whisper-small) come with a later slice")
-    if cfg.frontend is not None:
+    """Raise ``NotImplementedError`` for what the port does not run yet: MoE
+    and the vision frontend. (The audio frontend is whisper-small's stub:
+    its frame embeddings are the encoder's input.)"""
+    if cfg.frontend not in (None, "audio"):
         raise NotImplementedError(
             f"the {cfg.frontend} frontend comes with a later slice")
     if cfg.family == "moe":
         raise NotImplementedError("MoE comes with a later slice (kimi-k2, "
                                   "arctic; models/moe.py)")
-    if cfg.pos_emb == "sinusoidal":
-        raise NotImplementedError("sinusoidal positions come with a later "
-                                  "slice (whisper-small)")
+
+
+def check_decoder_only(cfg, fn: str) -> None:
+    """Raise ``NotImplementedError`` where a decoder-only entry point is
+    given an encoder-decoder model, naming where that model runs."""
+    check_supported(cfg)
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{fn}: {cfg.name} is an encoder-decoder model; it runs through "
+            f"repro_torch.models.encdec (encdec_forward, encdec_decode_step) "
+            f"and the serve steps, and has no ServingLoop (nor has the JAX "
+            f"package)")
 
 
 def padded_vocab(cfg) -> int:
@@ -152,8 +165,12 @@ def _init_block(gen, cfg, kind: str) -> dict:
 def _build_tree(cfg, gen, cast: Callable = lambda t: t) -> dict:
     """The parameter tree drawn from ``gen`` leaf by leaf in a fixed order;
     each top-level entry and each block goes through ``cast`` as soon as it
-    is drawn."""
+    is drawn. An encoder-decoder model's is ``build_encdec_leaf_tree``'s, as
+    the JAX package's ``_build_leaf_tree`` routes it."""
     check_supported(cfg)
+    if cfg.is_encoder_decoder:
+        from repro_torch.models.encdec import build_encdec_leaf_tree
+        return build_encdec_leaf_tree(cfg, gen, cast=cast)
     d, vp = cfg.d_model, padded_vocab(cfg)
     part = lambda t: tree_map(cast, t)
     p: dict = {"embed": part(init_embedding(gen, vp, d)),
@@ -221,21 +238,11 @@ def _as_tensor(a, dtype, device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def params_from_jax(cfg, tree, device="cuda") -> dict:
-    """The port's parameters from the JAX package's ``init_params`` tree as
-    numpy arrays, or from a JAX-saved checkpoint of it
-    (``repro_torch.checkpoint.restore``).
-
-    ``cycles`` is unstacked: it holds one entry per ``layer_pattern``
-    element whose leaves carry a leading ``n_cycles`` axis; cycle c's entry
-    j is layer ``len(head) + c * len(pattern) + j``. Floating leaves are
-    cast to ``cfg.param_dtype`` (bfloat16 arrays are carried bit for bit).
-    Every leaf's shape is checked against the port's tree.
-    """
-    dev = resolve_device(device)
-    dtype = torch_dtype(cfg.param_dtype)
+def _unstack_jax_blocks(cfg, tree, want) -> dict:
+    """A decoder-only JAX tree with the top-level entries of ``want`` and
+    its layers as ``blocks``, one dict per layer (``head_blocks``, the
+    unstacked ``cycles``, ``tail_blocks``)."""
     plan = layer_plan(cfg)
-    want = param_shapes(cfg)
     blocks: List[Optional[dict]] = [None] * cfg.n_layers
     for i, li in enumerate(plan.head):
         blocks[li] = tree["head_blocks"][i]
@@ -251,6 +258,27 @@ def params_from_jax(cfg, tree, device="cuda") -> dict:
         blocks[li] = tree["tail_blocks"][i]
     src = {k: tree.get(k) for k in want if k != "blocks"}
     src["blocks"] = blocks
+    return src
+
+
+def params_from_jax(cfg, tree, device="cuda") -> dict:
+    """The port's parameters from the JAX package's ``init_params`` tree as
+    numpy arrays, or from a JAX-saved checkpoint of it
+    (``repro_torch.checkpoint.restore``).
+
+    ``cycles`` is unstacked: it holds one entry per ``layer_pattern``
+    element whose leaves carry a leading ``n_cycles`` axis; cycle c's entry
+    j is layer ``len(head) + c * len(pattern) + j``. Floating leaves are
+    cast to ``cfg.param_dtype`` (bfloat16 arrays are carried bit for bit).
+    Every leaf's shape is checked against the port's tree. An
+    encoder-decoder tree keeps its layout (``enc_blocks`` and
+    ``dec_blocks`` stacked over layers, as in JAX).
+    """
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.param_dtype)
+    want = param_shapes(cfg)
+    src = (tree if cfg.is_encoder_decoder
+           else _unstack_jax_blocks(cfg, tree, want))
 
     def carry(w, a, path):
         if isinstance(w, dict):
@@ -319,7 +347,7 @@ def init_decode_state(cfg, batch: int, max_seq: int = 0, dtype=None,
     hold a cache of ``min(window, max_seq)`` slots (``max_seq`` for global
     attention), none in ``train`` mode; recurrent states ignore ``max_seq``
     and ``mode``."""
-    check_supported(cfg)
+    check_decoder_only(cfg, "init_decode_state")
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.compute_dtype) if dtype is None else dtype
     kinds = state_kinds(cfg)
@@ -489,7 +517,7 @@ def forward(cfg, params, tokens: torch.Tensor, *, embeds=None,
     the dispatched attention in every attention block (see
     ``attention.attention``). ``mode`` picks the default states only.
     """
-    check_supported(cfg)
+    check_decoder_only(cfg, "forward")
     if embeds is not None:
         raise NotImplementedError("a VLM embedding prefix comes with a later "
                                   "slice (internvl2-26b)")
@@ -538,7 +566,7 @@ def decode_step(cfg, params, token: torch.Tensor, states: dict,
     (read by the rotary embedding and the cache write; the WKV recurrence
     does not read them). One serve step: ``(logits (B, 1, V) fp32,
     states)``, ``states`` updated in place."""
-    check_supported(cfg)
+    check_decoder_only(cfg, "decode_step")
     if token.ndim != 2 or token.shape[1] != 1:
         raise ValueError(f"decode_step: token must be (B, 1), got "
                          f"{tuple(token.shape)}")

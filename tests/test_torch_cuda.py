@@ -10,7 +10,8 @@ serving engine on the card against the engine on the CPU, a short training
 run on the card against the same run (same draws) on the CPU, and the
 reduced RWKV6 and sliding-window attention language models on the card
 against the port on the CPU, and the attention backward kernel against its
-plain version and one full-width federated LM step.
+plain version and one full-width federated LM step; the reduced whisper
+encoder-decoder at head 64 on the card against the CPU.
 """
 import numpy as np
 import pytest
@@ -839,6 +840,17 @@ def _swa_one_bf16_p(q, k, v, window, causal):
     (1, 127, 255, 4, 2, 256, None, True),
     (1, 300, 129, 4, 4, 256, None, True),
     (1, 129, 300, 4, 1, 256, None, False),
+    # D = 64 (whisper-small): the encoder's bidirectional attention, the
+    # cross-attention of a decode step, of the 4- and 227-token prompts,
+    # causal self-attention, the 128-row tile edges, H / KV = 4
+    (8, 1500, 1500, 12, 12, 64, None, False),
+    (8, 1, 1500, 12, 12, 64, None, False),
+    (8, 4, 1500, 12, 12, 64, None, False),
+    (1, 227, 1500, 12, 12, 64, None, False),
+    (1, 227, 227, 12, 12, 64, None, True),
+    (1, 129, 255, 12, 12, 64, None, False),
+    (1, 255, 129, 12, 12, 64, None, True),
+    (3, 255, 255, 12, 3, 64, None, True),
 ])
 def test_swa_attention_kernel_matches_plain(card, b, sq, sk, h, kv, d, window,
                                             causal, dtype):
@@ -869,10 +881,11 @@ def test_swa_attention_kernel_matches_plain(card, b, sq, sk, h, kv, d, window,
 
 def test_swa_attention_kernel_refuses_what_it_does_not_take(card):
     q, k, v = _swa_case(1, 8, 8, 4, 2, 120, torch.float32, 0, card)
-    with pytest.raises(ValueError, match=r"head sizes \(120, 128, 256\)"):
-        sw.swa_attention_cuda(q[..., :64].contiguous(),
-                              k[..., :64].contiguous(),
-                              v[..., :64].contiguous())
+    with pytest.raises(ValueError,
+                       match=r"head sizes \(64, 120, 128, 256\)"):
+        sw.swa_attention_cuda(q[..., :32].contiguous(),
+                              k[..., :32].contiguous(),
+                              v[..., :32].contiguous())
     with pytest.raises(TypeError):
         sw.swa_attention_cuda(q.double(), k.double(), v.double())
     with pytest.raises(TypeError):
@@ -915,6 +928,105 @@ def test_d256_training_is_refused_before_any_launch(card):
     o2, lse = sw.swa_attention_cuda(q, k, v, with_lse=True)
     want = swb.swa_attention_bwd_cuda(q, k, v, o2, do, lse)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_attention_kernels_launch_from_a_new_host_thread(card, d):
+    """The bf16 forward and backward kernels as the first CUDA work of a new
+    host thread (as on autograd's device thread when the attention backward
+    is a backward's first op): the thread has no current context until
+    its first runtime call, which their tensor-map encode needs; the
+    launches bind it themselves and give the main thread's results."""
+    import threading
+    q, k, v = _swa_case(1, 100, 100, 4, 2, d, torch.bfloat16, 8, card)
+    do = torch.randn_like(q)
+    o, lse = sw.swa_attention_cuda(q, k, v, with_lse=True)
+    want = (o, *swb.swa_attention_bwd_cuda(q, k, v, o, do, lse)
+            ) if d != 64 else (o,)
+    got, errors = [], []
+
+    def first_cuda_work():
+        try:
+            o2, lse2 = sw.swa_attention_cuda(q, k, v, with_lse=True)
+            got.append(o2)
+            if d != 64:
+                got.extend(swb.swa_attention_bwd_cuda(q, k, v, o2, do, lse2))
+            torch.cuda.synchronize()
+        except Exception as e:         # reported by the assert below
+            errors.append(e)
+
+    t = threading.Thread(target=first_cuda_work)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and not errors, errors
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert len(got) == len(want)
+
+
+def test_d64_training_is_refused_before_any_launch(card):
+    """The forward takes D = 64 (whisper-small serving), the backward does
+    not yet: a training call launches the forward once, and its backward
+    raises at the head check before any launch."""
+    q, k, v = _swa_case(1, 64, 64, 4, 4, 64, torch.bfloat16, 7, card)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (sw.launches, swb.launches)
+    o = dispatch.swa_attention(*leaves, causal=False)
+    assert (sw.launches - before[0], swb.launches - before[1]) == (1, 0)
+    with pytest.raises((ValueError, RuntimeError), match="head sizes"):
+        torch.autograd.grad(o, leaves, torch.ones_like(o))
+    assert swb.launches == before[1]
+
+
+def _reduced_whisper(card):
+    """The reduced whisper (2 + 2 layers, d 128, 8 frames) at head size 64
+    (the kernel's), fp32: on the CPU and a copy on the card."""
+    import dataclasses
+    cfg = dataclasses.replace(TC.get_arch("whisper-small").reduced(),
+                              head_dim=64)
+    params = TM.init_params(cfg, seed=2, device="cpu")
+    return cfg, params, TM.transformer.tree_map(lambda t: t.to(card), params)
+
+
+def test_whisper_on_the_card_matches_the_cpu_port(card):
+    """The serve steps at head 64 on the card against the CPU (atol 1e-4):
+    a prefill of 12 tokens over 8 frames sized for 4 more, then four decode
+    steps; 3 launches a layer a prefill (encoder, decoder self, cross) and
+    one a layer a decode step (the cross-attention); the caches equal too."""
+    from repro_torch.launch import make_prefill_step, make_serve_step
+    cfg, cpu_p, gpu_p = _reduced_whisper(card)
+    rng = np.random.default_rng(8)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 16)))
+    frames = torch.as_tensor(
+        0.1 * rng.standard_normal((2, cfg.n_frontend_tokens, cfg.d_model)),
+        dtype=torch.float32)
+    before = sw.launches
+    lg_g, st_g = make_prefill_step(cfg)(gpu_p, {"tokens": toks[:, :12].to(
+        card), "frames": frames.to(card)})
+    assert sw.launches - before == 3 * cfg.n_layers
+    lg_c, _ = make_prefill_step(cfg)(cpu_p, {"tokens": toks[:, :12],
+                                             "frames": frames})
+    torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=0)
+    states = []
+    for p, dev in ((cpu_p, "cpu"), (gpu_p, card)):
+        _, st = TM.encdec_forward(cfg, p, toks[:, :12].to(dev),
+                                  frames.to(dev), mode="prefill",
+                                  cache_len=16)
+        state = TM.init_encdec_decode_state(cfg, 2, 16, frames.shape[1],
+                                            device=dev)
+        state.update(self=st["cache"], cross_k=st["cross"]["k"],
+                     cross_v=st["cross"]["v"])
+        states.append(state)
+    step = make_serve_step(cfg)
+    for i in range(4):
+        tok, pos = toks[:, 12 + i:13 + i], torch.full((2,), 12 + i)
+        lg_c, states[0] = step(cpu_p, tok, states[0], pos)
+        before = sw.launches
+        lg_g, states[1] = step(gpu_p, tok.to(card), states[1], pos.to(card))
+        assert sw.launches - before == cfg.n_layers
+        torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=0)
+    for a, b in zip(TM.transformer.tree_leaves(states[1]),
+                    TM.transformer.tree_leaves(states[0])):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
 
 
 def _reduced_head256(arch, card, scale=1.0):

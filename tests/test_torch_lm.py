@@ -366,6 +366,28 @@ def test_serving_loop_stops_at_max_seq(scaled):
 def test_other_models_raise_naming_their_slice(arch, match):
     fields = dataclasses.asdict(C.get_arch(arch).reduced())
     tcfg = TC.ModelConfig(**fields)
+    if arch == "whisper-small":
+        # served since slice 18 (models/encdec.py) through the serve steps;
+        # training it still raises, and so do the decoder-only entry points
+        assert tcfg.is_encoder_decoder
+        params = TM.init_params(tcfg, device="cpu")
+        toks = torch.zeros(2, 3, dtype=torch.long)
+        frames = torch.zeros(2, tcfg.n_frontend_tokens, tcfg.d_model)
+        lg, st = make_prefill_step(tcfg)(params, {"tokens": toks,
+                                                  "frames": frames})
+        state = TM.init_encdec_decode_state(tcfg, 2, 4, frames.shape[1],
+                                            device="cpu")
+        state.update(self=st["cache"], cross_k=st["cross"]["k"],
+                     cross_v=st["cross"]["v"])
+        lg2, _ = make_serve_step(tcfg)(params, lg.argmax(-1), state,
+                                       torch.full((2,), 3))
+        assert lg.shape == lg2.shape == (2, 1, TM.padded_vocab(tcfg))
+        assert bool(torch.isfinite(lg2).all())
+        with pytest.raises(NotImplementedError, match="encdec"):
+            TM.transformer.check_trainable(tcfg)
+        with pytest.raises(NotImplementedError, match=match):
+            TM.init_decode_state(tcfg, 1, device="cpu")
+        return
     if arch == "recurrentgemma-9b":
         # served since slice 15, trained since slice 16: its rglru blocks
         # differentiate (the name of the kind is in its layer pattern)

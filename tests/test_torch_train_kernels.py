@@ -162,7 +162,7 @@ def test_wkv6_bwd_scratch_is_sized_by_32_step_chunks(t, n):
 
 
 def test_backward_kernels_take_d256_and_raise_on_cpu_tensors():
-    assert swb.HEAD_DIMS == (120, 128, 256)
+    assert swb.BWD_HEAD_DIMS == (120, 128, 256)
     before = (swb.launches, wk.bwd_launches)
     q = torch.zeros(1, 4, 2, 256)
     k = torch.zeros(1, 4, 1, 256)
