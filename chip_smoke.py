@@ -5181,15 +5181,17 @@ def _lmt_reset(km, sw, swb) -> None:
     sw.launches = swb.launches = 0
 
 
-def bwd_inputs(b, s, h, kv, d, dtype, seed):
-    """q, k, v, do ~ N(0, 1) on the card (scores of unit scale)."""
+def bwd_inputs(b, s, h, kv, d, dtype, seed, sk=None):
+    """q, k, v, do ~ N(0, 1) on the card (scores of unit scale); k and v
+    hold ``sk`` rows (default s)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(dtype)
-    return rnd(b, s, h, d), rnd(b, s, kv, d), rnd(b, s, kv, d), \
+    sk = s if sk is None else sk
+    return rnd(b, s, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d), \
         rnd(b, s, h, d)
 
 
-def bwd_check(sw, swb, q, k, v, do, window, what) -> dict:
+def bwd_check(sw, swb, q, k, v, do, window, what, causal=True) -> dict:
     """The forward's lse and the backward kernel against their plain
     versions on the card; raises on a break of the rules.
 
@@ -5200,8 +5202,8 @@ def bwd_check(sw, swb, q, k, v, do, window, what) -> dict:
     values): each of dq, dk, dv within BWD_MAX_RATIO x the plain bf16
     version's largest error and BWD_MEAN_RATIO x its mean error, plus
     BWD_FLOOR * G (with W = 1, dq and dk are 0 up to rounding). A second
-    launch must give the same bits."""
-    kw = dict(window=window, causal=True)
+    launch must give the same bits. ``causal`` off: every key is seen."""
+    kw = dict(window=window, causal=causal)
     o, lse = sw.swa_attention_cuda(q, k, v, with_lse=True, **kw)
     _, plse = sw.swa_attention_plain(q, k, v, with_lse=True, **kw)
     lse_err = float(((lse - plse).abs() / plse.abs().clamp(min=1.0)).max())
@@ -5367,10 +5369,12 @@ def lm_train_path(km, sw, swb, TC, TM, launch, card) -> dict:
 
 
 def lmt_period_times(launch, cfg, fed, state, agents=LMT_AGENTS,
-                     batch=LMT_BATCH, seq=LMT_SEQ, offset=LMT_STEPS) -> dict:
+                     batch=LMT_BATCH, seq=LMT_SEQ, offset=LMT_STEPS,
+                     extra=None) -> dict:
     """One more period on ``state`` (tau local steps on the batches of steps
     ``offset`` on, then the sync), each step and the sync timed by the host
-    clock around work that ends in a synchronise."""
+    clock around work that ends in a synchronise. ``extra``: more entries
+    of every step's batch (an encoder-decoder model's frames)."""
     from repro_torch.data import SyntheticLM
     from repro_torch.optim import adamw
     local = launch.make_local_step(cfg, adamw(weight_decay=0.01), fed,
@@ -5384,7 +5388,7 @@ def lmt_period_times(launch, cfg, fed, state, agents=LMT_AGENTS,
             for a in range(agents)])).cuda()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        local(state, {"tokens": toks})
+        local(state, {"tokens": toks, **(extra or {})})
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     t0 = time.perf_counter()
@@ -5479,14 +5483,15 @@ def lmt_mid_vs_cpu(TC, launch) -> dict:
     return {"runs": rows, "cpu_seconds": cpu_s}
 
 
-def bwd_bound(b, s, h, kv, d, window) -> dict:
+def bwd_bound(b, s, h, kv, d, window, sk=None, causal=True) -> dict:
     """The least time of the backward on bf16 inputs: the larger of its
     bytes (q, o, do, k, v and the fp32 lse read once, dq, dk, dv written
     once) over the HBM rate and the FLOP of its five products (s, dp, dv,
     dq, dk: 2 * D each per unmasked pair) over the bf16 tensor cores'
-    peak."""
-    pairs = swa_pairs(b, s, s, h, window, True)
-    nbytes = 2 * d * (4 * b * s * h + 4 * b * s * kv) + 4 * b * h * s
+    peak. ``sk`` keys (default s), the mask ``causal`` or not."""
+    sk = s if sk is None else sk
+    pairs = swa_pairs(b, s, sk, h, window, causal)
+    nbytes = 2 * d * (4 * b * s * h + 4 * b * sk * kv) + 4 * b * h * s
     flops = 10 * d * pairs
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_o = flops / BF16_FLOP_PER_S * 1e3
@@ -5495,12 +5500,12 @@ def bwd_bound(b, s, h, kv, d, window) -> dict:
             "bytes": nbytes, "flops": flops, "pairs": pairs}
 
 
-def sdpa_bwd_fn(q, k, v, do, window):
+def sdpa_bwd_fn(q, k, v, do, window, causal=True):
     """The library yardstick: the autograd backward of one
     ``scaled_dot_product_attention`` call on K/V repeated to the query
     heads (``_sdpa_args``), timed alone (the forward runs once, here)."""
     import torch.nn.functional as F
-    qt, kt, vt, kw = _sdpa_args(q, k, v, window)
+    qt, kt, vt, kw = _sdpa_args(q, k, v, window, causal)
     leaves = [t.detach().contiguous().requires_grad_() for t in (qt, kt, vt)]
     o = F.scaled_dot_product_attention(*leaves, **kw)
     g = do.transpose(1, 2).contiguous()
@@ -6319,12 +6324,14 @@ HB_TIMES = (("gemma-7b", TR_BATCH, TR_SEQ, 16, None),
             ("recurrentgemma-9b", TR_BATCH, TR_SEQ, 1, 2048))
 
 
-def bwd_one_bf16_pds(q, k, v, o, do, lse, window) -> tuple:
+def bwd_one_bf16_pds(q, k, v, o, do, lse, window, causal=True) -> tuple:
     """The control of the bf16 backward's error rule (the arithmetic of
     ``tests/test_torch_swa.py::_bwd_kernel_numerics`` with ``split``
     False): fp32 s, dp, p, ds from the bf16 inputs, then dv = p^T do, dq =
     ds k and dk = ds^T q with p and ds rounded once to bf16 (exact products,
-    float64 sums), bf16 outputs. The rule must reject it."""
+    float64 sums), bf16 outputs. The rule must reject it. ``causal`` off:
+    every key of the window is seen (k may hold another number of rows than
+    q)."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -6334,7 +6341,11 @@ def bwd_one_bf16_pds(q, k, v, o, do, lse, window) -> tuple:
     dp = torch.einsum("bqhd,bkhd->bhqk", do.double(), vr).float()
     i = torch.arange(Sq, device=q.device)[:, None]
     j = torch.arange(Sk, device=q.device)[None, :]
-    ok = (j <= i) & ((j > i - window) if window else True)
+    ok = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= j <= i
+    if window:
+        ok &= j > i - window
     p = torch.where(ok, torch.exp(s * scale - lse[..., None]),
                     torch.zeros((), device=q.device))
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
@@ -6345,6 +6356,29 @@ def bwd_one_bf16_pds(q, k, v, o, do, lse, window) -> tuple:
     dk = fold(torch.einsum("bhqk,bqhd->bkhd", one(ds), q.double()))
     dv = fold(torch.einsum("bhqk,bqhd->bkhd", one(p), do.double()))
     return tuple(x.float().bfloat16() for x in (dq, dk, dv))
+
+
+def bwd_control(sw, swb, q, k, v, do, window, row, what,
+                causal=True) -> float:
+    """The one-bf16 p / ds control (``bwd_one_bf16_pds``) at a bf16 case
+    that ``bwd_check`` passed (``row``): for the worst of dq, dk, dv, its
+    mean error against float64 less BWD_FLOOR x G, over the plain
+    version's mean error. Raises unless that exceeds BWD_MEAN_RATIO, that
+    is unless the rule rejects the control."""
+    kw = dict(window=window, causal=causal)
+    o, lse = sw.swa_attention_cuda(q, k, v, with_lse=True, **kw)
+    ctl = bwd_one_bf16_pds(q, k, v, o, do, lse, window, causal)
+    x64 = [t.double() for t in (q, k, v, do)]
+    o64, lse64 = sw.swa_attention_plain(*x64[:3], with_lse=True, **kw)
+    want = swb.swa_attention_bwd_plain(*x64[:3], o64, x64[3], lse64, **kw)
+    ratio = max(
+        (float((c.double() - w).abs().mean()) - BWD_FLOOR * row["G"])
+        / max(row[g]["plain_mean_err"], 1e-30)
+        for g, c, w in zip(("dq", "dk", "dv"), ctl, want))
+    if not ratio > BWD_MEAN_RATIO:
+        raise AssertionError(f"{what}: the one-bf16 p / ds control keeps "
+                             f"the mean rule ({ratio!r})")
+    return ratio
 
 
 def hd_bwd_vs_plain(sw, swb) -> dict:
@@ -6370,22 +6404,7 @@ def hd_bwd_vs_plain(sw, swb) -> dict:
             row = bwd_check(sw, swb, q, k, v, do, window, what)
             row.update(b=b, sq=sq, window=window, kv=kv, dtype=name)
             if dtype == torch.bfloat16 and sq > 1:
-                o, lse = sw.swa_attention_cuda(q, k, v, window=window,
-                                               with_lse=True)
-                ctl = bwd_one_bf16_pds(q, k, v, o, do, lse, window)
-                x64 = [t.double() for t in (q, k, v, do)]
-                o64, lse64 = sw.swa_attention_plain(*x64[:3], window=window,
-                                                    with_lse=True)
-                want = swb.swa_attention_bwd_plain(*x64[:3], o64, x64[3],
-                                                   lse64, window=window)
-                ratio = max(
-                    (float((c.double() - w).abs().mean())
-                     - BWD_FLOOR * row["G"]) / max(row[g]["plain_mean_err"],
-                                                   1e-30)
-                    for g, c, w in zip(("dq", "dk", "dv"), ctl, want))
-                if not ratio > BWD_MEAN_RATIO:
-                    raise AssertionError(f"{what}: the one-bf16 p / ds control "
-                                         f"keeps the mean rule ({ratio!r})")
+                ratio = bwd_control(sw, swb, q, k, v, do, window, row, what)
                 row["control_mean_ratio"] = ratio
                 control_min = min(control_min, ratio)
             worst[name] = max(worst[name], row["err"])
@@ -6471,11 +6490,20 @@ def _train_expected(cfg, fed, n_agents, steps) -> dict:
     step and agent: one forward (two for the layers ``cfg.remat``
     recomputes) and one backward kernel per attention layer
     (``swa_attention`` / ``swa_attention_bwd``) and per ``wkv`` layer
-    (``wkv6`` / ``wkv6_bwd``); per step one ``adam_update``; one
+    (``wkv6`` / ``wkv6_bwd``); an encoder-decoder model's attentions are
+    its encoder layers' and two a decoder layer (self and cross), every
+    layer recomputed under ``cfg.remat``; per step one ``adam_update``; one
     ``row_mean`` a period (periodic)."""
     from repro_torch.models.transformer import remat_layers
-    rec = set(remat_layers(cfg)) if cfg.remat else set()
     out = {k: 0 for k in TR_KERNELS}
+    out["adam_update"] = steps
+    out["row_mean"] = steps // fed.tau
+    if cfg.is_encoder_decoder:
+        n = cfg.n_encoder_layers + 2 * cfg.n_layers
+        out["swa_attention"] = steps * n_agents * n * (2 if cfg.remat else 1)
+        out["swa_attention_bwd"] = steps * n_agents * n
+        return out
+    rec = set(remat_layers(cfg)) if cfg.remat else set()
     for i in range(cfg.n_layers):
         kind = cfg.block_kind(i)
         fwd, bwd = {"attn": ("swa_attention", "swa_attention_bwd"),
@@ -6485,8 +6513,6 @@ def _train_expected(cfg, fed, n_agents, steps) -> dict:
             continue
         out[fwd] += steps * n_agents * (2 if i in rec else 1)
         out[bwd] += steps * n_agents
-    out["adam_update"] = steps
-    out["row_mean"] = steps // fed.tau
     return out
 
 
@@ -6523,8 +6549,9 @@ class PlainWkv6(torch.autograd.Function):
         return wk.wkv6_bwd_plain(*saved, dy, ds)
 
 
-def tr_kernel_vs_plain(sw, TM, cfg, state, toks) -> dict:
-    """Agent 0's loss and gradient row on ``state`` with the kernels and
+def tr_kernel_vs_plain(sw, TM, cfg, state, batch) -> dict:
+    """Agent 0's loss and gradient row on ``state`` (its ``batch``: tokens,
+    and frames for an encoder-decoder model) with the kernels and
     with the plain attention (``swa_impl``, by autograd) and recurrence
     (``PlainWkv6``): losses within LMT_LONG_LOSS_REL, gradient rows within
     LMT_LONG_GRAD_REL in relative L2 (phase 18's rule; bf16). Both sides
@@ -6540,7 +6567,7 @@ def tr_kernel_vs_plain(sw, TM, cfg, state, toks) -> dict:
         state.grads[0].zero_()
         row = state.params[0].detach().requires_grad_()
         params = state.layout.model_params(row, state.grads, 0)
-        loss = TM.lm_loss(cfg, params, {"tokens": toks[0]}, **kw)
+        loss = TM.lm_loss(cfg, params, batch, **kw)
         loss.backward()
         out[name] = (float(loss), state.grads[0].float().clone())
         del loss, params, row
@@ -6581,16 +6608,17 @@ def _tr_split(prof) -> dict:
 
 
 def train_model_path(km, sw, swb, wk, TC, TM, launch, card, arch,
-                     layers) -> dict:
-    """Phase 20 (3): one model at its published width through
-    ``repro_torch.launch.train.train`` (A 2, B 2, S 1024, periodic tau 2,
-    2 steps: one period and its sync), the counts set to 0 before and read
-    after: launches exactly ``_train_expected``, losses finite, the agent
-    rows bitwise equal after the sync. Then on the returned state, one more
-    period through ``make_local_step`` / ``make_sync_step``, timed (tokens/s
-    of a local step, sync ms, the peak device memory of the period); one
-    profiled local step; and the kernel-vs-plain step (not counted; the
-    first ``TR_PLAIN_SEQ`` tokens of each row where that is set)."""
+                     layers, seq=TR_SEQ) -> dict:
+    """Phase 20 (3), phase 22 (2): one model at its published width through
+    ``repro_torch.launch.train.train`` (A 2, B 2, S ``seq``, periodic tau
+    2, 2 steps: one period and its sync), the counts set to 0 before and
+    read after: launches exactly ``_train_expected``, losses finite, the
+    agent rows bitwise equal after the sync. Then on the returned state, one
+    more period through ``make_local_step`` / ``make_sync_step``, timed
+    (tokens/s of a local step, frames/s for an encoder-decoder model, sync
+    ms, the peak device memory of the period); one profiled local step; and
+    the kernel-vs-plain step (not counted; the first ``TR_PLAIN_SEQ`` tokens
+    of each row where that is set)."""
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import _build
     from repro_torch.launch import train as T
@@ -6609,7 +6637,7 @@ def train_model_path(km, sw, swb, wk, TC, TM, launch, card, arch,
         parts[name], lap[0] = now - lap[0], now
 
     state, losses = T.train(cfg.name, reduced=False, steps=TR_TAU, fed=fed,
-                            n_agents=TR_AGENTS, batch=TR_BATCH, seq=TR_SEQ,
+                            n_agents=TR_AGENTS, batch=TR_BATCH, seq=seq,
                             log_every=TR_TAU + 1, seed=SEED, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -6620,16 +6648,20 @@ def train_model_path(km, sw, swb, wk, TC, TM, launch, card, arch,
         raise AssertionError(f"train {cfg.name}: agent rows differ after the "
                              f"sync, or are not finite")
     done("train")
+    extra = T.stub_frames(cfg, TR_AGENTS, TR_BATCH, "cuda")
     torch.cuda.reset_peak_memory_stats()
     timing = lmt_period_times(launch, cfg, fed, state, TR_AGENTS, TR_BATCH,
-                              TR_SEQ, TR_TAU)
+                              seq, TR_TAU, extra)
     peak = torch.cuda.max_memory_allocated()
+    if extra:
+        timing["frames_per_s"] = (TR_AGENTS * TR_BATCH * cfg.n_frontend_tokens
+                                  / timing["local_step_ms"] * 1e3)
     done("period")
     local = launch.make_local_step(cfg, adamw(weight_decay=0.01), fed,
                                    n_agents=TR_AGENTS)
     data = SyntheticLM(vocab_size=cfg.vocab_size, seed=SEED)
     toks = torch.from_numpy(np.stack([
-        data.batch(3 * TR_TAU, TR_BATCH, TR_SEQ + 1, agent=a)
+        data.batch(3 * TR_TAU, TR_BATCH, seq + 1, agent=a)
         for a in range(TR_AGENTS)])).cuda()
     torch.cuda.synchronize()
     # device activity only: the split reads kernels alone, and recording
@@ -6637,7 +6669,7 @@ def train_model_path(km, sw, swb, wk, TC, TM, launch, card, arch,
     # the largest part of its run
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        local(state, {"tokens": toks})
+        local(state, {"tokens": toks, **extra})
         torch.cuda.synchronize()
         step_us = (time.perf_counter() - t1) * 1e6
     split = _tr_split(prof)
@@ -6654,17 +6686,20 @@ def train_model_path(km, sw, swb, wk, TC, TM, launch, card, arch,
                              f"{want} (others {counts['others']})")
     if _build.n_builds != builds:
         raise AssertionError("a build on the training hot path")
-    plain_seq = TR_PLAIN_SEQ.get(arch, TR_SEQ)
-    parity = tr_kernel_vs_plain(sw, TM, cfg, state,
-                                toks[..., :plain_seq + 1])
+    plain_seq = TR_PLAIN_SEQ.get(arch, seq)
+    parity = tr_kernel_vs_plain(sw, TM, cfg, state, {
+        "tokens": toks[0, :, :plain_seq + 1],
+        **{k: v[0] for k, v in extra.items()}})
     parity["seq"] = plain_seq
     done("kernel_vs_plain")
     n_params = state.layout.n
+    frames = (f" = {timing['frames_per_s']!r} frames/s ({cfg.n_frontend_tokens}"
+              f" a row)" if extra else "")
     log(f"phase train: {cfg.name} ({n_params} parameters an agent, A "
-        f"{TR_AGENTS} x {TR_BATCH} x {TR_SEQ}): losses {losses}; train() "
+        f"{TR_AGENTS} x {TR_BATCH} x {seq}): losses {losses}; train() "
         f"{wall!r} s for {TR_TAU} steps (init included); local step "
         f"{timing['local_step_ms']!r} ms = {timing['tokens_per_s']!r} tokens/s"
-        f", sync {timing['sync_ms']!r} ms, peak device memory {peak} B; rows "
+        f"{frames}, sync {timing['sync_ms']!r} ms, peak device memory {peak} B; rows "
         f"equal after the sync; launches {got} (the formula's); profiled step "
         f"wall {split['wall_ms']!r} ms, busy {split['device_busy_ms']!r} ms, "
         f"idle {split['device_idle_share']!r}, device ms {split['device_ms']};"
@@ -6946,7 +6981,8 @@ WH_CASES = ((8, 1500, 1500, 12, 12, False), (8, 1, 1500, 12, 12, False),
             (1, 448, 448, 12, 12, True), (1, 129, 255, 12, 12, False),
             (1, 255, 129, 12, 12, False), (1, 129, 255, 12, 12, True),
             (1, 255, 129, 12, 12, True), (3, 255, 255, 12, 3, True),
-            (3, 129, 300, 4, 4, False))
+            (3, 129, 300, 4, 4, False),
+            (4, 128, 128, 8, 4, True))     # the lm-100m twin's training step
 # timed (name, b, sq, sk, causal), bf16
 WH_TIMES = (("encoder", 8, 1500, 1500, False),
             ("cross_decode", 8, 1, 1500, False),
@@ -7372,29 +7408,6 @@ def wh_fp32_checks(sw, TM, cfg, rng) -> dict:
     return out
 
 
-def wh_backward_refusal(sw, swb, dispatch) -> dict:
-    """A D = 64 training call on CUDA tensors: the forward kernel launches
-    once, the backward raises at its head check before any launch."""
-    q, k, v = (t.requires_grad_() for t in swa_inputs(
-        1, 64, 64, 4, 4, 64, torch.bfloat16, SEED + 214))
-    before = (sw.launches, swb.launches)
-    o = dispatch.swa_attention(q, k, v, causal=False)
-    try:
-        torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
-    except (ValueError, RuntimeError) as e:
-        why = str(e)
-    else:
-        raise AssertionError("a D = 64 backward ran on the card")
-    if (sw.launches - before[0], swb.launches - before[1]) != (1, 0) or \
-            "head sizes" not in why:
-        raise AssertionError(f"D = 64 backward refusal: launches "
-                             f"{sw.launches - before[0]} / "
-                             f"{swb.launches - before[1]}, {why!r}")
-    log(f"check whisper: a D = 64 backward on the card raises before any "
-        f"launch: {why}")
-    return {"raised": why}
-
-
 def wh_times(sw, card) -> dict:
     """The D = 64 kernel in bf16 at WH_TIMES (L2 flushed and warm, CUDA
     events and CUPTI) beside its bound (and the SFU's limit), the plain
@@ -7477,9 +7490,9 @@ def wh_times(sw, card) -> dict:
     return rows
 
 
-def whisper_phase(sw, swb, dispatch, _build, TC, TM, launch, card) -> dict:
+def whisper_phase(sw, _build, TC, TM, launch, card) -> dict:
     """Phase 21 (slice 18): the D = 64 kernel vs plain, whisper-small served
-    at full size, the D = 64 backward's refusal, the kernel's times."""
+    at full size, the kernel's times."""
     t0 = time.perf_counter()
     parts, lap = {}, [t0]
 
@@ -7491,7 +7504,6 @@ def whisper_phase(sw, swb, dispatch, _build, TC, TM, launch, card) -> dict:
     done("parity")
     out["serving"] = wh_serving_path(sw, _build, TC, TM, launch, card)
     done("serving")
-    out["backward_refusal"] = wh_backward_refusal(sw, swb, dispatch)
     out["times"] = wh_times(sw, card)
     done("times")
     out["launches"] = out["serving"]["launches"]
@@ -7508,8 +7520,7 @@ def whisper_alone() -> dict:
     whisper phase."""
     if not torch.cuda.is_available():
         raise SystemExit("whisper_alone: no CUDA card")
-    TC, launch, TM, _build, sw, swb, _ = _alone_modules()
-    from repro_torch.kernels import dispatch
+    TC, launch, TM, _build, sw, _, _ = _alone_modules()
     card = card_line()
     log(f"card {card}")
     _build.load()
@@ -7523,7 +7534,216 @@ def whisper_alone() -> dict:
     log(f"HGMMA: {n}")
     if not n[WH_KERNEL_SASS]:
         raise AssertionError(f"the D = 64 bf16 kernel issues no wgmma: {n}")
-    return whisper_phase(sw, swb, dispatch, _build, TC, TM, launch, card)
+    return whisper_phase(sw, _build, TC, TM, launch, card)
+
+
+# --- phase 22: whisper-small training (slice 19) -----------------------------------
+
+WT_ARCH = WH_ARCH
+WT_SEQ = 448                          # whisper's text context (tokens a row)
+# The D = 64 backward's shapes on whisper-small's training step (A 2 x B 2
+# rows, 1,500 frames, 448 tokens, 12 / 12 heads): (name, b, sq, sk, causal)
+WT_SHAPES = (("encoder", TR_BATCH, WH_FRAMES, WH_FRAMES, False),
+             ("cross", TR_BATCH, WT_SEQ, WH_FRAMES, False),
+             ("decoder", TR_BATCH, WT_SEQ, WT_SEQ, True))
+# the example twin: examples/torch_train_lm_federated.py at full size, A 2
+# x 4 x 128 tokens, periodic tau 8, 8 steps (one period and its sync)
+LM100M_RUN = dict(steps=8, agents=2, tau=8, strategy="periodic")
+# The cases held against the plain version: (name, b, sq, sk, causal, h, kv)
+# of whisper-small's step (12 / 12 heads) and the lm-100m twin's (B 4, 128
+# tokens, 8 query heads on 4 KV heads: the D = 64 dk / dv head-group sum)
+WT_CHECKS = tuple(c + (12, 12) for c in WT_SHAPES) + (
+    ("lm100m", 4, 128, 128, True, 8, 4),)
+
+
+def wt_bwd_vs_plain(sw, swb) -> dict:
+    """Phase 22 (1): the D = 64 backward (and the forward's lse) against
+    their plain versions at ``WT_CHECKS``, fp32 and bf16, by phase 18's rule
+    (``bwd_check``: lse within LSE_REL, fp32 within BWD_REL of the largest
+    |gradient|, bf16 against float64 within BWD_MAX_RATIO / BWD_MEAN_RATIO
+    x the plain version's max / mean error, a second launch bitwise); in
+    bf16 also the one-bf16 p / ds control (``bwd_control``), which the rule
+    must reject at every case."""
+    rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
+    control_min = math.inf
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for n, (label, b, sq, sk, causal, h, kv) in enumerate(WT_CHECKS):
+            q, k, v, do = bwd_inputs(b, sq, h, kv, 64, dtype, SEED + 240 + n,
+                                     sk)
+            what = (f"swa_attention_bwd D=64 {label} ({b}, {sq}, {sk}, "
+                    f"{h}/{kv}) causal={causal} {name}")
+            row = bwd_check(sw, swb, q, k, v, do, None, what, causal)
+            row.update(name=label, shape=[b, sq, sk, h, kv, 64],
+                       causal=causal, dtype=name)
+            if dtype == torch.bfloat16:
+                row["control_mean_ratio"] = bwd_control(
+                    sw, swb, q, k, v, do, None, row, what, causal)
+                control_min = min(control_min, row["control_mean_ratio"])
+            worst[name] = max(worst[name], row["err"])
+            rows.append(row)
+            del q, k, v, do
+    torch.cuda.empty_cache()
+    ratios = [max(r[g]["mean_err"] / max(r[g]["plain_mean_err"], 1e-30)
+                  for g in ("dq", "dk", "dv"))
+              for r in rows if r["dtype"] == "bfloat16"]
+    out = {"cases": rows, "worst": worst, "mean_ratio_max": max(ratios),
+           "control_ratio_min": control_min,
+           "lse_rel_err_max": max(r["lse_rel_err"] for r in rows)}
+    log(f"phase whisper train: swa_attention_bwd D=64 vs plain at {len(rows)} "
+        f"cases ok ({[c[0] for c in WT_CHECKS]} x fp32 / bf16; fp32 within "
+        f"{BWD_REL} x max |grad|, bf16 within {BWD_MAX_RATIO} / "
+        f"{BWD_MEAN_RATIO} x the plain version's max / mean error against "
+        f"float64; the forward's lse within {LSE_REL}; a second launch "
+        f"bitwise); largest |kernel - reference| {worst}; bf16 mean err / "
+        f"plain's at most {out['mean_ratio_max']!r}, the one-bf16 p / ds "
+        f"control at least {control_min!r}; lse rel err at most "
+        f"{out['lse_rel_err_max']!r}")
+    return out
+
+
+def lm100m_twin(km, sw, swb, wk, _build, card) -> dict:
+    """Phase 22 (3): ``examples/torch_train_lm_federated.py``'s ``run`` at
+    full size (``LM100M_RUN``: the fp32 D = 64 backward on the CUDA cores,
+    causal, 8 query heads on 4 KV heads), the counts set to 0 before and
+    read after: launches exactly ``_train_expected``, losses finite, the
+    agent rows bitwise equal after the sync, no build."""
+    import importlib.util
+    from repro_torch.launch.fedtrain import FedTrainConfig
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_lm_federated",
+        os.path.join(ROOT, "examples", "torch_train_lm_federated.py"))
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    cfg = ex.lm100m()
+    r = LM100M_RUN
+    fed = FedTrainConfig(strategy=r["strategy"], tau=r["tau"])
+    builds = _build.n_builds
+    _tr_reset(km, sw, swb, wk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = ex.run(r["steps"], r["agents"], r["tau"], r["strategy"],
+                           device="cuda", log_every=r["steps"] + 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _tr_counts(km, sw, swb, wk)
+    got = {k: counts[k] for k in TR_KERNELS}
+    want = _train_expected(cfg, fed, r["agents"], r["steps"])
+    if got != want or counts["others"] != {k: 0 for k in counts["others"]}:
+        raise AssertionError(f"lm-100m: launches {got}, expected {want} "
+                             f"(others {counts['others']})")
+    if _build.n_builds != builds:
+        raise AssertionError("a build on the lm-100m training path")
+    equal = bool(torch.equal(state.params[0], state.params[1]))
+    if not (all(math.isfinite(x) for x in losses) and equal):
+        raise AssertionError(f"lm-100m: losses {losses}, rows equal {equal}")
+    tokens = r["steps"] * r["agents"] * ex.BATCH * ex.SEQ
+    out = {"arch": cfg.name, "params_per_agent": state.layout.n,
+           "losses": losses, "wall_s": wall,
+           "tokens_per_s_incl_init": tokens / wall, "launches": got,
+           "rows_equal_after_sync": equal, **r}
+    log(f"phase whisper train: lm-100m twin (examples/torch_train_lm_"
+        f"federated.py, {state.layout.n} fp32 parameters an agent, A "
+        f"{r['agents']} x {ex.BATCH} x {ex.SEQ}, {r['strategy']} tau "
+        f"{r['tau']}, {r['steps']} steps) {wall!r} s with init, losses "
+        f"{losses[0]!r} -> {losses[-1]!r}; rows equal after the sync; "
+        f"launches {got} (the formula's) card=\"{card}\"")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def wt_times(sw, swb, card) -> dict:
+    """Phase 22 (4): the D = 64 backward in bf16 at ``WT_SHAPES``: CUPTI (L2
+    flushed; the dq and dk / dv kernels' records summed) and CUDA events
+    (flushed and warm), beside the bound (``bwd_bound``), the plain
+    version's time (one call, events) and SDPA's autograd backward on
+    repeated K/V (events, flushed)."""
+    cyc = sleep_cycles_per_ms()
+    flush = l2_flusher()
+    rows = {}
+    for label, b, sq, sk, causal in WT_SHAPES:
+        q, k, v, do = bwd_inputs(b, sq, 12, 12, 64, torch.bfloat16,
+                                 SEED + 250, sk)
+        o, lse = sw.swa_attention_cuda(q, k, v, causal=causal, with_lse=True)
+        kern = lambda: swb.swa_attention_bwd_cuda(q, k, v, o, do, lse,
+                                                  causal=causal)
+        lib = sdpa_bwd_fn(q, k, v, do, None, causal)
+        rec = {"shape": [b, sq, sk, 12, 12, 64], "causal": causal,
+               "dtype": "bfloat16",
+               "cupti_ms": sum(cupti_ms(kern, flush, n) for n in BWD_KERNELS),
+               "ms": device_ms(kern, cyc, flush, CHUNK)[0],
+               "warm_l2_ms": device_ms(kern, cyc, None, CHUNK)[0],
+               "plain_ms": events_ms(lambda: swb.swa_attention_bwd_plain(
+                   q, k, v, o, do, lse, causal=causal), 1),
+               "library_ms": device_ms(lib, cyc, flush, CHUNK)[0],
+               "library_backend": sdpa_backend_of(q, k, v, None, causal),
+               **bwd_bound(b, sq, 12, 12, 64, None, sk, causal)}
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rows[label] = rec
+        log(f"time swa_attention_bwd D=64 {label} ({b}, {sq}, {sk}, 12/12, "
+            f"64) bf16 causal={causal} L2 flushed: kernel_ms={rec['ms']!r} "
+            f"(cupti {rec['cupti_ms']!r}; L2-warm {rec['warm_l2_ms']!r}) "
+            f"plain_ms={rec['plain_ms']!r} bound_ms={rec['bound_ms']!r} "
+            f"({rec['bound_by']}; {rec['pairs']} pairs, {rec['flops']} FLOP, "
+            f"{rec['bytes']} B; share {rec['share_of_bound']!r}) library_ms="
+            f"{rec['library_ms']!r} (SDPA backward, {rec['library_backend']} "
+            f"forward choice) card=\"{card}\"")
+        del q, k, v, do, o, lse, lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+def whisper_train_phase(km, sw, swb, wk, _build, TC, TM, launch,
+                        card) -> dict:
+    """Phase 22 (slice 19): (1) the D = 64 backward vs plain at whisper's
+    and the lm-100m twin's training shapes (``WT_CHECKS``), (2) whisper-small trained at full size through
+    ``train()`` (``train_model_path``: A 2 x 2 x 448 tokens, 1,500 frames
+    a row), (3) the lm-100m example twin, (4) the backward's times."""
+    t0 = time.perf_counter()
+    parts, lap = {}, [t0]
+
+    def done(name):
+        parts[name] = time.perf_counter() - lap[0]
+        lap[0] = time.perf_counter()
+
+    out = {"bwd64_parity": wt_bwd_vs_plain(sw, swb)}
+    done("bwd64_parity")
+    cfg = TC.get_arch(WT_ARCH)
+    out["whisper"] = train_model_path(km, sw, swb, wk, TC, TM, launch, card,
+                                      WT_ARCH, cfg.n_layers, seq=WT_SEQ)
+    done("whisper")
+    out["lm100m"] = lm100m_twin(km, sw, swb, wk, _build, card)
+    done("lm100m")
+    out["times"] = wt_times(sw, swb, card)
+    done("times")
+    out["launches"] = {k: out["whisper"]["launches"][k]
+                       + out["lm100m"]["launches"][k] for k in TR_KERNELS}
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    log(f"phase whisper train: {out['seconds']!r} s; by part {parts}; main "
+        f"path launches {out['launches']}")
+    return out
+
+
+def whisper_train_alone() -> dict:
+    """Phase 22 without the rest of the script (``python3 -c 'import
+    chip_smoke as c; c.whisper_train_alone()'``): builds the kernels, logs
+    ptxas's lines for the D = 64 backward kernels, then the phase."""
+    if not torch.cuda.is_available():
+        raise SystemExit("whisper_train_alone: no CUDA card")
+    TC, launch, TM, _build, sw, swb, wk = _alone_modules()
+    km, _, _, _ = _sweep_modules()
+    card = card_line()
+    log(f"card {card}")
+    _build.load()
+    for line in str(_build.build_info.get("log", "")).splitlines():
+        if ("ptxas info" in line and ("Used" in line or "Compiling" in line)
+                and "swa_bwd" in line and "ILi64E" in line) or \
+                "(C75" in line or ("spill" in line
+                                   and " 0 bytes spill stores" not in line):
+            log(f"build: {line.strip()}")
+    return whisper_train_phase(km, sw, swb, wk, _build, TC, TM, launch, card)
 
 
 def main() -> int:
@@ -7698,8 +7918,13 @@ def main() -> int:
 
     # 21. whisper-small serving (slice 18): the D = 64 kernel vs plain, the
     # encoder-decoder at full size through the serve steps, its times
-    wh = whisper_phase(sw, swb, dispatch, _build, TC, TM, launch, card)
+    wh = whisper_phase(sw, _build, TC, TM, launch, card)
     lap('21 whisper')
+
+    # 22. whisper-small training (slice 19): the D = 64 backward vs plain,
+    # whisper-small and the lm-100m example trained at full size, times
+    wt = whisper_train_phase(km, sw, swb, wk, _build, TC, TM, launch, card)
+    lap('22 whisper_train')
 
     top = rows["mean/1024"]
     kernels = [{
@@ -7935,6 +8160,25 @@ def main() -> int:
                   "dtype": "float32"},
         "max_rel_err": tr["wkv6_bwd_parity"]["worst_rel"],
     })
+    for k in kernels:                  # and phase 22's (whisper-small, lm-100m)
+        if k["name"] in TR_KERNELS:
+            k["whisper_train"] = {"launches": wt["launches"][k["name"]]}
+            k["launches"] += wt["launches"][k["name"]]
+        if k["name"] == "swa_attention_bwd":
+            k["d64"] = {
+                "max_abs_err": wt["bwd64_parity"]["worst"],
+                "mean_ratio_max": wt["bwd64_parity"]["mean_ratio_max"],
+                "control_ratio_min": wt["bwd64_parity"]["control_ratio_min"],
+                "lse_rel_err_max": wt["bwd64_parity"]["lse_rel_err_max"],
+                "launches": wt["launches"]["swa_attention_bwd"],
+                "design": "bf16: the D <= 128 kernels at one 64-column box: "
+                          "4 k-steps a score product, m64n64k16 wgmmas into "
+                          "32-register dq / dk / dv accumulators; fp32: one "
+                          "column group",
+                "times": {n: {key: t[key] for key in (
+                    "ms", "cupti_ms", "warm_l2_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library_backend")}
+                    for n, t in wt["times"].items()}}
     if len(kernels) != 12 or any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"kernels line: {len(kernels)} kernels, "
                              f"launches {[k['launches'] for k in kernels]}")
@@ -7957,7 +8201,7 @@ def main() -> int:
                    "sweep_parity": sweep_parity, "sweeps": sweeps,
                    "sweep_times": sweep_rows, "async": async_run,
                    "fmarl": fmarl, "lm_train": lmt, "head256": hd,
-                   "train": tr, "whisper": wh,
+                   "train": tr, "whisper": wh, "whisper_train": wt,
                    "kernels": kernels, "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

@@ -12,9 +12,11 @@
 // q, o, do, dq are (B, Sq, H, D); k, v, dk, dv (B, Sk, KV, D), not
 // repeated: head h reads KV head h / (H / KV), so dk and dv of a KV head
 // sum over the H / KV query heads of its group (the gradient of the JAX
-// package's _repeat_kv). Inputs are fp32 or bf16, D is 120, 128 or 256
+// package's _repeat_kv). Inputs are fp32 or bf16, D is 64, 120, 128 or 256
 // (D = 256: kernels of their own, below); every product accumulates in fp32
-// and the results are cast to the input type.
+// and the results are cast to the input type. Sq and Sk may differ and the
+// mask may be off (causal 0, no window: the encoder's self-attention and
+// the cross-attention of whisper-small); every walk below covers both.
 //
 // Replaces no Pallas kernel: the JAX package's training attention is the
 // jnp flash_attention custom VJP, whose backward _flash_bwd
@@ -46,19 +48,21 @@
 // - dq: a unit is (b, h, 128 query rows); each consumer warpgroup takes 64
 //   of the rows, and both work on every streamed k / v tile (a tile none of
 //   whose keys its rows see, it skips), into a 64 x D fp32 accumulator (64
-//   registers a thread). Per tile: s = q k^T and dp = do v^T by m64n64k16
-//   wgmmas (both operands K-major in shared memory), p = exp2(s D^-1/2
-//   log2 e - lse log2 e) and ds = p (dp - delta) D^-1/2 in registers, then
-//   dq += ds k by m64n128k16 wgmmas with ds from registers and the k tile
-//   as the MN-major B operand. Its consumers also form delta (from o and
+//   registers a thread; 32 at D = 64). Per tile: s = q k^T and dp = do v^T
+//   by m64n64k16 wgmmas (both operands K-major in shared memory; 8 k-steps,
+//   4 at D = 64), p = exp2(s D^-1/2 log2 e - lse log2 e) and ds = p (dp -
+//   delta) D^-1/2 in registers, then dq += ds k by m64n128k16 wgmmas
+//   (m64n64k16 at D = 64, whose tiles are one 64-column box: an n128
+//   product would read a box that is not there) with ds from registers and
+//   the k tile as the MN-major B operand. Its consumers also form delta (from o and
 //   do) and lse log2 e for their rows and write both, padded to whole
 //   128-row tiles (lse past Sq is +inf, so p is 0 there), to the fp32
 //   scratch from which the dk / dv kernel's producer loads them;
 // - dk / dv: a unit is (b, KV head, 64 keys) holding dk and dv (two
-//   accumulators, 128 registers a thread); the q, do, lse and delta tiles
-//   of each query head of the group stream in order, and the two consumer
-//   warpgroups take them in turn (even ones the first, odd ones the
-//   second). Per tile: s^T = k q^T and dp^T = v do^T, p^T and ds^T, then
+//   accumulators, 128 registers a thread; 64 at D = 64); the q, do, lse and
+//   delta tiles of each query head of the group stream in order, and the
+//   two consumer warpgroups take them in turn (even ones the first, odd
+//   ones the second). Per tile: s^T = k q^T and dp^T = v do^T, p^T and ds^T, then
 //   dv += p^T do and dk += ds^T q with the q and do tiles as MN-major B.
 //   At the end the second warpgroup's sums pass through shared memory to
 //   the first, which adds them (always in that order) and stores bf16.
@@ -69,9 +73,10 @@
 //   needs it, one bf16 rounding breaks it (tests/test_torch_swa.py). A
 //   warpgroup runs score products, elementwise and accumulating products in
 //   turn, the other warpgroup filling the tensor cores meanwhile; in dk /
-//   dv, s, dp and the four split fragments beside the two accumulators
-//   leave too few registers for ptxas to keep its wgmmas in flight
-//   together (it serialises them, C7512);
+//   dv at D = 120 / 128, s, dp and the four split fragments beside the two
+//   accumulators leave too few registers for ptxas to keep its wgmmas in
+//   flight together (it serialises them, C7512); at D = 64 the halved
+//   accumulators leave enough (168 registers, no spill, no C7512);
 // - masks are applied only on the tiles they reach; units walk only the
 //   tiles inside the window: O(S * W) work.
 //
@@ -528,7 +533,6 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o,
 
 // --- bf16: tensor cores, TMA, a tile ring --------------------------------
 
-constexpr int kTileBytes = 2 * kT * 128;  // 64 rows, D padded to 2 boxes
 constexpr int kQRows = 2 * kT;            // q rows of a dq block
 constexpr int kStages = 4;                // ring depth
 constexpr int kConsumers = 256;           // two warpgroups
@@ -539,6 +543,31 @@ constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 // slots stay 1024-byte aligned for the swizzle.
 constexpr int kStatBytes = 1024;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// D = 64, 120 or 128: a row is kBoxes 64-column boxes (D = 120 padded to
+// 128), a 64-row tile kTileB bytes, the dq / dk / dv accumulators m64nN
+// fragments of N = 64 kBoxes columns (kAccN = N / 2 registers a thread),
+// and a product that contracts over D kSteps 16-column k-steps.
+template <int D>
+constexpr int kBoxes = (D + kBoxCols - 1) / kBoxCols;
+template <int D>
+constexpr int kTileB = kBoxes<D> * kT * 128;
+template <int D>
+constexpr int kAccN = 32 * kBoxes<D>;
+template <int D>
+constexpr int kSteps = 4 * kBoxes<D>;
+
+// acc (64 x N, fp32) += a (64 x 16, bf16 pairs in registers) x b (16 x N,
+// MN-major in shared memory), N = 2 R: the m64n64k16 or m64n128k16 wgmma.
+template <int R>
+__device__ __forceinline__ void wgmma_rs(float (&acc)[R], const uint32_t* a,
+                                         uint64_t db) {
+  static_assert(R == 32 || R == 64, "an m64n64 or m64n128 accumulator");
+  if constexpr (R == 32)
+    wgmma_rs_n64(acc, a, db);
+  else
+    wgmma_rs_n128(acc, a, db);
+}
 
 // delta (fp32 sum of do * o) and lse * log2 e of query row r of (b, h),
 // from the four lanes of a row (part = lane % 4, 16-byte loads); past Sq
@@ -572,12 +601,13 @@ __device__ __forceinline__ void row_stats(const __nv_bfloat16* __restrict__ o,
   lse2 = r < Sq ? lse[((int64_t)b * H + h) * Sq + r] * kLog2e : INFINITY;
 }
 
-// Rows r_a and r_a + 8 (where below S) of an fp32 64 x 128 accumulator into
-// a (B, S, heads, D) bf16 tensor at (b, head): columns c0 + 8j + col0 +
-// {0, 1} (c0: 128 for the second half of a D = 256 row).
-template <int D>
+// Rows r_a and r_a + 8 (where below S) of an fp32 64 x (2 N) accumulator
+// (N = 32: 64 columns, 64: 128) into a (B, S, heads, D) bf16 tensor at (b,
+// head): columns c0 + 8j + col0 + {0, 1} (c0: 128 for the second half of a
+// D = 256 row).
+template <int D, int N>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ out,
-                                          const float (&acc)[64], int b,
+                                          const float (&acc)[N], int b,
                                           int head, int r_a, int col0, int S,
                                           int heads, int c0 = 0) {
   const int64_t stride = (int64_t)heads * D;
@@ -585,7 +615,7 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ out,
       out + ((int64_t)b * S + r_a) * stride + (int64_t)head * D + c0 + col0;
   __nv_bfloat16* out_b = out_a + 8 * stride;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     if (c0 + 8 * j + col0 >= D) continue;
     if (r_a < S)
       *reinterpret_cast<__nv_bfloat162*>(out_a + 8 * j) =
@@ -598,7 +628,7 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ out,
 
 // The two consumer warpgroups' sums, first + second: the second warpgroup
 // (wg 1) writes its accumulators to buf, the first adds them to its own.
-// buf holds N / 64 x 64 x 128 floats; element e of thread t at e * 128 + t.
+// buf holds N x 128 floats; element e of thread t at e * 128 + t.
 template <int N>
 __device__ __forceinline__ void combine(float (&acc)[N], float* buf, int wg,
                                         int t) {
@@ -633,9 +663,10 @@ swa_bwd_dq_hopper_kernel(__grid_constant__ const CUtensorMap tq,
   // release barriers of the slots (the eight consumer warps).
   __shared__ __align__(8) uint64_t bar_q, full[kStages], empty[kStages];
   // The 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
+  constexpr int kTile = kTileB<D>, kAcc = kAccN<D>;
   uint8_t* q_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* do_s = q_s + 2 * kTileBytes;    // q and do: 128 rows each
-  uint8_t* ring = do_s + 2 * kTileBytes;   // kStages x (k tile, v tile)
+  uint8_t* do_s = q_s + 2 * kTile;         // q and do: 128 rows each
+  uint8_t* ring = do_s + 2 * kTile;        // kStages x (k tile, v tile)
 
   const int n_q = (Sq + kQRows - 1) / kQRows;
   const int bh = blockIdx.x % (B * H);
@@ -665,8 +696,8 @@ swa_bwd_dq_hopper_kernel(__grid_constant__ const CUtensorMap tq,
       // The second 64 rows only where some lie below Sq (the second
       // warpgroup computes nothing otherwise).
       const int n_boxes = q0 + kT < Sq ? 2 : 1;
-      mbar_expect_tx(&bar_q, 2 * n_boxes * kTileBytes);
-      for (int c = 0; c < 2; ++c)
+      mbar_expect_tx(&bar_q, 2 * n_boxes * kTile);
+      for (int c = 0; c < kBoxes<D>; ++c)
         for (int r = 0; r < n_boxes * kT; r += kT) {
           const int off = c * kQRows * 128 + r * 128;
           tma_load(q_s + off, &tq, &bar_q, c * kBoxCols, h, q0 + r, b);
@@ -675,12 +706,12 @@ swa_bwd_dq_hopper_kernel(__grid_constant__ const CUtensorMap tq,
       for (int n = 0; n < n_tiles; ++n) {
         const int s = n % kStages;
         if (n >= kStages) mbar_wait(&empty[s], (n / kStages - 1) & 1);
-        uint8_t* slot = ring + s * 2 * kTileBytes;
+        uint8_t* slot = ring + s * 2 * kTile;
         const int k0 = (t0 + n) * kT;
-        mbar_expect_tx(&full[s], 2 * kTileBytes);
-        for (int c = 0; c < 2; ++c) {
+        mbar_expect_tx(&full[s], 2 * kTile);
+        for (int c = 0; c < kBoxes<D>; ++c) {
           tma_load(slot + c * kT * 128, &tk, &full[s], c * kBoxCols, g, k0, b);
-          tma_load(slot + kTileBytes + c * kT * 128, &tv, &full[s],
+          tma_load(slot + kTile + c * kT * 128, &tv, &full[s],
                    c * kBoxCols, g, k0, b);
         }
       }
@@ -708,10 +739,10 @@ swa_bwd_dq_hopper_kernel(__grid_constant__ const CUtensorMap tq,
   }
 
   const uint32_t q_addr = smem_u32(q_s), do_addr = smem_u32(do_s);
-  float acc[64], s[32], dp[32];
+  float acc[kAcc], s[32], dp[32];
   uint32_t ds_hi[16], ds_lo[16];
 #pragma unroll
-  for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+  for (int e = 0; e < kAcc; ++e) acc[e] = 0.0f;
 #pragma unroll
   for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.0f;
 
@@ -724,15 +755,15 @@ swa_bwd_dq_hopper_kernel(__grid_constant__ const CUtensorMap tq,
     const bool none = r_wg >= Sq || (causal && k0 > r_wg + kT - 1) ||
                       (window > 0 && k0 + kT - 1 <= r_wg - window);
     if (!none) {
-      const uint32_t k_addr = smem_u32(ring + sl * 2 * kTileBytes);
-      const uint32_t v_addr = k_addr + kTileBytes;
+      const uint32_t k_addr = smem_u32(ring + sl * 2 * kTile);
+      const uint32_t v_addr = k_addr + kTile;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < kSteps<D>; ++kk)
         wgmma_ss_n64(s, kmajor_desc(q_addr, kQRows, kT * wg, kk),
                      kmajor_desc(k_addr, kT, 0, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < kSteps<D>; ++kk)
         wgmma_ss_n64(dp, kmajor_desc(do_addr, kQRows, kT * wg, kk),
                      kmajor_desc(v_addr, kT, 0, kk), kk > 0);
       wgmma_commit();
@@ -763,8 +794,8 @@ swa_bwd_dq_hopper_kernel(__grid_constant__ const CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const uint64_t dk_desc = mnmajor_desc(k_addr, kT, kk);
-        wgmma_rs_n128(acc, ds_hi + 4 * kk, dk_desc);
-        wgmma_rs_n128(acc, ds_lo + 4 * kk, dk_desc);
+        wgmma_rs(acc, ds_hi + 4 * kk, dk_desc);
+        wgmma_rs(acc, ds_lo + 4 * kk, dk_desc);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -792,11 +823,12 @@ swa_bwd_dkdv_hopper_kernel(__grid_constant__ const CUtensorMap tq,
                            float scale, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_kv, full[kStages], empty[kStages];
+  constexpr int kTile = kTileB<D>, kAcc = kAccN<D>;
   uint8_t* k_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* v_s = k_s + kTileBytes;
+  uint8_t* v_s = k_s + kTile;
   // kStages x (q tile, do tile, 64 lse * log2 e and 64 delta)
-  uint8_t* ring = v_s + kTileBytes;
-  constexpr int kSlot = 2 * kTileBytes + kStatBytes;
+  uint8_t* ring = v_s + kTile;
+  constexpr int kSlot = 2 * kTile + kStatBytes;
 
   const int64_t sq_pad = (int64_t)((Sq + kQRows - 1) / kQRows) * kQRows;
   const int bg = blockIdx.x % (B * KV);
@@ -826,8 +858,8 @@ swa_bwd_dkdv_hopper_kernel(__grid_constant__ const CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     if (warp == kConsumers / 32 && lane == 0) {
       const int64_t plane = (int64_t)B * H * sq_pad;
-      mbar_expect_tx(&bar_kv, 2 * kTileBytes);
-      for (int c = 0; c < 2; ++c) {
+      mbar_expect_tx(&bar_kv, 2 * kTile);
+      for (int c = 0; c < kBoxes<D>; ++c) {
         tma_load(k_s + c * kT * 128, &tk, &bar_kv, c * kBoxCols, g, k0, b);
         tma_load(v_s + c * kT * 128, &tv, &bar_kv, c * kBoxCols, g, k0, b);
       }
@@ -837,14 +869,14 @@ swa_bwd_dkdv_hopper_kernel(__grid_constant__ const CUtensorMap tq,
         uint8_t* slot = ring + s * kSlot;
         const int h = g * rep + n / nt, q0 = (tq0 + n % nt) * kT;
         const float* stat = ws + ((int64_t)b * H + h) * sq_pad + q0;
-        mbar_expect_tx(&full[s], 2 * kTileBytes + 2 * kT * 4);
-        for (int c = 0; c < 2; ++c) {
+        mbar_expect_tx(&full[s], 2 * kTile + 2 * kT * 4);
+        for (int c = 0; c < kBoxes<D>; ++c) {
           tma_load(slot + c * kT * 128, &tq, &full[s], c * kBoxCols, h, q0, b);
-          tma_load(slot + kTileBytes + c * kT * 128, &tdo, &full[s],
+          tma_load(slot + kTile + c * kT * 128, &tdo, &full[s],
                    c * kBoxCols, h, q0, b);
         }
-        bulk_load(slot + 2 * kTileBytes, stat, kT * 4, &full[s]);
-        bulk_load(slot + 2 * kTileBytes + kT * 4, stat + plane, kT * 4,
+        bulk_load(slot + 2 * kTile, stat, kT * 4, &full[s]);
+        bulk_load(slot + 2 * kTile + kT * 4, stat + plane, kT * 4,
                   &full[s]);
       }
     }
@@ -857,10 +889,10 @@ swa_bwd_dkdv_hopper_kernel(__grid_constant__ const CUtensorMap tq,
   const int col0 = 2 * (lane % 4);
   const int kp_a = k0 + row_l;
   const uint32_t k_addr = smem_u32(k_s), v_addr = smem_u32(v_s);
-  float dk_acc[64], dv_acc[64], s[32], dp[32];
+  float dk_acc[kAcc], dv_acc[kAcc], s[32], dp[32];
   uint32_t p_hi[16], p_lo[16], ds_hi[16], ds_lo[16];
 #pragma unroll
-  for (int e = 0; e < 64; ++e) dk_acc[e] = dv_acc[e] = 0.0f;
+  for (int e = 0; e < kAcc; ++e) dk_acc[e] = dv_acc[e] = 0.0f;
 #pragma unroll
   for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.0f;
 #pragma unroll
@@ -871,16 +903,16 @@ swa_bwd_dkdv_hopper_kernel(__grid_constant__ const CUtensorMap tq,
     const int sl = n % kStages;
     mbar_wait(&full[sl], (n / kStages) & 1);
     uint8_t* slot = ring + sl * kSlot;
-    const uint32_t q_addr = smem_u32(slot), do_addr = q_addr + kTileBytes;
-    const float* lse_s = reinterpret_cast<const float*>(slot + 2 * kTileBytes);
+    const uint32_t q_addr = smem_u32(slot), do_addr = q_addr + kTile;
+    const float* lse_s = reinterpret_cast<const float*>(slot + 2 * kTile);
     const float* dl_s = lse_s + kT;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < kSteps<D>; ++kk)
       wgmma_ss_n64(s, kmajor_desc(k_addr, kT, 0, kk),
                    kmajor_desc(q_addr, kT, 0, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < kSteps<D>; ++kk)
       wgmma_ss_n64(dp, kmajor_desc(v_addr, kT, 0, kk),
                    kmajor_desc(do_addr, kT, 0, kk), kk > 0);
     wgmma_commit();
@@ -924,14 +956,14 @@ swa_bwd_dkdv_hopper_kernel(__grid_constant__ const CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t d_do = mnmajor_desc(do_addr, kT, kk);
-      wgmma_rs_n128(dv_acc, p_hi + 4 * kk, d_do);
-      wgmma_rs_n128(dv_acc, p_lo + 4 * kk, d_do);
+      wgmma_rs(dv_acc, p_hi + 4 * kk, d_do);
+      wgmma_rs(dv_acc, p_lo + 4 * kk, d_do);
     }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t d_q = mnmajor_desc(q_addr, kT, kk);
-      wgmma_rs_n128(dk_acc, ds_hi + 4 * kk, d_q);
-      wgmma_rs_n128(dk_acc, ds_lo + 4 * kk, d_q);
+      wgmma_rs(dk_acc, ds_hi + 4 * kk, d_q);
+      wgmma_rs(dk_acc, ds_lo + 4 * kk, d_q);
     }
     wgmma_commit();
     // Wait here, not at the next tile: s, dp, the four split fragments and
@@ -947,7 +979,7 @@ swa_bwd_dkdv_hopper_kernel(__grid_constant__ const CUtensorMap tq,
   }
   float* buf = reinterpret_cast<float*>(ring);
   combine(dv_acc, buf, wg, t);
-  combine(dk_acc, buf + 64 * 128, wg, t);
+  combine(dk_acc, buf + kAcc * 128, wg, t);
   if (wg == 0) {
     store_acc<D>(dv, dv_acc, b, g, kp_a, col0, Sk, KV);
     store_acc<D>(dk, dk_acc, b, g, kp_a, col0, Sk, KV);
@@ -959,9 +991,9 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const float* lse, float* ws, void* dq,
                 void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
                 int window, int causal, float scale, cudaStream_t stream) {
-  constexpr int kSmemDq = 1024 + (4 + 2 * kStages) * kTileBytes;
+  constexpr int kSmemDq = 1024 + (4 + 2 * kStages) * kTileB<D>;
   constexpr int kSmemDkdv =
-      1024 + 2 * kTileBytes + kStages * (2 * kTileBytes + kStatBytes);
+      1024 + 2 * kTileB<D> + kStages * (2 * kTileB<D> + kStatBytes);
   const int64_t n_q = (Sq + kQRows - 1) / kQRows, n_k = (Sk + kT - 1) / kT;
   if (n_q * B * H > 0x7fffffff || n_k * B * KV > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
@@ -1402,9 +1434,9 @@ int launch_bf16_d256(const void* q, const void* k, const void* v,
 // (B, Sk, KV, D), all of one dtype (0 = fp32, 1 = bf16), with the
 // forward's fp32 lse (B, H, Sq): dq (B, Sq, H, D), dk, dv (B, Sk, KV, D) in
 // that dtype. delta is fp32 scratch of 2 * B * H * ceil(Sq / 128) * 128
-// floats. window <= 0 means no window; causal is 0 or 1; D is 120, 128 or
-// 256; H
-// a multiple of KV; the pointers 16-byte aligned. Two launches on `stream`.
+// floats. window <= 0 means no window; causal is 0 or 1; D is 64, 120, 128
+// or 256; H a multiple of KV; the pointers 16-byte aligned. Two launches on
+// `stream`.
 // Returns 0 or a cudaError_t.
 extern "C" int repro_swa_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
@@ -1425,6 +1457,8 @@ extern "C" int repro_swa_attention_bwd(
 #define REPRO_BWD(fn, DD)                                                     \
   fn<DD>(q, k, v, o, dout, l, dl, dq, dk, dv, b, sq, sk, h, kv, w, causal,    \
          scale, s)
+  if (D == 64)
+    return dtype == 0 ? REPRO_BWD(launch_f32, 64) : REPRO_BWD(launch_bf16, 64);
   if (D == 120)
     return dtype == 0 ? REPRO_BWD(launch_f32, 120) : REPRO_BWD(launch_bf16, 120);
   if (D == 128)

@@ -795,8 +795,8 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sizes 64, 120, 128 and 256 and raises on anything else. Where autograd
     records (grad mode on and an input that requires grad) the call goes
     through :class:`SwaAttention`, whose forward also writes the
-    log-sum-exp; otherwise (serving) it does not. The backward takes head
-    sizes 120, 128 and 256: at D = 64 it raises before any launch.
+    log-sum-exp; otherwise (serving) it does not. The backward kernels
+    take the forward's head sizes.
     """
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

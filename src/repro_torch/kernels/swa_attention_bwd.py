@@ -1,4 +1,5 @@
-"""The backward of causal sliding-window attention, flash-style.
+"""The backward of attention with an optional causal mask and sliding
+window, flash-style.
 
 No Pallas kernel of the JAX package computes it: there the training
 forward's ``flash_attention`` is a ``jax.custom_vjp`` whose backward
@@ -14,8 +15,9 @@ KV head ``h // (H // KV)``), with ``lse`` the forward's log-sum-exp:
     dq_i    = sum_j ds_ij k_j        dk_j  = sum_i ds_ij q_i
 
 with the forward's mask (key j is seen by query rows ``j <= i < j + W``
-when causal and windowed), all sums in fp32, the results cast to the input
-dtype. ``dk`` and ``dv`` are un-repeated ``(B, Sk, KV, D)``: the sum over
+when causal and windowed; by every row when ``causal`` is off and there is
+no window, as in whisper-small's encoder and cross-attention, where Sq and
+Sk may differ), all sums in fp32, the results cast to the input dtype. ``dk`` and ``dv`` are un-repeated ``(B, Sk, KV, D)``: the sum over
 the ``H / KV`` query heads of a group is the gradient of JAX's
 ``_repeat_kv``.
 
@@ -27,11 +29,9 @@ the ``H / KV`` query heads of a group is the gradient of JAX's
   bitwise). bf16 runs on the tensor cores (wgmma on tiles a TMA producer
   streams through a shared-memory ring; ``p`` and ``ds`` enter the products
   as bf16 hi + lo), fp32 on the CUDA cores. One call is two launches on the
-  current stream and counts one in :data:`launches`. Head sizes
-  :data:`BWD_HEAD_DIMS`: 120, 128 and 256. The forward also takes D = 64
-  (whisper-small serving); the D = 64 backward comes with the slice that
-  trains the encoder-decoder, and until then a D = 64 call raises before
-  any launch.
+  current stream and counts one in :data:`launches`. Head sizes:
+  the forward's :data:`HEAD_DIMS`: 64 (whisper-small, lm-100m), 120, 128
+  and 256 (gemma-7b, recurrentgemma-9b).
 * :func:`swa_attention_bwd_plain` is the same function in plain PyTorch,
   scores materialised in fp32 (float64 for float64 inputs) per KV group, as
   ``swa_attention_plain`` does. The CPU path runs it; on the card it is
@@ -51,13 +51,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decay_accum import check_buffer, raise_on, stream_of
 from repro_torch.kernels.swa_attention import (
     DTYPE_CODE,
+    HEAD_DIMS,
     check_shapes,
     swa_mask,
 )
-
-# The head sizes the backward kernels take: a subset of the forward's
-# (D = 256: gemma-7b and recurrentgemma-9b training), without 64.
-BWD_HEAD_DIMS = (120, 128, 256)
 
 launches = 0               # calls of swa_attention_bwd_cuda (two kernels each)
 
@@ -65,11 +62,9 @@ launches = 0               # calls of swa_attention_bwd_cuda (two kernels each)
 def check_head_dim(fn: str, d: int) -> None:
     """Raise ``ValueError`` for a head size the backward kernels do not
     take."""
-    if d not in BWD_HEAD_DIMS:
-        later = (" (the D = 64 backward comes with the slice that trains the "
-                 "encoder-decoder, whisper-small)" if d == 64 else "")
+    if d not in HEAD_DIMS:
         raise ValueError(f"{fn}: the backward kernels take head sizes "
-                         f"{BWD_HEAD_DIMS}, got {d}{later}")
+                         f"{HEAD_DIMS}, got {d}")
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -134,12 +129,12 @@ def swa_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``q``, ``o``, ``do`` are contiguous ``(B, Sq, H, D)`` CUDA tensors,
     ``k`` and ``v`` contiguous ``(B, Sk, KV, D)``, all fp32 or all bf16 on
-    one device, D in :data:`BWD_HEAD_DIMS`; ``lse`` is the forward's
+    one device, D in :data:`HEAD_DIMS`; ``lse`` is the forward's
     contiguous fp32 ``(B, H, Sq)``; every pointer 16-byte aligned. The
     outputs and the fp32 scratch (``delta``, and for bf16 also ``lse * log2
-    e``, each padded to whole 128-row tiles) are allocated here. A head size
-    outside :data:`BWD_HEAD_DIMS` (D = 64 among them) is refused first,
-    before any other check or launch.
+    e``, each padded to whole 128-row tiles of Sq) are allocated here. A head
+    size outside :data:`HEAD_DIMS` is refused first, before any other
+    check or launch.
     """
     global launches
     fn = "swa_attention_bwd_cuda"

@@ -14,14 +14,16 @@ every ``tau`` local steps the sync step runs the strategy's collective:
 Layout. Each agent's parameters are one row of a flat ``(A, n)`` buffer in
 the parameter dtype, in the order of ``jax.flatten_util.ravel_pytree`` over
 the JAX package's parameter tree (its ``cycles`` stacked over the layers,
-dict keys sorted): :class:`ParamLayout`. Adam's moments are fp32 ``(A, n)``
+an encoder-decoder's ``enc_blocks`` / ``dec_blocks`` likewise, dict keys
+sorted): :class:`ParamLayout`. Adam's moments are fp32 ``(A, n)``
 buffers beside it, as in the RL and FMARL drivers. The model reads views of
 an agent's row; one backward writes the agent's gradient row into an
 ``(A, n)`` gradient buffer (:class:`RowViews`).
 
 Hot path on the card, per local step: the model's forward and backward for
-each agent (the ``swa_attention`` forward and ``swa_attention_bwd`` kernels
-in every attention layer, the ``wkv6`` and ``wkv6_bwd`` kernels in every
+each agent on its tokens (and frames, for an encoder-decoder model) (the
+``swa_attention`` forward and ``swa_attention_bwd`` kernels in every
+attention, whisper-small's encoder and cross-attentions included, the ``wkv6`` and ``wkv6_bwd`` kernels in every
 ``wkv`` layer, each forward twice under ``cfg.remat``), each
 agent's global gradient norm (one fp32 sum per leaf, added in leaf order,
 as ``repro.utils.pytree.tree_l2_norm``), then one ``adam_update`` launch
@@ -137,22 +139,30 @@ class ParamLayout:
     are one stacked leaf of shape ``(n_cycles, ...)``. ``pieces`` cut those
     into the port's per-layer parameters: ``(offset, shape, port_path)``,
     ``port_path`` into ``{"embed", "final_norm", "unembed", "blocks": [...]}``.
+    An encoder-decoder model's tree is the same in both packages
+    (``dec_blocks``, ``embed``, ``enc_blocks``, ``enc_norm``,
+    ``final_norm``, the blocks stacked over layers): its pieces are its
+    leaves.
     """
 
     def __init__(self, cfg):
         check_trainable(cfg)
         want = param_shapes(cfg)
+        self.encdec = cfg.is_encoder_decoder
         plan = layer_plan(cfg)
-        blocks = want["blocks"]
-        jax_tree: Dict = {k: v for k, v in want.items() if k != "blocks"}
-        jax_tree["head_blocks"] = [blocks[li] for li in plan.head]
-        jax_tree["tail_blocks"] = [blocks[li] for li in plan.tail]
         P = len(plan.cycle_kinds)
-        jax_tree["cycles"] = [
-            tree_map(lambda t: torch.empty((plan.n_cycles,) + tuple(t.shape),
-                                           device="meta"),
-                     blocks[len(plan.head) + j])
-            for j in range(P)] if plan.n_cycles else []
+        if self.encdec:
+            jax_tree: Dict = want
+        else:
+            blocks = want["blocks"]
+            jax_tree = {k: v for k, v in want.items() if k != "blocks"}
+            jax_tree["head_blocks"] = [blocks[li] for li in plan.head]
+            jax_tree["tail_blocks"] = [blocks[li] for li in plan.tail]
+            jax_tree["cycles"] = [
+                tree_map(lambda t: torch.empty(
+                    (plan.n_cycles,) + tuple(t.shape), device="meta"),
+                    blocks[len(plan.head) + j])
+                for j in range(P)] if plan.n_cycles else []
         leaves = _jax_paths(jax_tree)
         self.paths = tuple(p for p, _ in leaves)
         self.shapes = tuple(tuple(t.shape) for _, t in leaves)
@@ -188,7 +198,8 @@ class ParamLayout:
                      for o, s, _ in self.pieces]
         else:
             views = RowViews.apply(row, grads, agent, self)
-        tree: Dict = {"blocks": [{} for _ in range(self.n_layers)]}
+        tree: Dict = {} if self.encdec else {
+            "blocks": [{} for _ in range(self.n_layers)]}
         for (_, _, path), v in zip(self.pieces, views):
             _set(tree, path, v)
         return tree
@@ -197,7 +208,8 @@ class ParamLayout:
         """The JAX-layout tree of an ``(A, n)`` buffer (leaves ``(A,
         *shape)``) or an ``(n,)`` row, as views."""
         lead = tuple(flat.shape[:-1])
-        tree: Dict = {"head_blocks": [], "tail_blocks": [], "cycles": []}
+        tree: Dict = {} if self.encdec else {
+            "head_blocks": [], "tail_blocks": [], "cycles": []}
         for path, shape, o, s in zip(self.paths, self.shapes,
                                      self.spec.offsets, self.spec.sizes):
             _set(tree, path, flat[..., o:o + s].view(lead + shape))
@@ -398,7 +410,8 @@ def grad_norms(state: TrainState) -> torch.Tensor:
 def make_local_step(cfg, optimizer: Optimizer, fed: FedTrainConfig,
                     n_agents: int = 1, *, swa_impl=None, wkv_impl=None):
     """Returns ``local_step(state, batch) -> (state, metrics)``.
-    ``batch["tokens"]``: ``(A, B, S + 1)`` integer on the state's device.
+    ``batch["tokens"]``: ``(A, B, S + 1)`` integer on the state's device;
+    an encoder-decoder model's ``batch["frames"]``: ``(A, B, F, d)``.
     Each agent's loss and gradient, its clip factor ``min(1, clip /
     max(norm, 1e-12))``, then one flat update of all rows at ``lr`` (times
     ``lambda^(j / 2)`` at period offset j for ``decay``). ``metrics``:
@@ -413,12 +426,11 @@ def make_local_step(cfg, optimizer: Optimizer, fed: FedTrainConfig,
         if state.n_agents != n_agents:
             raise ValueError(f"local_step: state has {state.n_agents} agents,"
                              f" the step {n_agents}")
-        tokens = batch["tokens"]
         losses = []
         for a in range(n_agents):
             row = state.params[a].detach().requires_grad_()
             params = state.layout.model_params(row, state.grads, a)
-            loss = lm_loss(cfg, params, {"tokens": tokens[a]},
+            loss = lm_loss(cfg, params, {k: v[a] for k, v in batch.items()},
                            swa_impl=swa_impl, wkv_impl=wkv_impl)
             loss.backward()
             losses.append(loss.detach())

@@ -2,10 +2,11 @@
 RWKV6 ``wkv`` blocks (slice 4), sliding-window attention (slice 5), its
 training loss (slice 13), the Griffin ``rglru`` block with mixed layer
 patterns at head size 256 (slice 15), and the whisper encoder-decoder
-(slice 18, serving)."""
+(slice 18, serving; slice 19, training)."""
 from repro_torch.models.encdec import (
     encdec_decode_step,
     encdec_forward,
+    encdec_loss,
     encode,
     init_encdec_decode_state,
 )
@@ -32,6 +33,7 @@ __all__ = [
     "decode_step",
     "encdec_decode_step",
     "encdec_forward",
+    "encdec_loss",
     "encode",
     "forward",
     "init_decode_state",

@@ -13,9 +13,13 @@ Every full-sequence attention goes through the dispatched ``swa_attention``
 (the hand-written kernel on the card, at head size 64 for whisper-small):
 the encoder's with ``causal=False`` (Sq = Sk = frames), the decoder's
 self-attention causal, and the cross-attention with ``causal=False`` and
-Sq != Sk, in prefill and at every decode step. A decode step's
-self-attention runs over the ring cache as plain torch
-(``attention.attention_decode``), as for every family the port serves.
+Sq != Sk, in training, in prefill and at every decode step. Under autograd
+each is :class:`repro_torch.kernels.dispatch.SwaAttention`, whose backward
+is the ``swa_attention_bwd`` kernel (JAX's train mode: the
+``flash_attention`` custom VJP, its cross-attention through
+``cross_attention_flash``). A decode step's self-attention runs over the
+ring cache as plain torch (``attention.attention_decode``), as for every
+family the port serves.
 
 Parameters keep the JAX tree's layout: ``embed``, ``enc_blocks``,
 ``enc_norm``, ``dec_blocks``, ``final_norm``, the blocks' leaves stacked
@@ -30,16 +34,18 @@ st["cache"]``, ``state["cross_k"], state["cross_v"] = st["cross"]["k"],
 st["cross"]["v"]``. :func:`encdec_decode_step` writes the new token's K/V
 into ``state["self"]`` in place and returns the same dict.
 
-Training (``encdec_loss``, the flash cross-attention of JAX's train mode
-and the D = 64 attention backward) comes with a later slice; a ``train``
-forward here computes the same logits without them, and is not
-recomputed in a backward (``cfg.remat``).
+Training: :func:`encdec_loss`, teacher-forced next-token cross-entropy
+against the embedding table's transpose. Under ``cfg.remat`` with autograd
+on, each encoder layer and each decoder layer is recomputed in the
+backward (``torch.utils.checkpoint``, as JAX wraps both scans' bodies in
+``jax.checkpoint``).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import dispatch
 from repro_torch.models import attention as at
@@ -56,6 +62,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.transformer import (
     _stack_trees,
+    chunked_cross_entropy,
     layer_state,
     padded_vocab,
     tree_map,
@@ -103,26 +110,61 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, device=x.device).expand(b, s)
 
 
+def _remat(cfg) -> bool:
+    """Whether layers are recomputed in the backward: ``cfg.remat`` with
+    autograd on (nothing is saved for a backward otherwise)."""
+    return cfg.remat and torch.is_grad_enabled()
+
+
+def _enc_block(cfg, p, x, pos, fn):
+    """One encoder layer: ``x + attention(ln1 x)``, then ``+ MLP(ln2 x)``;
+    the attention bidirectional over the frames."""
+    b, f, _ = x.shape
+    xa = apply_norm(p["ln1"], x, cfg.norm)
+    q, k, v = at._project_qkv(p["attn"], xa, cfg, pos, rope=False)
+    o = fn(q, k, v, window=None, causal=False)
+    x = x + o.reshape(b, f, cfg.n_heads * cfg.head_dim) @ p["attn"]["wo"]
+    xb = apply_norm(p["ln2"], x, cfg.norm)
+    return x + apply_mlp(p["mlp"], xb, cfg.activation)
+
+
 def encode(cfg, params, frames: torch.Tensor, *,
            swa_impl: Optional[Callable] = None) -> torch.Tensor:
     """frames: ``(B, F, d)`` stub embeddings -> encoder output ``(B, F, d)``
     in ``cfg.compute_dtype``. ``swa_impl`` replaces the dispatched
-    attention (a function of ``(q, k, v, *, window, causal)``)."""
+    attention (a function of ``(q, k, v, *, window, causal)``). Each layer
+    is recomputed in the backward under ``cfg.remat``."""
     dtype = torch_dtype(cfg.compute_dtype)
     x = frames.to(dtype)
-    b, f, _ = x.shape
     pos = _positions(x)
     x = x + sinusoidal_for_positions(pos[0], cfg.d_model).to(dtype)
     fn = swa_impl or dispatch.swa_attention
+    remat = _remat(cfg)
     for i in range(cfg.n_encoder_layers):
-        p = layer_state(params["enc_blocks"], i)
-        xa = apply_norm(p["ln1"], x, cfg.norm)
-        q, k, v = at._project_qkv(p["attn"], xa, cfg, pos, rope=False)
-        o = fn(q, k, v, window=None, causal=False)
-        x = x + o.reshape(b, f, cfg.n_heads * cfg.head_dim) @ p["attn"]["wo"]
-        xb = apply_norm(p["ln2"], x, cfg.norm)
-        x = x + apply_mlp(p["mlp"], xb, cfg.activation)
+        run = lambda x_, p=layer_state(params["enc_blocks"], i): _enc_block(
+            cfg, p, x_, pos, fn)
+        x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
     return apply_norm(params["enc_norm"], x, cfg.norm)
+
+
+def _dec_block(cfg, p, x, attend_self, kv, swa_impl):
+    """One decoder layer: ``x + attend_self(ln1 x)``, ``+ cross-attention
+    (ln_x x)`` over the cross K/V ``kv``, then ``+ MLP(ln2 x)``."""
+    x = x + attend_self(apply_norm(p["ln1"], x, cfg.norm))
+    xx = apply_norm(p["ln_x"], x, cfg.norm)
+    x = x + at.cross_attention(p["xattn"], xx, *kv, cfg, swa_impl=swa_impl)
+    xb = apply_norm(p["ln2"], x, cfg.norm)
+    return x + apply_mlp(p["mlp"], xb, cfg.activation)
+
+
+def _dec_train_block(cfg, p, x, positions, enc_out, swa_impl):
+    """A train-mode decoder layer: causal self-attention, the cross K/V of
+    ``enc_out`` (inside the layer, so a recomputed layer recomputes them,
+    as JAX's checkpointed scan body does)."""
+    attend = lambda xa: at.attention(p["attn"], xa, cfg, kind="attn",
+                                     positions=positions, swa_impl=swa_impl)
+    return _dec_block(cfg, p, x, attend, at.cross_kv(p["xattn"], enc_out, cfg),
+                      swa_impl)
 
 
 def _decoder_layers(cfg, params, x, positions, *, enc_out=None, states=None,
@@ -132,7 +174,8 @@ def _decoder_layers(cfg, params, x, positions, *, enc_out=None, states=None,
     new states)``. ``prefill``: new states ``{"cache", "cross"}``, the
     self-attention caches sized ``cache_len`` (default S); ``decode``:
     ``states`` is a decode state, whose ``self`` cache is written in place,
-    and the new states are ``{}``; ``train``: ``{}``."""
+    and the new states are ``{}``; ``train``: ``{}``, each layer recomputed
+    in the backward under ``cfg.remat``."""
     b, s, _ = x.shape
     n, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     new: dict = {}
@@ -147,34 +190,27 @@ def _decoder_layers(cfg, params, x, positions, *, enc_out=None, states=None,
             "cross": {
             "k": torch.empty((n, b, t, kv, hd), dtype=x.dtype, device=dev),
             "v": torch.empty((n, b, t, kv, hd), dtype=x.dtype, device=dev)}}
+    remat = mode == "train" and _remat(cfg)
     for i in range(n):
         p = layer_state(params["dec_blocks"], i)
-        xa = apply_norm(p["ln1"], x, cfg.norm)
+        if mode == "train":
+            run = lambda x_, p=p: _dec_train_block(cfg, p, x_, positions,
+                                                   enc_out, swa_impl)
+            x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+            continue
         if mode == "decode":
-            y, _ = at.attention_decode(p["attn"], xa,
-                                       layer_state(states["self"], i), cfg,
-                                       kind="attn", pos=pos)
-        elif mode == "prefill":
-            y, _ = at.attention_prefill(
+            kv = (states["cross_k"][i], states["cross_v"][i])
+            attend = lambda xa: at.attention_decode(
+                p["attn"], xa, layer_state(states["self"], i), cfg,
+                kind="attn", pos=pos)[0]
+        else:
+            kv = at.cross_kv(p["xattn"], enc_out, cfg)
+            new["cross"]["k"][i], new["cross"]["v"][i] = kv
+            attend = lambda xa: at.attention_prefill(
                 p["attn"], xa, cfg, kind="attn", positions=positions,
                 cache_len=w, out=layer_state(new["cache"], i),
-                swa_impl=swa_impl)
-        else:
-            y = at.attention(p["attn"], xa, cfg, kind="attn",
-                             positions=positions, swa_impl=swa_impl)
-        x = x + y
-        xx = apply_norm(p["ln_x"], x, cfg.norm)
-        if mode == "decode":
-            xk, xv = states["cross_k"][i], states["cross_v"][i]
-        else:
-            xk, xv = at.cross_kv(p["xattn"], enc_out, cfg)
-            if mode == "prefill":
-                new["cross"]["k"][i] = xk
-                new["cross"]["v"][i] = xv
-        x = x + at.cross_attention(p["xattn"], xx, xk, xv, cfg,
-                                   swa_impl=swa_impl)
-        xb = apply_norm(p["ln2"], x, cfg.norm)
-        x = x + apply_mlp(p["mlp"], xb, cfg.activation)
+                swa_impl=swa_impl)[0]
+        x = _dec_block(cfg, p, x, attend, kv, swa_impl)
     return apply_norm(params["final_norm"], x, cfg.norm), new
 
 
@@ -212,6 +248,22 @@ def encdec_forward(cfg, params, tokens: torch.Tensor, frames: torch.Tensor,
     if not unembed_out:
         return x, states
     return encdec_logits(params, x), states
+
+
+def encdec_loss(cfg, params, batch, *,
+                swa_impl: Optional[Callable] = None) -> torch.Tensor:
+    """Next-token cross-entropy (0-d fp32) of ``batch = {"tokens": (B, S),
+    "frames": (B, F, d)}``: the decoder reads ``tokens[:, :-1]`` against
+    the encoder output of ``frames`` and predicts ``tokens[:, 1:]``, the
+    logits the embedding table's transpose, through
+    ``chunked_cross_entropy`` with ``cfg.ce_chunks``, as in JAX.
+    ``swa_impl`` replaces the dispatched attention (a reference run)."""
+    tokens, frames = batch["tokens"], batch["frames"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    hidden, _ = encdec_forward(cfg, params, inputs, frames, unembed_out=False,
+                               swa_impl=swa_impl)
+    return chunked_cross_entropy(hidden, params["embed"]["table"].T, targets,
+                                 n_chunks=cfg.ce_chunks)
 
 
 def init_encdec_decode_state(cfg, batch: int, max_seq: int, n_frames: int,

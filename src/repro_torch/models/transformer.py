@@ -587,15 +587,12 @@ def decode_step(cfg, params, token: torch.Tensor, states: dict,
 
 def check_trainable(cfg) -> None:
     """Raise ``NotImplementedError`` for models :func:`lm_loss` cannot train
-    yet: those the port cannot serve either (encoder-decoder, MoE, a VLM
-    prefix)."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError("encdec_loss (whisper-small) comes with a "
-                                  "later slice")
+    yet: those the port cannot serve either (MoE, a VLM prefix). An
+    encoder-decoder model trains through ``encdec.encdec_loss``."""
     if cfg.family == "moe":
         raise NotImplementedError("the MoE router's auxiliary loss comes with "
                                   "a later slice (kimi-k2, arctic)")
-    if cfg.frontend is not None:
+    if cfg.frontend not in (None, "audio"):
         raise NotImplementedError(f"the {cfg.frontend} prefix of a training "
                                   f"batch comes with a later slice")
     check_supported(cfg)
@@ -605,15 +602,21 @@ def lm_loss(cfg, params, batch, *, ce_chunks: Optional[int] = None,
             swa_impl: Optional[Callable] = None,
             wkv_impl: Optional[Callable] = None) -> torch.Tensor:
     """Next-token cross-entropy (0-d fp32). ``batch``: ``{'tokens': (B, S)}``
-    integer; the model reads ``tokens[:, :-1]`` and predicts
-    ``tokens[:, 1:]``. ``ce_chunks`` (default ``cfg.ce_chunks``, as JAX's
-    ``ce_chunks or cfg.ce_chunks``) picks :func:`chunked_cross_entropy`'s
-    branch; ``swa_impl`` and ``wkv_impl`` replace the dispatched attention
-    and recurrence (see :func:`forward`)."""
+    integer, and for an encoder-decoder model ``'frames': (B, F, d)``; the
+    model reads ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``. An
+    encoder-decoder model goes to ``encdec.encdec_loss``, which reads
+    ``cfg.ce_chunks`` alone, as in JAX. Otherwise ``ce_chunks`` (default
+    ``cfg.ce_chunks``, as JAX's ``ce_chunks or cfg.ce_chunks``) picks
+    :func:`chunked_cross_entropy`'s branch;
+    ``swa_impl`` and ``wkv_impl`` replace the dispatched attention and
+    recurrence (see :func:`forward`)."""
     check_trainable(cfg)
+    if cfg.is_encoder_decoder:
+        from repro_torch.models.encdec import encdec_loss
+        return encdec_loss(cfg, params, batch, swa_impl=swa_impl)
     if batch.get("patch_embeds") is not None or batch.get("frames") is not None:
-        raise NotImplementedError("VLM / audio batches come with a later "
-                                  "slice")
+        raise NotImplementedError("VLM batches come with a later slice; "
+                                  "frames feed an encoder-decoder model")
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     hidden, _, _ = forward(cfg, params, inputs, mode="train",

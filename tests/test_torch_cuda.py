@@ -914,7 +914,7 @@ def test_swa_attention_d256_repeats_bitwise_and_writes_the_lse(card, dtype):
         <= 1e-5
 
 
-def test_d256_training_is_refused_before_any_launch(card):
+def test_d256_training_launches_the_forward_and_the_backward_once(card):
     """Since slice 16 the backward takes D = 256 too: a training call on
     the card launches the forward and the backward kernel once each, and
     its gradients are the backward kernel's on the forward's residuals."""
@@ -941,16 +941,14 @@ def test_attention_kernels_launch_from_a_new_host_thread(card, d):
     q, k, v = _swa_case(1, 100, 100, 4, 2, d, torch.bfloat16, 8, card)
     do = torch.randn_like(q)
     o, lse = sw.swa_attention_cuda(q, k, v, with_lse=True)
-    want = (o, *swb.swa_attention_bwd_cuda(q, k, v, o, do, lse)
-            ) if d != 64 else (o,)
+    want = (o, *swb.swa_attention_bwd_cuda(q, k, v, o, do, lse))
     got, errors = [], []
 
     def first_cuda_work():
         try:
             o2, lse2 = sw.swa_attention_cuda(q, k, v, with_lse=True)
             got.append(o2)
-            if d != 64:
-                got.extend(swb.swa_attention_bwd_cuda(q, k, v, o2, do, lse2))
+            got.extend(swb.swa_attention_bwd_cuda(q, k, v, o2, do, lse2))
             torch.cuda.synchronize()
         except Exception as e:         # reported by the assert below
             errors.append(e)
@@ -963,18 +961,21 @@ def test_attention_kernels_launch_from_a_new_host_thread(card, d):
     assert len(got) == len(want)
 
 
-def test_d64_training_is_refused_before_any_launch(card):
-    """The forward takes D = 64 (whisper-small serving), the backward does
-    not yet: a training call launches the forward once, and its backward
-    raises at the head check before any launch."""
-    q, k, v = _swa_case(1, 64, 64, 4, 4, 64, torch.bfloat16, 7, card)
+def test_d64_training_launches_the_forward_and_the_backward_once(card):
+    """Since slice 19 the backward takes D = 64 (whisper-small training): a
+    non-causal training call on the card launches the forward and the
+    backward kernel once each, and its gradients are the backward kernel's
+    on the forward's residuals."""
+    q, k, v = _swa_case(1, 64, 100, 4, 4, 64, torch.bfloat16, 7, card)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    do = torch.randn_like(q)
     before = (sw.launches, swb.launches)
     o = dispatch.swa_attention(*leaves, causal=False)
-    assert (sw.launches - before[0], swb.launches - before[1]) == (1, 0)
-    with pytest.raises((ValueError, RuntimeError), match="head sizes"):
-        torch.autograd.grad(o, leaves, torch.ones_like(o))
-    assert swb.launches == before[1]
+    got = torch.autograd.grad(o, leaves, do)
+    assert (sw.launches - before[0], swb.launches - before[1]) == (1, 1)
+    o2, lse = sw.swa_attention_cuda(q, k, v, causal=False, with_lse=True)
+    want = swb.swa_attention_bwd_cuda(q, k, v, o2, do, lse, causal=False)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 def _reduced_whisper(card):
@@ -1434,22 +1435,28 @@ BWD_REL = 1e-5                 # fp32: within BWD_REL x the largest |grad|
 BWD_MAX_RATIO, BWD_MEAN_RATIO, BWD_FLOOR = 2.0, 1.1, 1e-6
 
 
-def _bwd_case(b, s, h, kv, d, dtype, seed, device):
+def _bwd_case(b, s, h, kv, d, dtype, seed, device, sk=None):
+    """q and do ``(b, s, h, d)``, k and v ``(b, sk, kv, d)`` (sk default
+    s), standard normal."""
     gen = torch.Generator(device=device).manual_seed(seed)
     rnd = lambda *sh: torch.randn(sh, generator=gen, device=device).to(dtype)
-    return rnd(b, s, h, d), rnd(b, s, kv, d), rnd(b, s, kv, d), \
+    sk = s if sk is None else sk
+    return rnd(b, s, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d), \
         rnd(b, s, h, d)
 
 
-def _check_bwd_kernel(b, s, h, kv, d, window, dtype, seed, card):
+def _check_bwd_kernel(b, s, h, kv, d, window, dtype, seed, card, sk=None,
+                      causal=True):
     """The forward's lse within 1e-5 (relative, at least 1) of the plain
     version's; the backward on the kernel forward's o and lse: fp32 within
     1e-5 of the largest |gradient| of the plain backward, bf16 against the
     float64 gradient within 2x / 1.1x the plain bf16 backward's largest /
     mean error (+ 1e-6 of the largest |gradient|: with W = 1, dq and dk are
-    0 up to rounding); one launch a call, and a second call the same bits."""
-    q, k, v, do = _bwd_case(b, s, h, kv, d, dtype, seed, card)
-    kw = dict(window=window, causal=True)
+    0 up to rounding); one launch a call, and a second call the same bits.
+    ``sk`` keys (default s) against the s query rows, masked or not by
+    ``causal``."""
+    q, k, v, do = _bwd_case(b, s, h, kv, d, dtype, seed, card, sk)
+    kw = dict(window=window, causal=causal)
     o, lse = sw.swa_attention_cuda(q, k, v, with_lse=True, **kw)
     assert torch.equal(o, sw.swa_attention_cuda(q, k, v, **kw))
     _, plse = sw.swa_attention_plain(q, k, v, with_lse=True, **kw)
@@ -1526,6 +1533,42 @@ def test_swa_attention_bwd_kernel_matches_plain_at_d256_training_shapes(
     _check_bwd_kernel(2, 1024, 16, kv, 256, window, dtype, 1024 + kv, card)
 
 
+# (B, Sq, Sk, H, KV, causal) at D = 64: whisper-small's training shapes
+# (the encoder's 1500 x 1500 and the cross-attention's 448 x 1500, non-causal;
+# the decoder's 448 x 448, causal), lengths at the 64- and 128-row tile
+# edges both ways round, one row or one key, GQA 8 / 4 beside 12 / 12
+D64_BWD_CASES = [
+    (2, 1500, 1500, 12, 12, False), (2, 448, 1500, 12, 12, False),
+    (2, 448, 448, 12, 12, True), (1, 1, 1500, 12, 12, False),
+    (1, 1500, 1, 12, 12, False), (1, 63, 65, 12, 12, False),
+    (1, 65, 63, 12, 12, False), (1, 129, 448, 8, 4, False),
+    (1, 448, 129, 8, 4, False), (1, 1500, 448, 12, 12, False),
+    (1, 65, 129, 8, 4, True), (1, 129, 65, 8, 4, True),
+    (1, 63, 63, 8, 4, True), (1, 1, 1, 12, 12, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,sq,sk,h,kv,causal", D64_BWD_CASES)
+def test_swa_attention_bwd_kernel_matches_plain_at_d64(card, b, sq, sk, h, kv,
+                                                       causal, dtype):
+    """``_check_bwd_kernel`` at D = 64 (the one 64-column box, m64n64
+    accumulators), causal on and off, Sq and Sk apart and ragged."""
+    _check_bwd_kernel(b, sq, h, kv, 64, None, dtype, 13 * sq + sk + kv, card,
+                      sk=sk, causal=causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,sq,sk,h,kv,d", [
+    (1, 129, 300, 8, 4, 120), (2, 300, 129, 8, 8, 128),
+    (1, 200, 65, 16, 1, 256)])
+def test_swa_attention_bwd_kernel_non_causal_with_sq_ne_sk(card, b, sq, sk, h,
+                                                           kv, d, dtype):
+    """``_check_bwd_kernel`` with the mask off and Sq != Sk at the other
+    head sizes: every key tile of every query tile, both walks ragged."""
+    _check_bwd_kernel(b, sq, h, kv, d, None, dtype, 17 * sq + sk, card, sk=sk,
+                      causal=False)
+
+
 # (B, T, H, nonzero s0, nonzero dL/dS_T): phase 20's shapes
 @pytest.mark.parametrize("b,t,h,s_on,g_on", [
     (1, 37, 2, True, True), (2, 16, 3, False, True), (1, 1, 4, True, False),
@@ -1598,8 +1641,9 @@ def test_recurrent_lm_trains_on_the_card_as_on_the_cpu(card, arch):
 def test_swa_attention_bwd_kernel_refuses_what_it_does_not_take(card):
     q, k, v, do = _bwd_case(1, 8, 4, 2, 120, torch.float32, 0, card)
     o, lse = sw.swa_attention_cuda(q, k, v, with_lse=True)
-    with pytest.raises(ValueError, match=r"head sizes \(120, 128, 256\)"):
-        swb.swa_attention_bwd_cuda(*(t[..., :64].contiguous()
+    with pytest.raises(ValueError,
+                       match=r"head sizes \(64, 120, 128, 256\), got 32"):
+        swb.swa_attention_bwd_cuda(*(t[..., :32].contiguous()
                                      for t in (q, k, v, o, do)), lse)
     with pytest.raises(TypeError):
         swb.swa_attention_bwd_cuda(q, k, v, o, do, lse.double())

@@ -339,18 +339,26 @@ def test_plain_at_d64_matches_the_pallas_kernel(sq, sk, bq, bk, h, kv, causal,
 
 
 def test_the_forward_takes_d64_and_the_backward_refuses_it():
-    """The forward's head sizes hold 64, the backward's do not: a D = 64
-    backward raises at its head check, before any other check or launch
-    (the D = 64 backward comes with the enc-dec training slice)."""
-    assert 64 in sw.HEAD_DIMS and 64 not in swb.BWD_HEAD_DIMS
-    assert set(swb.BWD_HEAD_DIMS) < set(sw.HEAD_DIMS)
-    with pytest.raises(ValueError, match="encoder-decoder"):
-        swb.check_head_dim("swa_attention_bwd_cuda", 64)
+    """The forward's and, since slice 19 (whisper-small training), the
+    backward's head sizes hold 64: a D = 64 backward passes the head check
+    and on CPU tensors raises at its device check, before any launch; a
+    head size neither kernel takes is refused first."""
+    assert 64 in sw.HEAD_DIMS
+    for d in sw.HEAD_DIMS:
+        swb.check_head_dim("swa_attention_bwd_cuda", d)
+    swb.check_head_dim("swa_attention_bwd_cuda", 64)
+    with pytest.raises(ValueError, match="got 32"):
+        swb.check_head_dim("swa_attention_bwd_cuda", 32)
     q = torch.zeros(1, 4, 2, 64)
-    k = torch.zeros(1, 4, 1, 64)
+    k = torch.zeros(1, 6, 1, 64)
     before = (sw.launches, swb.launches)
-    with pytest.raises(ValueError, match=r"head sizes \(120, 128, 256\)"):
-        swb.swa_attention_bwd_cuda(q, k, k, q, q, torch.zeros(1, 2, 4))
+    with pytest.raises(ValueError, match="CUDA device"):
+        swb.swa_attention_bwd_cuda(q, k, k, q, q, torch.zeros(1, 2, 4),
+                                   causal=False)
+    with pytest.raises(ValueError, match=r"head sizes \(64, 120, 128, 256\)"):
+        swb.swa_attention_bwd_cuda(q[..., :32], k[..., :32], k[..., :32],
+                                   q[..., :32], q[..., :32],
+                                   torch.zeros(1, 2, 4))
     with pytest.raises(ValueError, match="CUDA device"):
         sw.swa_attention_cuda(q, k, k)                 # 64 passes its check
     assert (sw.launches, swb.launches) == before
@@ -361,14 +369,19 @@ def test_the_forward_takes_d64_and_the_backward_refuses_it():
 
 
 def test_decoder_only_entry_points_and_training_refuse_the_encdec(model):
+    """The decoder-only entry points still refuse an encoder-decoder model;
+    training no longer does (slice 19): ``check_trainable`` passes and
+    ``lm_loss`` goes to ``encdec_loss``."""
     tcfg, tp = model.tcfg, model.tp
     toks = _t(model.toks[:, :4])
     for call in (lambda: TM.forward(tcfg, tp, toks),
                  lambda: TM.init_decode_state(tcfg, 1, 8, device="cpu")):
         with pytest.raises(NotImplementedError, match="encdec"):
             call()
-    with pytest.raises(NotImplementedError, match="encdec"):
-        TM.transformer.check_trainable(tcfg)
+    TM.transformer.check_trainable(tcfg)
+    frames = torch.zeros(toks.shape[0], tcfg.n_frontend_tokens, tcfg.d_model)
+    loss = TM.lm_loss(tcfg, tp, {"tokens": toks, "frames": frames})
+    assert loss.shape == () and bool(torch.isfinite(loss))
 
 
 if __name__ == "__main__":

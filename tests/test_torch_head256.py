@@ -209,7 +209,7 @@ def test_the_kernel_takes_d256_and_the_backward_refuses_it_first():
     """The forward's and the backward's head sizes both hold 256 (slice
     16): a D = 256 call passes the head check, and on CPU tensors the
     wrapper raises at its device check, before any launch."""
-    assert 256 in sw.HEAD_DIMS and swb.BWD_HEAD_DIMS == (120, 128, 256)
+    assert 256 in sw.HEAD_DIMS and sw.HEAD_DIMS == (64, 120, 128, 256)
     q = torch.zeros(1, 4, 2, 256)
     k = v = torch.zeros(1, 4, 1, 256)
     lse = torch.zeros(1, 2, 4)

@@ -262,8 +262,9 @@ def test_remat_recomputes_and_changes_nothing():
                                         ("phi4-mini-3.8b", None)])
 def test_lm_loss_refuses_what_the_port_cannot_train(arch, match):
     """Every family the port serves trains (RWKV6 since slice 16, global
-    attention since slice 13); MoE and encoder-decoder models are refused
-    by ``lm_loss`` and the flat layout."""
+    attention since slice 13, the encoder-decoder since slice 19); MoE
+    models and a VLM prefix are refused by ``lm_loss`` and the flat
+    layout."""
     cfg = TC.get_arch(arch).reduced()
     toks = torch.zeros(1, 9, dtype=torch.int64)
     assert match is None
@@ -272,8 +273,8 @@ def test_lm_loss_refuses_what_the_port_cannot_train(arch, match):
     assert TF.ParamLayout(cfg).n > 0
     moe = dataclasses.replace(TC.get_arch("h2o-danube-3-4b").reduced(),
                               family="moe", n_experts=2, top_k=1)
-    encdec = dataclasses.replace(cfg, is_encoder_decoder=True)
-    for bad, text in ((moe, "MoE"), (encdec, "encdec")):
+    vlm = dataclasses.replace(cfg, frontend="vision")
+    for bad, text in ((moe, "MoE"), (vlm, "prefix")):
         with pytest.raises(NotImplementedError, match=text):
             TM.lm_loss(bad, {}, {"tokens": toks})
         with pytest.raises(NotImplementedError, match=text):
@@ -476,3 +477,24 @@ def test_entry_points_default_to_the_card(monkeypatch):
         TF.init_train_state(_cfgs()[1], 0, A, TO.adamw(), fed)
     with pytest.raises(ValueError, match="unknown strategy"):
         TF.FedTrainConfig(strategy="gossip")
+
+
+def _example(name):
+    spec = importlib.util.spec_from_file_location(
+        f"examples_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_lm100m_example_twin_trains_the_jax_examples_config():
+    """``examples/torch_train_lm_federated.py`` trains the JAX example's
+    lm-100m (every config field equal) on its batches (4 x 128 tokens an
+    agent), head 64: the D = 64 backward, fp32, causal with GQA 8 / 4."""
+    jex = _example("train_lm_federated")
+    tex = _example("torch_train_lm_federated")
+    got = tex.lm100m()
+    assert dataclasses.asdict(got) == dataclasses.asdict(jex.LM100M)
+    assert tex.lm100m() is got
+    assert (tex.BATCH, tex.SEQ) == (4, 128)
+    assert (got.head_dim, got.n_heads, got.n_kv_heads) == (64, 8, 4)

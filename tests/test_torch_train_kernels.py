@@ -162,14 +162,14 @@ def test_wkv6_bwd_scratch_is_sized_by_32_step_chunks(t, n):
 
 
 def test_backward_kernels_take_d256_and_raise_on_cpu_tensors():
-    assert swb.BWD_HEAD_DIMS == (120, 128, 256)
+    assert sw.HEAD_DIMS == (64, 120, 128, 256)
     before = (swb.launches, wk.bwd_launches)
     q = torch.zeros(1, 4, 2, 256)
     k = torch.zeros(1, 4, 1, 256)
     with pytest.raises(ValueError, match="CUDA device"):
         swb.swa_attention_bwd_cuda(q, k, k, q, q, torch.zeros(1, 2, 4))
     with pytest.raises(ValueError, match="head sizes"):
-        swb.swa_attention_bwd_cuda(*(torch.zeros(1, 4, n, 64)
+        swb.swa_attention_bwd_cuda(*(torch.zeros(1, 4, n, 32)
                                      for n in (2, 1, 1, 2, 2)),
                                    torch.zeros(1, 2, 4))
     x = torch.zeros(1, 3, 2, 64)
