@@ -231,10 +231,11 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    their plain version (fp32 and bf16, Sq = Sk in {1, 63, 64, 65, 127, 128,
    129, 200}, W in {None, 2048, 40}, 1 and 16 KV heads of 16 query heads,
    phase 12's rules, each call repeated bitwise, the lse at two shapes);
-   then gemma-7b (28 global ``attn`` layers, 16 / 16 heads of 256, 8.54 B
-   parameters) and recurrentgemma-9b (38 layers of ``(rglru, rglru,
-   local)``, MQA 16 / 1 heads of 256, W 2048, 9.40 B parameters) at full
-   width and depth, seeded bf16 weights, each freed before the next is
+   then gemma-7b (7 of its 28 global ``attn`` layers, 16 / 16 heads of
+   256, 2.72 B parameters) and recurrentgemma-9b (14 of its 38 layers of
+   ``(rglru, rglru, local)``, MQA 16 / 1 heads of 256, W 2048, 4.14 B
+   parameters) at full width (the depth cut when phase 23 came), seeded
+   bf16 weights, each freed before the next is
    drawn: ``make_prefill_step`` at 8 x 512 and 1 x 8192,
    ``make_serve_step`` for 16 tokens at B = 8, an 8-slot ``ServingLoop``
    over 16 requests of 16-512 prompt and 16-32 new tokens
@@ -300,6 +301,30 @@ JAX or the JAX package. Phases, each of which fails the run when it fails:
    cross-attention beside its bound, the plain version's and SDPA's, and
    fp32 kernels at D = 64, 120 and 256 beside SDPA's efficient backend.
    Alone: ``python3 -c 'import chip_smoke as c; c.whisper_alone()'``.
+22. whisper train (slice 19) — the D = 64 backward against its plain
+   version, whisper-small and the lm-100m example trained at full size,
+   the kernels' times. Alone: ``python3 -c 'import chip_smoke as c;
+   c.whisper_train_alone()'``.
+23. moe (slice 20) — kimi-k2-1t-a32b (its dense first layer and one MoE
+   layer of 384 experts top-8 and a shared expert, 19,967,675,392
+   parameters) and arctic-480b (2 MoE layers of 128 experts top-2 beside
+   a dense residual, 27,681,131,520) at their published widths, seeded
+   bf16 weights, each freed before the next is drawn: ``make_prefill_step``
+   at 8 x 512 (per-sequence groups) and 1 x 8192 (two groups of 4,096),
+   their tokens/s and drop shares, ``make_serve_step`` for 16 tokens at
+   B = 8, an 8-slot ``ServingLoop`` over 16 requests, launches counted
+   (one per layer per prefill call and admission, none per decode step);
+   every fourth completion against single-request greedy decoding in the
+   loop's split (bf16 near-ties counted); the kernel against the plain
+   attention in the model at 8 x 512 (each layer on its own q, k, v, and
+   the routes and logits of the two runs: flips only at counted router
+   near-ties); a profiled prefill at each shape (expert products, other
+   products, attention, routing, the rest; idle share); the D = 128
+   kernel at (8, 512) and (1, 8192) with 64 / 8 and 56 / 8 heads, causal,
+   no window: against its plain version by phase 12's rules, repeated
+   bitwise, then timed beside its bound, the plain version's and SDPA's.
+   Alone: ``python3 -c
+   'import chip_smoke as c; c.moe_alone()'``.
 
 Its last lines are the kernel summary JSON, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -3752,13 +3777,26 @@ def lm_greedy_check(TM, cfg, params, req, tokens, near_tie,
     """Single-request greedy decoding of ``req`` on the card (prefill, then
     decode_step), fed the loop's own tokens, so that every position is
     checked; the prefill sizes the KV caches for ``cache_len`` positions, as
-    the loop's ``max_seq`` sizes its own. Where a loop token is not the
-    single-request argmax, its logit must lie within ``near_tie(max
-    logit)`` of the max: such near-ties are returned (with how far below the
-    max it lies), any other divergence raises."""
-    lg, st = TM.prefill(cfg, params, torch.as_tensor(
-        req.prompt[None], device="cuda"), cache_len=cache_len)
-    lg = lg[:, -1:]
+    the loop's ``max_seq`` sizes its own. A model with an MoE FFN takes the
+    prompt as the loop takes it: ``prompt[:-1]`` prefilled, then the last
+    prompt token through a decode step (an MoE prefill routes its tokens as
+    one group under a capacity, a decode step each token alone). Where a loop
+    token is not the single-request argmax, its logit must lie within
+    ``near_tie(max logit)`` of the max: such near-ties are returned (with
+    how far below the max it lies), any other divergence raises."""
+    prompt = torch.as_tensor(req.prompt[None], device="cuda")
+    if any(TM.transformer.ffn_kind(cfg, i) == "moe"
+           for i in range(cfg.n_layers)):
+        st = TM.init_decode_state(cfg, 1, max_seq=cache_len, device="cuda")
+        if prompt.shape[1] > 1:
+            TM.forward(cfg, params, prompt[:, :-1], mode="prefill",
+                       states=st, unembed_out=False)
+        lg, st = TM.decode_step(cfg, params, prompt[:, -1:], st,
+                                torch.tensor([prompt.shape[1] - 1],
+                                             device="cuda"))
+    else:
+        lg, st = TM.prefill(cfg, params, prompt, cache_len=cache_len)
+        lg = lg[:, -1:]
     pos = len(req.prompt)
     min_margin, ties = float("inf"), []
     for i, tok in enumerate(tokens):
@@ -4978,10 +5016,12 @@ def profile_prefill(prefill_step, params, toks, n_attn, batch=None) -> dict:
     call), taken again up to CUPTI_WINDOWS times while the tracer loses the
     kernel's records: wall and device busy time, the idle share, the
     swa_attention kernel's and the matrix products' device time and share
-    of the busy time, the top device ops. ``n_attn``: the kernel launches a
-    call makes; ``batch`` (default ``{"tokens": toks}``) the step's input.
-    The call sits between two ``_spin_pad``s, whose records are left out
-    and whose time is outside the wall clock."""
+    of the busy time, ``aten::bmm``'s device time, every device op and the
+    top ones. ``n_attn``: the kernel launches a call makes; ``batch``
+    (default ``{"tokens": toks}``) the step's input. The call sits between
+    two ``_spin_pad``s, whose records are left out and whose time is
+    outside the wall clock."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     batch = {"tokens": toks} if batch is None else batch
@@ -5009,7 +5049,10 @@ def profile_prefill(prefill_step, params, toks, n_attn, batch=None) -> dict:
     busy = sum(t for _, t in dev.values())
     swa_us = sum(t for k, (_, t) in dev.items() if SWA_KERNEL in k)
     mm = _matmul_us(dev)
-    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:10]
+    ops = {k: {"count": c, "device_ms": t / 1e3} for k, (c, t) in sorted(
+        dev.items(), key=lambda kv: -kv[1][1])}
+    bmm = sum(e.device_time_total for e in prof.key_averages()
+              if e.device_type == DeviceType.CPU and e.key == "aten::bmm")
     return {"shape": list(toks.shape), "wall_ms": wall_us / 1e3,
             "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / wall_us,
@@ -5017,8 +5060,8 @@ def profile_prefill(prefill_step, params, toks, n_attn, batch=None) -> dict:
             "pad_records_left_out": n_pad, "matmul_ms": mm / 1e3,
             "swa_share_of_busy": swa_us / busy if busy else None,
             "matmul_share_of_busy": mm / busy if busy else None,
-            "top_device_ops": {k: {"count": c, "device_ms": t / 1e3}
-                               for k, (c, t) in top}}
+            "aten_bmm_ms": bmm / 1e3, "device_ops": ops,
+            "top_device_ops": dict(list(ops.items())[:10])}
 
 
 def profile_swa(TC, TM, launch, card) -> dict:
@@ -5785,8 +5828,13 @@ def lm_train_alone() -> dict:
 # --- phase 19: head-256 serving (slice 15) -----------------------------------------
 
 HD_ARCHS = ("gemma-7b", "recurrentgemma-9b")
-# the JAX init trees' counts at full width (tests/test_torch_head256.py)
-HD_PARAMS = {"gemma-7b": 8_537_680_896, "recurrentgemma-9b": 9_396_408_320}
+# Depth served: 7 of gemma-7b's 28 layers and 14 of recurrentgemma-9b's 38
+# (4 cycles of (rglru, rglru, local) and a tail of 2), cut from full depth
+# when phase 23 came; the width is the published one.
+HD_LAYERS = {"gemma-7b": 7, "recurrentgemma-9b": 14}
+# the trees' counts at that depth (at full depth, 8,537,680,896 and
+# 9,396,408,320: the JAX init trees', tests/test_torch_head256.py)
+HD_PARAMS = {"gemma-7b": 2_724_246_528, "recurrentgemma-9b": 4_144_418_816}
 HD_PREFILL = ((8, 512), (1, 8192))    # (B, T) of the prefill step
 HD_TIMED = 1                          # timed prefill calls per shape
 HD_DECODE_TOKENS = 16
@@ -5906,14 +5954,14 @@ def _hd_profile(TM, launch, cfg, params, rg) -> dict:
 
 
 def hd_serving_path(sw, _build, TC, TM, launch, card, arch) -> dict:
-    """One head-256 model at full width and depth, seeded bf16 weights on
-    the card, through the user's entry points: ``make_prefill_step`` at
+    """One head-256 model at full width, HD_LAYERS deep, seeded bf16 weights
+    on the card, through the user's entry points: ``make_prefill_step`` at
     8 x 512 and 1 x 8192, ``make_serve_step`` for HD_DECODE_TOKENS tokens at
     B = 8, and a ``ServingLoop`` of 8 slots over 16 requests (for
     recurrentgemma-9b request 0's prompt of HD_LONG_PROMPT tokens wraps its
     ring of 2048). The swa_attention counter is set to 0 before this main
     path and read after it: one launch per attention layer per prefill call
-    and admission (28 for gemma-7b, 12 for recurrentgemma-9b), none per
+    and admission (7 for gemma-7b, 4 for recurrentgemma-9b), none per
     decode step, no build. Then the checks: every HD_CHECKED-th completion
     against single-request greedy decoding (bf16 near-ties counted as in
     phases 10 and 13), an admission against the other slots' rows of every
@@ -5921,7 +5969,7 @@ def hd_serving_path(sw, _build, TC, TM, launch, card, arch) -> dict:
     kernel against the plain version on the first attention layer's q, k, v
     at both prefill shapes; then a profiled 1 x 8192 prefill."""
     from repro_torch.models import rglru
-    cfg = TC.get_arch(arch)
+    cfg = dataclasses.replace(TC.get_arch(arch), n_layers=HD_LAYERS[arch])
     n_attn = sum(cfg.block_kind(i) in ("attn", "local")
                  for i in range(cfg.n_layers))
     rng = np.random.default_rng(SEED + 193 + HD_ARCHS.index(arch))
@@ -6239,8 +6287,9 @@ def hd_times(sw, card) -> dict:
 
 def head256_phase(sw, _build, TC, TM, launch, card) -> dict:
     """Phase 19 (slice 15): the D = 256 kernel vs plain, gemma-7b and
-    recurrentgemma-9b served at full width and depth (each freed before
-    the next is drawn), phi4-mini-3.8b at full size, the kernel's times."""
+    recurrentgemma-9b served at full width, HD_LAYERS deep (each freed
+    before the next is drawn), phi4-mini-3.8b at full size, the kernel's
+    times."""
     t0 = time.perf_counter()
     parts, lap = {}, [t0]
 
@@ -7746,6 +7795,522 @@ def whisper_train_alone() -> dict:
     return whisper_train_phase(km, sw, swb, wk, _build, TC, TM, launch, card)
 
 
+# --- phase 23: MoE serving (slice 20) ----------------------------------------------
+
+MOE_ARCHS = ("kimi-k2-1t-a32b", "arctic-480b")
+# kimi-k2: its dense first layer and one MoE layer of 61; arctic: 2 of 35
+# MoE layers. Three kimi layers would hold ~74 GB of the card's 80.
+MOE_LAYERS = 2
+# the 2-layer trees' counts (tests/test_torch_moe.py)
+MOE_PARAMS = {"kimi-k2-1t-a32b": 19_967_675_392, "arctic-480b": 27_681_131_520}
+MOE_PREFILL = ((8, 512), (1, 8192))   # per-sequence groups; two of 4096
+MOE_TIMED = 1                         # timed prefill calls per shape
+MOE_DECODE_TOKENS = 16
+MOE_NEW = (16, 32)                    # new tokens of a loop request
+MOE_MAX_SEQ = 576                     # prompts of 16-512 tokens + 32 new
+MOE_CHECKED = 4                       # every 4th completion held to B = 1
+# Kernel vs plain attention in the bf16 model at 8 x 512: the two runs'
+# hidden states differ by the attention's roundings, so a token's top-k may
+# differ where router logits nearly tie. A token whose ordered top-k differs
+# is accepted only where, all read on the plain run's logits and within
+# MOE_FLIP_ULPS bf16 ulp of the token's largest |router logit|
+# (``moe_route_gaps``): at each rank where the two runs differ, the plain
+# run's expert and the kernel run's; every expert of the kernel run's top k
+# and the plain run's k-th; every plain top-k expert the kernel run left
+# out and every one it took in its place (the router product is rounded to
+# bf16 once in each run, and the attention's one-ulp differences move
+# every logit by a fraction of an ulp of that scale more). A token at or
+# after a route change of an earlier MoE layer in its sequence (it sees
+# that change through attention) is counted, not held; so is a kept slot
+# that changes after a flip in its group (the flip shifts the positions in
+# two experts). The logits of the rows that saw no change (none at or
+# before them in an earlier MoE layer, none of their own in the last) must
+# lie within MOE_LOGIT_ULPS bf16 ulp of the row's largest |logit| (a bf16
+# product rounded once in each run, over two layers of bf16 residual adds,
+# norms and FFNs).
+MOE_FLIP_ULPS = 4
+MOE_LOGIT_ULPS = 8
+# timed: (model, B, T, query heads, KV heads) at D = 128, causal, no window
+MOE_TIMES = (("kimi-k2-1t-a32b", 8, 512, 64, 8),
+             ("kimi-k2-1t-a32b", 1, 8192, 64, 8),
+             ("arctic-480b", 8, 512, 56, 8),
+             ("arctic-480b", 1, 8192, 56, 8))
+# kernels of a profiled prefill counted as routing: the top-k and position
+# sorts, the count scatter, the dispatch and combine gathers (and the
+# embedding's row gather, a few µs)
+MOE_ROUTING_OPS = ("sort", "radix", "scatter", "gather", "index", "scan")
+
+
+def moe_config(TC, arch):
+    """``arch`` at its published width, cut to MOE_LAYERS layers."""
+    return dataclasses.replace(TC.get_arch(arch), n_layers=MOE_LAYERS)
+
+
+class RecordedRoutes:
+    """While entered, every ``moe.route`` call's ``Routing`` is appended to
+    ``self.routes`` (the module function is wrapped and put back)."""
+
+    def __init__(self, moe):
+        self.moe, self.routes = moe, []
+
+    def __enter__(self):
+        orig = self._orig = self.moe.route
+
+        def recorded(router, xg, cfg):
+            r = orig(router, xg, cfg)
+            self.routes.append(r)
+            return r
+        self.moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self._orig
+        return False
+
+
+def _drop_share(routes) -> float:
+    """The share of (token, slot) assignments dropped over ``routes``."""
+    kept = sum(int(r.keep.sum()) for r in routes)
+    total = sum(r.keep.numel() for r in routes)
+    return 1.0 - kept / total
+
+
+def _bf16_ulps(x: torch.Tensor) -> torch.Tensor:
+    """``bf16_ulp`` elementwise: 2^(floor(log2 |x|) - 7)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126)))
+                      - 7)
+
+
+def moe_route_gaps(rk, rp) -> torch.Tensor:
+    """``(G, S_g)``: how far the kernel run's routing ``rk`` strays from the
+    plain run's ``rp``, on the plain run's router logits, in bf16 ulp of
+    the token's largest |logit|; 0 where the two top-k agree. The largest
+    of: at each rank where the experts differ, the gap between the plain
+    run's logit there and the plain logit of the kernel run's expert; how
+    far the lowest plain logit of the kernel run's experts lies below the
+    plain run's k-th; how far the highest plain logit of an expert that
+    only the plain run chose lies above the lowest of one that only the
+    kernel run chose."""
+    lp = rp.logits
+    at_p, at_k = lp.gather(-1, rp.experts), lp.gather(-1, rk.experts)
+    rank = torch.where(rk.experts != rp.experts, (at_p - at_k).abs(),
+                       0.0).amax(-1)
+    below_kth = (at_p.amin(-1, keepdim=True) - at_k).clamp(min=0).amax(-1)
+    p_only = ~(rp.experts[..., :, None] == rk.experts[..., None, :]).any(-1)
+    k_only = ~(rk.experts[..., :, None] == rp.experts[..., None, :]).any(-1)
+    swapped = (torch.where(p_only, at_p, -torch.inf).amax(-1)
+               - torch.where(k_only, at_k, torch.inf).amin(-1)).clamp(min=0)
+    gap = torch.maximum(torch.maximum(rank, below_kth), swapped)
+    return gap / _bf16_ulps(lp.abs().amax(-1))
+
+
+def moe_kernel_vs_plain(sw, moe, TM, cfg, params, toks) -> dict:
+    """bf16, one prefill of ``toks`` (B x T, per-sequence groups) with the
+    kernel, each attention layer's output held against the plain version on
+    its own q, k, v (phase 12's rules, the control not required), and one
+    with the plain attention; the routes of both recorded. Route changes,
+    flips at near-ties and the logits by the MOE_FLIP_ULPS / MOE_LOGIT_ULPS
+    rule (see there); raises where it breaks."""
+    b, t = toks.shape
+    rows = []
+
+    def checked_kernel(q, k, v, *, window, causal):
+        got = sw.swa_attention_cuda(q, k, v, window=window, causal=causal)
+        row = {"layer": len(rows), "window": window}
+        row.update(swa_check(sw, q, k, v, got, window, causal,
+                             f"{cfg.name} {b}x{t} layer {len(rows)}",
+                             control=False))
+        rows.append(row)
+        return got
+
+    def plain(q, k, v, *, window, causal):
+        return sw.swa_attention_plain(q, k, v, window=window, causal=causal)
+
+    logits, routes = {}, {}
+    for name, impl in (("kernel", checked_kernel), ("plain", plain)):
+        with RecordedRoutes(moe) as rec:
+            logits[name], _ = TM.prefill(cfg, params, toks, swa_impl=impl)
+        routes[name] = rec.routes
+    if len(rows) != cfg.n_layers:
+        raise AssertionError(f"{cfg.name}: {len(rows)} attention calls, "
+                             f"expected {cfg.n_layers}")
+    pos = torch.arange(t, device=toks.device)
+    first = torch.full((b,), t, device=toks.device)  # a sequence's first change
+    layers = []
+    for rk, rp in zip(routes["kernel"], routes["plain"]):
+        if rp.experts.shape[:2] != (b, t):
+            raise AssertionError(f"{cfg.name}: groups {tuple(rp.experts.shape)}"
+                                 f" are not the {b} sequences")
+        clean = pos[None, :] < first[:, None]
+        changed = (rk.experts != rp.experts).any(-1)
+        kept = (rk.keep != rp.keep).any(-1) & ~changed
+        gap_ulps = moe_route_gaps(rk, rp)
+        held = clean & changed
+        if bool((gap_ulps[held] > MOE_FLIP_ULPS).any()):
+            raise AssertionError(
+                f"{cfg.name}: a route flip where the router logits do not "
+                f"nearly tie: {float(gap_ulps[held].max())!r} bf16 ulp apart "
+                f"(rule <= {MOE_FLIP_ULPS})")
+        # a kept-slot change with no flip needs an earlier flip in its group
+        flip_before = torch.cummax(changed.int(), dim=1).values.bool()
+        flip_before = torch.cat([torch.zeros_like(flip_before[:, :1]),
+                                 flip_before[:, :-1]], 1)
+        if bool((clean & kept & ~flip_before).any()):
+            raise AssertionError(f"{cfg.name}: a kept slot changed with no "
+                                 f"flip before it in its group")
+        any_change = changed | kept
+        own_last, first_before_last = any_change, first
+        first_here = torch.where(any_change, pos[None, :], t).amin(1)
+        layers.append({
+            "flips_held": int(held.sum()),
+            "flip_gap_ulps_max": float(gap_ulps[held].max()) if bool(
+                held.any()) else None,
+            "flips_after_a_change": int((changed & ~clean).sum()),
+            "kept_slot_changes": int(kept.sum()),
+            "drop_share_kernel": _drop_share([rk]),
+            "drop_share_plain": _drop_share([rp])})
+        first = torch.minimum(first, first_here)
+    # rows that saw no change: none at or before them in an earlier MoE
+    # layer, none of their own in the last (its output reaches only them)
+    clean = (pos[None, :] < first_before_last[:, None]) & ~own_last
+    lk, lp = logits["kernel"], logits["plain"]
+    ulp = _bf16_ulps(lp.abs().amax(-1))
+    err_ulps = ((lk - lp).abs().amax(-1) / ulp)[clean]
+    worst = float(err_ulps.max()) if err_ulps.numel() else 0.0
+    if not worst <= MOE_LOGIT_ULPS:
+        raise AssertionError(f"{cfg.name}: kernel vs plain logits "
+                             f"{worst!r} bf16 ulp apart on rows before any "
+                             f"route change (rule <= {MOE_LOGIT_ULPS})")
+    out = {"shape": [b, t], "moe_layers": layers,
+           "rows_held": int(clean.sum()), "rows": b * t,
+           "logit_err_ulps_max": worst,
+           "logit_max_abs_diff_held": float((lk - lp).abs().amax(-1)[clean]
+                                            .max()) if bool(clean.any())
+           else 0.0,
+           "attention_max_err": max(r["err"] for r in rows),
+           **_mean_ratios(rows)}
+    del logits, routes
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_split(pr) -> dict:
+    """A profiled MoE prefill's (``profile_prefill``'s) device ms: the
+    expert FFN's batched products (``aten::bmm``), the other matrix
+    products, the attention kernel, the routing's sorts, scatters and
+    gathers (MOE_ROUTING_OPS), the rest."""
+    routing = sum(o["device_ms"] for name, o in pr["device_ops"].items()
+                  if any(n in name.lower() for n in MOE_ROUTING_OPS))
+    split = {"expert_matmul": pr["aten_bmm_ms"],
+             "other_matmul": pr["matmul_ms"] - pr["aten_bmm_ms"],
+             "swa_attention": pr["swa_attention_ms"], "routing": routing}
+    split["rest"] = pr["device_busy_ms"] - sum(split.values())
+    return split
+
+
+def moe_serving_path(sw, moe, _build, TC, TM, launch, card, arch) -> dict:
+    """One MoE model at its published width, MOE_LAYERS layers, seeded bf16
+    weights, through the user's entry points: ``make_prefill_step`` at
+    8 x 512 (per-sequence groups) and 1 x 8192 (two groups of 4096),
+    ``make_serve_step`` for MOE_DECODE_TOKENS tokens at B = 8, and an
+    8-slot ``ServingLoop`` over 16 requests; the swa_attention counter set
+    to 0 before this main path and read after it (one launch per layer per
+    prefill call and admission, none per decode step, no build). The drop
+    share of each prefill shape from its first call's routes. Then every
+    MOE_CHECKED-th completion against single-request greedy decoding in
+    the loop's split (bf16 near-ties counted), the kernel against the
+    plain attention at 8 x 512 (``moe_kernel_vs_plain``) and a profiled
+    prefill at each shape (``_moe_split``)."""
+    cfg = moe_config(TC, arch)
+    rng = np.random.default_rng(SEED + 230 + MOE_ARCHS.index(arch))
+    t0 = time.perf_counter()
+    params = TM.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = TM.count_params(params)
+    if n_params != MOE_PARAMS[arch]:
+        raise AssertionError(f"{arch}: {n_params} parameters, expected "
+                             f"{MOE_PARAMS[arch]}")
+    L = cfg.n_layers
+    prefill_step = launch.make_prefill_step(cfg)
+    serve_step = launch.make_serve_step(cfg)
+    reqs = _requests(rng, launch, cfg, new=MOE_NEW)
+    builds = _build.n_builds
+    out = {"arch": arch, "params": n_params, "layers": L,
+           "moe_layers": sum(TM.transformer.ffn_kind(cfg, i) == "moe"
+                             for i in range(L)),
+           "init_s": init_s, "init_peak_gb": init_peak / 1e9, "prefill": {}}
+
+    # --- the main path, counted ---
+    sw.launches = 0
+    for b, t in MOE_PREFILL:
+        toks = _prompt_tokens(rng, cfg, b, t)
+        secs = []
+        for i in range(1 + MOE_TIMED):
+            before = sw.launches
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if i == 0:
+                with RecordedRoutes(moe) as rec:
+                    logits, states = prefill_step(params, {"tokens": toks})
+            else:
+                logits, states = prefill_step(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            if sw.launches - before != L:
+                raise AssertionError(f"{arch} prefill {b}x{t}: "
+                                     f"{sw.launches - before} swa_attention "
+                                     f"launches, expected {L}")
+        if tuple(logits.shape) != (b, 1, TM.padded_vocab(cfg)) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch} prefill {b}x{t}: bad logits")
+        med = statistics.median(secs[1:])
+        g = rec.routes[0].experts.shape[:2]
+        out["prefill"][f"{b}x{t}"] = {
+            "first_s": secs[0], "median_s": med, "tokens_per_s": b * t / med,
+            "groups": list(g), "capacity": rec.routes[0].capacity,
+            "drop_share": _drop_share(rec.routes),
+            "drop_share_by_layer": [_drop_share([r]) for r in rec.routes]}
+        del rec
+        if b == LM_SLOTS:
+            dec_logits, dec_states = logits, states
+        del states, logits
+    tok = dec_logits.argmax(-1)
+    pos = torch.full((LM_SLOTS,), MOE_PREFILL[0][1], device="cuda")
+    before = sw.launches
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(MOE_DECODE_TOKENS):
+        logits, dec_states = serve_step(params, tok, dec_states, pos + i)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t1
+    if sw.launches != before or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} decode: {sw.launches - before} "
+                             f"swa_attention launches, expected 0")
+    out["decode"] = {"batch": LM_SLOTS, "steps": MOE_DECODE_TOKENS,
+                     "seconds": dec_s, "ms_per_step": dec_s * 1e3
+                     / MOE_DECODE_TOKENS,
+                     "tokens_per_s": LM_SLOTS * MOE_DECODE_TOKENS / dec_s}
+    del dec_states, dec_logits
+    loop = launch.ServingLoop(cfg, params, n_slots=LM_SLOTS,
+                              max_seq=MOE_MAX_SEQ)
+    before = sw.launches
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    done = loop.run(reqs)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t1
+    loop_launches = sw.launches - before
+    launches = sw.launches
+    # --- end of the main path ---
+    if _build.n_builds != builds:
+        raise AssertionError(f"an nvcc build ran on the {arch} serving path")
+    if loop_launches != L * loop.n_prefills:
+        raise AssertionError(f"{arch} ServingLoop: {loop_launches} "
+                             f"swa_attention launches for {loop.n_prefills} "
+                             f"prefills of {L} attention layers")
+    got = {c.rid: c.tokens for c in done}
+    if sorted(got) != list(range(len(reqs))) or any(
+            len(got[r.rid]) != r.max_new_tokens for r in reqs):
+        raise AssertionError(f"{arch} ServingLoop: missing or short "
+                             f"completions")
+    n_tok = sum(len(c.tokens) for c in done)
+    out["loop"] = {"slots": LM_SLOTS, "requests": len(reqs),
+                   "max_seq": MOE_MAX_SEQ,
+                   "prompt_tokens": int(sum(len(r.prompt) for r in reqs)),
+                   "new_tokens": n_tok, "seconds": loop_s,
+                   "tokens_per_s": n_tok / loop_s,
+                   "prefills": loop.n_prefills, "steps": loop.n_steps,
+                   "launches": loop_launches}
+    out["launches"] = launches
+    del loop
+    pf = out["prefill"]
+    log(f"phase moe serving: {arch} {n_params} params bf16 ({L} of "
+        f"{TC.get_arch(arch).n_layers} layers, {out['moe_layers']} MoE: "
+        f"{cfg.n_experts} experts top-{cfg.top_k} of {cfg.expert_d_ff}; "
+        f"attention {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}) "
+        f"init {init_s!r} s, peak {out['init_peak_gb']!r} GB; prefill "
+        f"tokens/s " + ", ".join(
+            f"{k}: {v['tokens_per_s']!r} (groups {v['groups']}, C "
+            f"{v['capacity']}, drop share {v['drop_share']!r})"
+            for k, v in pf.items())
+        + f"; decode B={LM_SLOTS} tokens/s {out['decode']['tokens_per_s']!r} "
+        f"({out['decode']['ms_per_step']!r} ms a step); ServingLoop "
+        f"{LM_SLOTS} slots x {len(reqs)} requests, max_seq {MOE_MAX_SEQ} "
+        f"({out['loop']['prompt_tokens']} prompt + {n_tok} new tokens, "
+        f"{out['loop']['prefills']} prefills, {out['loop']['steps']} steps) "
+        f"{out['loop']['tokens_per_s']!r} new tokens/s; swa_attention "
+        f"launches {launches} ({L} per prefill call, 0 per decode step; no "
+        f"build) card=\"{card}\"")
+
+    out["check_seconds"], t_chk = {}, [time.perf_counter()]
+
+    def checked(name):
+        now = time.perf_counter()
+        out["check_seconds"][name] = now - t_chk[0]
+        t_chk[0] = now
+
+    near_tie = lambda best: LM_BF16_ULPS * bf16_ulp(best)
+    checks = [lm_greedy_check(TM, cfg, params, r, got[r.rid], near_tie,
+                              cache_len=MOE_MAX_SEQ)
+              for r in reqs[::MOE_CHECKED]]
+    ties = [t for c in checks for t in c["ties"]]
+    out["loop_vs_single_request"] = {
+        "requests": len(checks),
+        "positions": sum(c["positions"] for c in checks),
+        "min_top2_margin": min(c["min_margin"] for c in checks),
+        "equal_requests": sum(not c["ties"] for c in checks),
+        "near_ties": ties}
+    log(f"check {arch} ServingLoop bf16: every token of {len(checks)} of the "
+        f"{len(reqs)} completions (ids {[r.rid for r in reqs[::MOE_CHECKED]]}"
+        f", {out['loop_vs_single_request']['positions']} positions) is "
+        f"single-request greedy on the card (prompt[:-1] prefilled, then "
+        f"decode steps, as the loop splits it) or a near-tie; "
+        f"{out['loop_vs_single_request']['equal_requests']} equal outright; "
+        f"{len(ties)} near-ties (within {LM_BF16_ULPS} bf16 ulp of the max)")
+    checked("loop_vs_single_request_bf16")
+    kvp = moe_kernel_vs_plain(sw, moe, TM, cfg, params, _prompt_tokens(
+        rng, cfg, *MOE_PREFILL[0]))
+    out["kernel_vs_plain"] = kvp
+    log(f"check {arch} kernel vs plain attention (bf16 model, prefill "
+        f"{MOE_PREFILL[0][0]} x {MOE_PREFILL[0][1]}): each attention layer "
+        f"on its own q, k, v max abs err {kvp['attention_max_err']!r}, mean "
+        f"err / plain's at most {kvp['mean_ratio_max']!r} (phase 12's rule);"
+        f" by MoE layer: flips held {[m['flips_held'] for m in kvp['moe_layers']]}"
+        f" (largest plain-run gap "
+        f"{[m['flip_gap_ulps_max'] for m in kvp['moe_layers']]} bf16 ulp, "
+        f"rule <= {MOE_FLIP_ULPS}), flips after a change "
+        f"{[m['flips_after_a_change'] for m in kvp['moe_layers']]}, kept-slot"
+        f" changes {[m['kept_slot_changes'] for m in kvp['moe_layers']]}; "
+        f"logits of {kvp['rows_held']} of {kvp['rows']} rows (those that saw"
+        f" no route change) within {kvp['logit_err_ulps_max']!r} "
+        f"bf16 ulp of the row's max (rule <= {MOE_LOGIT_ULPS}; max abs diff "
+        f"{kvp['logit_max_abs_diff_held']!r})")
+    checked("kernel_vs_plain")
+    out["profile"] = {}
+    for b, t in MOE_PREFILL:
+        out["profile"][f"{b}x{t}"] = pr = profile_prefill(
+            prefill_step, params, _prompt_tokens(rng, cfg, b, t), L)
+        pr["device_ms"] = _moe_split(pr)
+        log(f"profile {arch} prefill {b} x {t}: wall_ms={pr['wall_ms']!r} "
+            f"device_busy_ms={pr['device_busy_ms']!r} device_idle_share="
+            f"{pr['device_idle_share']!r}; device ms {pr['device_ms']} "
+            f"card=\"{card}\"")
+    checked("profile")
+    log(f"phase moe {arch}: seconds by check {out['check_seconds']}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_times(sw, card) -> dict:
+    """The D = 128 kernel in bf16 at the models' prefill calls (MOE_TIMES:
+    GQA 64 / 8 and 56 / 8, causal, no window): first held against the
+    plain version on the same q, k, v by phase 12's rules (``swa_check``,
+    the control required) and repeated bitwise; then timed, L2 flushed and
+    warm, CUDA events and CUPTI, beside its bound (row 10's formula), the
+    plain version's time (one call, events) and SDPA's default call
+    (events, the kernels line's ``library_ms``; which backend)."""
+    cyc = sleep_cycles_per_ms()
+    flush = l2_flusher()
+    rows = {}
+    for arch, b, t, h, kv in MOE_TIMES:
+        n_ev, n_cu = ((TIMED_LAUNCHES, CUPTI_CALLS) if b * t <= 4096
+                      else (CHUNK, 10))
+        q, k, v = swa_inputs(b, t, t, h, kv, 128, torch.bfloat16, SEED + 231)
+        kern = lambda: sw.swa_attention_cuda(q, k, v)
+        lib = sdpa_fn(q, k, v, None)
+        got = kern()
+        what = f"swa_attention D=128 {arch} ({b}, {t}, {h}/{kv}) bf16"
+        if not torch.equal(got, kern()):
+            raise AssertionError(f"{what}: repeats differ")
+        check = swa_check(sw, q, k, v, got, None, True, what)
+        err = float((lib().transpose(1, 2).float() - got.float()).abs()
+                    .max())
+        bnd = swa_bound(b, t, t, h, kv, 128, None, True)
+        rec = {"arch": arch, "shape": [b, t, h, kv, 128], "window": None,
+               "dtype": "bfloat16", "check": check,
+               "cupti_ms": cupti_ms(kern, flush, SWA_KERNEL, n_cu),
+               "warm_l2_cupti_ms": cupti_ms(kern, None, SWA_KERNEL, n_cu),
+               "ms": device_ms(kern, cyc, flush, n_ev)[0],
+               "warm_l2_ms": device_ms(kern, cyc, None, n_ev)[0],
+               "library_ms": device_ms(lib, cyc, flush, n_ev)[0],
+               "library_backend": sdpa_backend_of(q, k, v, None),
+               "library_vs_kernel_max_abs_diff": err,
+               "plain_ms": events_ms(lambda: sw.swa_attention_plain(q, k, v),
+                                     1), **bnd}
+        rec["share_of_bound"] = bnd["bound_ms"] / rec["ms"]
+        rows[f"{arch}/{b}x{t}"] = rec
+        log(f"check {what} causal vs plain (phase 12's rule, repeated "
+            f"bitwise): max abs err {check['err']!r} (plain fp32 "
+            f"{check['plain_err']!r}); mean err / plain's "
+            f"{check['mean_err'] / check['plain_mean_err']!r} (rule <= "
+            f"{SWA_MEAN_RATIO}); the control (one bf16 p) "
+            f"{check['one_bf16_p_mean_err'] / check['plain_mean_err']!r}")
+        log(f"time swa_attention D=128 {arch} shape=({b}, {t}, {h}/{kv}, "
+            f"128) bf16 causal L2 flushed: kernel_ms={rec['ms']!r} (cupti "
+            f"{rec['cupti_ms']!r}; L2-warm {rec['warm_l2_ms']!r}, cupti "
+            f"{rec['warm_l2_cupti_ms']!r}) plain_ms={rec['plain_ms']!r} "
+            f"bound_ms={bnd['bound_ms']!r} ({bnd['bound_by']}; share reached "
+            f"{rec['share_of_bound']!r}) SDPA {rec['library_backend']} "
+            f"{rec['library_ms']!r} ms (max |SDPA - kernel| {err!r}) "
+            f"card=\"{card}\"")
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def moe_phase(sw, _build, TC, TM, launch, card) -> dict:
+    """Phase 23 (slice 20): kimi-k2-1t-a32b and arctic-480b served at their
+    published widths, MOE_LAYERS layers each (each freed before the next
+    is drawn), and the D = 128 kernel's times at their shapes."""
+    from repro_torch.models import moe
+    t0 = time.perf_counter()
+    parts, lap = {}, [t0]
+
+    def done(name):
+        parts[name] = time.perf_counter() - lap[0]
+        lap[0] = time.perf_counter()
+
+    out = {"models": {}}
+    for arch in MOE_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        out["models"][arch] = moe_serving_path(sw, moe, _build, TC, TM,
+                                               launch, card, arch)
+        out["models"][arch]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        done(arch)
+    out["times"] = moe_times(sw, card)
+    done("times")
+    out["launches"] = sum(m["launches"] for m in out["models"].values())
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    log(f"phase moe: {out['seconds']!r} s; by part {parts}; peak device "
+        f"memory GB {[m['peak_gb'] for m in out['models'].values()]}")
+    return out
+
+
+def moe_alone() -> dict:
+    """Phase 23 without the rest of the script (``python3 -c 'import
+    chip_smoke as c; c.moe_alone()'``): builds the kernels, then the MoE
+    phase."""
+    if not torch.cuda.is_available():
+        raise SystemExit("moe_alone: no CUDA card")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import configs as TC
+    from repro_torch import launch
+    from repro_torch import models as TM
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import swa_attention as sw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"card {card}")
+    _build.load()
+    return moe_phase(sw, _build, TC, TM, launch, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -7906,7 +8471,8 @@ def main() -> int:
     lap('18 lm_train')
 
     # 19. head-256 serving (slice 15): the D = 256 kernel vs plain,
-    # gemma-7b and recurrentgemma-9b at full size, phi4-mini-3.8b
+    # gemma-7b and recurrentgemma-9b at full width (7 / 14 layers),
+    # phi4-mini-3.8b
     hd = head256_phase(sw, _build, TC, TM, launch, card)
     lap('19 head256')
 
@@ -7925,6 +8491,11 @@ def main() -> int:
     # whisper-small and the lm-100m example trained at full size, times
     wt = whisper_train_phase(km, sw, swb, wk, _build, TC, TM, launch, card)
     lap('22 whisper_train')
+
+    # 23. MoE serving (slice 20): kimi-k2-1t-a32b and arctic-480b at their
+    # published widths, 2 layers each, through the D = 128 kernel
+    mo = moe_phase(sw, _build, TC, TM, launch, card)
+    lap('23 moe')
 
     top = rows["mean/1024"]
     kernels = [{
@@ -8179,6 +8750,20 @@ def main() -> int:
                     "ms", "cupti_ms", "warm_l2_ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms", "library_backend")}
                     for n, t in wt["times"].items()}}
+    for k in kernels:                  # and phase 23's (MoE serving)
+        if k["name"] == "swa_attention":
+            k["moe"] = {
+                "launches": mo["launches"],
+                "launches_by_model": {a: m["launches"]
+                                      for a, m in mo["models"].items()},
+                "launches_per_prefill_call": MOE_LAYERS,
+                "launches_per_decode_step": 0,
+                "times": {n: {**{key: t[key] for key in (
+                    "ms", "cupti_ms", "warm_l2_ms", "warm_l2_cupti_ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_backend")}, "max_abs_err": t["check"]["err"]}
+                    for n, t in mo["times"].items()}}
+            k["launches"] += mo["launches"]
     if len(kernels) != 12 or any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"kernels line: {len(kernels)} kernels, "
                              f"launches {[k['launches'] for k in kernels]}")
@@ -8202,6 +8787,7 @@ def main() -> int:
                    "sweep_times": sweep_rows, "async": async_run,
                    "fmarl": fmarl, "lm_train": lmt, "head256": hd,
                    "train": tr, "whisper": wh, "whisper_train": wt,
+                   "moe": mo,
                    "kernels": kernels, "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

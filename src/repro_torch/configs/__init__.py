@@ -5,8 +5,9 @@ configurations whose model the port runs are registered: ``rwkv6-1.6b``
 (slice 4), ``h2o-danube-3-4b`` and ``phi4-mini-3.8b`` (slice 5),
 ``gemma-7b`` and ``recurrentgemma-9b`` (slice 15: head size 256, the
 ``rglru`` block and a mixed layer pattern), ``whisper-small`` (slice 18:
-the encoder-decoder at head size 64). The other four come with the slices
-that port their block kinds.
+the encoder-decoder at head size 64), ``kimi-k2-1t-a32b`` and
+``arctic-480b`` (slice 20: the MoE FFN, ``models/moe.py``). The other two
+(``qwen2-72b``, ``internvl2-26b``) come with later slices.
 """
 from repro_torch.configs.base import (
     ARCH_REGISTRY,
@@ -20,8 +21,10 @@ from repro_torch.configs.base import (
 )
 
 # Import for registration side effects.
+from repro_torch.configs import arctic_480b  # noqa: F401
 from repro_torch.configs import gemma_7b  # noqa: F401
 from repro_torch.configs import h2o_danube3_4b  # noqa: F401
+from repro_torch.configs import kimi_k2_1t  # noqa: F401
 from repro_torch.configs import phi4_mini_3_8b  # noqa: F401
 from repro_torch.configs import recurrentgemma_9b  # noqa: F401
 from repro_torch.configs import rwkv6_1_6b  # noqa: F401

@@ -13,9 +13,16 @@ kept to read the JAX tree (:func:`params_from_jax`). Block kinds:
 * ``rglru`` (slice 15, ``recurrentgemma-9b``): ``ln1 -> the Griffin
   recurrent block (models/rglru.py) -> +``, ``ln2 -> dense MLP -> +``.
 
+In an MoE model (slice 20, ``kimi-k2-1t-a32b``, ``arctic-480b``) the
+attention blocks of layers from ``first_k_dense`` on take the MoE FFN
+(``models/moe.py``) in place of the dense MLP (:func:`ffn_kind`); each
+returns its router's load-balance auxiliary, which :func:`forward` sums
+in the JAX package's order (head, the cycles, the tail). Such models serve;
+:func:`lm_loss` does not train them yet.
+
 Layer patterns may mix kinds (``recurrentgemma-9b``: ``(rglru, rglru,
-local)``). MoE and the vision frontend raise ``NotImplementedError`` naming
-the slice that brings them. Encoder-decoder models (slice 18,
+local)``). The vision frontend raises ``NotImplementedError`` naming the
+slice that brings it. Encoder-decoder models (slice 18,
 ``whisper-small``) run through ``models/encdec.py``: :func:`init_params`,
 :func:`params_from_jax`, :func:`param_shapes` and :func:`count_params`
 take their tree (``build_encdec_leaf_tree``), and the decoder-only
@@ -76,6 +83,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as at
+from repro_torch.models import moe
 from repro_torch.models import rglru as rg
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models.layers import (
@@ -113,16 +121,21 @@ def layer_plan(cfg) -> LayerPlan:
     return LayerPlan(head, cfg.layer_pattern, n_cycles, tail)
 
 
+def ffn_kind(cfg, layer_idx: int) -> str:
+    """``moe`` for an MoE model's layers from ``first_k_dense`` on, else
+    ``dense``."""
+    if cfg.family == "moe" and layer_idx >= cfg.first_k_dense:
+        return "moe"
+    return "dense"
+
+
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet: MoE
-    and the vision frontend. (The audio frontend is whisper-small's stub:
-    its frame embeddings are the encoder's input.)"""
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    the vision frontend. (The audio frontend is whisper-small's stub: its
+    frame embeddings are the encoder's input.)"""
     if cfg.frontend not in (None, "audio"):
         raise NotImplementedError(
             f"the {cfg.frontend} frontend comes with a later slice")
-    if cfg.family == "moe":
-        raise NotImplementedError("MoE comes with a later slice (kimi-k2, "
-                                  "arctic; models/moe.py)")
 
 
 def check_decoder_only(cfg, fn: str) -> None:
@@ -145,7 +158,9 @@ def padded_vocab(cfg) -> int:
 # Parameters
 # ----------------------------------------------------------------------------
 
-def _init_block(gen, cfg, kind: str) -> dict:
+def _init_block(gen, cfg, kind: str, ffn: str, cast: Callable) -> dict:
+    """One block's leaves; an ``moe`` FFN casts its expert leaves slice by
+    slice as they are drawn (``moe.init_moe``)."""
     d = cfg.d_model
     if kind == "wkv":
         return {"ln1": init_norm(gen, d, cfg.norm),
@@ -158,14 +173,18 @@ def _init_block(gen, cfg, kind: str) -> dict:
     else:
         p["attn"] = at.init_attention(gen, cfg)
     p["ln2"] = init_norm(gen, d, cfg.norm)
-    p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.activation)
+    if ffn == "moe":
+        p["moe"] = moe.init_moe(gen, cfg, cast=cast)
+    else:
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.activation)
     return p
 
 
 def _build_tree(cfg, gen, cast: Callable = lambda t: t) -> dict:
     """The parameter tree drawn from ``gen`` leaf by leaf in a fixed order;
     each top-level entry and each block goes through ``cast`` as soon as it
-    is drawn. An encoder-decoder model's is ``build_encdec_leaf_tree``'s, as
+    is drawn (an MoE block's expert leaves slice by slice within it). An
+    encoder-decoder model's is ``build_encdec_leaf_tree``'s, as
     the JAX package's ``_build_leaf_tree`` routes it."""
     check_supported(cfg)
     if cfg.is_encoder_decoder:
@@ -179,7 +198,8 @@ def _build_tree(cfg, gen, cast: Callable = lambda t: t) -> dict:
         p["unembed"] = part({"w": mk(gen, (d, vp), std=0.02)})
     if cfg.family == "ssm":
         p["ln0"] = part(init_norm(gen, d, cfg.norm))
-    p["blocks"] = [part(_init_block(gen, cfg, cfg.block_kind(i)))
+    p["blocks"] = [part(_init_block(gen, cfg, cfg.block_kind(i),
+                                    ffn_kind(cfg, i), cast))
                    for i in range(cfg.n_layers)]
     return p
 
@@ -219,7 +239,9 @@ def init_params(cfg, seed: int = 0, device="cuda") -> dict:
     package's numbers (another generator); carry those with
     :func:`params_from_jax`. Leaves are drawn in fp32 and cast as soon as
     their entry (a block, the embedding) is drawn, so the fp32 draw alive
-    at once is one entry (the embedding, at full width), not the tree."""
+    at once is one entry (the embedding, at full width), not the tree; an
+    MoE block's expert leaves are cast ``moe.EXPERTS_PER_DRAW`` experts at
+    a time (a kimi-k2 expert leaf alone is 22.5 GB of fp32)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     dtype = torch_dtype(cfg.param_dtype)
@@ -389,11 +411,12 @@ def layer_state(states: dict, i: int) -> dict:
 
 def _apply_block(p, x, cfg, kind, st, *, positions, pos, wkv_impl,
                  swa_impl):
-    """One block: ``(x, new)``. ``pos`` (B,) is given for a decode step,
-    ``positions`` (B, S) otherwise. A recurrent block only reads ``st``
-    (one layer's views) and returns its new state in ``new`` as new
+    """One block: ``(x, new, aux)``. ``pos`` (B,) is given for a decode
+    step, ``positions`` (B, S) otherwise. A recurrent block only reads
+    ``st`` (one layer's views) and returns its new state in ``new`` as new
     tensors; an attention block returns ``new`` None (its cache, where it
-    has one, is written in place)."""
+    has one, is written in place). ``aux`` is the MoE FFN's load-balance
+    auxiliary (0-d fp32), None for a dense FFN and in a decode step."""
     xa = apply_norm(p["ln1"], x, cfg.norm)
     new = None
     if kind == "wkv":
@@ -401,7 +424,7 @@ def _apply_block(p, x, cfg, kind, st, *, positions, pos, wkv_impl,
         x = x + y
         xb = apply_norm(p["ln2"], x, cfg.norm)
         y2, cm_shift = rw.channel_mix(p["cm"], xb, cfg, st["cm_shift"])
-        return x + y2, {"tm": tm, "cm_shift": cm_shift}
+        return x + y2, {"tm": tm, "cm_shift": cm_shift}, None
     if kind == "rglru":
         y, rec = rg.apply_rglru_block(p["rec"], xa, cfg, st["rec"])
         new = {"rec": rec}
@@ -418,7 +441,10 @@ def _apply_block(p, x, cfg, kind, st, *, positions, pos, wkv_impl,
                          swa_impl=swa_impl)
     x = x + y
     xb = apply_norm(p["ln2"], x, cfg.norm)
-    return x + apply_mlp(p["mlp"], xb, cfg.activation), new
+    if "moe" in p:
+        y, aux = moe.apply_moe(p["moe"], xb, cfg, with_aux=pos is None)
+        return x + y, new, aux
+    return x + apply_mlp(p["mlp"], xb, cfg.activation), new, None
 
 
 def remat_layers(cfg) -> range:
@@ -445,42 +471,74 @@ def _write_tree(dst, src) -> None:
             dst[k].copy_(v)
 
 
+def _aux_total(cfg, aux: list) -> Optional[torch.Tensor]:
+    """The layers' auxiliaries (None for a dense FFN) summed in the JAX
+    package's order: from an fp32 zero, each head layer's, then the sum over
+    cycles of each cycle's sum (from zero, in pattern order), then each tail
+    layer's. None where no layer returned one."""
+    if all(a is None for a in aux):
+        return None
+    zero = torch.zeros((), dtype=torch.float32, device=next(
+        a for a in aux if a is not None).device)
+    val = lambda i: zero if aux[i] is None else aux[i]
+    plan = layer_plan(cfg)
+    total = zero
+    for li in plan.head:
+        total = total + val(li)
+    if plan.n_cycles:
+        cyc, start = len(plan.cycle_kinds), len(plan.head)
+        per = []
+        for c in range(plan.n_cycles):
+            acc = zero
+            for j in range(cyc):
+                acc = acc + val(start + c * cyc + j)
+            per.append(acc)
+        total = total + torch.stack(per).sum()
+    for li in plan.tail:
+        total = total + val(li)
+    return total
+
+
 def _run_layers(cfg, params, x, states, *, positions=None, pos=None,
                 wkv_impl=None, swa_impl=None, remat=False, inplace=True):
-    """The blocks over ``x``: ``(x, states)``. With ``inplace`` (prefill,
-    decode) each recurrent layer's new state is written over its views of
-    ``states``, which is returned; without it (training) ``states`` is
-    only read and a new dict comes back, its recurrent leaves the layers'
-    new states stacked (new tensors)."""
+    """The blocks over ``x``: ``(x, states, aux)``. With ``inplace``
+    (prefill, decode) each recurrent layer's new state is written over its
+    views of ``states``, which is returned; without it (training)
+    ``states`` is only read and a new dict comes back, its recurrent leaves
+    the layers' new states stacked (new tensors). ``aux`` is the sum of
+    the MoE layers' auxiliaries (:func:`_aux_total`; None without MoE and
+    in a decode step)."""
     if len(params["blocks"]) != cfg.n_layers:
         raise ValueError(f"params hold {len(params['blocks'])} blocks, the "
                          f"config {cfg.n_layers} layers")
     recompute = remat_layers(cfg) if remat else ()
     index = state_index(cfg)
-    new = {}
+    new, aux = {}, []
     for i, p in enumerate(params["blocks"]):
         kind, j = index[i]
         st = layer_state(states if kind is None else states[kind], j)
         run = lambda x_, p=p, i=i, st=st: _apply_block(
             p, x_, cfg, cfg.block_kind(i), st, positions=positions, pos=pos,
             wkv_impl=wkv_impl, swa_impl=swa_impl)
-        x, n = checkpoint(run, x, use_reentrant=False) if i in recompute \
-            else run(x)
+        x, n, a = checkpoint(run, x, use_reentrant=False) \
+            if i in recompute else run(x)
+        aux.append(a)
         if n is None:
             continue
         if inplace:
             _write_tree(st, n)
         else:
             new.setdefault(kind, []).append(n)
+    aux = _aux_total(cfg, aux)
     if inplace or not new:
-        return x, states
+        return x, states, aux
     out = dict(states)
     for kind, layers in new.items():
         if kind is None:
             out.update(_stack_trees(layers))
         else:
             out[kind] = {**states[kind], **_stack_trees(layers)}
-    return x, out
+    return x, out, aux
 
 
 def _embed_in(cfg, params, tokens):
@@ -511,8 +569,9 @@ def forward(cfg, params, tokens: torch.Tensor, *, embeds=None,
     ``max_seq`` = S) are updated in place and returned: the WKV states
     advance, the KV caches are filled from the sequence. In ``train`` mode
     under autograd with ``cfg.remat`` the scanned layers are recomputed in
-    the backward (:func:`remat_layers`). ``aux`` is the 0-d
-    fp32 zero of a model without MoE. ``wkv_impl`` replaces the dispatched
+    the backward (:func:`remat_layers`). ``aux`` (0-d fp32) is the sum of
+    the MoE layers' load-balance auxiliaries in the JAX package's order, 0
+    for a model without MoE. ``wkv_impl`` replaces the dispatched
     recurrence in every ``wkv`` block (see ``rwkv6.time_mix``), ``swa_impl``
     the dispatched attention in every attention block (see
     ``attention.attention``). ``mode`` picks the default states only.
@@ -534,11 +593,12 @@ def forward(cfg, params, tokens: torch.Tensor, *, embeds=None,
                                    device=x.device)
     positions = torch.arange(s, device=x.device).expand(b, s)
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
-    x, states = _run_layers(cfg, params, x, states, positions=positions,
-                            wkv_impl=wkv_impl, swa_impl=swa_impl,
-                            remat=remat, inplace=mode != "train")
+    x, states, aux = _run_layers(cfg, params, x, states, positions=positions,
+                                 wkv_impl=wkv_impl, swa_impl=swa_impl,
+                                 remat=remat, inplace=mode != "train")
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    aux = torch.zeros((), device=x.device)
     if not unembed_out:
         return x, states, aux
     return lm_head(cfg, params, x), states, aux
@@ -574,8 +634,9 @@ def decode_step(cfg, params, token: torch.Tensor, states: dict,
         raise ValueError(f"decode_step: pos must be ({token.shape[0]},), got "
                          f"{tuple(pos.shape)}")
     x = _embed_in(cfg, params, token)
-    x, states = _run_layers(cfg, params, x, states, positions=pos[:, None],
-                            pos=pos, wkv_impl=wkv_impl)
+    x, states, _ = _run_layers(cfg, params, x, states,
+                               positions=pos[:, None], pos=pos,
+                               wkv_impl=wkv_impl)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return lm_head(cfg, params, x), states
 
@@ -587,11 +648,12 @@ def decode_step(cfg, params, token: torch.Tensor, states: dict,
 
 def check_trainable(cfg) -> None:
     """Raise ``NotImplementedError`` for models :func:`lm_loss` cannot train
-    yet: those the port cannot serve either (MoE, a VLM prefix). An
+    yet: MoE models (served since slice 20) and a VLM prefix. An
     encoder-decoder model trains through ``encdec.encdec_loss``."""
     if cfg.family == "moe":
-        raise NotImplementedError("the MoE router's auxiliary loss comes with "
-                                  "a later slice (kimi-k2, arctic)")
+        raise NotImplementedError(
+            "MoE models (kimi-k2, arctic) serve; their training, with the "
+            "router's auxiliary loss in lm_loss, comes with a later slice")
     if cfg.frontend not in (None, "audio"):
         raise NotImplementedError(f"the {cfg.frontend} prefix of a training "
                                   f"batch comes with a later slice")

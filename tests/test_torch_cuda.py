@@ -1096,6 +1096,83 @@ def test_head256_serving_loop_on_the_card_matches_single_request_greedy(card):
         assert got[i] == want, i
 
 
+# apply_moe, card vs CPU: (arch, B, S, config fields, x offset); the offset
+# gives the tokens a shared direction so that the capacity binds
+MOE_CARD_CASES = [
+    ("kimi-k2-1t-a32b", 2, 24, {"capacity_factor": 1.25}, 1.0),
+    ("arctic-480b", 2, 24, {"capacity_factor": 1.25}, 1.0),
+    ("kimi-k2-1t-a32b", 3, 7, {"capacity_factor": 1.25,
+                               "moe_group_size": 4}, 1.0),
+    ("arctic-480b", 3, 7, {"moe_group_size": 4}, 0.0),
+]
+
+
+@pytest.mark.parametrize("arch,b,s,fields,offset", MOE_CARD_CASES)
+def test_apply_moe_on_the_card_matches_the_cpu(card, arch, b, s, fields,
+                                               offset):
+    """The MoE FFN at a small width (d 128, 8 experts of 64, top 2), fp32,
+    with drops (factor 1.25) and padded groups that span sequences: the
+    same routing (experts in order, positions, kept slots) on the card as
+    on the CPU, the output within 1e-5 and aux within 1e-6, and a second
+    call on the card bitwise equal to the first."""
+    import dataclasses
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(TC.get_arch(arch).reduced(), n_experts=8,
+                              expert_d_ff=64, **fields)
+    p = moe.init_moe(torch.Generator().manual_seed(2), cfg)
+    p["router"] = p["router"] * 10.0
+    gp = TM.transformer.tree_map(lambda t: t.to(card), p)
+    x = offset + torch.randn(b, s, cfg.d_model,
+                             generator=torch.Generator().manual_seed(4))
+    out_c, aux_c = moe.apply_moe(p, x, cfg)
+    out_g, aux_g = moe.apply_moe(gp, x.to(card), cfg)
+    again, aux_again = moe.apply_moe(gp, x.to(card), cfg)
+    assert torch.equal(out_g, again) and torch.equal(aux_g, aux_again)
+    torch.testing.assert_close(out_g.cpu(), out_c, atol=1e-5, rtol=0)
+    torch.testing.assert_close(aux_g.cpu(), aux_c, atol=1e-6, rtol=0)
+    xg, _ = moe.group_tokens(x, moe.group_size_for(cfg, s))
+    r_c = moe.route(p["router"], xg, cfg)
+    r_g = moe.route(gp["router"], xg.to(card), cfg)
+    for name in ("experts", "pos", "keep"):
+        assert torch.equal(getattr(r_g, name).cpu(), getattr(r_c, name)), name
+    if fields.get("capacity_factor") == 1.25:
+        assert not bool(r_c.keep.all())                 # assignments drop
+    if "moe_group_size" in fields:
+        assert xg.shape[:2] == (6, 4)                   # 21 tokens, 3 padded
+
+
+def test_moe_prefill_step_at_kimi_gqa_launches_the_kernel_once_a_layer(card):
+    """The reduced kimi (a dense layer, then an MoE layer) at kimi's
+    attention geometry, 64 query heads on 8 KV heads of 128, fp32: the
+    prefill step launches swa_attention once a layer and the decode step
+    never, and both agree with the CPU (atol 1e-4)."""
+    import dataclasses
+    from repro_torch.launch import make_prefill_step, make_serve_step
+    cfg = dataclasses.replace(TC.get_arch("kimi-k2-1t-a32b").reduced(),
+                              n_heads=64, n_kv_heads=8, head_dim=128)
+    cpu_p = TM.init_params(cfg, seed=1, device="cpu")
+    gpu_p = TM.transformer.tree_map(lambda t: t.to(card), cpu_p)
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 40)))
+    lg_c, st_c = make_prefill_step(cfg)(cpu_p, {"tokens": toks})
+    before = sw.launches
+    lg_g, st_g = make_prefill_step(cfg)(gpu_p, {"tokens": toks.to(card)})
+    assert sw.launches - before == cfg.n_layers == 2
+    torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=0)
+    # decode steps after a prefill whose caches have room for them
+    _, st_c = TM.prefill(cfg, cpu_p, toks, cache_len=43)
+    _, st_g = TM.prefill(cfg, gpu_p, toks.to(card), cache_len=43)
+    step, tok = make_serve_step(cfg), lg_c.argmax(-1)
+    before = sw.launches
+    for i in range(3):
+        pos = torch.full((2,), 40 + i)
+        lg_c, st_c = step(cpu_p, tok, st_c, pos)
+        lg_g, st_g = step(gpu_p, tok.to(card), st_g, pos.to(card))
+        torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=0)
+        tok = lg_c.argmax(-1)
+    assert sw.launches == before
+
+
 def _reduced_swa_lm(card, scale=1.0):
     """The reduced danube at head size 120 (the kernel's), fp32."""
     import dataclasses

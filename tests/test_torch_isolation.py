@@ -59,7 +59,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                 "core.extensions", "kernels.ops", "utils", "utils.pytree",
                 "data", "data.pipeline", "optim.optimizers",
                 "optim.schedules", "launch.fedtrain", "launch.train",
-                "kernels.swa_attention_bwd"):
+                "kernels.swa_attention_bwd", "models.moe",
+                "configs.kimi_k2_1t", "configs.arctic_480b"):
         assert f"repro_torch.{mod}" in names, mod
     benches = [f"benchmarks.{p.stem}" for p in BENCHES]
     for stem in ("torch_common", "torch_fmarl_bench", "torch_table2",

@@ -388,6 +388,19 @@ def test_other_models_raise_naming_their_slice(arch, match):
         with pytest.raises(NotImplementedError, match=match):
             TM.init_decode_state(tcfg, 1, device="cpu")
         return
+    if arch == "kimi-k2-1t-a32b":
+        # served since slice 20 (models/moe.py) through the serve steps;
+        # lm_loss refuses it, naming MoE
+        params = TM.init_params(tcfg, device="cpu")
+        lg, st = make_prefill_step(tcfg)(params, {"tokens": torch.zeros(
+            2, 3, dtype=torch.long)})
+        lg2, _ = make_serve_step(tcfg)(params, lg.argmax(-1), st,
+                                       torch.full((2,), 3))
+        assert bool(torch.isfinite(lg2).all())
+        with pytest.raises(NotImplementedError, match=match):
+            TM.lm_loss(tcfg, params, {"tokens": torch.zeros(
+                1, 4, dtype=torch.long)})
+        return
     if arch == "recurrentgemma-9b":
         # served since slice 15, trained since slice 16: its rglru blocks
         # differentiate (the name of the kind is in its layer pattern)
