@@ -3773,11 +3773,13 @@ def _requests(rng, launch, cfg, long_prompt=None, n=LM_REQUESTS,
 
 
 def lm_greedy_check(TM, cfg, params, req, tokens, near_tie,
-                    cache_len=None) -> dict:
+                    cache_len=None, embeds=None) -> dict:
     """Single-request greedy decoding of ``req`` on the card (prefill, then
     decode_step), fed the loop's own tokens, so that every position is
     checked; the prefill sizes the KV caches for ``cache_len`` positions, as
-    the loop's ``max_seq`` sizes its own. A model with an MoE FFN takes the
+    the loop's ``max_seq`` sizes its own. ``embeds`` (1, F, d): a VLM's
+    patch embeddings, prefilled before the prompt (decoding then starts at
+    position F + len(prompt)). A model with an MoE FFN takes the
     prompt as the loop takes it: ``prompt[:-1]`` prefilled, then the last
     prompt token through a decode step (an MoE prefill routes its tokens as
     one group under a capacity, a decode step each token alone). Where a loop
@@ -3795,9 +3797,10 @@ def lm_greedy_check(TM, cfg, params, req, tokens, near_tie,
                                 torch.tensor([prompt.shape[1] - 1],
                                              device="cuda"))
     else:
-        lg, st = TM.prefill(cfg, params, prompt, cache_len=cache_len)
+        lg, st = TM.prefill(cfg, params, prompt, embeds=embeds,
+                            cache_len=cache_len)
         lg = lg[:, -1:]
-    pos = len(req.prompt)
+    pos = len(req.prompt) + (0 if embeds is None else embeds.shape[1])
     min_margin, ties = float("inf"), []
     for i, tok in enumerate(tokens):
         top, margin = _margins(lg[0, 0])
@@ -4318,8 +4321,7 @@ def decode_window(launch, cfg, params, b, t, steps, seed) -> tuple:
     for i in range(4):
         logits, st = serve_step(params, tok, st, pos + i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
             logits, st = serve_step(params, tok, st, pos + 4 + i)
@@ -5011,7 +5013,8 @@ def _spin_pad() -> None:
     torch.cuda.synchronize()
 
 
-def profile_prefill(prefill_step, params, toks, n_attn, batch=None) -> dict:
+def profile_prefill(prefill_step, params, toks, n_attn, batch=None,
+                    host_ops=False) -> dict:
     """One ``torch.profiler`` window of a prefill call (after one warm
     call), taken again up to CUPTI_WINDOWS times while the tracer loses the
     kernel's records: wall and device busy time, the idle share, the
@@ -5020,16 +5023,19 @@ def profile_prefill(prefill_step, params, toks, n_attn, batch=None) -> dict:
     top ones. ``n_attn``: the kernel launches a call makes; ``batch``
     (default ``{"tokens": toks}``) the step's input. The call sits between
     two ``_spin_pad``s, whose records are left out and whose time is
-    outside the wall clock."""
+    outside the wall clock. Device activity only unless ``host_ops``
+    (``aten_bmm_ms`` is None without it): recording the host ops of a
+    48-layer prefill cost ~8 s and slowed the host in the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     batch = {"tokens": toks} if batch is None else batch
     prefill_step(params, batch)
     torch.cuda.synchronize()
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops
+                                      else [])
     for window in range(1, CUPTI_WINDOWS + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             _spin_pad()
             t0 = time.perf_counter()
             prefill_step(params, batch)
@@ -5052,7 +5058,8 @@ def profile_prefill(prefill_step, params, toks, n_attn, batch=None) -> dict:
     ops = {k: {"count": c, "device_ms": t / 1e3} for k, (c, t) in sorted(
         dev.items(), key=lambda kv: -kv[1][1])}
     bmm = sum(e.device_time_total for e in prof.key_averages()
-              if e.device_type == DeviceType.CPU and e.key == "aten::bmm")
+              if e.device_type == DeviceType.CPU and e.key == "aten::bmm"
+              ) if host_ops else None
     return {"shape": list(toks.shape), "wall_ms": wall_us / 1e3,
             "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / wall_us,
@@ -5060,7 +5067,8 @@ def profile_prefill(prefill_step, params, toks, n_attn, batch=None) -> dict:
             "pad_records_left_out": n_pad, "matmul_ms": mm / 1e3,
             "swa_share_of_busy": swa_us / busy if busy else None,
             "matmul_share_of_busy": mm / busy if busy else None,
-            "aten_bmm_ms": bmm / 1e3, "device_ops": ops,
+            "aten_bmm_ms": None if bmm is None else bmm / 1e3,
+            "device_ops": ops,
             "top_device_ops": dict(list(ops.items())[:10])}
 
 
@@ -5412,13 +5420,14 @@ def lm_train_path(km, sw, swb, TC, TM, launch, card) -> dict:
 
 
 def lmt_period_times(launch, cfg, fed, state, agents=LMT_AGENTS,
-                     batch=LMT_BATCH, seq=LMT_SEQ, offset=LMT_STEPS,
-                     extra=None) -> dict:
+                     batch=LMT_BATCH, seq=LMT_SEQ, offset=LMT_STEPS) -> dict:
     """One more period on ``state`` (tau local steps on the batches of steps
     ``offset`` on, then the sync), each step and the sync timed by the host
-    clock around work that ends in a synchronise. ``extra``: more entries
-    of every step's batch (an encoder-decoder model's frames)."""
+    clock around work that ends in a synchronise. Every step's batch is the
+    trainer's (``stub_batch``: an encoder-decoder model's frames, a VLM's
+    patch embeddings and cut tokens); ``seq`` rows a sequence either way."""
     from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import stub_batch
     from repro_torch.optim import adamw
     local = launch.make_local_step(cfg, adamw(weight_decay=0.01), fed,
                                    n_agents=agents)
@@ -5431,7 +5440,7 @@ def lmt_period_times(launch, cfg, fed, state, agents=LMT_AGENTS,
             for a in range(agents)])).cuda()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        local(state, {"tokens": toks, **(extra or {})})
+        local(state, stub_batch(cfg, toks))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     t0 = time.perf_counter()
@@ -5831,16 +5840,20 @@ HD_ARCHS = ("gemma-7b", "recurrentgemma-9b")
 # Depth served: 7 of gemma-7b's 28 layers and 14 of recurrentgemma-9b's 38
 # (4 cycles of (rglru, rglru, local) and a tail of 2), cut from full depth
 # when phase 23 came; the width is the published one.
-HD_LAYERS = {"gemma-7b": 7, "recurrentgemma-9b": 14}
-# the trees' counts at that depth (at full depth, 8,537,680,896 and
-# 9,396,408,320: the JAX init trees', tests/test_torch_head256.py)
-HD_PARAMS = {"gemma-7b": 2_724_246_528, "recurrentgemma-9b": 4_144_418_816}
+# Phase 24 serves qwen2-72b (head 128, QKV bias) by the same path, 4 of
+# its 80 layers (~145 GB of bf16 at full depth).
+HD_LAYERS = {"gemma-7b": 7, "recurrentgemma-9b": 14, "qwen2-72b": 4}
+# the trees' counts at that depth (at full depth, 8,537,680,896,
+# 9,396,408,320 and 72,706,203,648: the JAX init trees',
+# tests/test_torch_head256.py and tests/test_torch_vlm.py)
+HD_PARAMS = {"gemma-7b": 2_724_246_528, "recurrentgemma-9b": 4_144_418_816,
+             "qwen2-72b": 6_002_163_712}
 HD_PREFILL = ((8, 512), (1, 8192))    # (B, T) of the prefill step
 HD_TIMED = 1                          # timed prefill calls per shape
 HD_DECODE_TOKENS = 16
 HD_NEW = (16, 32)                     # new tokens of a loop request
 HD_LONG_PROMPT = 2100                 # recurrentgemma request 0: past W = 2048
-HD_MAX_SEQ = {"gemma-7b": 640, "recurrentgemma-9b": 2240}
+HD_MAX_SEQ = {"gemma-7b": 640, "recurrentgemma-9b": 2240, "qwen2-72b": 640}
 HD_CHECKED = 4                        # every 4th completion held to B = 1
 # the D = 256 kernel vs plain: B 1, 16 query heads, Sq = Sk
 HD_SQ = (1, 63, 64, 65, 127, 128, 129, 200)
@@ -5954,7 +5967,8 @@ def _hd_profile(TM, launch, cfg, params, rg) -> dict:
 
 
 def hd_serving_path(sw, _build, TC, TM, launch, card, arch) -> dict:
-    """One head-256 model at full width, HD_LAYERS deep, seeded bf16 weights
+    """One model of HD_LAYERS (the head-256 models; qwen2-72b at head 128
+    since phase 24) at full width, HD_LAYERS deep, seeded bf16 weights
     on the card, through the user's entry points: ``make_prefill_step`` at
     8 x 512 and 1 x 8192, ``make_serve_step`` for HD_DECODE_TOKENS tokens at
     B = 8, and a ``ServingLoop`` of 8 slots over 16 requests (for
@@ -5972,7 +5986,7 @@ def hd_serving_path(sw, _build, TC, TM, launch, card, arch) -> dict:
     cfg = dataclasses.replace(TC.get_arch(arch), n_layers=HD_LAYERS[arch])
     n_attn = sum(cfg.block_kind(i) in ("attn", "local")
                  for i in range(cfg.n_layers))
-    rng = np.random.default_rng(SEED + 193 + HD_ARCHS.index(arch))
+    rng = np.random.default_rng(SEED + 193 + list(HD_LAYERS).index(arch))
     t0 = time.perf_counter()
     params = TM.init_params(cfg, seed=SEED, device="cuda")
     torch.cuda.synchronize()
@@ -6067,8 +6081,10 @@ def hd_serving_path(sw, _build, TC, TM, launch, card, arch) -> dict:
     out["launches_per_prefill_call"], out["launches_per_decode_step"] = \
         n_attn, 0
     del loop
-    log(f"phase head256 serving: {arch} {n_params} params bf16 ({cfg.n_layers}"
-        f" layers, {n_attn} attention at D 256) init {init_s!r} s, peak "
+    log(f"phase serving: {arch} {n_params} params bf16 ({cfg.n_layers} of "
+        f"{TC.get_arch(arch).n_layers} layers, {n_attn} attention, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}) init "
+        f"{init_s!r} s, peak "
         f"{out['init_peak_gb']!r} GB; prefill tokens/s " + ", ".join(
             f"{k}: {v['tokens_per_s']!r}" for k, v in out["prefill"].items())
         + f"; decode B={LM_SLOTS} tokens/s {out['decode']['tokens_per_s']!r}; "
@@ -6143,7 +6159,7 @@ def hd_serving_path(sw, _build, TC, TM, launch, card, arch) -> dict:
             f"{pr['rglru_scan_share_of_busy']!r}" if "rglru_scan_ms" in pr
             else "") + f" card=\"{card}\"")
     checked("profile")
-    log(f"phase head256 {arch}: seconds by check {out['check_seconds']}")
+    log(f"phase serving {arch}: seconds by check {out['check_seconds']}")
     del params
     torch.cuda.empty_cache()
     return out
@@ -6697,12 +6713,12 @@ def train_model_path(km, sw, swb, wk, TC, TM, launch, card, arch,
         raise AssertionError(f"train {cfg.name}: agent rows differ after the "
                              f"sync, or are not finite")
     done("train")
-    extra = T.stub_frames(cfg, TR_AGENTS, TR_BATCH, "cuda")
+    audio = cfg.frontend == "audio"
     torch.cuda.reset_peak_memory_stats()
     timing = lmt_period_times(launch, cfg, fed, state, TR_AGENTS, TR_BATCH,
-                              seq, TR_TAU, extra)
+                              seq, TR_TAU)
     peak = torch.cuda.max_memory_allocated()
-    if extra:
+    if audio:
         timing["frames_per_s"] = (TR_AGENTS * TR_BATCH * cfg.n_frontend_tokens
                                   / timing["local_step_ms"] * 1e3)
     done("period")
@@ -6718,7 +6734,7 @@ def train_model_path(km, sw, swb, wk, TC, TM, launch, card, arch,
     # the largest part of its run
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        local(state, {"tokens": toks, **extra})
+        local(state, T.stub_batch(cfg, toks))
         torch.cuda.synchronize()
         step_us = (time.perf_counter() - t1) * 1e6
     split = _tr_split(prof)
@@ -6737,13 +6753,13 @@ def train_model_path(km, sw, swb, wk, TC, TM, launch, card, arch,
         raise AssertionError("a build on the training hot path")
     plain_seq = TR_PLAIN_SEQ.get(arch, seq)
     parity = tr_kernel_vs_plain(sw, TM, cfg, state, {
-        "tokens": toks[0, :, :plain_seq + 1],
-        **{k: v[0] for k, v in extra.items()}})
+        k: v[0] for k, v in T.stub_batch(cfg, toks[:, :, :plain_seq + 1])
+        .items()})
     parity["seq"] = plain_seq
     done("kernel_vs_plain")
     n_params = state.layout.n
     frames = (f" = {timing['frames_per_s']!r} frames/s ({cfg.n_frontend_tokens}"
-              f" a row)" if extra else "")
+              f" a row)" if audio else "")
     log(f"phase train: {cfg.name} ({n_params} parameters an agent, A "
         f"{TR_AGENTS} x {TR_BATCH} x {seq}): losses {losses}; train() "
         f"{wall!r} s for {TR_TAU} steps (init included); local step "
@@ -7305,8 +7321,7 @@ def wh_profile(TM, launch, cfg, params, frames, toks, card) -> dict:
         lg, state = serve_step(params, tok, state, pos + i)
         tok = lg.argmax(-1)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(WH_PROFILE_STEPS):
             lg, state = serve_step(params, tok, state, pos + 4 + i)
@@ -8192,7 +8207,8 @@ def moe_serving_path(sw, moe, _build, TC, TM, launch, card, arch) -> dict:
     out["profile"] = {}
     for b, t in MOE_PREFILL:
         out["profile"][f"{b}x{t}"] = pr = profile_prefill(
-            prefill_step, params, _prompt_tokens(rng, cfg, b, t), L)
+            prefill_step, params, _prompt_tokens(rng, cfg, b, t), L,
+            host_ops=True)
         pr["device_ms"] = _moe_split(pr)
         log(f"profile {arch} prefill {b} x {t}: wall_ms={pr['wall_ms']!r} "
             f"device_busy_ms={pr['device_busy_ms']!r} device_idle_share="
@@ -8205,21 +8221,22 @@ def moe_serving_path(sw, moe, _build, TC, TM, launch, card, arch) -> dict:
     return out
 
 
-def moe_times(sw, card) -> dict:
-    """The D = 128 kernel in bf16 at the models' prefill calls (MOE_TIMES:
-    GQA 64 / 8 and 56 / 8, causal, no window): first held against the
-    plain version on the same q, k, v by phase 12's rules (``swa_check``,
-    the control required) and repeated bitwise; then timed, L2 flushed and
+def d128_times(sw, card, shapes, seed) -> dict:
+    """The D = 128 kernel in bf16 at a model's prefill calls (``shapes``:
+    (arch, B, S, H, KV), causal, no window): first held against the plain
+    version on the same q, k, v by phase 12's rules (``swa_check``, the
+    control required) and repeated bitwise; then timed, L2 flushed and
     warm, CUDA events and CUPTI, beside its bound (row 10's formula), the
     plain version's time (one call, events) and SDPA's default call
-    (events, the kernels line's ``library_ms``; which backend)."""
+    (events, the kernels line's ``library_ms``; which backend). Phase 23
+    (MOE_TIMES: GQA 64 / 8 and 56 / 8) and phase 24 (VLM_TIMES: 48 / 8)."""
     cyc = sleep_cycles_per_ms()
     flush = l2_flusher()
     rows = {}
-    for arch, b, t, h, kv in MOE_TIMES:
+    for arch, b, t, h, kv in shapes:
         n_ev, n_cu = ((TIMED_LAUNCHES, CUPTI_CALLS) if b * t <= 4096
                       else (CHUNK, 10))
-        q, k, v = swa_inputs(b, t, t, h, kv, 128, torch.bfloat16, SEED + 231)
+        q, k, v = swa_inputs(b, t, t, h, kv, 128, torch.bfloat16, seed)
         kern = lambda: sw.swa_attention_cuda(q, k, v)
         lib = sdpa_fn(q, k, v, None)
         got = kern()
@@ -8281,7 +8298,7 @@ def moe_phase(sw, _build, TC, TM, launch, card) -> dict:
                                                launch, card, arch)
         out["models"][arch]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         done(arch)
-    out["times"] = moe_times(sw, card)
+    out["times"] = d128_times(sw, card, MOE_TIMES, SEED + 231)
     done("times")
     out["launches"] = sum(m["launches"] for m in out["models"].values())
     out["seconds"] = time.perf_counter() - t0
@@ -8309,6 +8326,310 @@ def moe_alone() -> dict:
     log(f"card {card}")
     _build.load()
     return moe_phase(sw, _build, TC, TM, launch, card)
+
+
+# --- phase 24: the VLM prefix and qwen2-72b (slice 21) ------------------------
+
+VLM_ARCH = "internvl2-26b"
+VLM_LAYERS = 48                       # the published depth
+VLM_PARAMS = 19_900_471_296           # the JAX tree's (tests/test_torch_vlm.py)
+VLM_F = 256                           # patch-embedding rows a request
+# (B, text tokens) after the VLM_F-row prefix: 768 rows a sequence, 8192
+# (the profiled call) and 756 (off the kernel's 128-row tile)
+VLM_PREFILL = ((8, 512), (1, 7936), (1, 500))
+VLM_TIMED = 1                         # timed prefill calls per shape
+VLM_DECODE_TOKENS = 16
+VLM_CHECKED = 4                       # every 4th decoded row held to B = 1
+# the kernel's shapes on the serving path: (arch, B, S, H, KV), S = F + tokens
+VLM_TIMES = tuple((VLM_ARCH, b, VLM_F + t, 48, 8) for b, t in VLM_PREFILL)
+VLM_TRAIN_LAYERS = 2                  # two agents' Adam state: ~24 B a parameter
+VLM_TRAIN_PARAMS = 1_956_673_536      # the 2-layer JAX tree's
+VLM_TRAIN_SEQ = 1024                  # rows: the 256-row prefix and 768 tokens
+QWEN_ARCH = "qwen2-72b"               # hd_serving_path, HD_LAYERS deep
+
+
+def vlm_embeds(cfg, b, seed):
+    """The stub frontend's patch embeddings: (b, F, d) ~ N(0, 1) in bf16 on
+    the card (no ViT, no image)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((b, cfg.n_frontend_tokens, cfg.d_model), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+
+
+def vlm_serving_path(sw, _build, TC, TM, launch, card) -> dict:
+    """internvl2-26b at its published width, VLM_LAYERS deep, seeded bf16
+    weights, through the user's entry points: ``make_prefill_step`` with
+    ``patch_embeds`` (VLM_F seeded rows a request before the tokens) at
+    8 x (256 + 512), 1 x (256 + 7936) and 1 x (256 + 500), then
+    ``make_serve_step`` for VLM_DECODE_TOKENS steps at B = 8 from position
+    F + S (the step's caches hold F + S slots, as JAX's step sizes them, so
+    decoding writes over the oldest, as in JAX). The swa_attention counter
+    is set to 0 before this main path and read after it: one launch a layer
+    per prefill call, none per decode step, no build. Then every
+    VLM_CHECKED-th row of the decode against single-request greedy decoding
+    with the same prefix (bf16 near-ties counted as in phases 10, 13, 19)
+    and a profiled 1 x 8192 prefill."""
+    cfg = tr_config(TC, VLM_ARCH, VLM_LAYERS)
+    F, L = cfg.n_frontend_tokens, cfg.n_layers
+    if F != VLM_F:
+        raise AssertionError(f"{VLM_ARCH}: {F} frontend tokens, expected "
+                             f"{VLM_F}")
+    rng = np.random.default_rng(SEED + 240)
+    t0 = time.perf_counter()
+    params = TM.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = TM.count_params(params)
+    if n_params != VLM_PARAMS:
+        raise AssertionError(f"{VLM_ARCH}: {n_params} parameters, expected "
+                             f"{VLM_PARAMS}")
+    prefill_step = launch.make_prefill_step(cfg)
+    serve_step = launch.make_serve_step(cfg)
+    builds = _build.n_builds
+    out = {"arch": VLM_ARCH, "params": n_params, "layers": L,
+           "frontend_tokens": F, "init_s": init_s,
+           "init_peak_gb": init_peak / 1e9, "prefill": {}}
+
+    # --- the main path, counted ---
+    sw.launches = 0
+    for n, (b, t) in enumerate(VLM_PREFILL):
+        batch = {"tokens": _prompt_tokens(rng, cfg, b, t),
+                 "patch_embeds": vlm_embeds(cfg, b, SEED + 241 + n)}
+        secs = []
+        for _ in range(1 + VLM_TIMED):
+            before = sw.launches
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, states = prefill_step(params, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            if sw.launches - before != L:
+                raise AssertionError(f"{VLM_ARCH} prefill {b}x({F}+{t}): "
+                                     f"{sw.launches - before} swa_attention "
+                                     f"launches, expected {L}")
+        if tuple(logits.shape) != (b, 1, TM.padded_vocab(cfg)) or \
+                not bool(torch.isfinite(logits).all()) or \
+                states["cache"]["k"].shape[2] != F + t:
+            raise AssertionError(f"{VLM_ARCH} prefill {b}x({F}+{t}): bad "
+                                 f"logits or caches")
+        med = statistics.median(secs[1:])
+        out["prefill"][f"{b}x{F + t}"] = {
+            "first_s": secs[0], "median_s": med,
+            "tokens_per_s": b * (F + t) / med,
+            "text_tokens_per_s": b * t / med}
+        if b == LM_SLOTS:
+            dec_batch, dec_logits, dec_states = batch, logits, states
+        del states, logits, batch
+    S = dec_batch["tokens"].shape[1]
+    tok = dec_logits.argmax(-1)
+    decoded = [tok]
+    pos = torch.full((LM_SLOTS,), F + S, device="cuda")
+    before = sw.launches
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(VLM_DECODE_TOKENS):
+        logits, dec_states = serve_step(params, tok, dec_states, pos + i)
+        tok = logits.argmax(-1)
+        decoded.append(tok)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t1
+    launches = sw.launches
+    # --- end of the main path ---
+    if launches != before or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{VLM_ARCH} decode: {launches - before} "
+                             f"swa_attention launches, expected 0")
+    if _build.n_builds != builds:
+        raise AssertionError(f"an nvcc build ran on the {VLM_ARCH} serving "
+                             f"path")
+    out["decode"] = {"batch": LM_SLOTS, "steps": VLM_DECODE_TOKENS,
+                     "from_position": F + S, "seconds": dec_s,
+                     "ms_per_step": dec_s * 1e3 / VLM_DECODE_TOKENS,
+                     "tokens_per_s": LM_SLOTS * VLM_DECODE_TOKENS / dec_s}
+    out["launches"] = launches
+    out["launches_per_prefill_call"], out["launches_per_decode_step"] = L, 0
+    del dec_states, dec_logits
+    pf = out["prefill"]
+    log(f"phase vlm serving: {VLM_ARCH} {n_params} params bf16 ({L} of "
+        f"{TC.get_arch(VLM_ARCH).n_layers} layers; {cfg.n_heads} / "
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim}; {F} patch-embedding rows "
+        f"a request) init {init_s!r} s, peak {out['init_peak_gb']!r} GB; "
+        f"prefill rows/s (prefix + tokens) " + ", ".join(
+            f"{k}: {v['tokens_per_s']!r}" for k, v in pf.items())
+        + f"; decode B={LM_SLOTS} from position {F + S} tokens/s "
+        f"{out['decode']['tokens_per_s']!r} ({out['decode']['ms_per_step']!r}"
+        f" ms a step); swa_attention launches {launches} ({L} per prefill "
+        f"call, 0 per decode step; no build) card=\"{card}\"")
+
+    out["check_seconds"], t_chk = {}, [time.perf_counter()]
+
+    def checked(name):
+        now = time.perf_counter()
+        out["check_seconds"][name] = now - t_chk[0]
+        t_chk[0] = now
+
+    near_tie = lambda best: LM_BF16_ULPS * bf16_ulp(best)
+    rows = range(0, LM_SLOTS, VLM_CHECKED)
+    toks = dec_batch["tokens"].cpu().numpy()
+    checks = [lm_greedy_check(
+        TM, cfg, params, launch.Request(r, toks[r], len(decoded)),
+        [int(t[r, 0]) for t in decoded], near_tie, cache_len=F + S,
+        embeds=dec_batch["patch_embeds"][r:r + 1]) for r in rows]
+    ties = [t for c in checks for t in c["ties"]]
+    bvs = out["batch_vs_single_request"] = {
+        "rows": list(rows), "positions": sum(c["positions"] for c in checks),
+        "min_top2_margin": min(c["min_margin"] for c in checks),
+        "equal_rows": sum(not c["ties"] for c in checks), "near_ties": ties}
+    log(f"check {VLM_ARCH} bf16: every token of rows {list(rows)} of the "
+        f"B = {LM_SLOTS} prefill + decode ({bvs['positions']} positions) is "
+        f"single-request greedy with the same {F}-row prefix on the card (a "
+        f"B = 1 prefill of prefix and prompt, caches of {F + S}, then decode "
+        f"steps) or a near-tie; {bvs['equal_rows']} rows equal outright; "
+        f"{len(ties)} near-ties (within {LM_BF16_ULPS} bf16 ulp of the max)")
+    del dec_batch
+    checked("batch_vs_single_request_bf16")
+    b, t = VLM_PREFILL[1]
+    batch = {"tokens": _prompt_tokens(rng, cfg, b, t),
+             "patch_embeds": vlm_embeds(cfg, b, SEED + 244)}
+    out["profile"] = pr = profile_prefill(prefill_step, params,
+                                          batch["tokens"], L, batch=batch)
+    busy = pr["device_busy_ms"]
+    pr["device_ms"] = {"matmul": pr["matmul_ms"],
+                       "swa_attention": pr["swa_attention_ms"],
+                       "rest": busy - pr["matmul_ms"] - pr["swa_attention_ms"]}
+    pr["share_of_busy"] = {k: v / busy for k, v in pr["device_ms"].items()}
+    log(f"profile {VLM_ARCH} prefill 1 x ({F} + {t}): wall_ms="
+        f"{pr['wall_ms']!r} device_busy_ms={busy!r} device_idle_share="
+        f"{pr['device_idle_share']!r}; device ms {pr['device_ms']}, share of "
+        f"busy {pr['share_of_busy']} card=\"{card}\"")
+    checked("profile")
+    log(f"phase vlm {VLM_ARCH}: seconds by check {out['check_seconds']}")
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_bwd(sw, swb, card) -> dict:
+    """The D = 128 backward at the VLM training step's shape, (2, 1024, 48 /
+    8), causal, no window: against its plain version by phase 18's rule
+    (``bwd_check``, fp32 and bf16; in bf16 the one-bf16 p / ds control
+    required), then timed in bf16 (CUPTI and CUDA events, L2 flushed and
+    warm) beside its bound, the plain version's time (one call) and SDPA's
+    autograd backward on repeated K/V."""
+    b, s, h, kv = TR_BATCH, VLM_TRAIN_SEQ, 48, 8
+    out = {"shape": [b, s, h, kv, 128], "window": None, "checks": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        q, k, v, do = bwd_inputs(b, s, h, kv, 128, dtype, SEED + 245)
+        what = f"swa_attention_bwd D=128 ({b}, {s}, {h}/{kv}) {name}"
+        row = bwd_check(sw, swb, q, k, v, do, None, what)
+        if dtype == torch.bfloat16:
+            row["control_mean_ratio"] = bwd_control(sw, swb, q, k, v, do,
+                                                    None, row, what)
+        out["checks"][name] = row
+        del q, k, v, do
+    cyc = sleep_cycles_per_ms()
+    flush = l2_flusher()
+    q, k, v, do = bwd_inputs(b, s, h, kv, 128, torch.bfloat16, SEED + 246)
+    o, lse = sw.swa_attention_cuda(q, k, v, with_lse=True)
+    kern = lambda: swb.swa_attention_bwd_cuda(q, k, v, o, do, lse)
+    lib = sdpa_bwd_fn(q, k, v, do, None)
+    out.update({
+        "dtype": "bfloat16",
+        "cupti_ms": sum(cupti_ms(kern, flush, n) for n in BWD_KERNELS),
+        "ms": device_ms(kern, cyc, flush, CHUNK)[0],
+        "warm_l2_ms": device_ms(kern, cyc, None, CHUNK)[0],
+        "plain_ms": events_ms(lambda: swb.swa_attention_bwd_plain(
+            q, k, v, o, do, lse), 1),
+        "library_ms": device_ms(lib, cyc, flush, CHUNK)[0],
+        "library_backend": sdpa_backend_of(q, k, v, None),
+        **bwd_bound(b, s, h, kv, 128, None)})
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    c16 = out["checks"]["bfloat16"]
+    out["max_abs_err"] = c16["err"]
+    ratio = max(c16[g]["mean_err"] / c16[g]["plain_mean_err"]
+                for g in ("dq", "dk", "dv"))
+    log(f"check swa_attention_bwd D=128 ({b}, {s}, {h}/{kv}) causal vs plain:"
+        f" fp32 err {out['checks']['float32']['err']!r} (G "
+        f"{out['checks']['float32']['G']!r}, rule {BWD_REL} x G); bf16 err "
+        f"{c16['err']!r}, mean err / plain's {ratio!r} (rule <= "
+        f"{BWD_MEAN_RATIO}), the one-bf16 p / ds control "
+        f"{c16['control_mean_ratio']!r}; repeats bitwise")
+    log(f"time swa_attention_bwd D=128 shape=({b}, {s}, {h}/{kv}, 128) bf16 "
+        f"causal L2 flushed: kernel_ms={out['ms']!r} (cupti "
+        f"{out['cupti_ms']!r}; L2-warm {out['warm_l2_ms']!r}) plain_ms="
+        f"{out['plain_ms']!r} bound_ms={out['bound_ms']!r} ({out['bound_by']};"
+        f" share {out['share_of_bound']!r}) library_ms={out['library_ms']!r} "
+        f"(SDPA backward, {out['library_backend']} forward choice) "
+        f"card=\"{card}\"")
+    del q, k, v, do, o, lse, lib
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_phase(km, sw, swb, wk, _build, TC, TM, launch, card) -> dict:
+    """Phase 24 (slice 21): internvl2-26b served at its published width and
+    depth with its patch-embedding prefix (``vlm_serving_path``), the D =
+    128 kernel at its GQA 48 / 8 prefill shapes (``d128_times``: checked,
+    then timed), qwen2-72b at its published width, HD_LAYERS deep
+    (``hd_serving_path``: prefill, decode, an 8-slot ``ServingLoop`` and its
+    checks), and internvl2-26b trained at its published width,
+    VLM_TRAIN_LAYERS deep, on the trainer's stub batch (``train_model_path``:
+    the launch formula, rows equal after the sync, kernel vs plain by phase
+    20's rule), with its backward checked and timed at its shape
+    (``vlm_bwd``). Each model is freed before the next is drawn."""
+    t0 = time.perf_counter()
+    parts, lap = {}, [t0]
+
+    def done(name):
+        parts[name] = time.perf_counter() - lap[0]
+        lap[0] = time.perf_counter()
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    out["serving"] = vlm_serving_path(sw, _build, TC, TM, launch, card)
+    out["serving"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    done("serving")
+    out["times"] = d128_times(sw, card, VLM_TIMES, SEED + 247)
+    done("times")
+    torch.cuda.reset_peak_memory_stats()
+    out["qwen"] = hd_serving_path(sw, _build, TC, TM, launch, card, QWEN_ARCH)
+    out["qwen"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    done(QWEN_ARCH)
+    tr = train_model_path(km, sw, swb, wk, TC, TM, launch, card, VLM_ARCH,
+                          VLM_TRAIN_LAYERS, seq=VLM_TRAIN_SEQ)
+    if tr["params_per_agent"] != VLM_TRAIN_PARAMS:
+        raise AssertionError(f"{tr['arch']}: {tr['params_per_agent']} "
+                             f"parameters an agent, expected "
+                             f"{VLM_TRAIN_PARAMS}")
+    out["train"] = tr
+    done("train")
+    out["bwd"] = vlm_bwd(sw, swb, card)
+    done("bwd")
+    out["launches"] = dict(tr["launches"])
+    out["launches"]["swa_attention"] += (out["serving"]["launches"]
+                                         + out["qwen"]["launches"])
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    log(f"phase vlm: {out['seconds']!r} s; by part {parts}; peak device "
+        f"memory GB: serving {out['serving']['peak_gb']!r}, {QWEN_ARCH} "
+        f"{out['qwen']['peak_gb']!r}, training (a period) "
+        f"{tr['peak_memory_bytes'] / 1e9!r}")
+    return out
+
+
+def vlm_alone() -> dict:
+    """Phase 24 without the rest of the script (``python3 -c 'import
+    chip_smoke as c; c.vlm_alone()'``): builds the kernels, then the VLM
+    phase."""
+    if not torch.cuda.is_available():
+        raise SystemExit("vlm_alone: no CUDA card")
+    TC, launch, TM, _build, sw, swb, wk = _alone_modules()
+    km, _, _, _ = _sweep_modules()
+    card = card_line()
+    log(f"card {card}")
+    _build.load()
+    return vlm_phase(km, sw, swb, wk, _build, TC, TM, launch, card)
 
 
 def main() -> int:
@@ -8496,6 +8817,12 @@ def main() -> int:
     # published widths, 2 layers each, through the D = 128 kernel
     mo = moe_phase(sw, _build, TC, TM, launch, card)
     lap('23 moe')
+
+    # 24. the VLM prefix (slice 21): internvl2-26b served at its published
+    # width and depth and trained at 2 layers, qwen2-72b served at 4 of 80
+    # layers, the D = 128 forward and backward at GQA 48 / 8
+    vl = vlm_phase(km, sw, swb, wk, _build, TC, TM, launch, card)
+    lap('24 vlm')
 
     top = rows["mean/1024"]
     kernels = [{
@@ -8764,6 +9091,33 @@ def main() -> int:
                     "library_backend")}, "max_abs_err": t["check"]["err"]}
                     for n, t in mo["times"].items()}}
             k["launches"] += mo["launches"]
+    for k in kernels:                  # and phase 24's (VLM, qwen2-72b)
+        if k["name"] not in vl["launches"]:
+            continue
+        k["vlm"] = {"launches": vl["launches"][k["name"]]}
+        k["launches"] += vl["launches"][k["name"]]
+        pick = lambda t: {key: t[key] for key in (
+            "ms", "cupti_ms", "warm_l2_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_backend") if key in t}
+        if k["name"] == "swa_attention":
+            k["vlm"].update({
+                "launches_by_path": {
+                    "serving": vl["serving"]["launches"],
+                    QWEN_ARCH: vl["qwen"]["launches"],
+                    "train": vl["train"]["launches"]["swa_attention"]},
+                "launches_per_prefill_call": VLM_LAYERS,
+                "launches_per_decode_step": 0,
+                "times": {n: {**pick(t), "max_abs_err": t["check"]["err"]}
+                          for n, t in vl["times"].items()}})
+        if k["name"] == "swa_attention_bwd":
+            k["vlm"].update({
+                "shape": {"B": TR_BATCH, "S": VLM_TRAIN_SEQ, "H": 48, "KV": 8,
+                          "D": 128, "window": None, "dtype": "bfloat16"},
+                "max_abs_err": vl["bwd"]["max_abs_err"],
+                "fp32_max_abs_err": vl["bwd"]["checks"]["float32"]["err"],
+                "control_mean_ratio":
+                    vl["bwd"]["checks"]["bfloat16"]["control_mean_ratio"],
+                **pick(vl["bwd"])})
     if len(kernels) != 12 or any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"kernels line: {len(kernels)} kernels, "
                              f"launches {[k['launches'] for k in kernels]}")
@@ -8787,7 +9141,7 @@ def main() -> int:
                    "sweep_times": sweep_rows, "async": async_run,
                    "fmarl": fmarl, "lm_train": lmt, "head256": hd,
                    "train": tr, "whisper": wh, "whisper_train": wt,
-                   "moe": mo,
+                   "moe": mo, "vlm": vl,
                    "kernels": kernels, "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1,
                   default=str)

@@ -13,10 +13,8 @@ from repro_torch.models.encdec import (
     encdec_logits,
 )
 from repro_torch.models.transformer import (
-    check_supported,
     decode_step,
     forward,
-    init_decode_state,
     lm_head,
 )
 
@@ -24,13 +22,14 @@ from repro_torch.models.transformer import (
 def make_prefill_step(cfg):
     """``prefill_step(params, batch) -> (logits (B, 1, V), states)``:
     ``batch["tokens"]`` (B, S) through the sequence path from an initial
-    state, the KV caches sized for S positions, as the JAX step sizes them.
-    Only the last position is unembedded (the JAX step slices it from the
-    full logits; the values are the same row of the same product). An
-    encoder-decoder model also reads ``batch["frames"]`` (B, F, d), and its
-    states are ``encdec_forward``'s prefill states (self-attention caches
-    and cross K/V)."""
-    check_supported(cfg)
+    state, after ``batch["patch_embeds"]`` (B, F, d) where the batch has
+    them (a VLM's prefix), the KV caches sized for F + S positions, as the
+    JAX step sizes them; decoding goes on at position F + S. Only the last
+    position is unembedded (the JAX step slices it from the full logits;
+    the values are the same row of the same product). An encoder-decoder
+    model reads ``batch["frames"]`` (B, F, d) instead, and its states are
+    ``encdec_forward``'s prefill states (self-attention caches and cross
+    K/V)."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -39,15 +38,10 @@ def make_prefill_step(cfg):
                                        batch["frames"], mode="prefill",
                                        unembed_out=False)
             return encdec_logits(params, x[:, -1:]), states
-        if batch.get("patch_embeds") is not None:
-            raise NotImplementedError("a VLM embedding prefix comes with a "
-                                      "later slice (internvl2-26b)")
-        tokens = batch["tokens"]
-        states = init_decode_state(cfg, tokens.shape[0],
-                                   max_seq=tokens.shape[1], mode="prefill",
-                                   device=tokens.device)
-        x, states, _ = forward(cfg, params, tokens, mode="prefill",
-                               states=states, unembed_out=False)
+        # forward's default states: sized for the F + S rows, prefill mode
+        x, states, _ = forward(cfg, params, batch["tokens"],
+                               embeds=batch.get("patch_embeds"),
+                               mode="prefill", unembed_out=False)
         return lm_head(cfg, params, x[:, -1:]), states
 
     return prefill_step
@@ -57,7 +51,6 @@ def make_serve_step(cfg):
     """``serve_step(params, token, states, pos) -> (logits (B, 1, V),
     states)``: one decode step; ``states`` are updated in place (an
     encoder-decoder model's are ``init_encdec_decode_state``'s layout)."""
-    check_supported(cfg)
     step = encdec_decode_step if cfg.is_encoder_decoder else decode_step
 
     @torch.no_grad()

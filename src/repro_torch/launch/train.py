@@ -8,10 +8,8 @@ Runs on the card unless asked for the CPU:
       --device cpu
 
 Each agent reads its own ``SyntheticLM`` stream (``seed``, agent id, step:
-the JAX launcher's batches bit for bit; an audio encoder-decoder model,
-whisper-small, also gets JAX's stub frames, ``0.1`` in every element of
-``(A, B, n_frontend_tokens, d)`` in the compute dtype), every local step
-updates all
+the JAX launcher's batches bit for bit, with its stub frontend:
+:func:`stub_batch`), every local step updates all
 agents with ``adamw(weight_decay=0.01)`` and every ``tau`` steps the sync
 step runs the strategy (``repro_torch.launch.fedtrain``). The checkpoint is
 written in the JAX package's format (its train-state tree, metadata
@@ -43,16 +41,24 @@ from repro_torch.models.transformer import check_trainable
 from repro_torch.optim import adamw
 
 
-def stub_frames(cfg, n_agents: int, batch: int, device) -> dict:
-    """The batch entries beside the tokens that every step of an audio
-    encoder-decoder model gets: JAX's stub frame embeddings, ``{"frames":
-    0.1 * ones((n_agents, batch, n_frontend_tokens, d))}`` in the compute
-    dtype; none (``{}``) for any other model."""
-    if cfg.frontend != "audio":
-        return {}
-    return {"frames": 0.1 * torch.ones(
-        (n_agents, batch, cfg.n_frontend_tokens, cfg.d_model),
-        dtype=torch_dtype(cfg.compute_dtype), device=device)}
+def stub_batch(cfg, toks: torch.Tensor) -> dict:
+    """One local step's batch from its token windows ``toks`` ``(A, B,
+    seq + 1)``, as JAX's ``train()`` builds it with its stub frontends. A
+    vision model's tokens are cut to ``seq - F + 1`` and its prefix is
+    ``"patch_embeds": 0.1 * ones((A, B, F, d))``, so the model still reads
+    ``seq`` rows; an audio encoder-decoder model keeps its tokens and gets
+    ``"frames"`` of the same value and shape. F is ``n_frontend_tokens``,
+    the stubs in the compute dtype on ``toks``' device."""
+    if cfg.frontend not in ("vision", "audio"):
+        return {"tokens": toks}
+    A, B, n = toks.shape
+    F = cfg.n_frontend_tokens
+    stub = 0.1 * torch.ones((A, B, F, cfg.d_model),
+                            dtype=torch_dtype(cfg.compute_dtype),
+                            device=toks.device)
+    if cfg.frontend == "vision":
+        return {"tokens": toks[:, :, :n - F], "patch_embeds": stub}
+    return {"tokens": toks, "frames": stub}
 
 
 def train(arch: str, *, reduced: bool, steps: int, fed: FedTrainConfig,
@@ -83,7 +89,6 @@ def train(arch: str, *, reduced: bool, steps: int, fed: FedTrainConfig,
     local_step = make_local_step(cfg, opt, fed, n_agents=n_agents)
     sync_step = make_sync_step(cfg, fed, n_agents=n_agents)
     data = SyntheticLM(vocab_size=cfg.vocab_size, seed=seed)
-    extra = stub_frames(cfg, n_agents, batch, dev)
 
     losses = []
     t0 = time.time()
@@ -91,7 +96,7 @@ def train(arch: str, *, reduced: bool, steps: int, fed: FedTrainConfig,
         toks = np.stack([data.batch(step, batch, seq + 1, agent=a)
                          for a in range(n_agents)])
         state, metrics = local_step(
-            state, {"tokens": torch.from_numpy(toks).to(dev), **extra})
+            state, stub_batch(cfg, torch.from_numpy(toks).to(dev)))
         if (step + 1) % fed.tau == 0:
             state = sync_step(state)
         losses.append(float(metrics["loss"]))

@@ -21,13 +21,16 @@ in the JAX package's order (head, the cycles, the tail). Such models serve;
 :func:`lm_loss` does not train them yet.
 
 Layer patterns may mix kinds (``recurrentgemma-9b``: ``(rglru, rglru,
-local)``). The vision frontend raises ``NotImplementedError`` naming the
-slice that brings it. Encoder-decoder models (slice 18,
-``whisper-small``) run through ``models/encdec.py``: :func:`init_params`,
-:func:`params_from_jax`, :func:`param_shapes` and :func:`count_params`
-take their tree (``build_encdec_leaf_tree``), and the decoder-only
-:func:`forward`, :func:`decode_step` and :func:`init_decode_state` refuse
-them.
+local)``). A VLM (slice 21, ``internvl2-26b``) is a decoder whose tree
+holds a ``projector`` (d, d): :func:`forward` takes the frontend's patch
+embeddings ``(B, F, d)``, projects them and puts them before the token
+embeddings, so a prefix of F rows sits at positions 0 … F − 1 and the
+tokens after it; decoding goes on from position F + S. Encoder-decoder
+models (slice 18, ``whisper-small``) run through ``models/encdec.py``:
+:func:`init_params`, :func:`params_from_jax`, :func:`param_shapes` and
+:func:`count_params` take their tree (``build_encdec_leaf_tree``), and
+the decoder-only :func:`forward`, :func:`decode_step` and
+:func:`init_decode_state` refuse them.
 
 Modes: ``train`` and ``prefill`` run a whole sequence from an initial state
 (both return the final states; attention layers keep a cache only where a
@@ -45,8 +48,10 @@ is next-token cross-entropy over the hidden states, through
 materialised when ``n_chunks`` is 0 or does not divide B). Attention
 layers train through the differentiable ``swa_attention``, ``wkv`` blocks
 through the differentiable ``wkv6`` (forward and backward kernels on the
-card), ``rglru`` blocks by autograd through the plain RG-LRU scan. MoE,
-encoder-decoder and VLM models raise ``NotImplementedError`` there.
+card), ``rglru`` blocks by autograd through the plain RG-LRU scan; a VLM
+batch's prefix rows are dropped before the loss. MoE models raise
+``NotImplementedError`` there; encoder-decoder models train through
+``encdec.encdec_loss``.
 
 The decode state of a one-kind pattern is one dict for all layers, each
 leaf stacked over them (the JAX package's ``state["cycles"][0]``):
@@ -129,19 +134,9 @@ def ffn_kind(cfg, layer_idx: int) -> str:
     return "dense"
 
 
-def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    the vision frontend. (The audio frontend is whisper-small's stub: its
-    frame embeddings are the encoder's input.)"""
-    if cfg.frontend not in (None, "audio"):
-        raise NotImplementedError(
-            f"the {cfg.frontend} frontend comes with a later slice")
-
-
 def check_decoder_only(cfg, fn: str) -> None:
     """Raise ``NotImplementedError`` where a decoder-only entry point is
     given an encoder-decoder model, naming where that model runs."""
-    check_supported(cfg)
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{fn}: {cfg.name} is an encoder-decoder model; it runs through "
@@ -185,8 +180,9 @@ def _build_tree(cfg, gen, cast: Callable = lambda t: t) -> dict:
     each top-level entry and each block goes through ``cast`` as soon as it
     is drawn (an MoE block's expert leaves slice by slice within it). An
     encoder-decoder model's is ``build_encdec_leaf_tree``'s, as
-    the JAX package's ``_build_leaf_tree`` routes it."""
-    check_supported(cfg)
+    the JAX package's ``_build_leaf_tree`` routes it. A vision model's
+    ``projector`` (d, d), std 0.02, is drawn after ``ln0``'s place and
+    before the blocks, as JAX draws it from the key after ``ln0``'s."""
     if cfg.is_encoder_decoder:
         from repro_torch.models.encdec import build_encdec_leaf_tree
         return build_encdec_leaf_tree(cfg, gen, cast=cast)
@@ -198,6 +194,8 @@ def _build_tree(cfg, gen, cast: Callable = lambda t: t) -> dict:
         p["unembed"] = part({"w": mk(gen, (d, vp), std=0.02)})
     if cfg.family == "ssm":
         p["ln0"] = part(init_norm(gen, d, cfg.norm))
+    if cfg.frontend == "vision":
+        p["projector"] = part({"w": mk(gen, (d, d), std=0.02)})
     p["blocks"] = [part(_init_block(gen, cfg, cfg.block_kind(i),
                                     ffn_kind(cfg, i), cast))
                    for i in range(cfg.n_layers)]
@@ -235,8 +233,8 @@ def count_params(params) -> int:
 def init_params(cfg, seed: int = 0, device="cuda") -> dict:
     """Seeded random parameters in ``cfg.param_dtype`` on ``device``: one
     ``torch.Generator`` on that device, drawn leaf by leaf in a fixed order
-    (embed, final norm, unembed, ln0, then each block). Not the JAX
-    package's numbers (another generator); carry those with
+    (embed, final norm, unembed, ln0, projector, then each block). Not
+    the JAX package's numbers (another generator); carry those with
     :func:`params_from_jax`. Leaves are drawn in fp32 and cast as soon as
     their entry (a block, the embedding) is drawn, so the fp32 draw alive
     at once is one entry (the embedding, at full width), not the tree; an
@@ -541,10 +539,18 @@ def _run_layers(cfg, params, x, states, *, positions=None, pos=None,
     return x, out, aux
 
 
-def _embed_in(cfg, params, tokens):
+def _embed_in(cfg, params, tokens, embeds=None):
+    """Token embeddings in the compute dtype; with ``embeds`` (B, F, d),
+    the projected prefix before them (JAX ``forward``'s order: cast, the
+    projector where the tree has one, concatenate, then ``ln0``)."""
     scale = cfg.d_model ** 0.5 if cfg.tie_embeddings else None
-    x = embed(params["embed"], tokens, scale=scale)
-    x = x.to(torch_dtype(cfg.compute_dtype))
+    dtype = torch_dtype(cfg.compute_dtype)
+    x = embed(params["embed"], tokens, scale=scale).to(dtype)
+    if embeds is not None:
+        prefix = embeds.to(dtype)
+        if "projector" in params:
+            prefix = prefix @ params["projector"]["w"].to(dtype)
+        x = torch.cat([prefix, x], dim=1)
     if "ln0" in params:
         x = apply_norm(params["ln0"], x, cfg.norm)
     return x
@@ -561,12 +567,14 @@ def forward(cfg, params, tokens: torch.Tensor, *, embeds=None,
             mode: str = "train", states: Optional[dict] = None,
             unembed_out: bool = True, wkv_impl: Optional[Callable] = None,
             swa_impl: Optional[Callable] = None):
-    """tokens: (B, S) integer, at positions 0..S-1. Returns ``(logits (B, S,
-    V) fp32`` — or the final hidden states when ``unembed_out=False`` —
-    ``, states, aux)``.
+    """tokens: (B, S) integer. ``embeds``: an optional (B, F, d) prefix
+    (the VLM stub frontend's patch embeddings), projected and put before
+    the tokens. The T = F + S rows sit at positions 0..T-1. Returns
+    ``(logits (B, T, V) fp32`` — or the final hidden states when
+    ``unembed_out=False`` — ``, states, aux)``.
 
     ``states`` (default: :func:`init_decode_state` for ``mode`` with
-    ``max_seq`` = S) are updated in place and returned: the WKV states
+    ``max_seq`` = T) are updated in place and returned: the WKV states
     advance, the KV caches are filled from the sequence. In ``train`` mode
     under autograd with ``cfg.remat`` the scanned layers are recomputed in
     the backward (:func:`remat_layers`). ``aux`` (0-d fp32) is the sum of
@@ -577,17 +585,14 @@ def forward(cfg, params, tokens: torch.Tensor, *, embeds=None,
     ``attention.attention``). ``mode`` picks the default states only.
     """
     check_decoder_only(cfg, "forward")
-    if embeds is not None:
-        raise NotImplementedError("a VLM embedding prefix comes with a later "
-                                  "slice (internvl2-26b)")
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     if cfg.wkv_impl == "chunked" and tokens.shape[1] > 1:
         raise NotImplementedError(
             "wkv_impl='chunked' (the JAX matmul form wkv_chunked) is not "
             "ported; the port runs the wkv6 kernel (wkv_impl='scan')")
-    x = _embed_in(cfg, params, tokens)
-    b, s = tokens.shape
+    x = _embed_in(cfg, params, tokens, embeds)
+    b, s = x.shape[:2]
     if states is None:
         states = init_decode_state(cfg, b, max_seq=s, mode=mode,
                                    device=x.device)
@@ -608,11 +613,13 @@ def prefill(cfg, params, tokens: torch.Tensor, *, embeds=None,
             cache_len: Optional[int] = None,
             wkv_impl: Optional[Callable] = None,
             swa_impl: Optional[Callable] = None):
-    """The prompt through the sequence path from an initial state: ``(logits
-    (B, S, V), states)``, the KV caches sized for ``cache_len`` (default S)
-    positions."""
+    """The prompt (after the ``embeds`` prefix, if any) through the sequence
+    path from an initial state: ``(logits (B, F + S, V), states)``, the KV
+    caches sized for ``cache_len`` (default F + S) positions."""
     b, s = tokens.shape
-    states = init_decode_state(cfg, b, max_seq=cache_len or s, mode="prefill",
+    total = s + (embeds.shape[1] if embeds is not None else 0)
+    states = init_decode_state(cfg, b, max_seq=cache_len or total,
+                               mode="prefill",
                                device=tokens.device)
     logits, states, _ = forward(cfg, params, tokens, embeds=embeds,
                                 mode="prefill", states=states,
@@ -648,24 +655,23 @@ def decode_step(cfg, params, token: torch.Tensor, states: dict,
 
 def check_trainable(cfg) -> None:
     """Raise ``NotImplementedError`` for models :func:`lm_loss` cannot train
-    yet: MoE models (served since slice 20) and a VLM prefix. An
-    encoder-decoder model trains through ``encdec.encdec_loss``."""
+    yet: MoE models (served since slice 20). An encoder-decoder model
+    trains through ``encdec.encdec_loss``, a VLM with its patch embeddings
+    in the batch."""
     if cfg.family == "moe":
         raise NotImplementedError(
             "MoE models (kimi-k2, arctic) serve; their training, with the "
             "router's auxiliary loss in lm_loss, comes with a later slice")
-    if cfg.frontend not in (None, "audio"):
-        raise NotImplementedError(f"the {cfg.frontend} prefix of a training "
-                                  f"batch comes with a later slice")
-    check_supported(cfg)
 
 
 def lm_loss(cfg, params, batch, *, ce_chunks: Optional[int] = None,
             swa_impl: Optional[Callable] = None,
             wkv_impl: Optional[Callable] = None) -> torch.Tensor:
     """Next-token cross-entropy (0-d fp32). ``batch``: ``{'tokens': (B, S)}``
-    integer, and for an encoder-decoder model ``'frames': (B, F, d)``; the
-    model reads ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``. An
+    integer, for a VLM ``'patch_embeds': (B, F, d)`` (the prefix; its F
+    hidden rows are dropped before the loss, as in JAX) and for an
+    encoder-decoder model ``'frames': (B, F, d)``; the model reads
+    ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``. An
     encoder-decoder model goes to ``encdec.encdec_loss``, which reads
     ``cfg.ce_chunks`` alone, as in JAX. Otherwise ``ce_chunks`` (default
     ``cfg.ce_chunks``, as JAX's ``ce_chunks or cfg.ce_chunks``) picks
@@ -676,14 +682,17 @@ def lm_loss(cfg, params, batch, *, ce_chunks: Optional[int] = None,
     if cfg.is_encoder_decoder:
         from repro_torch.models.encdec import encdec_loss
         return encdec_loss(cfg, params, batch, swa_impl=swa_impl)
-    if batch.get("patch_embeds") is not None or batch.get("frames") is not None:
-        raise NotImplementedError("VLM batches come with a later slice; "
-                                  "frames feed an encoder-decoder model")
+    if batch.get("frames") is not None:
+        raise NotImplementedError("frames feed an encoder-decoder model; "
+                                  f"{cfg.name} is decoder-only")
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    hidden, _, _ = forward(cfg, params, inputs, mode="train",
+    embeds = batch.get("patch_embeds")
+    hidden, _, _ = forward(cfg, params, inputs, embeds=embeds, mode="train",
                            unembed_out=False, swa_impl=swa_impl,
                            wkv_impl=wkv_impl)
+    if embeds is not None:
+        hidden = hidden[:, embeds.shape[1]:]
     w = (params["embed"]["table"].T if cfg.tie_embeddings
          else params["unembed"]["w"])
     return chunked_cross_entropy(hidden, w, targets,

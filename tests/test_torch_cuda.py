@@ -851,6 +851,10 @@ def _swa_one_bf16_p(q, k, v, window, causal):
     (1, 129, 255, 12, 12, 64, None, False),
     (1, 255, 129, 12, 12, 64, None, True),
     (3, 255, 255, 12, 3, 64, None, True),
+    # D = 128 at internvl2-26b's GQA, 48 query heads on 8 KV heads (a group
+    # of 6): prefix + tokens on the 128-row tile (768) and off it (756)
+    (2, 768, 768, 48, 8, 128, None, True),
+    (1, 756, 756, 48, 8, 128, None, True),
 ])
 def test_swa_attention_kernel_matches_plain(card, b, sq, sk, h, kv, d, window,
                                             causal, dtype):
@@ -1171,6 +1175,59 @@ def test_moe_prefill_step_at_kimi_gqa_launches_the_kernel_once_a_layer(card):
         torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=0)
         tok = lg_c.argmax(-1)
     assert sw.launches == before
+
+
+def test_vlm_on_the_card_matches_the_cpu_port(card):
+    """The reduced internvl2-26b at the kernel's head size 128 and its GQA
+    group of 6 (12 query heads on 2 KV heads), fp32, 8 patch-embedding rows
+    a request: the prefill step with ``patch_embeds`` launches swa_attention
+    once a layer and the decode steps from position F + S never, both
+    within 1e-4 of the CPU; the loss with the prefix and its gradients (the
+    projector's among them) within 1e-4 of the CPU's, the backward kernel
+    launched once a layer."""
+    import dataclasses
+    from repro_torch.launch import make_prefill_step, make_serve_step
+    cfg = dataclasses.replace(TC.get_arch("internvl2-26b").reduced(),
+                              n_heads=12, n_kv_heads=2, head_dim=128)
+    F = cfg.n_frontend_tokens
+    cpu_p = TM.init_params(cfg, seed=2, device="cpu")
+    gpu_p = TM.transformer.tree_map(lambda t: t.to(card), cpu_p)
+    rng = np.random.default_rng(8)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 41)))
+    emb = torch.as_tensor(rng.standard_normal((2, F, cfg.d_model)),
+                          dtype=torch.float32)
+    batch = {"tokens": toks[:, :40], "patch_embeds": emb}
+    lg_c, st_c = make_prefill_step(cfg)(cpu_p, batch)
+    before = sw.launches
+    lg_g, st_g = make_prefill_step(cfg)(gpu_p, {k: v.to(card)
+                                                for k, v in batch.items()})
+    assert sw.launches - before == cfg.n_layers == 2
+    assert st_g["cache"]["k"].shape[2] == F + 40
+    torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=0)
+    step, tok = make_serve_step(cfg), lg_c.argmax(-1)
+    before = sw.launches
+    for i in range(3):
+        pos = torch.full((2,), F + 40 + i)
+        lg_c, st_c = step(cpu_p, tok, st_c, pos)
+        lg_g, st_g = step(gpu_p, tok.to(card), st_g, pos.to(card))
+        torch.testing.assert_close(lg_g.cpu(), lg_c, atol=1e-4, rtol=0)
+        tok = lg_c.argmax(-1)
+    assert sw.launches == before
+    grads = []
+    for p, dev in ((cpu_p, "cpu"), (gpu_p, card)):
+        leaves = TM.transformer.tree_map(
+            lambda t: t.detach().clone().requires_grad_(), p)
+        loss = TM.lm_loss(cfg, leaves, {"tokens": toks.to(dev),
+                                        "patch_embeds": emb.to(dev)})
+        before = swb.launches
+        loss.backward()
+        if dev == card:
+            assert swb.launches - before == cfg.n_layers
+        grads.append([float(loss.detach())] + [t.grad.cpu() for t in
+                                      TM.transformer.tree_leaves(leaves)])
+    assert abs(grads[0][0] - grads[1][0]) <= 1e-4
+    for c, g in zip(grads[0][1:], grads[1][1:]):
+        torch.testing.assert_close(g, c, atol=1e-4, rtol=0)
 
 
 def _reduced_swa_lm(card, scale=1.0):
@@ -1585,6 +1642,15 @@ def test_swa_attention_bwd_kernel_at_tile_edges(card, b, s, h, kv, d, window,
     kernels end ragged (S 65, 129, 200, 255), a window crosses a tile (W
     100, 200), and H = KV, for both head sizes."""
     _check_bwd_kernel(b, s, h, kv, d, window, dtype, 7 * s + h, card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,s", [(2, 768), (1, 756), (2, 1024)])
+def test_swa_attention_bwd_kernel_at_vlm_gqa(card, b, s, dtype):
+    """``_check_bwd_kernel`` at D = 128 with internvl2-26b's 48 query heads
+    on 8 KV heads (a group of 6), causal, no window: prefix + tokens on the
+    128-row tile (768), off it (756), and the training step's (2, 1024)."""
+    _check_bwd_kernel(b, s, 48, 8, 128, None, dtype, 13 * s + b, card)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)

@@ -409,10 +409,24 @@ def test_other_models_raise_naming_their_slice(arch, match):
         assert torch.isfinite(TM.lm_loss(tcfg, params, {"tokens": torch.zeros(
             1, 4, dtype=torch.long)}))
         return
-    with pytest.raises(NotImplementedError, match=match):
-        TM.init_params(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        TM.init_decode_state(tcfg, 1, device="cpu")
+    # internvl2-26b: served and trained since slice 21 with the vision
+    # frontend's patch embeddings before the tokens (tests/test_torch_vlm.py
+    # holds it against JAX); no entry point raises for it
+    assert match == "frontend" and tcfg.frontend == "vision"
+    params = TM.init_params(tcfg, device="cpu")
+    F = tcfg.n_frontend_tokens
+    emb = torch.zeros(2, F, tcfg.d_model)
+    lg, st = make_prefill_step(tcfg)(params, {"tokens": torch.zeros(
+        2, 3, dtype=torch.long), "patch_embeds": emb})
+    assert st["cache"]["k"].shape[2] == F + 3
+    lg2, _ = make_serve_step(tcfg)(params, lg.argmax(-1), st,
+                                   torch.full((2,), F + 3))
+    assert bool(torch.isfinite(lg2).all())
+    TM.transformer.check_trainable(tcfg)
+    assert torch.isfinite(TM.lm_loss(tcfg, params, {"tokens": torch.zeros(
+        2, 4, dtype=torch.long), "patch_embeds": emb}))
+    st = TM.init_decode_state(tcfg, 1, max_seq=F + 4, device="cpu")
+    assert tuple(st["cache"]["k"].shape[:3]) == (tcfg.n_layers, 1, F + 4)
 
 
 def test_chunked_wkv_is_not_ported(reduced):

@@ -262,9 +262,9 @@ def test_remat_recomputes_and_changes_nothing():
                                         ("phi4-mini-3.8b", None)])
 def test_lm_loss_refuses_what_the_port_cannot_train(arch, match):
     """Every family the port serves trains (RWKV6 since slice 16, global
-    attention since slice 13, the encoder-decoder since slice 19); MoE
-    models and a VLM prefix are refused by ``lm_loss`` and the flat
-    layout."""
+    attention since slice 13, the encoder-decoder since slice 19, a VLM
+    prefix since slice 21); MoE models are refused by ``lm_loss`` and the
+    flat layout."""
     cfg = TC.get_arch(arch).reduced()
     toks = torch.zeros(1, 9, dtype=torch.int64)
     assert match is None
@@ -273,12 +273,19 @@ def test_lm_loss_refuses_what_the_port_cannot_train(arch, match):
     assert TF.ParamLayout(cfg).n > 0
     moe = dataclasses.replace(TC.get_arch("h2o-danube-3-4b").reduced(),
                               family="moe", n_experts=2, top_k=1)
-    vlm = dataclasses.replace(cfg, frontend="vision")
-    for bad, text in ((moe, "MoE"), (vlm, "prefix")):
-        with pytest.raises(NotImplementedError, match=text):
-            TM.lm_loss(bad, {}, {"tokens": toks})
-        with pytest.raises(NotImplementedError, match=text):
-            TF.ParamLayout(bad)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        TM.lm_loss(moe, {}, {"tokens": toks})
+    with pytest.raises(NotImplementedError, match="MoE"):
+        TF.ParamLayout(moe)
+    # the vision frontend trains: its prefix rows are dropped before the
+    # loss, and its projector is a leaf of the flat layout
+    vlm = dataclasses.replace(cfg, frontend="vision", n_frontend_tokens=3)
+    params = TM.init_params(vlm, seed=0, device="cpu")
+    emb = torch.zeros(1, 3, vlm.d_model)
+    assert torch.isfinite(TM.lm_loss(vlm, params, {"tokens": toks,
+                                                   "patch_embeds": emb}))
+    assert TF.ParamLayout(vlm).n == TF.ParamLayout(cfg).n + vlm.d_model ** 2
+    assert ("projector", "w") in TF.ParamLayout(vlm).paths
 
 
 # --- the federated steps --------------------------------------------------------

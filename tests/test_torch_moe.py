@@ -139,15 +139,15 @@ def test_two_layer_tree_matches_jax_shapes_and_counts(arch, n_tree, n_cfg):
 def test_moe_is_served_and_not_trained():
     for arch in ARCHS:
         tcfg = TC.get_arch(arch)
-        TM.transformer.check_supported(tcfg)
+        assert make_prefill_step(tcfg) and make_serve_step(tcfg)
         with pytest.raises(NotImplementedError, match="MoE"):
             TM.transformer.check_trainable(tcfg)
         with pytest.raises(NotImplementedError, match="MoE"):
             TM.lm_loss(tcfg, {}, {"tokens": torch.zeros(1, 3,
                                                         dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="frontend"):
-        TM.transformer.check_supported(TC.ModelConfig(**dataclasses.asdict(
-            C.get_arch("internvl2-26b").reduced())))
+    # the VLM (slice 21) is served and trained
+    TM.transformer.check_trainable(TC.ModelConfig(**dataclasses.asdict(
+        C.get_arch("internvl2-26b").reduced())))
 
 
 def test_init_draws_expert_slices_and_casts_them_to_the_same_numbers(
